@@ -1,0 +1,134 @@
+"""Batched width-based novelty heuristic with device-resident visited tables.
+
+Port of the JAX package's ``ops/novelty.py``.  Semantics follow the
+reference novelty heuristic (reference: cpp/src/heuristics/novelty.cc:30-77):
+novelty 1 if any *moved* object is at a never-seen position, 2 if any
+(moved object, other object) position pair is unseen, else 3; the visited
+structures absorb every evaluated state.
+
+- single-object visited positions are an exact dense table ``(N, H*W)``;
+- pair visits use a FACTORED hash table ``T[h(i, pi), h(j, pj)]`` over an
+  ``S x S`` grid of buckets (``S = 2**(pair_bits // 2)``).  ``X[b, k]`` ORs
+  the moved-object atoms of state ``b`` and ``Y[b, l]`` the atoms of all its
+  objects; the update is ``T |= (X^T Y + Y^T X) > 0`` and a pair of state
+  ``b`` is unseen iff some ``(k, l)`` with ``X[b, k] & Y[b, l]`` has
+  ``T[k, l] = 0``, counted as ``sum(Y) - Y @ T`` minus the own column.  The
+  two products are plain GEMMs on bf16 0/1 operands; every value they give is
+  a small count (the query side at most N <= 20, exact in bf16) or only
+  tested for being positive (the update side).
+
+Hash collisions only perturb search order (see the JAX module's docstring);
+the scores here are bit-identical to the JAX function's, collisions
+included.  States in one batch are scored against the tables as of the
+start of the batch, then all their updates are applied at once.  The tables
+are updated IN PLACE.
+"""
+
+import os
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from pushworld_tpu_torch.device import DeviceLike, resolve_device
+from pushworld_tpu_torch.ops.hashset import mul32
+
+# Pair-table size knob, as in the JAX package (read once at import).
+_DEFAULT_PAIR_BITS = int(os.environ.get("PW_NOVELTY_PAIR_BITS", "24"))
+
+
+@dataclass
+class NoveltyTables:
+    seen_pos: torch.Tensor  # bool (N, HW)
+    pair_table: torch.Tensor  # bfloat16 (S, S), values 0/1, symmetric
+    n: int
+    width: int
+    height: int
+    pair_bits: int
+
+    @property
+    def side(self) -> int:
+        return 1 << (self.pair_bits // 2)
+
+
+def init_novelty(
+    n: int,
+    height: int,
+    width: int,
+    pair_bits: int = _DEFAULT_PAIR_BITS,
+    device: DeviceLike = "cuda",
+) -> NoveltyTables:
+    dev = resolve_device(device)
+    side = 1 << (pair_bits // 2)
+    return NoveltyTables(
+        seen_pos=torch.zeros((n, height * width), dtype=torch.bool, device=dev),
+        pair_table=torch.zeros((side, side), dtype=torch.bfloat16, device=dev),
+        n=n,
+        width=width,
+        height=height,
+        pair_bits=pair_bits,
+    )
+
+
+def _atom_hash(i: torch.Tensor, p: torch.Tensor, side: int) -> torch.Tensor:
+    """Deterministic mix of one (object, position) atom into [0, side);
+    uint32 arithmetic in int64, bit-identical to the JAX function."""
+    h = mul32(i.long() & 0xFFFFFFFF, 0x9E3779B1) ^ mul32(p.long() & 0xFFFFFFFF, 0xC2B2AE3D)
+    h = mul32(h, 0x165667B1)
+    h = h ^ (h >> 15)
+    return h & (side - 1)
+
+
+def novelty_score_and_update(
+    t: NoveltyTables,
+    states: torch.Tensor,  # (B, N, 2) int32
+    moved: torch.Tensor,  # (B, N) bool — which objects moved into this state
+    valid: torch.Tensor,  # (B,) bool — score/absorb only valid entries
+) -> Tuple[torch.Tensor, NoveltyTables]:
+    """Returns ((B,) float32 novelty in {1, 2, 3}, the updated tables)."""
+    B, N, S = states.shape[0], t.n, t.side
+    dev = states.device
+    flat = (states[..., 1].long() * t.width + states[..., 0].long()).clamp(
+        0, t.height * t.width - 1
+    )  # (B, N)
+    n_idx = torch.arange(N, device=dev)
+
+    # --- novelty 1: moved object at an unseen position (exact dense table).
+    pos_seen = t.seen_pos[n_idx[None, :], flat]  # (B, N)
+    nov1 = (moved & ~pos_seen).any(1)
+
+    # --- atom indicator rows over the factored bucket space.
+    h = _atom_hash(n_idx[None, :], flat, S)  # (B, N)
+    X = torch.zeros((B, S), dtype=torch.float32, device=dev).scatter_add_(
+        1, h, moved.to(torch.float32)
+    ) > 0  # moved-side atoms
+    Y = torch.zeros((B, S), dtype=torch.bool, device=dev).scatter_(
+        1, h, torch.ones_like(moved)
+    )  # all atoms
+
+    # --- novelty 2: an unseen (moved, other) pair — one GEMM.
+    Yf = Y.to(torch.float32)
+    ny = Yf.sum(1)  # (B,)
+    Z = torch.matmul(Y.to(torch.bfloat16), t.pair_table).to(torch.float32)  # (B, S)
+    diag = torch.diagonal(t.pair_table).to(torch.float32)  # (S,)
+    # Exclude the own column (l = k): a moved atom always co-occurs with
+    # itself in Y, and that self-pair is not a reference pair.
+    self_unseen = Yf * (1.0 - diag)[None, :]
+    unseen_cols = ny[:, None] - Z - self_unseen  # (B, S)
+    nov2 = (X & (unseen_cols > 0.5)).any(1)
+
+    novelty = torch.where(
+        nov1,
+        torch.ones_like(ny),
+        torch.where(nov2, torch.full_like(ny, 2.0), torch.full_like(ny, 3.0)),
+    )
+
+    # --- absorb: positions of moved objects + symmetric pair outer products.
+    upd = moved & valid[:, None]
+    t.seen_pos[n_idx[None, :].expand(B, N)[upd], flat[upd]] = True
+    Xv = (X & valid[:, None]).to(torch.bfloat16)
+    Yv = (Y & valid[:, None]).to(torch.bfloat16)
+    U = torch.matmul(Xv.T, Yv)  # (S, S): positive exactly where a pair was seen
+    torch.maximum(t.pair_table, ((U + U.T) > 0.5).to(torch.bfloat16), out=t.pair_table)
+
+    return torch.where(valid, novelty, torch.full_like(novelty, 3.0)), t

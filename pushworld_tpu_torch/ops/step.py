@@ -1,0 +1,164 @@
+"""Batched PushWorld dynamics on tensors.
+
+Port of the JAX package's ``ops/step.py``.  The reference computes one
+transition with a pushing-frontier BFS over hash-set collision maps
+(reference: python3/src/pushworld/puzzle.py:348-394,
+cpp/src/pushworld_puzzle.cc:386-460).  Here the same semantics are a
+fixed-shape tensor program over a batch of states:
+
+1. build the "who-pushes-whom" boolean matrix ``M[i, j]`` at the current
+   relative offsets,
+2. compute the transitively pushed movables as a boolean closure from the
+   agent (log2(N) squaring steps),
+3. apply the all-or-nothing transitive-stopping rule: nothing moves if the
+   agent is statically blocked or any pushed movable would hit a wall,
+4. advance every pushed movable by the action displacement.
+
+Computing the full closure first and then testing "any pushed movable
+blocked" accepts and rejects exactly the transitions of the reference's
+early-exit BFS.
+
+The functions take a :class:`CompiledPuzzle` whose fields are tensors
+(``CompiledPuzzle.to(device)``); states are int32 ``(..., N, 2)`` (x, y).
+"""
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from pushworld_tpu_torch.core.compiled import CompiledPuzzle
+
+DISPLACEMENTS = np.array([(-1, 0), (1, 0), (0, -1), (0, 1)], np.int32)
+
+
+def _closure_from_agent(m: torch.Tensor) -> torch.Tensor:
+    """(..., N) bool: movables transitively pushed from the agent.
+    ``m``: (..., N, N) bool push relation."""
+    n = m.shape[-1]
+    r = torch.zeros(m.shape[:-1], dtype=torch.float32, device=m.device)
+    r[..., 0] = 1.0
+    mf = m.to(torch.float32)
+    for _ in range(max(1, (n - 1).bit_length())):
+        r = torch.clamp(r + torch.matmul(r.unsqueeze(-2), mf).squeeze(-2), max=1.0)
+        mf = torch.clamp(mf + torch.matmul(mf, mf), max=1.0)
+    return r > 0.5
+
+
+def step(cp: CompiledPuzzle, state: torch.Tensor, action) -> torch.Tensor:
+    """Exact transitions of a batch.  ``state``: (..., N, 2) int32;
+    ``action``: int or int tensor broadcastable to ``state.shape[:-2]``.
+
+    Returns the next states, (..., N, 2) int32.
+    """
+    N, delta = cp.n, cp.delta
+    K = 2 * delta + 1
+    dev = state.device
+    batch = state.shape[:-2]
+    a = torch.as_tensor(action, device=dev).long().expand(batch)
+    x = state[..., 0].long()
+    y = state[..., 1].long()
+    idx = torch.arange(N, device=dev)
+    blocked_static = cp.static_block[a.unsqueeze(-1), idx, y, x]  # (..., N)
+
+    rel = (state.unsqueeze(-2) - state.unsqueeze(-3)).long()  # (..., N, N, 2) pos_i - pos_j
+    in_range = (rel.abs() <= delta).all(-1)
+    ridx = torch.clamp(rel + delta, 0, K - 1)
+    m = cp.push[
+        a[..., None, None], idx[:, None], idx[None, :], ridx[..., 1], ridx[..., 0]
+    ]
+    mask = cp.obj_mask[:, None] & cp.obj_mask[None, :]
+    pushed = _closure_from_agent(m & in_range & mask)  # includes the agent
+
+    movable_blocked = (pushed[..., 1:] & blocked_static[..., 1:]).any(-1)
+    nothing_moves = blocked_static[..., 0] | movable_blocked
+    moved = pushed & ~nothing_moves.unsqueeze(-1) & cp.obj_mask
+    disp = torch.as_tensor(DISPLACEMENTS, device=dev)[a]  # (..., 2)
+    return state + disp.unsqueeze(-2) * moved.unsqueeze(-1).to(state.dtype)
+
+
+def build_contact_lists(cp: CompiledPuzzle, cmax_pad: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Compacts the dense push tables into per-(action, pusher, pushee)
+    contact-offset lists (the native planner's representation, planner.cc
+    Contact) for :func:`expand_children`.
+
+    Returns (contacts int16 (4, N, N, C, 2) with (rx, ry) = pos_i - pos_j,
+    mask bool (4, N, N, C)) as numpy arrays."""
+    push = cp.push.cpu().numpy() if isinstance(cp.push, torch.Tensor) else np.asarray(cp.push)
+    N, delta = cp.n, cp.delta
+    counts = push.reshape(4, N, N, -1).sum(-1)
+    C = max(1, int(counts.max()), cmax_pad)
+    contacts = np.zeros((4, N, N, C, 2), np.int16)
+    mask = np.zeros((4, N, N, C), bool)
+    for a in range(4):
+        for q in range(N):
+            for o in range(N):
+                ys, xs = np.nonzero(push[a, q, o])
+                m = len(ys)
+                if m:
+                    contacts[a, q, o, :m, 0] = xs - delta
+                    contacts[a, q, o, :m, 1] = ys - delta
+                    mask[a, q, o, :m] = True
+    return contacts, mask
+
+
+def expand_children(
+    cp: CompiledPuzzle,
+    contacts: torch.Tensor,  # int16/int32 (4, N, N, C, 2) rel offsets pos_i - pos_j
+    contacts_mask: torch.Tensor,  # bool (4, N, N, C)
+    parents: torch.Tensor,  # (B, N, 2) int32
+) -> torch.Tensor:
+    """All four children of every parent, in action-block order
+    ``[a=0 children..., a=1 children..., ...]`` — (4B, N, 2) int32.
+
+    The per-pair push relation is found by comparing the batch's relative
+    offsets with the compacted contact lists (packed (rx, ry) into one int per
+    slot; offsets are bounded by delta << 2048), all four actions at once."""
+    B, N = parents.shape[0], cp.n
+    c32 = contacts.to(torch.int32)
+    cpack = torch.where(
+        contacts_mask, c32[..., 0] * 4096 + c32[..., 1], torch.full_like(c32[..., 0], 1 << 24)
+    )  # (4, N, N, C)
+    rel = parents[:, :, None, :] - parents[:, None, :, :]  # (B, N, N, 2)
+    rpack = rel[..., 0] * 4096 + rel[..., 1]  # (B, N, N)
+    m = (rpack[None, :, :, :, None] == cpack[:, None]).any(-1)  # (4, B, N, N)
+    pushed = _closure_from_agent(m)  # (4, B, N) includes the agent
+
+    flat = (parents[..., 1] * cp.width + parents[..., 0]).long()  # (B, N)
+    sb_flat = cp.static_block.reshape(4, N, cp.height * cp.width)
+    a_idx = torch.arange(4, device=parents.device)[:, None, None]
+    n_idx = torch.arange(N, device=parents.device)[None, None, :]
+    blocked = sb_flat[a_idx, n_idx, flat[None]]  # (4, B, N)
+    nothing = blocked[..., 0] | (pushed[..., 1:] & blocked[..., 1:]).any(-1)  # (4, B)
+    moved = pushed & ~nothing.unsqueeze(-1) & cp.obj_mask  # (4, B, N)
+    disp = torch.as_tensor(DISPLACEMENTS, device=parents.device)  # (4, 2)
+    out = parents[None] + disp[:, None, None, :] * moved.unsqueeze(-1).to(parents.dtype)
+    return out.reshape(4 * B, N, 2)
+
+
+def count_achieved_goals(cp: CompiledPuzzle, state: torch.Tensor) -> torch.Tensor:
+    """Number of goal movables at their goal positions.  reference:
+    puzzle.py:396-407."""
+    at_goal = (state == cp.goal_pos).all(-1) & cp.goal_mask
+    return at_goal.sum(-1)
+
+
+def is_goal_state(cp: CompiledPuzzle, state: torch.Tensor) -> torch.Tensor:
+    """(...,) bool over a batch of (..., N, 2) states."""
+    return ((state == cp.goal_pos).all(-1) | ~cp.goal_mask).all(-1)
+
+
+def run_plan(cp: CompiledPuzzle, actions, return_states: bool = False):
+    """Applies an action sequence from the initial state.
+
+    ``actions``: (T,) ints.  Returns the final state, and the (T+1, N, 2)
+    trajectory when ``return_states``.
+    """
+    state = cp.init_state
+    traj = [state]
+    for a in torch.as_tensor(actions).tolist():
+        state = step(cp, state, int(a))
+        traj.append(state)
+    if return_states:
+        return state, torch.stack(traj)
+    return state
