@@ -12,11 +12,16 @@ Phases, each printing one JSON line:
    fields (one field per graph vertex, one shared mask stack) and the goal
    fields through the kernel and through its plain PyTorch version: the
    fields must be bit-equal, and the compact blocks and goal fields must equal
-   the scipy / BFS host helpers.
+   the scipy / BFS host helpers.  Also bit-equal: a capped run, a batch in
+   which every field has its own masks, a batch with seeds other than 0/INF
+   (the kernel's general path), and a 9 x 150 grid (rows of several words).
 3. ``visited_set``: a 2**21-slot table, batches of 1024 keys forced to share
    home slots, insert and delete rounds on the kernel and on the plain
    version: no torn or lost keys, and the same membership and ``is_new``
-   wherever no two lanes of one round ever shared a home slot.
+   wherever no two lanes of one round ever shared a home slot.  The fused
+   fingerprint + dedup + insert kernel gets batches of states with duplicate
+   children, invalid lanes and keys already in the table, under the same
+   rule, and is timed beside the three-step composition it replaces.
 4. ``solve`` (the main path): the launch counts are set to 0, then
    ``solve_puzzle(mode="N+RGD", time_limit=60)`` runs on the card at the
    production capacities of ``plan_puzzles`` for every fixture under
@@ -148,6 +153,35 @@ def phase_wavefront(puzzle, dev):
               f"goal field != host BFS (object {o})")
 
     R, E_o, d0, out = largest
+    extra = [("capped", E_o, d0, 5)]
+    # Every field its own masks: one field per object, seeded at its start.
+    n_obj = puzzle.num_movables
+    E_own = E.permute(1, 0, 2, 3).contiguous()
+    d0_own = torch.full((n_obj, H, W), INF, dtype=torch.float32, device=dev)
+    for o in range(n_obj):
+        d0_own[o, puzzle.initial_state[o][1], puzzle.initial_state[o][0]] = 0.0
+    extra += [("own masks", E_own, d0_own, 0), ("own masks, capped", E_own, d0_own, 7)]
+    # Seeds other than 0/INF in two fields of three: the general path.
+    rng = np.random.default_rng(0)
+    n_gen = 48
+    d0_gen = d0[:n_gen].clone()
+    odd = torch.as_tensor(rng.integers(0, 40, (n_gen, H, W)).astype(np.float32), device=dev)
+    pick = torch.as_tensor(rng.random((n_gen, H, W)) < 0.02, device=dev)
+    pick[::3] = False
+    d0_gen = torch.where(pick, odd, d0_gen)
+    extra += [("general seeds", E_o, d0_gen, 0), ("general seeds, capped", E_o, d0_gen, 3)]
+    # Rows of more than one 64-bit word: the kernel's shared-memory level loop.
+    E_wide = torch.as_tensor(rng.random((1, 4, 9, 150)) < 0.7, device=dev)
+    d0_wide = torch.full((64, 9 * 150), INF, dtype=torch.float32, device=dev)
+    d0_wide[torch.arange(64), torch.as_tensor(rng.integers(0, 9 * 150, 64))] = 0.0
+    d0_wide = d0_wide.reshape(64, 9, 150)
+    extra += [("wide rows", E_wide, d0_wide, 0), ("wide rows, capped", E_wide, d0_wide, 4)]
+    for what, E_x, d0_x, cap in extra:
+        got = distance_fields(E_x, d0_x, max_iters=cap)
+        want = distance_fields_reference(E_x, d0_x, max_iters=cap)
+        err = max(err, (got - want).abs().max().item())
+        check(torch.equal(got, want), f"wavefront != plain version ({what})")
+        n_fields += d0_x.shape[0]
     ms = cuda_time_ms(lambda: distance_fields(E_o, d0), reps=20)
     plain_ms = cuda_time_ms(lambda: distance_fields_reference(E_o, d0), reps=2)
     # Bound of the function (a distance transform), not of this kernel's
@@ -186,9 +220,79 @@ def _colliding_keys(rng, homes, per_home, bits):
     return np.asarray(keys, np.int64)
 
 
+def _fused_checks_and_times(dev, rng, bits, B):
+    """The fused fingerprint + dedup + insert kernel against its plain
+    version (the three steps one after the other), then its time at the main
+    path's batch for 4 and for 20 objects, beside the time of the three-step
+    composition it replaces (eager fingerprint, sort dedup, insert kernel)."""
+    import numpy as np
+    import torch
+
+    from pushworld_tpu_torch.ops import hashset as hs_mod
+
+    err = compared = 0
+    for n_obj in (1, 4, 20):
+        kern = hs_mod.init_hashset(bits, device=dev)
+        ref = hs_mod.init_hashset(bits, device=dev)
+        raced_home = torch.zeros(1 << bits, dtype=torch.bool, device=dev)
+        pool = rng.integers(0, 47, size=(4 * B, n_obj, 2)).astype(np.int32)
+        for rnd in range(6):
+            # Draws with replacement: duplicates in the batch, and from the
+            # second round on keys that are already in the table.
+            states = torch.as_tensor(pool[rng.integers(0, len(pool), B)], device=dev)
+            valid = torch.as_tensor(rng.random(B) < 0.9, device=dev)
+            want_keys = hs_mod.fingerprint(states, 54)
+            uniq = hs_mod.dedup_batch(want_keys, valid)
+            check(int(uniq.sum()) < int(valid.sum()), "fused batch holds no duplicates")
+            slot = hs_mod._first_slot(want_keys, bits)
+            counts = torch.zeros(1 << bits, dtype=torch.int32, device=dev)
+            counts.index_add_(0, slot[uniq], torch.ones_like(slot[uniq], dtype=torch.int32))
+            raced_home |= counts > 1
+            alone = ~raced_home[slot]
+            k_k, n_k = hs_mod.fingerprint_dedup_insert(kern, states, 54, valid)
+            k_r, n_r = hs_mod.fingerprint_dedup_insert_reference(ref, states, 54, valid)
+            check(torch.equal(k_k, want_keys) and torch.equal(k_r, want_keys),
+                  f"fused keys != fingerprint (N={n_obj}, round {rnd})")
+            err = max(err, (n_k[alone].int() - n_r[alone].int()).abs().max().item())
+            check(torch.equal(n_k[alone], n_r[alone]),
+                  f"fused is_new differs on race-free lanes (N={n_obj}, round {rnd})")
+            check(not (n_k & ~uniq).any(), "fused is_new set on a duplicate or invalid lane")
+            compared += int(alone.sum())
+            # No deletes and a sparse table: whichever way a raced cluster is
+            # laid out, both tables hold every first occurrence exactly once.
+            live_k, live_r = kern.keys[kern.keys != 0], ref.keys[ref.keys != 0]
+            check(torch.equal(torch.sort(live_k).values, torch.sort(live_r).values),
+                  f"fused membership differs (N={n_obj}, round {rnd})")
+
+    out = {"max_abs_err": err, "lanes_compared": compared}
+    valid = torch.ones(B, dtype=torch.bool, device=dev)
+    n_kern, n_plain = 51, 6  # warm-up call + reps
+    for n_obj in (4, 20):
+        fresh = torch.as_tensor(
+            rng.integers(0, 47, size=(n_kern, B, n_obj, 2)).astype(np.int32), device=dev)
+        check(len(torch.unique(hs_mod.fingerprint(fresh, 54))) == n_kern * B, "timing states repeat")
+
+        def over_batches(fn, table):
+            it = iter(range(n_kern))
+            return lambda: fn(table, fresh[next(it)], 54, valid)
+
+        def three_steps(table, states, width, valid):
+            keys = hs_mod.fingerprint(states, width)
+            return hs_mod.probe_and_insert(table, keys, hs_mod.dedup_batch(keys, valid))
+
+        tables = [hs_mod.init_hashset(bits, device=dev) for _ in range(3)]
+        out[f"n_obj_{n_obj}"] = {
+            "ms": cuda_time_ms(over_batches(hs_mod.fingerprint_dedup_insert, tables[0]), reps=n_kern - 1),
+            "three_step_composition_ms": cuda_time_ms(over_batches(three_steps, tables[1]), reps=n_kern - 1),
+            "plain_ms": cuda_time_ms(
+                over_batches(hs_mod.fingerprint_dedup_insert_reference, tables[2]), reps=n_plain - 1),
+        }
+    return out
+
+
 def phase_visited_set(dev):
-    """Insert/delete kernels vs their plain versions; returns two kernels-line
-    entries.  The insert's error is the largest ``is_new`` difference (0 or 1)
+    """Insert/delete and fused kernels vs their plain versions; returns three
+    kernels-line entries.  The insert's error is the largest ``is_new`` difference (0 or 1)
     on the compared lanes; the delete's is the number of keys by which the
     compared memberships differ after a round."""
     import numpy as np
@@ -278,11 +382,12 @@ def phase_visited_set(dev):
     del_plain = cuda_time_ms(over_batches(hs_mod.probe_delete_reference, t2), reps=n_plain - 1)
     for t in (t1, t2):
         check(not ((t.keys != 0) & (t.keys != -1)).any(), "timed deletes left keys behind")
+    fused = _fused_checks_and_times(dev, rng, bits, B)
     emit({"phase": "visited_set", "table_slots": 1 << bits, "batch": B,
           "race_free_lanes_compared": checked, "raced_lanes": raced,
           "insert_max_abs_err": ins_err, "delete_max_abs_err": del_err,
           "insert_ms": ins_ms, "insert_plain_ms": ins_plain,
-          "delete_ms": del_ms, "delete_plain_ms": del_plain})
+          "delete_ms": del_ms, "delete_plain_ms": del_plain, "fused": fused})
     # Bound: per lane the key (8 B), its flag (1 B), one table word read
     # (8 B) and one written (8 B), plus is_new (1 B) for the insert.
     common = {"route": "cuda", "source": "pushworld_tpu_torch/kernels/visited_set.cu",
@@ -294,6 +399,13 @@ def phase_visited_set(dev):
         dict(common, name="visited_set.probe_delete",
              replaces="pushworld_tpu/ops/hashset.py:158", ms=del_ms, plain_ms=del_plain,
              max_abs_err=del_err, bound_ms=B * 25 / H100_BYTES_PER_S * 1e3),
+        # Per lane: the state (8N B) and its flag read, the key (8 B) and
+        # is_new (1 B) written, one table word read and one written.
+        dict(common, name="visited_set.fingerprint_dedup_insert",
+             replaces="pushworld_tpu/ops/hashset.py:54,83,106",
+             ms=fused["n_obj_4"]["ms"], plain_ms=fused["n_obj_4"]["plain_ms"],
+             max_abs_err=fused["max_abs_err"],
+             bound_ms=B * (8 * 4 + 26) / H100_BYTES_PER_S * 1e3),
     ]
 
 
@@ -323,7 +435,8 @@ def phase_solve(puzzles, generated, dev):
             check(r.failure_reason is None and p.is_valid_plan(r.plan), f"{name}: {r}")
     launches = dict(LAUNCHES)
     total = time.monotonic() - t0
-    for k in ("wavefront", "visited_set.probe_and_insert", "visited_set.probe_delete"):
+    for k in ("wavefront", "visited_set.probe_and_insert", "visited_set.probe_delete",
+              "visited_set.fingerprint_dedup_insert"):
         check(launches.get(k, 0) > 0, f"kernel {k} was not launched on the main path")
     gen = rows[-1]
     emit({"phase": "solve", "puzzles": len(rows), "total_s": total,

@@ -29,11 +29,14 @@ _vp, _i, _u, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlo
 # C signatures of every exported function, by source.
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "wavefront": {
-        "pw_wavefront": [_vp, _ll, _vp, _vp, _i, _i, _i, _i, _vp],
+        "pw_wavefront": [_vp, _ll, _ll, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
+        "pw_wavefront_fits": [_i, _i],
     },
     "visited_set": {
         "pw_probe_and_insert": [_vp, _vp, _vp, _vp, _i, _u, _vp],
         "pw_probe_delete": [_vp, _vp, _vp, _i, _u, _vp],
+        "pw_dedup_shared_slots": [],
+        "pw_fingerprint_dedup_insert": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _u, _u, _i, _vp],
     },
 }
 

@@ -1,11 +1,15 @@
 """The wavefront distance-field kernel: the port of ``ops/graphs_pallas.py``.
 
-:func:`distance_fields` launches ``kernels/wavefront.cu`` (one CTA per field,
-the field and its masks resident in shared memory; see the source's header)
-on CUDA tensors, and runs the plain version
+:func:`distance_fields` launches ``kernels/wavefront.cu`` on CUDA tensors and
+runs the plain version
 :func:`pushworld_tpu_torch.ops.graphs.distance_fields_reference` on CPU
-tensors.  Semantics are those of the JAX package's
-``distance_fields_pallas`` / ``ops.graphs.distance_to_targets``.
+tensors.  The kernel gives one warp to each field.  A field seeded with 0 and
+INF only (every field of the table build) is a level-synchronous,
+bit-parallel breadth-first search over 64-bit row words; any other seeds
+take the float Jacobi sweeps of the definition, in the same launch (see the
+source's header).  Both are bit-equal to the plain version.  Semantics are
+those of the JAX package's ``distance_fields_pallas`` /
+``ops.graphs.distance_to_targets``.
 """
 
 import ctypes
@@ -14,15 +18,6 @@ import torch
 
 from pushworld_tpu_torch.kernels import LAUNCHES
 from pushworld_tpu_torch.ops.graphs import INF, distance_fields_reference
-
-# Per-CTA shared memory the kernel may use (sm_90): 9 bytes per cell.
-_MAX_SMEM = 232448
-
-
-def pack_masks(E: torch.Tensor) -> torch.Tensor:
-    """(B, 4, H, W) bool -> (B, H, W) uint8 with bit a set iff E[:, a]."""
-    E = E.to(torch.uint8)
-    return (E[:, 0] | (E[:, 1] << 1) | (E[:, 2] << 2) | (E[:, 3] << 3)).contiguous()
 
 
 def distance_fields(E: torch.Tensor, d0: torch.Tensor, max_iters: int = 0) -> torch.Tensor:
@@ -36,6 +31,12 @@ def distance_fields(E: torch.Tensor, d0: torch.Tensor, max_iters: int = 0) -> to
 
     Returns:
         (B, H, W) float32 distance fields; unreachable = INF.
+
+    On a CUDA tensor the kernel takes a grid of at most 65,534 cells whose
+    planes fit a CTA's shared memory: 8 bytes per cell plus four 64-bit mask
+    words per row and 64 columns.  That is about 25,000 cells for rows of 64
+    cells or more, and fewer for much narrower rows, which each still take a
+    whole word.  A grid the kernel does not take raises ValueError.
     """
     if d0.dim() != 3 or E.dim() != 4 or E.shape[1] != 4 or E.shape[2:] != d0.shape[1:]:
         raise ValueError(f"bad shapes: E {tuple(E.shape)}, d0 {tuple(d0.shape)}")
@@ -48,23 +49,30 @@ def distance_fields(E: torch.Tensor, d0: torch.Tensor, max_iters: int = 0) -> to
         raise ValueError("E and d0 must be on one device")
     if d0.dtype != torch.float32:
         raise ValueError("d0 must be float32")
-    if H * W * 9 > _MAX_SMEM:
-        raise ValueError(f"grid {H}x{W} exceeds the kernel's shared-memory plane")
     out = torch.empty((B, H, W), dtype=torch.float32, device=d0.device)
     if B == 0:
         return out
-    masks = pack_masks(E)
+    # The kernel reads the bool planes where they lie: each (H, W) plane must
+    # be contiguous, the strides between planes and between fields are free
+    # (a column ``E[None, :, o]`` of a per-object stack is read in place).
+    E = E.to(torch.bool)
+    if E.stride(3) != 1 or E.stride(2) != W:
+        E = E.contiguous()
     d0 = d0.contiguous()
-    e_stride = 0 if masks.shape[0] == 1 else H * W
+    e_stride = 0 if E.shape[0] == 1 else E.stride(0)
+    # Scratch for the masks as bit rows: ceil(W / 64) 64-bit words per row.
+    packed = torch.empty((E.shape[0], 4, H * ((W + 63) // 64)), dtype=torch.int64, device=d0.device)
     cap = int(max_iters) if max_iters else H * W + 8
 
     from pushworld_tpu_torch.kernels import _build
 
     lib = _build.load("wavefront")
+    if not lib.pw_wavefront_fits(H, W):
+        raise ValueError(f"grid {H}x{W} exceeds the kernel's shared-memory planes")
     with torch.cuda.device(d0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.pw_wavefront(masks.data_ptr(), e_stride, d0.data_ptr(), out.data_ptr(),
-                              B, H, W, cap, ctypes.c_void_p(stream))
+        rc = lib.pw_wavefront(E.data_ptr(), e_stride, E.stride(1), packed.data_ptr(),
+                              d0.data_ptr(), out.data_ptr(), B, H, W, cap, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"wavefront launch failed: CUDA error {rc}")
     LAUNCHES["wavefront"] += 1

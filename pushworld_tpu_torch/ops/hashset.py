@@ -10,19 +10,26 @@ Layout: ONE packed 64-bit word per slot, ``hi << 32 | lo`` held in an int64
 tensor, with 0 as the empty slot and all ones (-1) as the tombstone.  The
 JAX package keeps two uint32 arrays written by two scatters; on a GPU a
 scatter with duplicate indices has no defined winner per array, so the two
-halves of a key could tear.  One word cannot tear: the CUDA kernel
-(``kernels/visited_set.cu``) claims a slot with a 64-bit ``atomicCAS``, and
-the plain version writes one word per lane with one scatter per round.
+halves of a key could tear.  One word cannot tear: the CUDA kernels
+(``kernels/visited_set.cu``) claim a slot with a 64-bit ``atomicCAS``, and
+the plain versions write one word per lane with one scatter per round.
 
-Both ``probe_and_insert`` and ``probe_delete`` update the table IN PLACE
-(the JAX functions return a new table).
+The search reaches the table through :func:`fingerprint_dedup_insert`: from
+a batch of child states to their keys and ``is_new`` flags in ONE kernel
+launch on a CUDA tensor (native uint32 fingerprint folds, a sort-free batch
+dedup in the CTA's shared memory, then the probes).  :func:`fingerprint`,
+:func:`dedup_batch` and :func:`probe_and_insert` are its three steps as
+functions of their own, and their composition is its plain version.
+
+``probe_and_insert``, ``probe_delete`` and ``fingerprint_dedup_insert``
+update the table IN PLACE (the JAX functions return a new table).
 
 Failure modes and their effect on the search (all benign for greedy search):
 - fingerprint collision (~2^-64 per pair): a new state is treated as visited;
 - probe exhaustion or a slot race: an insert may be lost, so a state might
   be re-expanded later (wasted work only);
-- duplicate keys within one batch are removed beforehand by
-  :func:`dedup_batch`.
+- duplicate keys within one batch must be removed before ``probe_and_insert``
+  (:func:`dedup_batch`); ``fingerprint_dedup_insert`` does so itself.
 """
 
 import ctypes
@@ -114,6 +121,10 @@ def dedup_batch(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return first & valid
 
 
+def _mask(hs: HashSet) -> int:
+    return (1 << hs.capacity_bits) - 1
+
+
 def _first_slot(keys: torch.Tensor, capacity_bits: int) -> torch.Tensor:
     lo, hi = split_key(keys)
     return (lo ^ mul32(hi, 0x9E3779B1)) & ((1 << capacity_bits) - 1)
@@ -171,15 +182,17 @@ def _check(hs: HashSet, keys: torch.Tensor, valid: torch.Tensor) -> None:
         raise ValueError("table size must be 2**capacity_bits with capacity_bits <= 31")
 
 
-def _launch(fn_name: str, hs: HashSet, keys: torch.Tensor, valid: torch.Tensor, *out) -> None:
+def _launch(fn_name: str, hs: HashSet, *args) -> None:
+    """Calls ``fn_name(table, *args, stream)`` of the kernel library on the
+    table's device (tensors pass as their data pointers); raises if the
+    launch is refused."""
     from pushworld_tpu_torch.kernels import _build
 
     fn = getattr(_build.load("visited_set"), fn_name)
+    ptrs = [None if a is None else a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(hs.keys.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(hs.keys.data_ptr(), keys.data_ptr(), valid.data_ptr(),
-                *[o.data_ptr() for o in out], keys.numel(),
-                (1 << hs.capacity_bits) - 1, ctypes.c_void_p(stream))
+        rc = fn(hs.keys.data_ptr(), *ptrs, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
 
@@ -207,7 +220,7 @@ def probe_and_insert(
     _check(hs, keys, valid)
     is_new = torch.empty_like(valid)
     if keys.numel():
-        _launch("pw_probe_and_insert", hs, keys, valid, is_new)
+        _launch("pw_probe_and_insert", hs, keys, valid, is_new, keys.numel(), _mask(hs))
         LAUNCHES["visited_set.probe_and_insert"] += 1
     return is_new, hs
 
@@ -223,6 +236,62 @@ def probe_delete(hs: HashSet, keys: torch.Tensor, valid: torch.Tensor) -> HashSe
         return probe_delete_reference(hs, keys, valid)
     _check(hs, keys, valid)
     if keys.numel():
-        _launch("pw_probe_delete", hs, keys, valid)
+        _launch("pw_probe_delete", hs, keys, valid, keys.numel(), _mask(hs))
         LAUNCHES["visited_set.probe_delete"] += 1
     return hs
+
+
+def fingerprint_dedup_insert_reference(
+    hs: HashSet, states: torch.Tensor, width: int, valid: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fingerprint_dedup_insert`: the three
+    steps one after the other."""
+    keys = fingerprint(states, width)
+    is_new, _ = probe_and_insert_reference(hs, keys, dedup_batch(keys, valid))
+    return keys, is_new
+
+
+def fingerprint_dedup_insert(
+    hs: HashSet, states: torch.Tensor, width: int, valid: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """From a batch of states to their keys and ``is_new`` flags, inserting
+    the new keys in place: :func:`fingerprint`, :func:`dedup_batch` and
+    :func:`probe_and_insert` in one step.
+
+    Args:
+        hs: the table.
+        states: (n, N, 2) int32 packed states.
+        width: the grid width the fingerprint flattens positions with.
+        valid: (n,) bool — only valid entries are deduplicated and inserted.
+
+    Returns:
+        (keys, is_new): keys (n,) packed int64 fingerprints of ALL entries;
+        is_new[b] True iff entry b is valid, is the batch's first (lowest
+        index) occurrence of its key, and the key was not in the table.
+
+    On a CUDA tensor this is one launch of ``visited_set.cu``'s fused kernel
+    (its dedup table in shared memory for n <= 8,192, else in device scratch
+    allocated here); on a CPU tensor it runs
+    :func:`fingerprint_dedup_insert_reference`.
+    """
+    if hs.keys.device.type == "cpu":
+        return fingerprint_dedup_insert_reference(hs, states, width, valid)
+    if states.dim() != 3 or states.shape[2] != 2 or states.dtype != torch.int32:
+        raise ValueError(f"states: expected (n, N, 2) int32, got {tuple(states.shape)} {states.dtype}")
+    n, n_obj = states.shape[:2]
+    keys = torch.empty((n,), dtype=torch.int64, device=states.device)
+    _check(hs, keys, valid)
+    if not states.is_contiguous() or not 0 < width < 1 << 31 or n >= 1 << 29:
+        raise ValueError("states must be contiguous, width positive, and n below 2**29")
+    is_new = torch.empty_like(valid)
+    if n:
+        from pushworld_tpu_torch.kernels import _build
+
+        slots = max(64, 1 << (2 * n - 1).bit_length())  # a power of two >= 2n
+        scratch = None
+        if slots > _build.load("visited_set").pw_dedup_shared_slots():
+            scratch = torch.empty((slots * 12,), dtype=torch.uint8, device=states.device)
+        _launch("pw_fingerprint_dedup_insert", hs, states, valid, keys, is_new, scratch,
+                n, n_obj, width, _mask(hs), slots)
+        LAUNCHES["visited_set.fingerprint_dedup_insert"] += 1
+    return keys, is_new

@@ -38,8 +38,8 @@ from pushworld_tpu_torch.core.puzzle import Puzzle
 from pushworld_tpu_torch.device import DeviceLike, resolve_device
 from pushworld_tpu_torch.ops.hashset import (
     HashSet,
-    dedup_batch,
     fingerprint,
+    fingerprint_dedup_insert,
     init_hashset,
     probe_and_insert,
     probe_delete,
@@ -279,9 +279,7 @@ def _iterate(cp: CompiledPuzzle, t: RGDTables, cfg: SearchConfig, s: SearchState
     effective = moved.any(-1) & pvalid4  # no-op moves are duplicates
 
     # 3. dedup against the batch and the visited set.
-    keys = fingerprint(children, cp.width)
-    uniq = dedup_batch(keys, effective)
-    is_new, _ = probe_and_insert(s.visited, keys, uniq)
+    keys, is_new = fingerprint_dedup_insert(s.visited, children.contiguous(), cp.width, effective)
 
     # 4. history append for new children.
     hist_idx = _append_history(s, cfg, is_new, phist4, actions)

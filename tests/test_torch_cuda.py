@@ -26,23 +26,105 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("shape,shared", [((7, 11, 13), False), ((40, 47, 54), True), ((3, 1, 9), False)])
-def test_wavefront_kernel_bit_equal(dev, shape, shared):
-    from pushworld_tpu_torch.kernels import LAUNCHES
-    from pushworld_tpu_torch.ops.graphs import INF, distance_fields_reference
-    from pushworld_tpu_torch.ops.graphs_cuda import distance_fields
+def _seeds_and_masks(rng, B, H, W, shared, dev):
+    from pushworld_tpu_torch.ops.graphs import INF
 
-    B, H, W = shape
-    rng = np.random.default_rng(B)
     E = torch.as_tensor(rng.random((1 if shared else B, 4, H, W)) < 0.6, device=dev)
     d0 = torch.full((B, H, W), INF, dtype=torch.float32, device=dev)
     d0[torch.arange(B), torch.as_tensor(rng.integers(0, H, B)), torch.as_tensor(rng.integers(0, W, B))] = 0.0
+    return E, d0
+
+
+@pytest.mark.parametrize("shape,shared", [
+    ((7, 11, 13), False), ((40, 47, 54), True), ((3, 1, 9), False),
+    ((9, 5, 64), True), ((11, 9, 150), True), ((5, 6, 131), False), ((2, 160, 160), True),
+])
+def test_wavefront_kernel_bit_equal(dev, shape, shared):
+    """0/INF seeds (the bit-parallel path), shared and per-field masks, rows
+    of one and of several 64-bit words, uncapped and capped."""
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.ops.graphs import distance_fields_reference
+    from pushworld_tpu_torch.ops.graphs_cuda import distance_fields
+
+    B, H, W = shape
+    E, d0 = _seeds_and_masks(np.random.default_rng(B), B, H, W, shared, dev)
     before = LAUNCHES["wavefront"]
     for cap in (0, 2):
         got = distance_fields(E, d0, max_iters=cap)
         torch.cuda.synchronize()
         assert torch.equal(got, distance_fields_reference(E, d0, max_iters=cap))
     assert LAUNCHES["wavefront"] == before + 2
+
+
+@pytest.mark.parametrize("shape,shared", [((13, 11, 13), False), ((21, 47, 54), True), ((10, 7, 90), True)])
+def test_wavefront_kernel_general_seeds(dev, shape, shared):
+    """Seeds other than 0/INF take the kernel's float sweeps, field by
+    field: a batch that mixes both kinds of field equals the plain version,
+    uncapped and capped."""
+    from pushworld_tpu_torch.ops.graphs import distance_fields_reference
+    from pushworld_tpu_torch.ops.graphs_cuda import distance_fields
+
+    B, H, W = shape
+    rng = np.random.default_rng(B + W)
+    E, d0 = _seeds_and_masks(rng, B, H, W, shared, dev)
+    odd = torch.as_tensor(rng.integers(0, 30, (B, H, W)).astype(np.float32), device=dev)
+    pick = torch.as_tensor(rng.random((B, H, W)) < 0.05, device=dev)
+    pick[::3] = False  # every third field keeps its 0/INF seeds
+    d0 = torch.where(pick, odd, d0)
+    for cap in (0, 2):
+        got = distance_fields(E, d0, max_iters=cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got, distance_fields_reference(E, d0, max_iters=cap))
+
+
+def test_wavefront_reads_strided_mask_planes(dev):
+    """One object's column of a (4, n_obj, H, W) stack is read in place."""
+    from pushworld_tpu_torch.ops.graphs import distance_fields_reference
+    from pushworld_tpu_torch.ops.graphs_cuda import distance_fields
+
+    rng = np.random.default_rng(5)
+    stack = torch.as_tensor(rng.random((4, 3, 12, 17)) < 0.6, device=dev)
+    _, d0 = _seeds_and_masks(rng, 30, 12, 17, True, dev)
+    for E in (stack[None, :, 1], stack.permute(1, 0, 2, 3)):
+        d = d0[: 30 if E.shape[0] == 1 else 3]
+        assert not E.is_contiguous()
+        got = distance_fields(E, d)
+        torch.cuda.synchronize()
+        assert torch.equal(got, distance_fields_reference(E, d))
+
+
+def test_wavefront_wrapper_raises_on_a_grid_too_large(dev):
+    from pushworld_tpu_torch.ops.graphs_cuda import distance_fields
+
+    E = torch.zeros((1, 4, 300, 300), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        distance_fields(E, torch.zeros((1, 300, 300), device=dev))
+
+
+@pytest.mark.parametrize("n,n_obj", [(1024, 4), (4096, 6), (1, 1), (1024, 20), (20000, 3)])
+def test_fused_fingerprint_dedup_insert_matches_plain_version(dev, n, n_obj):
+    """Duplicate children, invalid lanes and keys already in the table; a
+    sparse table, so no probe run is exhausted.  n = 20,000 takes the
+    dedup table in device scratch."""
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.ops import hashset as hs
+
+    rng = np.random.default_rng(n + n_obj)
+    pool = rng.integers(0, 50, size=(max(1, n // 2), n_obj, 2)).astype(np.int32)
+    kern, ref = hs.init_hashset(20, device=dev), hs.init_hashset(20, device=dev)
+    before = LAUNCHES["visited_set.fingerprint_dedup_insert"]
+    for rnd in range(3):  # later rounds meet keys of earlier ones
+        states = torch.as_tensor(pool[rng.integers(0, len(pool), n)], device=dev)
+        valid = torch.as_tensor(rng.random(n) < 0.9, device=dev)
+        k_k, n_k = hs.fingerprint_dedup_insert(kern, states, 54, valid)
+        k_r, n_r = hs.fingerprint_dedup_insert_reference(ref, states, 54, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(k_k, k_r) and torch.equal(k_k, hs.fingerprint(states, 54))
+        assert torch.equal(n_k, n_r), rnd
+        assert torch.equal(torch.sort(kern.keys).values, torch.sort(ref.keys).values)
+        if n > 1:
+            assert n_k.sum() < valid.sum()  # the batch does hold duplicates
+    assert LAUNCHES["visited_set.fingerprint_dedup_insert"] == before + 3
 
 
 def test_visited_set_kernels_match_plain_version(dev):

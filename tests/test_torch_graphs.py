@@ -101,3 +101,40 @@ def test_fields_and_host_helpers_match_jax_on_fixtures(name):
             torch.as_tensor(E[None, :, o].copy()), torch.as_tensor(d0.reshape(-1, cp.height, W))
         )
         assert np.array_equal(fields.reshape(len(verts), -1)[:, verts].T.numpy(), Dc)
+
+
+@pytest.mark.parametrize("cap", [1, 2, 5, 9])
+@pytest.mark.parametrize("name", ["two_tools", "three_tools"])
+def test_capped_sweeps_on_zero_inf_seeds_are_capped_bfs(name, cap):
+    """With 0/INF seeds, ``cap`` Jacobi sweeps give the breadth-first distance
+    where it is <= cap and INF elsewhere: the property that lets the CUDA
+    kernel run a level-synchronous search for such fields."""
+    jp = JPuzzle.from_file(os.path.join(PUZZLES, "heur", name + ".pwp"))
+    cp = j_compile(jp)
+    E = np.asarray(jg.build_reachability(cp)[0])
+    H, W = cp.height, cp.width
+    deepest = 0.0
+    for o in range(jp.num_movables):
+        target = int(cp.init_state[o, 1]) * W + int(cp.init_state[o, 0])
+        bfs = tg.host_distance_to_targets(E[:, o], target)
+        deepest = max(deepest, float(bfs[bfs < INF].max()))
+        d0 = np.full((1, H * W), INF, np.float32)
+        d0[0, target] = 0.0
+        got = distance_fields_reference(
+            torch.as_tensor(E[None, :, o].copy()), torch.as_tensor(d0.reshape(1, H, W)), max_iters=cap)
+        want = np.where(bfs <= cap, bfs, np.float32(INF))
+        assert np.array_equal(got[0].numpy(), want)
+    assert deepest > 2  # the caps of 1 and 2 do cut a field short
+
+
+def test_general_seeds_match_pallas_interpret():
+    """Seeds other than 0/INF (the CUDA kernel's float-sweep path) through the
+    plain version and the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(21)
+    B, H, W = 4, 9, 11
+    E = rng.random((B, 4, H, W)) < 0.6
+    d0 = np.where(rng.random((B, H, W)) < 0.1, rng.integers(0, 12, (B, H, W)), INF).astype(np.float32)
+    for cap in (0, 2):
+        want = np.asarray(distance_fields_pallas(jnp.asarray(E), jnp.asarray(d0), max_iters=cap, interpret=True))
+        got = graphs_cuda.distance_fields(torch.as_tensor(E), torch.as_tensor(d0), max_iters=cap)
+        assert np.array_equal(got.numpy(), want), cap

@@ -100,3 +100,56 @@ def test_probe_delete_unvisits():
     assert is_new2[:16].all() and not is_new2[16:].any()
     is_new3, hs = th.probe_and_insert(hs, keys, valid)
     assert not is_new3.any()
+
+
+@pytest.mark.parametrize("n_obj", [1, 4, 20])
+def test_fingerprint_dedup_insert_matches_jax_composition(n_obj):
+    """The fused entry point on CPU tensors against the JAX fingerprint ->
+    dedup_batch -> probe_and_insert on the same states: batches with duplicate
+    states and invalid lanes, on a table that already holds some of the keys
+    (and tombstones).  keys, is_new and the whole table must be equal."""
+    rng = np.random.default_rng(40 + n_obj)
+    width, bits = 23, 9
+    pool = rng.integers(0, 22, size=(300, n_obj, 2)).astype(np.int32)
+    jhs = jh.init_hashset(bits)
+    ths = th.init_hashset(bits, device="cpu")
+    # Pre-fill both tables through the three-step functions, then delete some.
+    lo, hi = jh.fingerprint(jnp.asarray(pool[:120]), width)
+    first = jh.dedup_batch(lo, hi, jnp.ones(120, bool))
+    _, jhs = jh.probe_and_insert(jhs, lo, hi, first)
+    jhs = jh.probe_delete(jhs, lo[:30], hi[:30], first[:30])
+    keys = th.fingerprint(torch.as_tensor(pool[:120]), width)
+    tfirst = th.dedup_batch(keys, torch.ones(120, dtype=torch.bool))
+    th.probe_and_insert(ths, keys, tfirst)
+    th.probe_delete(ths, keys[:30], tfirst[:30])
+    assert torch.equal(ths.keys, _jax_table(jhs))
+
+    saw_dup = saw_old = False
+    for r in range(5):
+        states = pool[rng.integers(0, len(pool), 160)]  # duplicates within the batch
+        valid = rng.random(160) < 0.85
+        lo, hi = jh.fingerprint(jnp.asarray(states), width)
+        uniq = jh.dedup_batch(lo, hi, jnp.asarray(valid))
+        is_new_j, jhs = jh.probe_and_insert(jhs, lo, hi, uniq)
+        got_keys, got_new = th.fingerprint_dedup_insert(
+            ths, torch.as_tensor(states), width, torch.as_tensor(valid))
+        assert torch.equal(got_keys, _pack_np(lo, hi)), r
+        assert np.array_equal(got_new.numpy(), np.asarray(is_new_j)), r
+        assert torch.equal(ths.keys, _jax_table(jhs)), r
+        saw_dup |= int(np.asarray(uniq).sum()) < int(valid.sum())
+        saw_old |= bool((np.asarray(uniq) & ~np.asarray(is_new_j)).any())
+    if n_obj > 1:  # 22 one-object states cannot fill a batch with fresh keys
+        assert saw_dup and saw_old
+
+
+def test_fingerprint_dedup_insert_reference_is_the_three_steps():
+    rng = np.random.default_rng(9)
+    states = torch.as_tensor(rng.integers(0, 5, size=(200, 3, 2)).astype(np.int32))
+    valid = torch.as_tensor(rng.random(200) < 0.8)
+    a, b = th.init_hashset(10, device="cpu"), th.init_hashset(10, device="cpu")
+    keys, is_new = th.fingerprint_dedup_insert_reference(a, states, 7, valid)
+    want_keys = th.fingerprint(states, 7)
+    want_new, _ = th.probe_and_insert(b, want_keys, th.dedup_batch(want_keys, valid))
+    assert torch.equal(keys, want_keys) and torch.equal(is_new, want_new)
+    assert torch.equal(a.keys, b.keys)
+    assert not is_new[~valid].any() and 0 < int(is_new.sum()) < int(valid.sum())
