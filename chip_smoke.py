@@ -29,8 +29,27 @@ Phases, each printing one JSON line:
    plan must pass the oracle; the unsolvable fixtures must report
    "no solution"; every kernel must have been launched.  Two small fixtures
    are also solved on the CPU and must give the same plan and expansions.
+5. ``native``: the native serial planner, built from
+   ``pushworld_tpu_torch/native/planner.cc`` by the host C++ compiler (the
+   build starts beside the nvcc builds), must be available; it solves every
+   solvable fixture in both modes and through the staged schedule, reports
+   "no solution" on the unsolvable ones, and its movement-graph fixpoint
+   must equal the Python worklist on every puzzle.  The table build of the
+   47 x 54 puzzle is timed with either fixpoint.
+6. ``portfolio``: ``plan_puzzles(portfolio=True, time_limit=60)`` on all 29
+   puzzles, then a second pass with ``PW_PORTFOLIO_HEADSTART=0`` over two
+   fixtures and a 16 x 16 puzzle that outlasts the native planner, in which
+   the device member must engage.
+7. ``fleet``: ``plan_puzzles_fleet`` on the 29 puzzles with the device worker
+   alone in claim mode, with the defaults (shadow mode, one native worker per
+   core) and with the device off; then a run in which every core holds a
+   native worker on the 16 x 16 puzzle while the device worker shadows the
+   fixtures, and the solve of the 47 x 54 puzzle timed alone and beside as
+   many native threads as cores.  One lane's device bytes are measured
+   beside ``fleet.bytes_per_lane``.
 
-The card line (nvidia-smi) comes first; the kernels line comes just before
+The launch counts are set to 0 before each of the phases 4, 6 and 7 (and
+each fleet run) and read after it.  The card line (nvidia-smi) comes first; the kernels line comes just before
 the last line, the result.
 Any failure raises and the script exits non-zero.  It exits non-zero without
 a result when there is no CUDA device or no port package beside it.
@@ -80,6 +99,47 @@ def generated_puzzle_text(seed: int) -> str:
     put("M1", int(rng.integers(16, 22)), int(rng.integers(18, 24)), 2, 2)
     put("M2", int(rng.integers(28, 34)), int(rng.integers(10, 16)), 2, 2)
     return "\n".join(" ".join(f"{t:>2}" for t in row) for row in grid) + "\n"
+
+
+# A 16 x 16 puzzle (4 movables, 3 goals, RGD depth 0) that the native
+# planner does not solve within 20 s in any stage of its schedule: work that
+# keeps a native worker busy and makes the portfolio's device member engage.
+HARD_PUZZLE_TEXT = """
+ .  .  .  W  .  .  .  .  .  W  .  .  .  .  .  W
+ .  .  .  .  W  .  .  W  .  W  .  .  .  .  .  .
+ .  .  .  A  .  W  .  .  W  W  .  .  .  .  .  .
+ W  W  W  .  .  .  .  .  .  .  .  .  .  .  .  .
+ .  .  .  .  .  .  .  .  .  .  .  .  .  .  .  W
+ .  .  W  .  W  W  .  W  .  W  .  . G0  . M0  .
+ .  .  .  .  .  .  .  W  W  .  .  . G0  . M0  .
+ .  W  .  .  .  .  W  .  . M1  .  .  .  .  W  W
+ W  W  .  .  .  .  .  .  W M1  W  .  .  .  .  .
+ .  .  .  W  .  W  .  W  .  .  .  .  W  .  .  .
+ .  .  .  .  .  . M2 M2  .  .  .  .  W  .  .  .
+ .  W  .  .  .  .  .  .  . G1  .  .  .  .  .  .
+ .  .  .  W  .  .  .  .  . G1  .  .  .  .  .  .
+ .  W  W  .  . M3 M3  .  .  .  .  .  .  W  .  W
+ .  .  .  .  .  .  .  .  .  .  .  .  W  .  .  .
+ .  .  .  .  .  .  .  .  . G2 G2  .  .  .  .  .
+""".lstrip("\n")
+
+KERNEL_NAMES = ("wavefront", "visited_set.probe_and_insert", "visited_set.probe_delete",
+                "visited_set.fingerprint_dedup_insert")
+
+
+def check_results(named, results, what: str):
+    """Every instance has one result, every plan passes the oracle, and the
+    unsolvable fixtures report "no solution".  Returns {name: classification}."""
+    check(sorted(results) == sorted(n for n, _ in named), f"{what}: lost or extra instances")
+    out = {}
+    for name, p in named:
+        r = results[name]
+        if name in UNSOLVABLE:
+            check(r.failure_reason == "no solution" and r.plan is None, f"{what}: {name}: {r}")
+        elif r.failure_reason is None:
+            check(r.plan == [] or p.is_valid_plan(r.plan), f"{what}: {name}: invalid plan")
+        out[name] = r.failure_reason or "solved"
+    return out
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -435,15 +495,14 @@ def phase_solve(puzzles, generated, dev):
             check(r.failure_reason is None and p.is_valid_plan(r.plan), f"{name}: {r}")
     launches = dict(LAUNCHES)
     total = time.monotonic() - t0
-    for k in ("wavefront", "visited_set.probe_and_insert", "visited_set.probe_delete",
-              "visited_set.fingerprint_dedup_insert"):
+    for k in KERNEL_NAMES:
         check(launches.get(k, 0) > 0, f"kernel {k} was not launched on the main path")
     gen = rows[-1]
     emit({"phase": "solve", "puzzles": len(rows), "total_s": total,
           "solved": sum(r["result"] == "solved" for r in rows),
           "no_solution": sum(r["result"] == "no solution" for r in rows),
           "generated": gen, "launches": launches, "per_puzzle": rows})
-    return launches
+    return launches, {r["puzzle"]: r["result"] for r in rows}
 
 
 def phase_cpu_agreement(puzzles, dev):
@@ -462,6 +521,283 @@ def phase_cpu_agreement(puzzles, dev):
               f"{name}: card and CPU searches differ ({g.expansions} vs {c.expansions})")
         out.append(name)
     emit({"phase": "cpu_agreement", "puzzles": out})
+
+
+def phase_native(puzzles, generated, dev):
+    """The native planner and its fixpoint, from the port's own library."""
+    import numpy as np
+    import torch
+
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.native import bridge
+    from pushworld_tpu_torch.ops import rgd
+
+    check(bridge.is_available(), "the native library could not be built or loaded")
+    lib = bridge.library_path()
+    check(lib.exists() and os.path.dirname(lib) == os.path.join(ROOT, ".torch_ext_build"),
+          f"native library not under .torch_ext_build: {lib}")
+    t0 = time.monotonic()
+    solved = 0
+    for name, p in puzzles + [("generated_47x54", generated)]:
+        for mode in ("N+RGD", "RGD"):
+            plan = bridge.solve_native(p, mode=mode, time_limit=30)
+            if name in UNSOLVABLE:
+                check(plan is None, f"native {mode}: {name} is not 'no solution'")
+            else:
+                check(plan is not None and (plan == [] or p.is_valid_plan(plan)),
+                      f"native {mode}: {name}: {plan}")
+        staged = bridge.solve_native_staged(p, time_limit=30, stages=bridge.stages_for(name))
+        if name in UNSOLVABLE:
+            check(staged is None, f"native staged: {name} is not 'no solution'")
+        else:
+            check(staged is not None and (staged == [] or p.is_valid_plan(staged)),
+                  f"native staged: {name}: {staged}")
+            solved += 1
+        E = bridge.build_graphs_native(p)
+        check(np.array_equal(E.astype(bool), rgd._movement_graphs_python(p, compile_puzzle(p))),
+              f"native fixpoint != Python worklist ({name})")
+    solve_s = time.monotonic() - t0
+
+    # The 47 x 54 puzzle's table build with either fixpoint, in turns.
+    cp = compile_puzzle(generated)
+
+    def timed(fn, reps=3):
+        out = []
+        for _ in range(reps):
+            t = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.monotonic() - t)
+        return out
+
+    native_fix = rgd._movement_graphs_host
+    times = {"table_build_native_s": [], "table_build_python_s": []}
+    try:
+        for _ in range(2):
+            rgd._movement_graphs_host = native_fix
+            times["table_build_native_s"] += timed(
+                lambda: rgd.build_rgd_tables(generated, cp, max_depth=0, device=dev), 2)
+            rgd._movement_graphs_host = rgd._movement_graphs_python
+            times["table_build_python_s"] += timed(
+                lambda: rgd.build_rgd_tables(generated, cp, max_depth=0, device=dev), 2)
+    finally:
+        rgd._movement_graphs_host = native_fix
+    times["fixpoint_native_s"] = timed(lambda: rgd._movement_graphs_host(generated, cp))
+    times["fixpoint_python_s"] = timed(lambda: rgd._movement_graphs_python(generated, cp))
+    emit(dict({"phase": "native", "library": os.path.relpath(lib, ROOT), "puzzles": len(puzzles) + 1,
+               "solved_both_modes_and_staged": solved, "no_solution": len(UNSOLVABLE),
+               "fixpoints_equal": len(puzzles) + 1, "solve_s": solve_s}, **times))
+
+
+def phase_portfolio(puzzles, generated, hard, dev):
+    """plan_puzzles(portfolio=True) on the card; then, with no head start, the
+    device member must engage."""
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES, plan_puzzles
+
+    named = puzzles + [("generated_47x54", generated)]
+    LAUNCHES.clear()
+    t0 = time.monotonic()
+    res = plan_puzzles(named, portfolio=True, time_limit=60, device=dev, **PRODUCTION_CAPACITIES)
+    wall = time.monotonic() - t0
+    classes = check_results(named, res, "portfolio")
+    check(all(c in ("solved", "no solution") for c in classes.values()), f"portfolio: {classes}")
+    launches = dict(LAUNCHES)
+
+    few = [(n, p) for n, p in puzzles if n in ("spill_grid", "heur/shortest_path_tool")]
+    few.append(("hard_16x16", hard))
+    old = os.environ.get("PW_PORTFOLIO_HEADSTART")
+    os.environ["PW_PORTFOLIO_HEADSTART"] = "0"
+    LAUNCHES.clear()
+    try:
+        t0 = time.monotonic()
+        res2 = plan_puzzles(few, portfolio=True, time_limit=8, device=dev, **PRODUCTION_CAPACITIES)
+        wall2 = time.monotonic() - t0
+    finally:
+        if old is None:
+            del os.environ["PW_PORTFOLIO_HEADSTART"]
+        else:
+            os.environ["PW_PORTFOLIO_HEADSTART"] = old
+    check_results(few, res2, "portfolio, no head start")
+    launches2 = dict(LAUNCHES)
+    check(launches2.get("visited_set.fingerprint_dedup_insert", 0) > 0,
+          "portfolio, no head start: the device member did not engage")
+    both = {k: launches.get(k, 0) + launches2.get(k, 0) for k in KERNEL_NAMES}
+    for k in KERNEL_NAMES:
+        check(both[k] > 0, f"kernel {k} was not launched on the portfolio's path")
+    emit({"phase": "portfolio", "puzzles": len(named), "wall_s": wall,
+          "solved": sum(c == "solved" for c in classes.values()),
+          "no_solution": sum(c == "no solution" for c in classes.values()),
+          "solver": {n: res[n].solver for n, _ in named}, "launches": launches,
+          "no_head_start": {
+              "wall_s": wall2, "launches": launches2,
+              "results": {n: [res2[n].failure_reason or "solved", res2[n].solver,
+                              res2[n].planning_time] for n, _ in few}}})
+    return both
+
+
+def _lane_bytes(generated, dev):
+    """One production lane's device bytes, measured, beside the fleet's formula."""
+    import gc
+
+    import torch
+
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.search import fleet
+    from pushworld_tpu_torch.search.batched import BatchedPlanner
+    from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES as CAP
+
+    cp = compile_puzzle(generated)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    planner = BatchedPlanner(generated, cp=cp, max_depth=0, lazy=True, device=dev, **CAP)
+    state = planner.init_state()
+    gc.collect()
+    torch.cuda.synchronize()
+    measured = torch.cuda.memory_allocated(dev) - before
+    formula = fleet.bytes_per_lane(
+        cp.n, cp.height, cp.width, 0, *fleet._lane_shape(generated, cp, 0),
+        CAP["history_capacity"], CAP["frontier_capacity"], CAP["visited_bits"], CAP["pair_bits"])
+    del planner, state
+    check(formula <= measured <= 1.05 * formula + (1 << 20),
+          f"one lane holds {measured} bytes, bytes_per_lane says {formula}")
+    return {"measured_bytes": measured, "bytes_per_lane": formula}
+
+
+def _contention(generated, hard, dev):
+    """The 47 x 54 puzzle's solve on the card: alone, beside one native
+    thread per core (each in a ctypes call that releases the GIL), and the
+    same with the solving thread's priority lowered as the fleet lowers its
+    device thread's."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from pushworld_tpu_torch.native import bridge
+    from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES, solve_puzzle
+
+    cores = os.cpu_count() or 1
+
+    def solve(nice: bool, out: dict):
+        if nice:
+            os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 10)
+        torch.cuda.set_device(dev)
+        t = time.monotonic()
+        r = solve_puzzle(generated, time_limit=120, device=dev, **PRODUCTION_CAPACITIES)
+        torch.cuda.synchronize()
+        out.update(wall_s=time.monotonic() - t, result=r.failure_reason or "solved",
+                   expansions=r.expansions)
+
+    def run(n_native: int, nice: bool) -> dict:
+        cancel = np.zeros(1, np.int32)
+
+        def grind():
+            try:
+                bridge.solve_native(hard, time_limit=300, cancel=cancel)
+            except TimeoutError:
+                pass
+
+        workers = [threading.Thread(target=grind, daemon=True) for _ in range(n_native)]
+        cpu0, wall0 = time.process_time(), time.monotonic()
+        for w in workers:
+            w.start()
+        out = {}
+        t = threading.Thread(target=solve, args=(nice, out))  # a thread of its own: its priority dies with it
+        t.start()
+        t.join()
+        # CPU seconds of all threads per second of wall: how many cores the
+        # process really held while the solve ran.
+        out["cores_busy"] = (time.process_time() - cpu0) / (time.monotonic() - wall0)
+        cancel[0] = 1
+        for w in workers:
+            w.join()
+        check(out.get("result") == "solved", f"contention run failed: {out}")
+        return out
+
+    rows = {}
+    for key, n_native, nice in (("alone", 0, False), ("native_threads", cores, False),
+                                ("native_threads_low_priority", cores, True),
+                                ("alone_again", 0, False)):
+        rows[key] = run(n_native, nice)
+    return {"cores": cores, "cores_in_affinity": len(os.sched_getaffinity(0)),
+            "native_threads": cores, "solve_generated_47x54": rows}
+
+
+def phase_fleet(puzzles, generated, hard, solve_classes, dev):
+    """plan_puzzles_fleet on the card in its three modes, and under load."""
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.search import fleet
+    from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES as CAP
+
+    named = puzzles + [("generated_47x54", generated)]
+    fleet_kwargs = dict(expand=CAP["expand"], frontier_capacity=CAP["frontier_capacity"],
+                        visited_bits=CAP["visited_bits"], history_capacity=CAP["history_capacity"],
+                        pair_bits=CAP["pair_bits"])
+
+    def run(what, puzzles_, **kwargs):
+        LAUNCHES.clear()
+        t0 = time.monotonic()
+        results = fleet.plan_puzzles_fleet(puzzles_, device=dev, **kwargs, **fleet_kwargs)
+        wall = time.monotonic() - t0
+        stats = dict(fleet._device_stats)
+        check(not stats["device_failed"], f"fleet ({what}): the device worker failed")
+        classes = check_results(puzzles_, results, f"fleet ({what})")
+        by_solver = {}
+        for r in results.values():
+            if r.failure_reason is None:
+                by_solver[r.solver] = by_solver.get(r.solver, 0) + 1
+        row = {"wall_s": wall, "fleet_by_solver": by_solver, "device_phases": stats,
+               "launches": dict(LAUNCHES),
+               "classes": {c: sum(v == c for v in classes.values()) for c in set(classes.values())}}
+        print(json.dumps({"fleet": what, **row}), file=sys.stderr, flush=True)
+        return row, classes, results
+
+    out = {"phase": "fleet", "puzzles": len(named), "lane_bytes": _lane_bytes(generated, dev)}
+
+    # (a) the device worker alone, claiming; deep lanes too.
+    old = os.environ.get("PW_DEVICE_DEEP")
+    os.environ["PW_DEVICE_DEEP"] = "1"
+    try:
+        row, classes, results = run("device only, claim", named, time_limit=60, native_workers=0,
+                                    device_mode="claim", device_claim_delay=0, group_size=4)
+    finally:
+        if old is None:
+            del os.environ["PW_DEVICE_DEEP"]
+        else:
+            os.environ["PW_DEVICE_DEEP"] = old
+    check(row["fleet_by_solver"].get("device", 0) > 0, "fleet (a): the device solved nothing")
+    check(row["device_phases"]["lanes"] > 0, "fleet (a): no device lane")
+    for k in KERNEL_NAMES:
+        check(row["launches"].get(k, 0) > 0, f"fleet (a): kernel {k} was not launched")
+    row["device_results"] = {n: [classes[n], results[n].planning_time] for n, _ in named
+                             if results[n].solver == "device"}
+    out["device_only_claim"] = row
+    launches = row["launches"]
+
+    # (b) the defaults: shadow mode, one native worker per core.
+    row, classes, _ = run("defaults", named, time_limit=60)
+    check(classes == solve_classes, f"fleet (b): classification differs from the solve phase: {classes}")
+    out["defaults_shadow"] = row
+
+    # (c) the device off.
+    row, classes, _ = run("device off", named, time_limit=60, device_mode="off")
+    check(classes == solve_classes, f"fleet (c): classification differs from the solve phase: {classes}")
+    out["device_off"] = row
+
+    # (d) every core holds a native worker on the 16 x 16 puzzle for its
+    # whole budget, while the device worker shadows the easy tail.
+    cores = os.cpu_count() or 1
+    loaded = [(f"hard_16x16/{i}", hard) for i in range(cores)] + [
+        (n, p) for n, p in puzzles if n not in UNSOLVABLE and not p.is_goal_state(p.initial_state)]
+    row, classes, _ = run("native workers fill the cores", loaded, time_limit=6,
+                          native_workers=cores, device_claim_delay=0, group_size=16)
+    check(all(c in ("solved", "time limit") for c in classes.values()), f"fleet (d): {classes}")
+    out["cores_full_shadow"] = dict(row, native_workers=cores)
+    out["contention"] = _contention(generated, hard, dev)
+    emit(out)
+    return launches
 
 
 def main() -> int:
@@ -489,9 +825,18 @@ def main() -> int:
     print(card, flush=True)
     dev = torch.device("cuda", 0)
 
+    # The host compiler builds the native planner beside the nvcc builds.
+    import threading
+
+    from pushworld_tpu_torch.native import bridge
+
     t = time.monotonic()
+    native_build = threading.Thread(target=bridge.is_available)
+    native_build.start()
     libs = _build.build(verbose=True)
-    emit({"phase": "build", "seconds": time.monotonic() - t,
+    nvcc_s = time.monotonic() - t
+    native_build.join()
+    emit({"phase": "build", "seconds": time.monotonic() - t, "nvcc_seconds": nvcc_s,
           "libraries": {k: os.path.relpath(v, ROOT) for k, v in libs.items()}})
 
     generated = Puzzle.from_text(generated_puzzle_text(args.seed))
@@ -504,14 +849,23 @@ def main() -> int:
     puzzles = [(os.path.relpath(f, os.path.join(ROOT, "tests", "puzzles"))[:-4], Puzzle.from_file(f))
                for f in files]
     check(len(puzzles) == 28, f"expected 28 fixtures, found {len(puzzles)}")
-    launches = phase_solve(puzzles, generated, dev)
+    launches, solve_classes = phase_solve(puzzles, generated, dev)
     phase_cpu_agreement(puzzles, dev)
+    phase_native(puzzles, generated, dev)
+    hard = Puzzle.from_text(HARD_PUZZLE_TEXT)
+    by_phase = {"solve": launches,
+                "portfolio": phase_portfolio(puzzles, generated, hard, dev),
+                "fleet": phase_fleet(puzzles, generated, hard, solve_classes, dev)}
 
+    # ``launches`` is the solve phase's count (``solve_puzzle`` on the 29
+    # puzzles); ``launches_by_phase`` adds the portfolio's two passes and the
+    # fleet's device-only run, each counted from 0.
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["launches_by_phase"] = {ph: c.get(k["name"], 0) for ph, c in by_phase.items()}
     emit({"kernels": [{key: k[key] for key in (
-        "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-        "bound_ms", "bound_by", "library_ms")} for k in kernels]})
+        "name", "route", "source", "replaces", "launches", "launches_by_phase", "max_abs_err",
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")} for k in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -10,7 +10,11 @@ semantics:
                the RGD heuristic as plain functions on tensors.
 - ``kernels``: the CUDA C++ sources of the hand-written Hopper kernels and
                their build (``nvcc`` at first use).
-- ``search``:  the batched best-first planner and its top-level API.
+- ``native``:  the C++ serial planner (``planner.cc``, built by the host
+               compiler at first use) and its ctypes bridge.
+- ``search``:  the batched best-first planner, the host planner, the
+               top-level API (``solve_puzzle``, ``plan_puzzles`` with its
+               native + device portfolio) and the fleet executor.
 
 Every entry point takes ``device`` and defaults to ``"cuda"``; ``"cpu"`` runs
 the plain PyTorch versions of the kernels (what the tests use).  This package

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -41,6 +42,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# Several threads launch kernels; a library is built and loaded once.
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -93,9 +96,12 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel source ``name``, built if missing."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
-        for fn, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _LOADED[name] = lib
+        with _LOAD_LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(build([name])[name]))
+                for fn, argtypes in SIGNATURES[name].items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                _LOADED[name] = lib
     return lib

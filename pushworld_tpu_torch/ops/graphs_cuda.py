@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from pushworld_tpu_torch.kernels import LAUNCHES
+from pushworld_tpu_torch.kernels import count_launch
 from pushworld_tpu_torch.ops.graphs import INF, distance_fields_reference
 
 
@@ -75,7 +75,7 @@ def distance_fields(E: torch.Tensor, d0: torch.Tensor, max_iters: int = 0) -> to
                               d0.data_ptr(), out.data_ptr(), B, H, W, cap, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"wavefront launch failed: CUDA error {rc}")
-    LAUNCHES["wavefront"] += 1
+    count_launch("wavefront")
     return out
 
 

@@ -39,7 +39,7 @@ from typing import Tuple
 import torch
 
 from pushworld_tpu_torch.device import DeviceLike, resolve_device
-from pushworld_tpu_torch.kernels import LAUNCHES
+from pushworld_tpu_torch.kernels import count_launch
 
 N_PROBES = 8
 EMPTY_KEY = 0
@@ -221,7 +221,7 @@ def probe_and_insert(
     is_new = torch.empty_like(valid)
     if keys.numel():
         _launch("pw_probe_and_insert", hs, keys, valid, is_new, keys.numel(), _mask(hs))
-        LAUNCHES["visited_set.probe_and_insert"] += 1
+        count_launch("visited_set.probe_and_insert")
     return is_new, hs
 
 
@@ -237,7 +237,7 @@ def probe_delete(hs: HashSet, keys: torch.Tensor, valid: torch.Tensor) -> HashSe
     _check(hs, keys, valid)
     if keys.numel():
         _launch("pw_probe_delete", hs, keys, valid, keys.numel(), _mask(hs))
-        LAUNCHES["visited_set.probe_delete"] += 1
+        count_launch("visited_set.probe_delete")
     return hs
 
 
@@ -293,5 +293,5 @@ def fingerprint_dedup_insert(
             scratch = torch.empty((slots * 12,), dtype=torch.uint8, device=states.device)
         _launch("pw_fingerprint_dedup_insert", hs, states, valid, keys, is_new, scratch,
                 n, n_obj, width, _mask(hs), slots)
-        LAUNCHES["visited_set.fingerprint_dedup_insert"] += 1
+        count_launch("visited_set.fingerprint_dedup_insert")
     return keys, is_new

@@ -80,8 +80,8 @@ class RGDTables:
     cmax_agent: int
 
 
-def _movement_graphs_host(puzzle: Puzzle, cp: CompiledPuzzle) -> np.ndarray:
-    """E (4, N, H, W) bool from the host worklist fixpoint."""
+def _movement_graphs_python(puzzle: Puzzle, cp: CompiledPuzzle) -> np.ndarray:
+    """E (4, N, H, W) bool from the Python worklist fixpoint."""
     from pushworld_tpu_torch.search.heuristics_host import MovementGraphs
 
     cp = cp.numpy()
@@ -91,6 +91,19 @@ def _movement_graphs_host(puzzle: Puzzle, cp: CompiledPuzzle) -> np.ndarray:
         for p, succs in edges.items():
             for q in succs:
                 E[disp.index((q[0] - p[0], q[1] - p[1])), o, p[1], p[0]] = True
+    return E
+
+
+def _movement_graphs_host(puzzle: Puzzle, cp: CompiledPuzzle) -> np.ndarray:
+    """E (4, N, H, W) bool via the native fixpoint when the native library
+    can be built, else from the Python worklist (the two give the same E)."""
+    from pushworld_tpu_torch.native import bridge
+
+    if not bridge.is_available():
+        return _movement_graphs_python(puzzle, cp)
+    n = puzzle.num_movables
+    E = np.zeros((4, cp.n, cp.height, cp.width), bool)
+    E[:, :n] = bridge.build_graphs_native(puzzle, cp).astype(bool)
     return E
 
 

@@ -29,12 +29,14 @@ def main(argv=None) -> int:
     from pushworld_tpu_torch.core.compiled import compile_puzzle
     from pushworld_tpu_torch.core.puzzle import Puzzle
     from pushworld_tpu_torch.kernels import LAUNCHES, _build
+    from pushworld_tpu_torch.native import bridge
     from pushworld_tpu_torch.ops.rgd import _movement_graphs_host
     from pushworld_tpu_torch.search.batched import BatchedPlanner, _iterate, required_depth
     from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES
 
     dev = torch.device("cuda", 0)
     _build.build()
+    bridge.is_available()  # builds the native planner before the fixpoint is timed
     puzzle = Puzzle.from_file(args.puzzle)
     depth = required_depth(puzzle)
     t0 = time.monotonic()

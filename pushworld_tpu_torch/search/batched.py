@@ -316,13 +316,24 @@ def _iterate(cp: CompiledPuzzle, t: RGDTables, cfg: SearchConfig, s: SearchState
 
 
 def run_chunk(
-    cp: CompiledPuzzle, tables: RGDTables, cfg: SearchConfig, s: SearchState, chunk: int = 32
+    cp: CompiledPuzzle,
+    tables: RGDTables,
+    cfg: SearchConfig,
+    s: SearchState,
+    chunk: int = 32,
+    deadline: Optional[float] = None,
 ) -> SearchState:
     """Runs up to ``chunk`` iterations, stopping early once the search is
     solved, the frontier is empty, or the history is nearly full (the JAX
-    package's gated no-op iterations).  Updates ``s`` in place and returns it."""
+    package's gated no-op iterations).  Updates ``s`` in place and returns it.
+
+    ``deadline`` (a ``time.monotonic()`` value) also ends the chunk early, so
+    a caller's budget is held to one iteration, not to one chunk; the caller
+    still reads the clock itself to tell a budget end from a full chunk."""
     limit = cfg.history_capacity - 8 * cfg.expand
     for _ in range(chunk):
+        if deadline is not None and time.monotonic() > deadline:
+            break
         solved, min_h, cursor = torch.stack([
             s.solved.to(torch.int32), s.frontier_h.min(), s.hist_cursor
         ]).tolist()
@@ -461,7 +472,7 @@ class BatchedPlanner:
             return []
         cfg = self.config
         while True:
-            run_chunk(self.cp_dev, self.tables, cfg, s, chunk)
+            run_chunk(self.cp_dev, self.tables, cfg, s, chunk, deadline)
             solved, _, min_key, cursor, expansions, evictions, _, n_deeper = (
                 int(v) for v in search_status(s)
             )

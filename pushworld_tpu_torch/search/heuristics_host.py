@@ -1,20 +1,21 @@
-"""Exact host implementations of the movement graphs and the RGD heuristic.
+"""Exact host implementations of the planner heuristics.
 
-The port's copy of the parts of the JAX package's
-``search/heuristics_host.py`` that the port needs: the feasible movement
-graphs (the table builder's ``E``) and ``RecursiveGraphDistance`` (for
-``search.batched.required_depth``).  Semantics mirror the reference C++
-heuristics:
+The port's copy of the JAX package's ``search/heuristics_host.py``: the
+feasible movement graphs (the table build's ``E`` when the native library
+is unavailable), ``RecursiveGraphDistance`` (the host planner's heuristic and
+``search.batched.required_depth``), and width-based novelty.  Semantics
+mirror the reference C++ heuristics:
 
 - feasible movement graphs — reference: cpp/src/heuristics/
   domain_transition_graph.cc:113-216 (fixpoint over dependent transitions),
 - lazy per-target path distances — domain_transition_graph.cc:218-300,
-- recursive graph distance (RGD) — recursive_graph_distance.cc:43-252.
+- recursive graph distance (RGD) — recursive_graph_distance.cc:43-252,
+- width-based novelty — novelty.cc:30-77.
 """
 
 import math
 from collections import deque
-from typing import Dict, FrozenSet, List, Optional, Set, Tuple
+from typing import Dict, FrozenSet, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -158,20 +159,23 @@ class PathDistances:
 class RecursiveGraphDistance:
     """The RGD heuristic.  reference: recursive_graph_distance.cc:43-252.
 
-    Only the per-depth goal cost (``_goal_cost``) is kept: it is what
-    ``search.batched.required_depth`` evaluates at depths 0, 1, ...
+    ``fewest_tools=True`` (the planner default) iterates pushing depth
+    0, 1, ... per goal object and returns the first finite cost;
+    ``fewest_tools=False`` uses a single full-depth evaluation.
     """
 
     def __init__(
         self,
         puzzle: Puzzle,
         compiled: Optional[CompiledPuzzle] = None,
+        fewest_tools: bool = True,
     ):
         self.puzzle = puzzle
         cp = compiled if compiled is not None else compile_puzzle(puzzle)
         self.cp = cp
         self.graphs = MovementGraphs(puzzle, cp)
         self.distances = [PathDistances(e) for e in self.graphs.edges]
+        self.fewest_tools = fewest_tools
         self._push_cost_cache: Dict[tuple, Dict[Point, float]] = {}
         # Sparse contact offsets per (action, pusher, pushee).
         push = np.asarray(cp.push)
@@ -190,7 +194,30 @@ class RecursiveGraphDistance:
                             for ry, rx in zip(ys - delta, xs - delta)
                         ]
 
+    def estimate(self, state: Sequence[Point]) -> float:
+        """Sum of per-goal-object costs (inf short-circuits)."""
+        cost = 0.0
+        for k in range(self.puzzle.num_goals):
+            object_id = k + 1
+            goal_position = self.puzzle.goal_state[k]
+            if self.fewest_tools:
+                cost += self._fewest_tools_goal_cost(state, object_id, goal_position)
+            else:
+                cost += self._goal_cost(
+                    state, object_id, goal_position, len(state) - 2
+                )
+            if cost == INF:
+                break
+        return cost
+
     # -------------------------------------------------------------- internal
+
+    def _fewest_tools_goal_cost(self, state, object_id, goal_position) -> float:
+        for pushing_depth in range(len(state) - 1):
+            cost = self._goal_cost(state, object_id, goal_position, pushing_depth)
+            if cost != INF:
+                return cost
+        return INF
 
     def _goal_cost(self, state, object_id, goal_position, pushing_depth) -> float:
         current = state[object_id]
@@ -305,3 +332,56 @@ class RecursiveGraphDistance:
 
         self._push_cost_cache[key] = costs
         return costs
+
+
+class NoveltyHeuristic:
+    """Width-based novelty (BFWS-style).  reference: novelty.cc:30-77.
+
+    Returns 1 if any *moved* object occupies a never-seen position, 2 if any
+    (moved object, other object) position pair is unseen, else 3.  The
+    visited sets are updated on every call.
+    """
+
+    def __init__(self, state_size: int):
+        self.n = state_size
+        self._seen_pos: List[Set[Point]] = [set() for _ in range(state_size)]
+        self._seen_pairs: Dict[Tuple[int, int], Set[Tuple[Point, Point]]] = {}
+
+    def estimate(self, state: Sequence[Point], moved_object_indices) -> float:
+        novelty = 3.0
+        for i in moved_object_indices:
+            p_i = state[i]
+            if p_i not in self._seen_pos[i]:
+                self._seen_pos[i].add(p_i)
+                novelty = 1.0
+            for j in range(self.n):
+                if j == i:
+                    continue
+                lo, hi = (j, i) if j < i else (i, j)
+                pair = (state[lo], state[hi])
+                seen = self._seen_pairs.setdefault((lo, hi), set())
+                if pair not in seen:
+                    seen.add(pair)
+                    if novelty > 2.0:
+                        novelty = 2.0
+        return novelty
+
+
+class WeightedSumHeuristic:
+    """Linear combination of heuristics; with a large weight on a
+    small-range heuristic this yields a lexicographic ordering (the planner
+    stacks novelty over RGD with weight 1e6).
+    reference: cpp/src/heuristics/weighted_sum.cc:27-47, run_planner.cc:48-55.
+
+    Components are ``(callable, weight)`` pairs; each callable takes
+    ``(state, moved_object_indices)``.
+    """
+
+    def __init__(self, heuristics_and_weights):
+        self._components = list(heuristics_and_weights)
+
+    def estimate(self, state, moved_object_indices) -> float:
+        total = 0.0
+        for fn, weight in self._components:
+            total += weight * fn(state, moved_object_indices)
+        return total

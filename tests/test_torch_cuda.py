@@ -164,3 +164,98 @@ def test_solve_on_card_matches_cpu(dev):
         c = solve_puzzle(p, time_limit=60, device="cpu", **small)
         assert g.failure_reason is None and p.is_valid_plan(g.plan)
         assert (g.plan, g.expansions) == (c.plan, c.expansions)
+
+
+def _fixtures(names):
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+
+    return [(n, Puzzle.from_file(os.path.join(PUZZLES, n + ".pwp"))) for n in names]
+
+
+@pytest.mark.parametrize("mode", ["claim", "shadow"])
+def test_fleet_device_worker_on_the_card(dev, mode, monkeypatch):
+    """The fleet with its device worker on the card: no loss, no duplicate,
+    valid plans, no device failure, and lanes that went through the kernels."""
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.search import fleet
+
+    monkeypatch.setattr(fleet, "DEVICE_STEAL_GRACE_S", 1.0)
+    named = _fixtures(["chain", "spill_grid", "multi_goal", "heur/shortest_path_tool",
+                       "heur/easy_search", "simple", "no_solution"])
+    before = LAUNCHES["visited_set.fingerprint_dedup_insert"]
+    results = fleet.plan_puzzles_fleet(
+        named, time_limit=60.0, native_workers=0 if mode == "claim" else 1, group_size=4,
+        device_claim_delay=0.0, device_mode=mode, device=dev)
+    assert sorted(results) == sorted(n for n, _ in named)
+    for name, p in named:
+        r = results[name]
+        if name == "no_solution":
+            assert r.failure_reason == "no solution"
+        else:
+            assert r.failure_reason is None and p.is_valid_plan(r.plan), (name, r)
+    stats = fleet._device_stats
+    assert stats["mode"] == mode and stats["device_failed"] is False
+    if mode == "claim":
+        assert "device" in {r.solver for r in results.values()}
+        assert stats["lanes"] > 0 and stats["solved"] > 0
+        assert LAUNCHES["visited_set.fingerprint_dedup_insert"] > before
+
+
+@pytest.mark.parametrize("mode", ["claim", "shadow"])
+def test_fleet_raises_when_a_kernel_fails_on_the_card(dev, mode, monkeypatch):
+    """A kernel wrapper that raises on the card: the hosts finish every
+    instance, and the call raises instead of returning a host-only run."""
+    from pushworld_tpu_torch.ops import rgd
+    from pushworld_tpu_torch.search import fleet
+
+    def broken(*a, **k):
+        raise RuntimeError("wavefront kernel failed to launch (injected by the test)")
+
+    monkeypatch.setattr(rgd, "distance_fields", broken)
+    monkeypatch.setattr(fleet, "DEVICE_STEAL_GRACE_S", 0.2)
+    named = _fixtures(["chain", "spill_grid", "multi_goal", "simple"])
+    with pytest.raises(fleet.DeviceWorkerError, match="failed to launch") as info:
+        fleet.plan_puzzles_fleet(named, time_limit=60.0, native_workers=0, group_size=2,
+                                 device_claim_delay=0.0, device_mode=mode, device=dev)
+    assert fleet._device_stats["device_failed"] is True
+    results = info.value.results
+    assert sorted(results) == sorted(n for n, _ in named)
+    assert all(r.failure_reason is None and r.solver != "device" for r in results.values())
+
+
+def test_portfolio_device_member_on_the_card(dev, monkeypatch):
+    """No head start and a native member held back: the device member's plan,
+    found on the card, equals the one found on the CPU."""
+    import threading
+
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.native import bridge
+    from pushworld_tpu_torch.search import batched, planner
+
+    release = threading.Event()
+
+    def slow_native(*args, **kwargs):
+        release.wait(120)
+        raise TimeoutError("native member held back by the test")
+
+    monkeypatch.setenv("PW_PORTFOLIO_HEADSTART", "0")
+    monkeypatch.setattr(bridge, "solve_native_staged", slow_native)
+    small = dict(expand=32, frontier_capacity=1 << 10, visited_bits=14,
+                 history_capacity=1 << 14, pair_bits=12)
+    try:
+        for name, p in _fixtures(["spill_grid", "heur/trivial_tool2"]):
+            depth = batched.required_depth(p)
+            plans = []
+            for d in (dev, "cpu"):
+                before = LAUNCHES["visited_set.fingerprint_dedup_insert"]
+                solver = []
+                plans.append(planner._portfolio_solve(
+                    lambda: batched.BatchedPlanner(p, max_depth=depth, device=d, **small),
+                    p, compile_puzzle(p), "N+RGD", 120.0, solver))
+                assert solver == ["device"]
+                rose = LAUNCHES["visited_set.fingerprint_dedup_insert"] > before
+                assert rose == (d is dev)
+            assert plans[0] == plans[1] and p.is_valid_plan(plans[0]), name
+    finally:
+        release.set()

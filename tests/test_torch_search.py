@@ -168,20 +168,41 @@ def test_depth_escalation_and_lazy():
     assert p.is_valid_plan(lazy.solve(time_limit=60))
 
 
+def test_time_limit_ends_a_search_inside_a_chunk():
+    """A 1 s budget holds although one chunk alone would run far longer."""
+    import time
+
+    from test_torch_native import HARD
+
+    p = Puzzle.from_text(HARD)
+    planner = tb.BatchedPlanner(p, max_depth=0, pair_bits=PAIR_BITS, device="cpu", expand=64,
+                                frontier_capacity=1 << 12, visited_bits=18, history_capacity=1 << 20)
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match="time budget"):
+        planner.solve(time_limit=1.0, chunk=1 << 20)
+    assert 1.0 <= time.monotonic() - t0 < 60.0  # the chunk alone would take hours
+    assert 0 < int(planner.last_state.iterations) < 1 << 20
+    # With no deadline a chunk runs its full count.
+    s = tb.run_chunk(planner.cp_dev, planner.tables, planner.config, planner.init_state(), 7)
+    assert int(s.iterations) == 7
+    s = tb.run_chunk(planner.cp_dev, planner.tables, planner.config, s, 7, time.monotonic() - 1.0)
+    assert int(s.iterations) == 7
+
+
 def test_plan_puzzles_and_cli(capsys):
     from pushworld_tpu_torch.scripts.run_planner import main
 
     named = [(n, Puzzle.from_file(os.path.join(PUZZLES, n + ".pwp")))
              for n in ("chain", "heur/two_tools", "no_solution", "agent_only")]
-    res = plan_puzzles(named, device="cpu", pair_bits=PAIR_BITS, **SMALL)
-    assert res["no_solution"].failure_reason == "no solution"
-    assert res["agent_only"].plan == []
-    for n in ("chain", "heur/two_tools"):
-        assert res[n].failure_reason is None and dict(named)[n].is_valid_plan(res[n].plan)
-    with pytest.raises(NotImplementedError):
-        plan_puzzles(named, portfolio=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        solve_puzzle(named[0][1], planner="host", device="cpu")
+    for portfolio, solver in ((False, "device"), (True, "native")):
+        res = plan_puzzles(named, portfolio=portfolio, device="cpu", pair_bits=PAIR_BITS, **SMALL)
+        assert res["no_solution"].failure_reason == "no solution"
+        assert res["agent_only"].plan == []
+        for n in ("chain", "heur/two_tools"):
+            assert res[n].failure_reason is None and dict(named)[n].is_valid_plan(res[n].plan)
+        assert {r.solver for r in res.values()} == {solver}
+    r = solve_puzzle(named[0][1], planner="host", device="cpu")
+    assert r.failure_reason is None and named[0][1].is_valid_plan(r.plan)
 
     assert main(["N+RGD", os.path.join(PUZZLES, "chain.pwp"), "--device", "cpu"]) == 0
     out = capsys.readouterr().out.strip()
