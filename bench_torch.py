@@ -34,6 +34,8 @@ Environment overrides:
   PUSHWORLD_BENCH_BUDGET  per-puzzle seconds (default 20)
   PUSHWORLD_BENCH_BASELINE  "ref" | "native" | "skip" (default ref)
   PUSHWORLD_BENCH_PROTOCOL  "full60" = all four levels, 60 s per puzzle
+  PUSHWORLD_BENCH_ENV     "0" leaves out detail["env_throughput"] (batched
+                          env steps/s at batch 4096, horizon 128, 3 reps)
   PW_BENCH_WATCHDOG_S     watchdog deadline seconds (default 780; <= 0
                           disables)
   PW_PROFILE_DIR          when set, capture a torch.profiler trace of the
@@ -126,14 +128,34 @@ def run_native_baseline(named, budget: float):
     return solved, time.monotonic() - t0
 
 
-def card_info() -> dict:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    line = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    name, _, limit = line.partition(",")
-    return {"name": name.strip(), "power_limit": limit.strip()}
+# The env-throughput measurement's size (the JAX benchmark's own).
+ENV_BATCH, ENV_HORIZON, ENV_REPS = 4096, 128, 3
+
+
+def env_throughput_detail(named, device="cuda"):
+    """``detail["env_throughput"]``: batched env steps/s on the largest-grid
+    puzzle of the set (so that the roofline estimate means something), with
+    the card's name and power limit under ``device``.  None when
+    ``PUSHWORLD_BENCH_ENV=0`` switches it off; a failure is reported as
+    ``{"error": ...}`` in its place and nowhere else."""
+    if os.environ.get("PUSHWORLD_BENCH_ENV", "1") == "0":
+        return None
+    try:
+        from pushworld_tpu_torch.envs.throughput import measure_env_throughput
+
+        name, puzzle = max(named, key=lambda np_: np_[1].height * np_[1].width)
+        log(f"env throughput on {name}")
+        out = dict(
+            measure_env_throughput(
+                puzzle, batch_size=ENV_BATCH, horizon=ENV_HORIZON, reps=ENV_REPS, device=device
+            ),
+            puzzle=name,
+        )
+        log(f"env throughput done: {out.get('steps_per_s')}")
+        return out
+    except Exception as e:  # the measurement must not cost the headline
+        log(f"env throughput FAILED: {type(e).__name__}: {e}")
+        return {"error": f"{type(e).__name__}: {e}"}
 
 
 def main() -> int:
@@ -157,6 +179,8 @@ def main() -> int:
     # Stack dumps to stderr if anything wedges near the watchdog deadline.
     if watchdog_s > 0:
         faulthandler.dump_traceback_later(max(60.0, watchdog_s - 10.0), file=sys.stderr)
+
+    from pushworld_tpu_torch.device import card_info
 
     detail = {"set": spec, "budget_s": budget, "device": card_info()}
     emitted = {"done": False}
@@ -233,6 +257,12 @@ def main() -> int:
 
     if watchdog_s > 0:
         threading.Thread(target=watchdog, daemon=True).start()
+
+    # --- vectorized-env throughput, before the fleet phase so that the
+    # headline can be emitted the moment the fleet finishes.
+    env_detail = env_throughput_detail(named)
+    if env_detail is not None:
+        detail["env_throughput"] = env_detail
 
     # --- fleet executor (the headline).
     if profile_dir:

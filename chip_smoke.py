@@ -6,7 +6,7 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 Phases, each printing one JSON line:
 
 1. ``build``: compiles every CUDA kernel of the port with nvcc (sm_90a), in
-   parallel.
+   parallel, and beside them the empty kernel that measures a launch.
 2. ``wavefront``: on a 47 x 54 puzzle written from ``--seed`` (border walls,
    agent, one goal object, two obstacles), runs each object's all-pairs
    fields (one field per graph vertex, one shared mask stack) and the goal
@@ -29,18 +29,37 @@ Phases, each printing one JSON line:
    plan must pass the oracle; the unsolvable fixtures must report
    "no solution"; every kernel must have been launched.  Two small fixtures
    are also solved on the CPU and must give the same plan and expansions.
-5. ``native``: the native serial planner, built from
+5. ``graphs``: the device graph ops.  ``build_reachability`` on the card
+   must equal the native fixpoint's ``E`` and its own CPU run on ten ``heur``
+   fixtures and on the 47 x 54 puzzle (iteration counts and seconds are
+   printed); ``all_pairs_distances`` of the agent's graph there (2,538 fields)
+   goes through the wavefront kernel and must equal the plain version and the
+   scipy BFS on the graph's vertices; a capped ``distance_to_targets`` too.
+6. ``envs``: the environment half at batch 4096.  The same seed-made actions
+   drive ``VectorEnv`` on the card and on the CPU for 64 steps, on the
+   47 x 54 puzzle and on a stacked batch of three fixtures: every output of
+   every step must be equal, and 256 rollouts must follow the oracle step by
+   step, auto-resets included.  The batched one-hot renderer must equal the
+   per-state renderer on 256 states and the CPU's result on all.  The greedy
+   goal-distance policy, with tables built on the card (the wavefront kernel
+   launches, and the tables must equal the CPU's), must reach the goal in
+   every rollout.  ``measure_env_throughput`` runs at batch 4096, horizon
+   128, 3 reps, with and without observations; a profiled window gives
+   kernels per step and the device-busy share, and the step and the renderer
+   are timed alone, the renderer beside its bytes bound.  The Gym and dm_env
+   wrappers are held against the oracle where their packages are installed.
+7. ``native``: the native serial planner, built from
    ``pushworld_tpu_torch/native/planner.cc`` by the host C++ compiler (the
    build starts beside the nvcc builds), must be available; it solves every
    solvable fixture in both modes and through the staged schedule, reports
    "no solution" on the unsolvable ones, and its movement-graph fixpoint
    must equal the Python worklist on every puzzle.  The table build of the
    47 x 54 puzzle is timed with either fixpoint.
-6. ``portfolio``: ``plan_puzzles(portfolio=True, time_limit=60)`` on all 29
+8. ``portfolio``: ``plan_puzzles(portfolio=True, time_limit=60)`` on all 29
    puzzles, then a second pass with ``PW_PORTFOLIO_HEADSTART=0`` over two
    fixtures and a 16 x 16 puzzle that outlasts the native planner, in which
    the device member must engage.
-7. ``fleet``: ``plan_puzzles_fleet`` on the 29 puzzles with the device worker
+9. ``fleet``: ``plan_puzzles_fleet`` on the 29 puzzles with the device worker
    alone in claim mode, with the defaults (shadow mode, one native worker per
    core) and with the device off; then a run in which every core holds a
    native worker on the 16 x 16 puzzle while the device worker shadows the
@@ -48,8 +67,13 @@ Phases, each printing one JSON line:
    many native threads as cores.  One lane's device bytes are measured
    beside ``fleet.bytes_per_lane``.
 
-The launch counts are set to 0 before each of the phases 4, 6 and 7 (and
-each fleet run) and read after it.  The card line (nvidia-smi) comes first; the kernels line comes just before
+The launch counts are set to 0 before each of the phases 4, 5, 6, 8 and 9
+(and each fleet run) and read after it.  Beside ``ms`` (CUDA events around
+the wrapper: for the small kernels the host's enqueue time) every kernel has
+``device_ms``, its own time from ``torch.profiler``; an empty kernel, built
+from a source in this script, is launched and timed the same two ways as the
+floor of any launch, and it is the bound (``bound_by: "launch"``) of a kernel
+whose bytes take less.  The card line (nvidia-smi) comes first; the kernels line comes just before
 the last line, the result.
 Any failure raises and the script exits non-zero.  It exits non-zero without
 a result when there is no CUDA device or no port package beside it.
@@ -158,6 +182,100 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+LAUNCH_FLOOR_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void pw_empty_kernel() {}
+extern "C" int pw_empty_launch(void* stream) {
+  pw_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def start_launch_floor_build():
+    """Starts nvcc on the empty kernel (beside the port's own builds);
+    returns (process, library path)."""
+    from pushworld_tpu_torch.kernels import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD_DIR / "launch_floor.cu"
+    src.write_text(LAUNCH_FLOOR_SRC)
+    lib = _build.BUILD_DIR / "liblaunch_floor.so"
+    cmd = [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-o", str(lib), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
+def profile_device(fn, reps: int = 1) -> dict:
+    """``fn`` called ``reps`` times under torch.profiler, as
+    ``scripts/profile_search.py`` counts: wall seconds (host clock, ending in
+    a synchronise), the device's busy microseconds, the number of device
+    kernels (copies and memsets included) and [count, microseconds] by
+    kernel name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    check(len(rows) > 0, "torch.profiler recorded no device time")
+    return {"wall_s": wall_s, "busy_us": sum(dev_us(e) for e in rows),
+            "n_kernels": sum(e.count for e in rows),
+            "by_kernel": {e.key: [e.count, dev_us(e)] for e in rows}}
+
+
+def kernel_device_ms(prof: dict, *names: str, calls: int) -> float:
+    """Device milliseconds per call of the kernels whose names contain one of
+    ``names``, from a :func:`profile_device` result over ``calls`` calls."""
+    hit = [v for k, v in prof["by_kernel"].items() if any(n in k for n in names)]
+    check(len(hit) >= len(names), f"profiler saw no kernel named {names}: {sorted(prof['by_kernel'])}")
+    return sum(us for _, us in hit) / 1e3 / calls
+
+
+def _top_kernels(prof: dict, n: int):
+    """The ``n`` kernels with the most device time of a
+    :func:`profile_device` result, as (shortened name, microseconds)."""
+    by_short = {}
+    for name, (_, us) in prof["by_kernel"].items():
+        short = name.replace("void ", "").replace("at::native::", "")[:160]
+        by_short[short] = by_short.get(short, 0) + us
+    return sorted(by_short.items(), key=lambda kv: -kv[1])[:n]
+
+
+def measure_launch_floor(proc, lib_path) -> dict:
+    """The empty kernel through ctypes, as the hand kernels are launched:
+    milliseconds per launch by CUDA events over back-to-back launches, and
+    the kernel's own device time."""
+    import ctypes
+
+    import torch
+
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"nvcc failed for the empty kernel:\n{log}")
+    lib = ctypes.CDLL(str(lib_path))
+    lib.pw_empty_launch.argtypes = [ctypes.c_void_p]
+    lib.pw_empty_launch.restype = ctypes.c_int
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        check(lib.pw_empty_launch(stream) == 0, "empty kernel launch failed")
+
+    event_ms = cuda_time_ms(launch, reps=500)
+    prof = profile_device(launch, reps=200)
+    out = {"event_ms": event_ms, "device_ms": kernel_device_ms(prof, "pw_empty_kernel", calls=200)}
+    emit({"phase": "launch_floor", **out})
+    return out
+
+
 def phase_wavefront(puzzle, dev):
     """Kernel vs plain version on every field of the table build; returns the
     kernels-line entry (timed on the largest all-pairs launch)."""
@@ -244,6 +362,8 @@ def phase_wavefront(puzzle, dev):
         n_fields += d0_x.shape[0]
     ms = cuda_time_ms(lambda: distance_fields(E_o, d0), reps=20)
     plain_ms = cuda_time_ms(lambda: distance_fields_reference(E_o, d0), reps=2)
+    device_ms = kernel_device_ms(profile_device(lambda: distance_fields(E_o, d0), reps=10),
+                                 "pack_masks_kernel", "wavefront_kernel", calls=10)
     # Bound of the function (a distance transform), not of this kernel's
     # sweeps: each input read once (the 4 shared bool mask planes, the f32
     # seeds), the f32 output written once; one visit per cell per field, 4
@@ -253,12 +373,12 @@ def phase_wavefront(puzzle, dev):
     bound_s = max(n_bytes / H100_BYTES_PER_S, n_ops / H100_F32_OPS_PER_S)
     emit({"phase": "wavefront", "grid": [H, W], "objects": puzzle.num_movables,
           "fields_checked": n_fields + len(goals), "timed_fields": R, "ms": ms,
-          "plain_ms": plain_ms, "max_abs_err": err})
+          "device_ms": device_ms, "plain_ms": plain_ms, "max_abs_err": err})
     return {
-        "name": "wavefront", "route": "cuda",
+        "name": "wavefront", "route": "cuda", "bytes_bound_ms": n_bytes / H100_BYTES_PER_S * 1e3,
         "source": "pushworld_tpu_torch/kernels/wavefront.cu",
         "replaces": "pushworld_tpu/ops/graphs_pallas.py:38",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
         "bound_ms": bound_s * 1e3,
         "bound_by": "bytes" if n_bytes / H100_BYTES_PER_S >= n_ops / H100_F32_OPS_PER_S else "operations",
         "library_ms": None,
@@ -340,9 +460,12 @@ def _fused_checks_and_times(dev, rng, bits, B):
             keys = hs_mod.fingerprint(states, width)
             return hs_mod.probe_and_insert(table, keys, hs_mod.dedup_batch(keys, valid))
 
-        tables = [hs_mod.init_hashset(bits, device=dev) for _ in range(3)]
+        tables = [hs_mod.init_hashset(bits, device=dev) for _ in range(4)]
         out[f"n_obj_{n_obj}"] = {
             "ms": cuda_time_ms(over_batches(hs_mod.fingerprint_dedup_insert, tables[0]), reps=n_kern - 1),
+            "device_ms": kernel_device_ms(
+                profile_device(over_batches(hs_mod.fingerprint_dedup_insert, tables[3]), reps=n_kern),
+                "fingerprint_dedup_insert_kernel", calls=n_kern),
             "three_step_composition_ms": cuda_time_ms(over_batches(three_steps, tables[1]), reps=n_kern - 1),
             "plain_ms": cuda_time_ms(
                 over_batches(hs_mod.fingerprint_dedup_insert_reference, tables[2]), reps=n_plain - 1),
@@ -350,9 +473,9 @@ def _fused_checks_and_times(dev, rng, bits, B):
     return out
 
 
-def phase_visited_set(dev):
+def phase_visited_set(dev, floor):
     """Insert/delete and fused kernels vs their plain versions; returns three
-    kernels-line entries.  The insert's error is the largest ``is_new`` difference (0 or 1)
+    kernels-line entries.  ``floor``: :func:`measure_launch_floor`'s result.  The insert's error is the largest ``is_new`` difference (0 or 1)
     on the compared lanes; the delete's is the number of keys by which the
     compared memberships differ after a round."""
     import numpy as np
@@ -440,32 +563,48 @@ def phase_visited_set(dev):
     ins_plain = cuda_time_ms(over_batches(hs_mod.probe_and_insert_reference, t2), reps=n_plain - 1)
     del_ms = cuda_time_ms(over_batches(hs_mod.probe_delete, t1), reps=n_kern - 1)
     del_plain = cuda_time_ms(over_batches(hs_mod.probe_delete_reference, t2), reps=n_plain - 1)
-    for t in (t1, t2):
+    t3 = hs_mod.init_hashset(bits, device=dev)
+    ins_dev = kernel_device_ms(profile_device(over_batches(hs_mod.probe_and_insert, t3), reps=n_kern),
+                               "probe_and_insert_kernel", calls=n_kern)
+    del_dev = kernel_device_ms(profile_device(over_batches(hs_mod.probe_delete, t3), reps=n_kern),
+                               "probe_delete_kernel", calls=n_kern)
+    for t in (t1, t2, t3):
         check(not ((t.keys != 0) & (t.keys != -1)).any(), "timed deletes left keys behind")
     fused = _fused_checks_and_times(dev, rng, bits, B)
     emit({"phase": "visited_set", "table_slots": 1 << bits, "batch": B,
           "race_free_lanes_compared": checked, "raced_lanes": raced,
           "insert_max_abs_err": ins_err, "delete_max_abs_err": del_err,
-          "insert_ms": ins_ms, "insert_plain_ms": ins_plain,
-          "delete_ms": del_ms, "delete_plain_ms": del_plain, "fused": fused})
-    # Bound: per lane the key (8 B), its flag (1 B), one table word read
-    # (8 B) and one written (8 B), plus is_new (1 B) for the insert.
+          "insert_ms": ins_ms, "insert_device_ms": ins_dev, "insert_plain_ms": ins_plain,
+          "delete_ms": del_ms, "delete_device_ms": del_dev, "delete_plain_ms": del_plain,
+          "fused": fused})
     common = {"route": "cuda", "source": "pushworld_tpu_torch/kernels/visited_set.cu",
-              "bound_by": "bytes", "library_ms": None}
+              "library_ms": None}
+
+    def bound(lane_bytes):
+        """The bytes a batch must move at the card's memory rate, or the
+        empty kernel's device time where that is the larger: no kernel ends
+        sooner than a launch."""
+        bytes_ms = B * lane_bytes / H100_BYTES_PER_S * 1e3
+        if bytes_ms >= floor["device_ms"]:
+            return {"bound_ms": bytes_ms, "bound_by": "bytes", "bytes_bound_ms": bytes_ms}
+        return {"bound_ms": floor["device_ms"], "bound_by": "launch", "bytes_bound_ms": bytes_ms}
+
+    # Per lane the key (8 B), its flag (1 B), one table word read (8 B) and
+    # one written (8 B), plus is_new (1 B) for the insert.  Fused: the state
+    # (8N B) and its flag read, the key and is_new written, one table word
+    # read and one written.
     return [
         dict(common, name="visited_set.probe_and_insert",
-             replaces="pushworld_tpu/ops/hashset.py:106", ms=ins_ms, plain_ms=ins_plain,
-             max_abs_err=ins_err, bound_ms=B * 26 / H100_BYTES_PER_S * 1e3),
+             replaces="pushworld_tpu/ops/hashset.py:106", ms=ins_ms, device_ms=ins_dev,
+             plain_ms=ins_plain, max_abs_err=ins_err, **bound(26)),
         dict(common, name="visited_set.probe_delete",
-             replaces="pushworld_tpu/ops/hashset.py:158", ms=del_ms, plain_ms=del_plain,
-             max_abs_err=del_err, bound_ms=B * 25 / H100_BYTES_PER_S * 1e3),
-        # Per lane: the state (8N B) and its flag read, the key (8 B) and
-        # is_new (1 B) written, one table word read and one written.
+             replaces="pushworld_tpu/ops/hashset.py:158", ms=del_ms, device_ms=del_dev,
+             plain_ms=del_plain, max_abs_err=del_err, **bound(25)),
         dict(common, name="visited_set.fingerprint_dedup_insert",
              replaces="pushworld_tpu/ops/hashset.py:54,83,106",
-             ms=fused["n_obj_4"]["ms"], plain_ms=fused["n_obj_4"]["plain_ms"],
-             max_abs_err=fused["max_abs_err"],
-             bound_ms=B * (8 * 4 + 26) / H100_BYTES_PER_S * 1e3),
+             ms=fused["n_obj_4"]["ms"], device_ms=fused["n_obj_4"]["device_ms"],
+             plain_ms=fused["n_obj_4"]["plain_ms"], max_abs_err=fused["max_abs_err"],
+             **bound(8 * 4 + 26)),
     ]
 
 
@@ -521,6 +660,297 @@ def phase_cpu_agreement(puzzles, dev):
               f"{name}: card and CPU searches differ ({g.expansions} vs {c.expansions})")
         out.append(name)
     emit({"phase": "cpu_agreement", "puzzles": out})
+
+
+GRAPH_FIXTURES = ("trivial", "trivial_tool", "trivial_tool2", "multiple_goals", "transitive_pushing",
+                  "necessary_transitive_pushing1", "necessary_transitive_pushing2",
+                  "blocked_transitive_pushing1", "blocked_transitive_pushing2", "shortest_path_tool")
+
+
+def phase_graphs(puzzles, generated, dev):
+    """The device graph ops on the card: the reachability fixpoint against
+    the native fixpoint and its CPU run, all-pairs distances through the
+    wavefront kernel against the plain version and the scipy BFS."""
+    import numpy as np
+    import torch
+
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.native import bridge
+    from pushworld_tpu_torch.ops import graphs
+    from pushworld_tpu_torch.ops.graphs_cuda import distance_to_targets
+
+    by_name = dict(puzzles)
+    named = [(f"heur/{n}", by_name[f"heur/{n}"]) for n in GRAPH_FIXTURES] + [("generated_47x54", generated)]
+    LAUNCHES.clear()
+    rows = {}
+    for name, p in named:
+        cp = compile_puzzle(p)
+        stats, stats_cpu = {}, {}
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        E, reached = graphs.build_reachability(cp, device=dev, stats_out=stats)
+        torch.cuda.synchronize()
+        card_s = time.monotonic() - t
+        t = time.monotonic()
+        E_cpu, reached_cpu = graphs.build_reachability(cp, device="cpu", stats_out=stats_cpu)
+        cpu_s = time.monotonic() - t
+        check(torch.equal(E.cpu(), E_cpu) and torch.equal(reached.cpu(), reached_cpu) and stats == stats_cpu,
+              f"build_reachability: card != CPU ({name})")
+        n = p.num_movables
+        check(np.array_equal(E.cpu().numpy()[:, :n], bridge.build_graphs_native(p, cp).astype(bool)),
+              f"build_reachability != native fixpoint ({name})")
+        rows[name] = {"iterations": stats["iterations"], "card_s": card_s, "cpu_s": cpu_s}
+
+    # All-pairs distances of the agent's graph on the 47 x 54 puzzle.
+    cp = compile_puzzle(generated)
+    H, W = cp.height, cp.width
+    E_o = E[:, 0]  # the generated puzzle came last
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    D = graphs.all_pairs_distances(E_o)
+    torch.cuda.synchronize()
+    all_pairs_s = time.monotonic() - t
+    check(LAUNCHES["wavefront"] == 1, "all_pairs_distances did not launch the wavefront kernel once")
+    d0 = torch.full((H * W, H * W), graphs.INF, dtype=torch.float32, device=dev)
+    d0.fill_diagonal_(0.0)
+    want = graphs.distance_fields_reference(E_o[None], d0.reshape(-1, H, W)).reshape(H * W, H * W).T
+    err = (D - want).abs().max().item()
+    check(torch.equal(D, want), "all_pairs_distances != plain version")
+    E_np = E_o.cpu().numpy()
+    init = generated.initial_state[0]
+    verts = np.nonzero(graphs.host_vertex_mask(E_np, init[1] * W + init[0]))[0]
+    block = D.cpu().numpy()[np.ix_(verts, verts)]
+    check(np.array_equal(block, graphs.host_graph_distances_compact(E_np, verts)),
+          "all_pairs_distances != scipy BFS on the graph's vertices")
+    # One capped field, kernel against plain version and host BFS.
+    targets = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    targets[init[1], init[0]] = True
+    capped = distance_to_targets(E_o, targets, max_iters=9)
+    bfs = graphs.host_distance_to_targets(E_np, init[1] * W + init[0])
+    check(np.array_equal(capped.cpu().numpy(), np.where(bfs <= 9, bfs, np.float32(graphs.INF))),
+          "capped distance_to_targets != host BFS cut at the cap")
+    launches = dict(LAUNCHES)
+    emit({"phase": "graphs", "puzzles": len(named), "reachability": rows,
+          "all_pairs": {"grid": [H, W], "fields": H * W, "vertices": len(verts), "seconds": all_pairs_s,
+                        "max_abs_err": err},
+          "launches": launches})
+    return launches
+
+
+def _env_card_cpu_oracle(what, puzzle_list, cp, idx_np, max_steps, n_steps, n_oracle, rng, dev):
+    """The same actions through VectorEnv on the card and on the CPU: every
+    output of every step equal; the first ``n_oracle`` rollouts follow the
+    oracle of their puzzle step by step.  Returns the card's last positions."""
+    import numpy as np
+    import torch
+
+    from pushworld_tpu_torch.envs.vector_env import VectorEnv
+
+    B = len(idx_np)
+    env_g = VectorEnv(cp, max_steps=max_steps, device=dev)
+    env_c = VectorEnv(cp, max_steps=max_steps, device="cpu")
+    idx = torch.as_tensor(idx_np)
+    st_g, st_c = env_g.reset(None, B, idx), env_c.reset(None, B, idx)
+    oracle = [(puzzle_list[i].initial_state, 0) for i in idx_np[:n_oracle]]
+    terminated_n = truncated_n = 0
+    for t, a in enumerate(rng.integers(0, 4, (n_steps, B)).astype(np.int32)):
+        out_g = env_g.step(st_g, torch.as_tensor(a, device=dev))
+        out_c = env_c.step(st_c, torch.as_tensor(a))
+        torch.cuda.synchronize()
+        st_g, st_c = out_g[0], out_c[0]
+        for f in ("positions", "steps", "achieved", "puzzle_idx"):
+            check(torch.equal(getattr(st_g, f).cpu(), getattr(st_c, f)), f"{what}: EnvState.{f} differs at step {t}")
+        for name, g, c in zip(("positions", "reward", "terminated", "truncated"), out_g[1:], out_c[1:]):
+            check(g.dtype == c.dtype and torch.equal(g.cpu(), c), f"{what}: {name} differs at step {t}")
+        _, pos, reward, term, trunc = out_c
+        terminated_n += int(term.sum())
+        truncated_n += int(trunc.sum())
+        for b in range(n_oracle):
+            p = puzzle_list[idx_np[b]]
+            s, steps = oracle[b]
+            nxt, steps = p.get_next_state(s, int(a[b])), steps + 1
+            goal = p.is_goal_state(nxt)
+            want_r = 10.0 if goal else np.float32(
+                np.float32(p.count_achieved_goals(nxt) - p.count_achieved_goals(s)) - np.float32(0.01))
+            cut = (not goal) and max_steps is not None and steps >= max_steps
+            check(pos[b, : p.num_movables].tolist() == [list(xy) for xy in nxt]
+                  and float(reward[b]) == float(want_r) and bool(term[b]) == goal and bool(trunc[b]) == cut,
+                  f"{what}: rollout {b} leaves the oracle at step {t}")
+            oracle[b] = (p.initial_state, 0) if goal or cut else (nxt, steps)
+    return out_g[1], {"batch": B, "steps": n_steps, "max_steps": max_steps, "oracle_rollouts": n_oracle,
+                      "terminated": terminated_n, "truncated": truncated_n}
+
+
+def _wrappers_against_oracle(puzzle_path, puzzle):
+    """The Gym and dm_env wrappers (host code) where their packages exist."""
+    import importlib.util
+
+    import numpy as np
+
+    from pushworld_tpu_torch.envs.env_utils import render_observation_padded
+
+    actions = [1, 3, 0, 1, 2, 1, 1]
+    out = {}
+    if importlib.util.find_spec("gymnasium") or importlib.util.find_spec("gym"):
+        from pushworld_tpu_torch.envs.gym_env import PushWorldEnv
+
+        env = PushWorldEnv(puzzle_path, max_steps=5, pixels_per_cell=8)
+        obs, info = env.reset(seed=1)
+        s, n = puzzle.initial_state, 0
+        check(info["puzzle_state"] == s, "gym: reset state")
+        for a in actions:
+            obs, r, term, trunc, info = env.step(a)
+            nxt, n = puzzle.get_next_state(s, a), n + 1
+            goal = puzzle.is_goal_state(nxt)
+            want_r = 10.0 if goal else puzzle.count_achieved_goals(nxt) - puzzle.count_achieved_goals(s) - 0.01
+            check(info["puzzle_state"] == nxt and r == want_r and term == goal and trunc == (n >= 5),
+                  "gym: a step leaves the oracle")
+            check(np.array_equal(obs, render_observation_padded(puzzle, nxt, puzzle.height, puzzle.width, 8, 2)),
+                  "gym: observation != padded render")
+            if term or trunc:
+                break
+            s = nxt
+        out["gym"] = "ok"
+    else:
+        out["gym"] = "not installed"
+    if importlib.util.find_spec("dm_env"):
+        from pushworld_tpu_torch.envs.dm_env_impl import PushWorldEnv as DmEnv
+
+        env = DmEnv(puzzle_path, max_steps=5, pixels_per_cell=8)
+        check(env.reset(seed=1).first(), "dm_env: reset is no first step")
+        s, n = puzzle.initial_state, 0
+        for a in actions:
+            ts = env.step(a)
+            nxt, n = puzzle.get_next_state(s, a), n + 1
+            goal = puzzle.is_goal_state(nxt)
+            want_r = 10.0 if goal else puzzle.count_achieved_goals(nxt) - puzzle.count_achieved_goals(s) - 0.01
+            check(env.current_state == nxt and ts.reward == want_r and ts.last() == (goal or n >= 5),
+                  "dm_env: a step leaves the oracle")
+            if ts.last():
+                break
+            s = nxt
+        out["dm_env"] = "ok"
+    else:
+        out["dm_env"] = "not installed"
+    return out
+
+
+def phase_envs(puzzles, generated, dev, batch=4096, horizon=128):
+    """The environment half on the card, at the JAX benchmark's batch and
+    horizon unless a rehearsal asks for less."""
+    import numpy as np
+    import torch
+
+    from pushworld_tpu_torch.core.compiled import compile_batch, compile_puzzle
+    from pushworld_tpu_torch.envs.policies import make_greedy_policy
+    from pushworld_tpu_torch.envs.throughput import measure_env_throughput
+    from pushworld_tpu_torch.envs.vector_env import VectorEnv
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.ops import render
+    from pushworld_tpu_torch.ops.rgd import build_rgd_tables
+
+    LAUNCHES.clear()
+    by_name = dict(puzzles)
+    rng = np.random.default_rng(4)
+    B = batch
+    out = {"phase": "envs", "batch": B}
+
+    # (a) one puzzle, the 47 x 54 one; (b) a stacked batch of three sizes.
+    cp = compile_puzzle(generated)
+    n_oracle = min(B, 256)
+    last_pos, out["single_47x54"] = _env_card_cpu_oracle(
+        "single", [generated], cp, np.zeros(B, np.int32), 40, 64, n_oracle, rng, dev)
+    check(out["single_47x54"]["truncated"] == B, "single: every rollout is truncated once in 64 steps")
+    trio = [by_name[n] for n in ("simple", "chain", "push_left")]
+    idx = rng.integers(0, 3, B).astype(np.int32)
+    _, out["stacked_3"] = _env_card_cpu_oracle("stacked", trio, compile_batch(trio), idx, 9, 64, n_oracle, rng, dev)
+    check(out["stacked_3"]["terminated"] > 0 and out["stacked_3"]["truncated"] > 0,
+          "stacked: the walks neither reached a goal nor were truncated")
+
+    # (c) the renderers on the states of (a).
+    t_g = render.compile_render_tables(generated, cp, device=dev)
+    t_c = render.compile_render_tables(generated, cp, device="cpu")
+    obs = render.render_cells_onehot_batched(t_g, last_pos)
+    torch.cuda.synchronize()
+    check(obs.shape == (B, cp.height, cp.width, 6) and obs.dtype == torch.float32 and obs.is_contiguous(),
+          "batched renderer: shape, type or layout")
+    check(torch.equal(obs[:n_oracle],
+                      torch.stack([render.render_cells_onehot(t_g, s) for s in last_pos[:n_oracle]])),
+          "batched renderer != per-state renderer")
+    check(torch.equal(obs.cpu(), render.render_cells_onehot_batched(t_c, last_pos.cpu())),
+          "batched renderer: card != CPU")
+    check(torch.equal(render.render_cells_rgb(t_g, last_pos[:n_oracle]).cpu(),
+                      render.render_cells_rgb(t_c, last_pos[:n_oracle].cpu())), "rgb renderer: card != CPU")
+    del obs
+
+    # (d) the greedy policy with tables built on the card.
+    simple = by_name["simple"]
+    cp_s = compile_puzzle(simple)
+    before = LAUNCHES["wavefront"]
+    tables = build_rgd_tables(simple, cp_s, device=dev)
+    tables_cpu = build_rgd_tables(simple, cp_s, device="cpu")
+    check(LAUNCHES["wavefront"] > before, "the table build launched no wavefront kernel")
+    check(torch.equal(tables.Dflat.cpu(), tables_cpu.Dflat) and torch.equal(tables.DG.cpu(), tables_cpu.DG),
+          "tables built by the kernel != tables built by the plain version")
+    env = VectorEnv(cp_s, max_steps=30, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    _, (rewards, terms) = env.rollout(gen, make_greedy_policy(env.puzzles, tables), batch_size=min(B, 1024), horizon=20)
+    check(bool(terms.any(dim=0).all()) and bool((rewards[terms] == 10.0).all()),
+          "greedy policy: a rollout never reached the goal")
+    out["greedy"] = {"puzzle": "simple", "batch": min(B, 1024), "goals_reached": int(terms.sum())}
+
+    # (e) throughput at the benchmark's size, then a profiled window and the
+    # step and the renderer alone.
+    for key, with_obs in (("throughput_obs", True), ("throughput_no_obs", False)):
+        r = measure_env_throughput(generated, batch_size=B, horizon=horizon, reps=3, observations=with_obs,
+                                   host_baseline_steps=200 if with_obs else 0, device=dev)
+        check(r["steps_per_s"] > 0 and r["device"]["name"] == torch.cuda.get_device_name(0),
+              f"{key}: {r}")
+        out[key] = r
+    pct = out["throughput_obs"]["hbm_roofline_pct"]
+    check(pct is not None and 0 < pct < 100, f"hbm_roofline_pct = {pct}")
+    env = VectorEnv(cp, device=dev)
+    state = [env.reset(None, B, torch.zeros(B, dtype=torch.int32))]
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def one_step(with_obs):
+        actions = torch.randint(0, 4, (B,), generator=gen, device=dev)
+        state[0], pos, reward, _, _ = env.step(state[0], actions)
+        if with_obs:
+            render.render_cells_onehot_batched(t_g, pos)
+        return reward.sum()
+
+    window = 32
+    for key, with_obs in (("profile_obs", True), ("profile_no_obs", False)):
+        for _ in range(4):
+            one_step(with_obs)
+        prof = profile_device(lambda: one_step(with_obs), reps=window)
+        top = _top_kernels(prof, 8)
+        out[key] = {"steps": window, "ms_per_step": prof["wall_s"] / window * 1e3,
+                    "kernels_per_step": prof["n_kernels"] / window,
+                    "device_busy_share": prof["busy_us"] / (prof["wall_s"] * 1e6),
+                    "device_ms_per_step": prof["busy_us"] / 1e3 / window,
+                    "top_kernels_device_ms_per_step": {k: us / 1e3 / window for k, us in top}}
+    pos = state[0].positions
+    obs_bytes = B * cp.height * cp.width * 6 * 4
+    out["alone"] = {
+        "step_ms": cuda_time_ms(lambda: one_step(False), reps=50),
+        "render_ms": cuda_time_ms(lambda: render.render_cells_onehot_batched(t_g, pos), reps=50),
+        "render_bytes": obs_bytes,
+        "render_bound_ms": obs_bytes / H100_BYTES_PER_S * 1e3,
+        # What the card takes to write that many bytes at all: one fill.
+        "fill_same_bytes_ms": cuda_time_ms(
+            lambda o=render.render_cells_onehot_batched(t_g, pos): o.zero_(), reps=50),
+    }
+
+    # (f) the wrappers: host code.
+    out["wrappers"] = _wrappers_against_oracle(os.path.join(ROOT, "tests", "puzzles", "simple.pwp"), simple)
+    launches = dict(LAUNCHES)
+    check(launches.get("wavefront", 0) >= 1, "the envs phase launched no wavefront kernel")
+    out["launches"] = launches
+    emit(out)
+    return launches
 
 
 def phase_native(puzzles, generated, dev):
@@ -833,6 +1263,7 @@ def main() -> int:
     t = time.monotonic()
     native_build = threading.Thread(target=bridge.is_available)
     native_build.start()
+    floor_build = start_launch_floor_build()
     libs = _build.build(verbose=True)
     nvcc_s = time.monotonic() - t
     native_build.join()
@@ -841,8 +1272,9 @@ def main() -> int:
 
     generated = Puzzle.from_text(generated_puzzle_text(args.seed))
     check((generated.height, generated.width) == (47, 54), "generated puzzle is not 47x54")
+    floor = measure_launch_floor(*floor_build)
     kernels = [phase_wavefront(generated, dev)]
-    kernels += phase_visited_set(dev)
+    kernels += phase_visited_set(dev, floor)
 
     files = sorted(glob.glob(os.path.join(ROOT, "tests", "puzzles", "*.pwp"))
                    + glob.glob(os.path.join(ROOT, "tests", "puzzles", "heur", "*.pwp")))
@@ -851,21 +1283,25 @@ def main() -> int:
     check(len(puzzles) == 28, f"expected 28 fixtures, found {len(puzzles)}")
     launches, solve_classes = phase_solve(puzzles, generated, dev)
     phase_cpu_agreement(puzzles, dev)
+    graphs_launches = phase_graphs(puzzles, generated, dev)
+    envs_launches = phase_envs(puzzles, generated, dev)
     phase_native(puzzles, generated, dev)
     hard = Puzzle.from_text(HARD_PUZZLE_TEXT)
-    by_phase = {"solve": launches,
+    by_phase = {"solve": launches, "graphs": graphs_launches, "envs": envs_launches,
                 "portfolio": phase_portfolio(puzzles, generated, hard, dev),
                 "fleet": phase_fleet(puzzles, generated, hard, solve_classes, dev)}
 
     # ``launches`` is the solve phase's count (``solve_puzzle`` on the 29
-    # puzzles); ``launches_by_phase`` adds the portfolio's two passes and the
-    # fleet's device-only run, each counted from 0.
+    # puzzles); ``launches_by_phase`` adds the graph ops, the environments,
+    # the portfolio's two passes and the fleet's device-only run, each
+    # counted from 0.
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_by_phase"] = {ph: c.get(k["name"], 0) for ph, c in by_phase.items()}
     emit({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "launches_by_phase", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")} for k in kernels]})
+        "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes_bound_ms", "library_ms")}
+        for k in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,13 +1,17 @@
-"""pushworld_tpu_torch: the PushWorld planner in PyTorch for NVIDIA Hopper.
+"""pushworld_tpu_torch: PushWorld planning and RL environments in PyTorch for NVIDIA Hopper.
 
 The port of ``pushworld_tpu`` (JAX), module for module, with the same
 semantics:
 
-- ``core``:    the ``.pwp`` puzzle oracle and its compilation into dense
-               collision tables (numpy; ``CompiledPuzzle.to(device)`` gives
-               the tensors).
-- ``ops``:     batched dynamics, the visited set, novelty, distance fields and
-               the RGD heuristic as plain functions on tensors.
+- ``core``:    the ``.pwp`` puzzle oracle with its pixel renderer, and its
+               compilation into dense collision tables, one puzzle or a
+               stacked batch (numpy; ``CompiledPuzzle.to(device)`` gives the
+               tensors).
+- ``ops``:     batched dynamics, the visited set, novelty, the device graph
+               ops (``graphs.build_reachability``, ``all_pairs_distances``
+               and ``distance_to_targets`` through the wavefront kernel),
+               the RGD heuristic and the cell renderers (``render``) as plain
+               functions on tensors.
 - ``kernels``: the CUDA C++ sources of the hand-written Hopper kernels and
                their build (``nvcc`` at first use).
 - ``native``:  the C++ serial planner (``planner.cc``, built by the host
@@ -15,6 +19,11 @@ semantics:
 - ``search``:  the batched best-first planner, the host planner, the
                top-level API (``solve_puzzle``, ``plan_puzzles`` with its
                native + device portfolio) and the fleet executor.
+- ``envs``:    the batched ``VectorEnv`` (``vector_env``), the greedy
+               goal-distance policy (``policies``), the env throughput
+               measurement (``throughput``) and the Gym / dm_env wrappers
+               (``gym_env``, ``dm_env_impl``: the only modules that need
+               ``gymnasium`` or ``dm_env``, and nothing imports them for you).
 
 Every entry point takes ``device`` and defaults to ``"cuda"``; ``"cpu"`` runs
 the plain PyTorch versions of the kernels (what the tests use).  This package

@@ -23,7 +23,7 @@ Positions are (x, y) int32 with x in [0, W), y in [0, H).
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +42,8 @@ class CompiledPuzzle:
 
     :func:`compile_puzzle` fills the array fields with numpy arrays;
     :meth:`to` gives the same puzzle with torch tensors on a device.
+    A stacked puzzle (:func:`stack_puzzles`) carries a leading puzzle axis P
+    on every array field; :meth:`to` and :meth:`numpy` take either form.
     """
 
     static_block: object  # bool (4, N, H, W)
@@ -219,4 +221,38 @@ def compile_puzzle(
         height=H,
         width=W,
         delta=delta,
+    )
+
+
+def bucket_shape(puzzles: Sequence[Puzzle]) -> Tuple[int, int, int, int]:
+    """(N, H, W, delta) bucket covering all ``puzzles``."""
+    N = max(p.num_movables for p in puzzles)
+    H = max(p.height for p in puzzles)
+    W = max(p.width for p in puzzles)
+    d = max(compute_delta(p) for p in puzzles)
+    return N, H, W, d
+
+
+def compile_batch(puzzles: Sequence[Puzzle]) -> CompiledPuzzle:
+    """Compiles ``puzzles`` into one stacked CompiledPuzzle with a leading
+    puzzle axis (all padded to a common bucket shape)."""
+    N, H, W, d = bucket_shape(puzzles)
+    return stack_puzzles([compile_puzzle(p, N, H, W, d) for p in puzzles])
+
+
+def stack_puzzles(compiled: Sequence[CompiledPuzzle]) -> CompiledPuzzle:
+    """Stacks compiled puzzles of one bucket shape along a new leading axis
+    (numpy array fields)."""
+    first = compiled[0]
+    for c in compiled[1:]:
+        if (c.n, c.height, c.width, c.delta) != (
+            first.n,
+            first.height,
+            first.width,
+            first.delta,
+        ):
+            raise ValueError("All puzzles in a batch must share a bucket shape.")
+    return dataclasses.replace(
+        first,
+        **{f: np.stack([_to_numpy(getattr(c, f)) for c in compiled]) for f in _ARRAY_FIELDS},
     )

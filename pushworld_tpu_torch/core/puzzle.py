@@ -1,9 +1,9 @@
-"""Host-side PushWorld puzzle core: ``.pwp`` parsing and exact dynamics.
+"""Host-side PushWorld puzzle core: ``.pwp`` parsing, exact dynamics, rendering.
 
 The port's own copy of the semantic oracle (the JAX package's
 ``core/puzzle.py``), so that the port imports nothing of that package.  It
-parses puzzles, computes the exact transition function and validates plans;
-rendering is left to the port's envs slice.
+parses puzzles, computes the exact transition function, validates plans and
+renders states to pixel images (numpy only).
 
 Semantics match the reference exactly:
   - grid & token format  — reference: python3/src/pushworld/puzzle.py:130-257,
@@ -18,10 +18,18 @@ goal id order), remaining movables (ascending)`` (the reference C++ planner's
 ``std::map`` order, pushworld_puzzle.cc:274-322).
 """
 
+from dataclasses import dataclass
 from typing import Dict, FrozenSet, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 NUM_ACTIONS = 4
 AGENT_IDX = 0
+
+# The default pixel width of the border drawn to indicate object boundaries.
+DEFAULT_BORDER_WIDTH = 2
+# The default pixel width/height of one grid cell when rendering.
+DEFAULT_PIXELS_PER_CELL = 20
 
 Point = Tuple[int, int]
 State = Tuple[Point, ...]
@@ -35,6 +43,37 @@ class Actions:
     FROM_CHAR = {"L": LEFT, "R": RIGHT, "U": UP, "D": DOWN}
     TO_CHAR = "LRUD"
     DISPLACEMENTS = ((-1, 0), (1, 0), (0, -1), (0, 1))
+
+
+def _hex(h: str) -> Tuple[int, int, int]:
+    return tuple(int(h[i : i + 2], 16) for i in (0, 2, 4))
+
+
+class Colors:
+    """Rendering palette.  reference: puzzle.py:65-79."""
+
+    AGENT = _hex("00DC00")
+    AGENT_BORDER = _hex("006E00")
+    AGENT_WALL = _hex("FAC71E")
+    AGENT_WALL_BORDER = _hex("7D640F")
+    GOAL = None  # transparent fill
+    GOAL_BORDER = _hex("B90000")
+    GOAL_OBJECT = _hex("DC0000")
+    GOAL_OBJECT_BORDER = _hex("6E0000")
+    MOVABLE = _hex("469BFF")
+    MOVABLE_BORDER = _hex("23487F")
+    WALL = _hex("0A0A0A")
+    WALL_BORDER = _hex("050505")
+
+
+@dataclass(frozen=True)
+class PushWorldObject:
+    """A renderable object: a set of cells relative to a position."""
+
+    position: Point
+    fill_color: Optional[Tuple[int, int, int]]
+    border_color: Tuple[int, int, int]
+    cells: FrozenSet[Point]
 
 
 def _cells_bbox(cells: Iterable[Point]) -> Tuple[int, int, int, int]:
@@ -164,6 +203,46 @@ class Puzzle:
         # Static obstacle sets used by dynamics.
         self._agent_obstacles = self.wall_cells | self.agent_wall_cells
 
+        # Renderable objects (state-independent parts).
+        self._walls_obj = PushWorldObject(
+            (0, 0), Colors.WALL, Colors.WALL_BORDER, frozenset(self.wall_cells)
+        )
+        # Render parity quirk: the reference merges the wall cells into its
+        # agent-wall pixel set IN PLACE for the agent's collision map
+        # (reference: puzzle.py:273 ``obj_pixels["aw"].update(...)``), and
+        # its renderable agent-walls object aliases that same set — so the
+        # reference draws agent-walls with borders suppressed against walls
+        # (walls are painted afterwards and overpaint their own cells).
+        # Pixel-exact goldens (tests/goldens) pin this behavior.
+        self._agent_walls_obj = (
+            PushWorldObject(
+                (0, 0),
+                Colors.AGENT_WALL,
+                Colors.AGENT_WALL_BORDER,
+                frozenset(self.agent_wall_cells | self.wall_cells),
+            )
+            if self.agent_wall_cells
+            else None
+        )
+        movable_objs = []
+        for i, name in enumerate(movable_names):
+            if i == AGENT_IDX:
+                fill, border = Colors.AGENT, Colors.AGENT_BORDER
+            elif i <= self.num_goals:
+                fill, border = Colors.GOAL_OBJECT, Colors.GOAL_OBJECT_BORDER
+            else:
+                fill, border = Colors.MOVABLE, Colors.MOVABLE_BORDER
+            movable_objs.append(
+                PushWorldObject((0, 0), fill, border, self.movable_cells[i])
+            )
+        self.movable_objects: List[PushWorldObject] = movable_objs
+        self.goal_objects: List[PushWorldObject] = [
+            PushWorldObject(
+                goal_positions[k], Colors.GOAL, Colors.GOAL_BORDER, self.goal_cells[k]
+            )
+            for k in range(self.num_goals)
+        ]
+
     # ------------------------------------------------------------------ I/O
 
     @classmethod
@@ -253,6 +332,52 @@ class Puzzle:
         for action in plan:
             state = self.get_next_state(state, action)
         return state
+
+    # ------------------------------------------------------------ rendering
+
+    def render(
+        self,
+        state: State,
+        border_width: int = DEFAULT_BORDER_WIDTH,
+        pixels_per_cell: int = DEFAULT_PIXELS_PER_CELL,
+    ) -> np.ndarray:
+        """Renders ``state`` to an RGB uint8 image of shape
+        (height*ppc, width*ppc, 3).  reference: puzzle.py:426-469, 596-638."""
+        from pushworld_tpu_torch.core.render import draw_object
+
+        if border_width < 1:
+            raise ValueError("border_width must be >= 1")
+        if pixels_per_cell < 1 + 2 * border_width:
+            raise ValueError("pixels_per_cell must be >= 1 + 2*border_width")
+
+        image = np.full(
+            (self.height * pixels_per_cell, self.width * pixels_per_cell, 3),
+            255,
+            np.uint8,
+        )
+        layers: List[Tuple[PushWorldObject, Point]] = []
+        if self._agent_walls_obj is not None:
+            layers.append((self._agent_walls_obj, (0, 0)))
+        layers.append((self._walls_obj, (0, 0)))
+        layers.extend(zip(self.movable_objects, state))
+        layers.extend((g, g.position) for g in self.goal_objects)
+        for obj, pos in layers:
+            draw_object(obj, pos, image, pixels_per_cell, border_width)
+        return image
+
+    def render_plan(
+        self,
+        plan: Iterable[int],
+        border_width: int = DEFAULT_BORDER_WIDTH,
+        pixels_per_cell: int = DEFAULT_PIXELS_PER_CELL,
+    ) -> List[np.ndarray]:
+        """Frames of the trajectory induced by ``plan`` from the initial state."""
+        state = self.initial_state
+        frames = [self.render(state, border_width, pixels_per_cell)]
+        for action in plan:
+            state = self.get_next_state(state, action)
+            frames.append(self.render(state, border_width, pixels_per_cell))
+        return frames
 
 
 def plan_from_string(plan: str) -> List[int]:

@@ -26,3 +26,15 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def card_info() -> dict:
+    """The first card's name and power limit, as ``nvidia-smi`` gives them."""
+    import subprocess
+
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    name, _, limit = line.partition(",")
+    return {"name": name.strip(), "power_limit": limit.strip()}

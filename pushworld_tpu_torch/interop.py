@@ -7,6 +7,8 @@ dataclass on ``device``.  The JAX visited set's two uint32 lanes
 (``key_lo`` / ``key_hi``) and the frontier's (``frontier_lo`` /
 ``frontier_hi``) are packed into the port's one int64 word per key.
 
+The environment's state and the render tables carry over field by field.
+
 This module imports no JAX: the caller converts the JAX arrays.
 """
 
@@ -17,6 +19,7 @@ import torch
 
 from pushworld_tpu_torch.core.compiled import CompiledPuzzle
 from pushworld_tpu_torch.device import DeviceLike, resolve_device
+from pushworld_tpu_torch.envs.vector_env import EnvState
 from pushworld_tpu_torch.ops.hashset import HashSet, pack_key
 from pushworld_tpu_torch.ops.novelty import NoveltyTables
 from pushworld_tpu_torch.ops.rgd import RGDTables
@@ -115,3 +118,26 @@ def search_state_from_numpy(d: Arrays, device: DeviceLike = "cuda") -> SearchSta
         evictions=scalar("evictions"),
         needs_deeper=scalar("needs_deeper"),
     )
+
+
+def env_state_from_numpy(d: Arrays, device: DeviceLike = "cuda") -> EnvState:
+    """The JAX package's ``EnvState`` (its four fields as numpy arrays)."""
+    dev = resolve_device(device)
+    return EnvState(
+        positions=_t(d["positions"], dev, torch.int32),
+        steps=_t(d["steps"], dev, torch.int32),
+        achieved=_t(d["achieved"], dev, torch.int32),
+        puzzle_idx=_t(d["puzzle_idx"], dev, torch.int32),
+    )
+
+
+def render_tables_from_numpy(d: Arrays, device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
+    """The dict of ``pushworld_tpu.ops.render.compile_render_tables`` as the
+    port's render tables on ``device``."""
+    dev = resolve_device(device)
+    return {
+        "base": _t(d["base"], dev, torch.int8),
+        "obj_cells": _t(d["obj_cells"], dev, torch.int16),
+        "obj_mask": _t(d["obj_mask"], dev, torch.bool),
+        "obj_class": _t(d["obj_class"], dev, torch.int8),
+    }

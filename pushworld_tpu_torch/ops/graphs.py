@@ -1,8 +1,16 @@
-"""Movement-graph distances: host helpers and the plain PyTorch wavefront.
+"""Feasible-movement reachability and graph distances on tensors.
 
-Port of the parts of the JAX package's ``ops/graphs.py`` that the table
-builder needs:
+Port of the JAX package's ``ops/graphs.py``:
 
+- :func:`build_reachability`: the mutual fixpoint "object o can make move
+  (p -> p+d_a) iff p is reachable, the move is not statically blocked, and
+  some other object has a feasible transition that pushes o" as a Jacobi
+  iteration over dense boolean tensors.  The pusher-support term is a 2-D
+  convolution (``F.conv2d``): transitions ``E[q, a]`` are the input
+  channels and the pairwise push tables the (pushee, pusher, K, K) kernels;
+- :func:`all_pairs_distances`: every target's distance field of one
+  object's movement graph, through the wavefront kernel
+  (:func:`pushworld_tpu_torch.ops.graphs_cuda.distance_fields`);
 - :func:`host_vertex_mask`, :func:`host_graph_distances_compact` (scipy BFS)
   and :func:`host_distance_to_targets` (host BFS): the host references;
 - :func:`distance_fields_reference`: the wavefront relaxation of
@@ -15,14 +23,109 @@ Distances replace the reference's lazy incremental BFS objects
 Unreachable = INF (1e9).
 """
 
+from typing import Optional, Tuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from pushworld_tpu_torch.device import DeviceLike
 
 # Displacements indexed by action: (dx, dy).
 DISPLACEMENTS = ((-1, 0), (1, 0), (0, -1), (0, 1))
 
 INF = 1e9
+
+
+def _shift2d(x: torch.Tensor, dx: int, dy: int, fill=False) -> torch.Tensor:
+    """Shifts the last two axes (y, x) of ``x`` so that
+    out[..., y, x] = x[..., y + dy, x + dx] (out-of-range -> fill)."""
+    H, W = x.shape[-2], x.shape[-1]
+    out = torch.full_like(x, fill)
+    ys, yd = (slice(dy, H), slice(0, H - dy)) if dy >= 0 else (slice(0, H + dy), slice(-dy, H))
+    xs, xd = (slice(dx, W), slice(0, W - dx)) if dx >= 0 else (slice(0, W + dx), slice(-dx, W))
+    out[..., yd, xd] = x[..., ys, xs]
+    return out
+
+
+def build_reachability(
+    cp, max_iters: int = 512, device: DeviceLike = "cuda", stats_out: Optional[dict] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Computes the feasible-movement fixpoint of one (unstacked) compiled
+    puzzle on ``device``.
+
+    Returns:
+        E: bool (4, N, H, W) — E[a, o, y, x]: the transition of object o at
+           (x, y) one cell in direction a is feasible.
+        reached: bool (N, H, W) — position is reachable for the object.
+
+    The loop ends when an iteration changes nothing, which the host reads
+    from the device once per iteration (a one-time build), or after
+    ``max_iters`` iterations.  ``stats_out["iterations"]`` receives the count.
+
+    The convolution's operands are 0/1 and its sums small integers, exact in
+    float32 and in TF32 alike; only ``> 0.5`` is read from them.
+    """
+    cp = cp.to(device)
+    N, H, W = cp.n, cp.height, cp.width
+    dev = cp.static_block.device
+    sb = cp.static_block  # (4, N, H, W)
+    delta = cp.delta
+    obj_mask = cp.obj_mask
+
+    init_onehot = torch.zeros((N, H, W), dtype=torch.bool, device=dev)
+    init_onehot[torch.arange(N, device=dev), cp.init_state[:, 1].long(), cp.init_state[:, 0].long()] = obj_mask
+
+    # Conv kernels: for each action a, kernel[o, q, ky, kx] = push[a, q, o,
+    # ky, kx], the pusher q sitting at pushee_pos + (kx - delta, ky - delta).
+    # pushed_support[a, o, p] = OR_{q, rel} push[a, q, o, rel] & E[a, q, p+rel]
+    # is a cross-correlation, which is what F.conv2d computes:
+    # out[o, y, x] = sum_{q, ky, kx} in[q, y + ky - delta, x + kx - delta] * w[o, q, ky, kx].
+    # The four actions are the four groups of one grouped convolution.
+    K = cp.push.shape[-1]
+    kernels = cp.push.permute(0, 2, 1, 3, 4).reshape(4 * N, N, K, K).to(torch.float32)
+
+    E = torch.zeros((4, N, H, W), dtype=torch.bool, device=dev)
+    reached = init_onehot
+    iterations = 0
+    while iterations < max_iters:
+        support = F.conv2d(
+            E.reshape(1, 4 * N, H, W).to(torch.float32), kernels, padding=delta, groups=4
+        ).reshape(4, N, H, W) > 0.5
+        support[:, 0] = True  # the agent (object 0) needs no pusher
+        E_new = reached[None] & ~sb & support & obj_mask[None, :, None, None]
+        # reached grows by transition endpoints.
+        arrive = reached
+        for a, (dx, dy) in enumerate(DISPLACEMENTS):
+            arrive = arrive | _shift2d(E_new[a], -dx, -dy)
+        changed = bool((E_new != E).any() | (arrive != reached).any())
+        E, reached = E_new, arrive
+        iterations += 1
+        if not changed:
+            break
+    if stats_out is not None:
+        stats_out["iterations"] = iterations
+    return E, reached
+
+
+def all_pairs_distances(E_o: torch.Tensor) -> torch.Tensor:
+    """All-pairs distances D[s, t] = dist(s -> t) over one object's movement
+    graph: one wavefront field per target cell, all sharing ``E_o``, in one
+    call of :func:`pushworld_tpu_torch.ops.graphs_cuda.distance_fields` (the
+    CUDA kernel when ``E_o`` lies on the card).
+
+    Returns float32 (H*W, H*W); unreachable pairs = INF.  (H*W)^2 floats:
+    used per puzzle, not per batch.
+    """
+    from pushworld_tpu_torch.ops.graphs_cuda import distance_fields  # imports this module
+
+    H, W = E_o.shape[-2:]
+    HW = H * W
+    d0 = torch.full((HW, HW), INF, dtype=torch.float32, device=E_o.device)
+    d0.fill_diagonal_(0.0)  # field t: 0 at cell t
+    d = distance_fields(E_o[None], d0.reshape(HW, H, W))
+    # d[t, y, x] = dist((x, y) -> t).  Return D[s, t].
+    return d.reshape(HW, HW).T.contiguous()
 
 
 def host_vertex_mask(E_o: np.ndarray, init_flat: int) -> np.ndarray:

@@ -79,7 +79,15 @@ def distance_fields(E: torch.Tensor, d0: torch.Tensor, max_iters: int = 0) -> to
     return out
 
 
-def distance_to_targets(E_o: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """One field: E_o (4, H, W) bool, targets (H, W) bool -> (H, W) float32."""
+def distance_to_targets(
+    E_o: torch.Tensor, targets: torch.Tensor, max_iters: int = 4096
+) -> torch.Tensor:
+    """One field: E_o (4, H, W) bool, targets (H, W) bool -> (H, W) float32
+    of graph distances to the target set, unreachable = INF.  At most
+    ``min(max_iters, H * W + 8)`` relaxations, as in the JAX function."""
+    H, W = targets.shape
     d0 = torch.where(targets, 0.0, INF).to(torch.float32)
-    return distance_fields(E_o[None], d0[None])[0]
+    cap = min(int(max_iters), H * W + 8)
+    if cap <= 0:  # distance_fields reads 0 as "no cap"
+        return d0
+    return distance_fields(E_o[None], d0[None], max_iters=cap)[0]

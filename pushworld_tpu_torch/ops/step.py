@@ -45,9 +45,14 @@ def _closure_from_agent(m: torch.Tensor) -> torch.Tensor:
     return r > 0.5
 
 
-def step(cp: CompiledPuzzle, state: torch.Tensor, action) -> torch.Tensor:
+def step(cp: CompiledPuzzle, state: torch.Tensor, action, puzzle_idx=None) -> torch.Tensor:
     """Exact transitions of a batch.  ``state``: (..., N, 2) int32;
     ``action``: int or int tensor broadcastable to ``state.shape[:-2]``.
+
+    ``puzzle_idx``: with a stacked ``cp`` (leading puzzle axis P on every
+    table), the puzzle of each state, an int tensor broadcastable to
+    ``state.shape[:-2]``.  It is a leading index into the stacked tables: no
+    table is copied per state.
 
     Returns the next states, (..., N, 2) int32.
     """
@@ -59,20 +64,28 @@ def step(cp: CompiledPuzzle, state: torch.Tensor, action) -> torch.Tensor:
     x = state[..., 0].long()
     y = state[..., 1].long()
     idx = torch.arange(N, device=dev)
-    blocked_static = cp.static_block[a.unsqueeze(-1), idx, y, x]  # (..., N)
+    if puzzle_idx is None:
+        lead, obj_mask = (), cp.obj_mask
+    else:
+        pi = torch.as_tensor(puzzle_idx, device=dev).long().expand(batch)
+        lead, obj_mask = (pi,), cp.obj_mask[pi]  # (..., N)
+    blocked_static = cp.static_block[
+        tuple(i.unsqueeze(-1) for i in lead) + (a.unsqueeze(-1), idx, y, x)
+    ]  # (..., N)
 
     rel = (state.unsqueeze(-2) - state.unsqueeze(-3)).long()  # (..., N, N, 2) pos_i - pos_j
     in_range = (rel.abs() <= delta).all(-1)
     ridx = torch.clamp(rel + delta, 0, K - 1)
     m = cp.push[
-        a[..., None, None], idx[:, None], idx[None, :], ridx[..., 1], ridx[..., 0]
+        tuple(i[..., None, None] for i in lead)
+        + (a[..., None, None], idx[:, None], idx[None, :], ridx[..., 1], ridx[..., 0])
     ]
-    mask = cp.obj_mask[:, None] & cp.obj_mask[None, :]
+    mask = obj_mask.unsqueeze(-1) & obj_mask.unsqueeze(-2)
     pushed = _closure_from_agent(m & in_range & mask)  # includes the agent
 
     movable_blocked = (pushed[..., 1:] & blocked_static[..., 1:]).any(-1)
     nothing_moves = blocked_static[..., 0] | movable_blocked
-    moved = pushed & ~nothing_moves.unsqueeze(-1) & cp.obj_mask
+    moved = pushed & ~nothing_moves.unsqueeze(-1) & obj_mask
     disp = torch.as_tensor(DISPLACEMENTS, device=dev)[a]  # (..., 2)
     return state + disp.unsqueeze(-2) * moved.unsqueeze(-1).to(state.dtype)
 
@@ -136,16 +149,29 @@ def expand_children(
     return out.reshape(4 * B, N, 2)
 
 
-def count_achieved_goals(cp: CompiledPuzzle, state: torch.Tensor) -> torch.Tensor:
+def _goal_tables(cp: CompiledPuzzle, puzzle_idx):
+    """(goal_pos, goal_mask) of each state's puzzle: the puzzle's own, or rows
+    ``puzzle_idx`` of a stacked puzzle's."""
+    if puzzle_idx is None:
+        return cp.goal_pos, cp.goal_mask
+    pi = puzzle_idx.long()
+    return cp.goal_pos[pi], cp.goal_mask[pi]
+
+
+def count_achieved_goals(cp: CompiledPuzzle, state: torch.Tensor, puzzle_idx=None) -> torch.Tensor:
     """Number of goal movables at their goal positions.  reference:
-    puzzle.py:396-407."""
-    at_goal = (state == cp.goal_pos).all(-1) & cp.goal_mask
+    puzzle.py:396-407.  ``puzzle_idx`` (shape ``state.shape[:-2]``) selects
+    each state's puzzle of a stacked ``cp``."""
+    goal_pos, goal_mask = _goal_tables(cp, puzzle_idx)
+    at_goal = (state == goal_pos).all(-1) & goal_mask
     return at_goal.sum(-1)
 
 
-def is_goal_state(cp: CompiledPuzzle, state: torch.Tensor) -> torch.Tensor:
-    """(...,) bool over a batch of (..., N, 2) states."""
-    return ((state == cp.goal_pos).all(-1) | ~cp.goal_mask).all(-1)
+def is_goal_state(cp: CompiledPuzzle, state: torch.Tensor, puzzle_idx=None) -> torch.Tensor:
+    """(...,) bool over a batch of (..., N, 2) states; ``puzzle_idx`` as in
+    :func:`count_achieved_goals`."""
+    goal_pos, goal_mask = _goal_tables(cp, puzzle_idx)
+    return ((state == goal_pos).all(-1) | ~goal_mask).all(-1)
 
 
 def run_plan(cp: CompiledPuzzle, actions, return_states: bool = False):

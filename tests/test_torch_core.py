@@ -112,3 +112,42 @@ def test_device_resolution():
             resolve_device("cuda")
         with pytest.raises(RuntimeError):
             tc.compile_puzzle(tp.Puzzle.from_text("A M0 G0\n")).to()
+
+
+ARRAY_FIELDS = ("static_block", "push", "init_state", "goal_pos", "obj_mask", "goal_mask")
+
+
+@pytest.mark.parametrize("names", [
+    ("simple", "chain", "push_left"),
+    ("lshape", "multi_goal", "heur/two_tools", "agent_wall"),
+    ("heur/trivial",),
+])
+def test_compile_batch_and_stack_match_jax(names):
+    """A stacked batch: bucket shape, every field, and the copy to a device
+    and back, which must keep the leading puzzle axis."""
+    pairs = [_load_both(n) for n in names]
+    jps, tps = [a for a, _ in pairs], [b for _, b in pairs]
+    assert tc.bucket_shape(tps) == jc.bucket_shape(jps)
+    jcp, tcp = jc.compile_batch(jps), tc.compile_batch(tps)
+    assert (tcp.n, tcp.height, tcp.width, tcp.delta) == (jcp.n, jcp.height, jcp.width, jcp.delta)
+    dev = tcp.to("cpu")
+    for f in ARRAY_FIELDS:
+        a, b = np.asarray(getattr(jcp, f)), getattr(tcp, f)
+        assert b.shape[0] == len(names)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+        assert isinstance(getattr(dev, f), torch.Tensor)
+        assert np.array_equal(getattr(dev, f).numpy(), a), f
+        assert np.array_equal(getattr(dev.numpy(), f), a), f
+
+
+def test_stack_puzzles_needs_one_bucket_shape():
+    _, a = _load_both("simple")
+    _, b = _load_both("chain")
+    with pytest.raises(ValueError, match="bucket shape"):
+        tc.stack_puzzles([tc.compile_puzzle(a), tc.compile_puzzle(b)])
+    shape = tc.bucket_shape([a, b])
+    stacked = tc.stack_puzzles([tc.compile_puzzle(a, *shape), tc.compile_puzzle(b, *shape)])
+    assert stacked.init_state.shape == (2, shape[0], 2)
+    # Stacking tensors gives numpy fields again.
+    again = tc.stack_puzzles([tc.compile_puzzle(a, *shape).to("cpu"), tc.compile_puzzle(b, *shape).to("cpu")])
+    assert np.array_equal(again.push, stacked.push)

@@ -259,3 +259,91 @@ def test_portfolio_device_member_on_the_card(dev, monkeypatch):
             assert plans[0] == plans[1] and p.is_valid_plan(plans[0]), name
     finally:
         release.set()
+
+
+# ------------------------------------------- the environment half on the card
+
+
+def _fixture(name):
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+
+    return Puzzle.from_file(os.path.join(PUZZLES, name + ".pwp"))
+
+
+def _assert_env_outputs_equal(out_card, out_cpu):
+    st_g, *rest_g = out_card
+    st_c, *rest_c = out_cpu
+    for f in ("positions", "steps", "achieved", "puzzle_idx"):
+        assert torch.equal(getattr(st_g, f).cpu(), getattr(st_c, f)), f
+    for g, c in zip(rest_g, rest_c):
+        assert g.dtype == c.dtype and torch.equal(g.cpu(), c)
+
+
+@pytest.mark.parametrize("names", [("lshape",), ("simple", "chain", "push_left")])
+def test_env_step_card_equals_cpu(dev, names):
+    """The same actions on the card and on the CPU, a single puzzle and a
+    stacked batch: every output of every step is equal."""
+    from pushworld_tpu_torch.core.compiled import compile_batch, compile_puzzle
+    from pushworld_tpu_torch.envs.vector_env import VectorEnv
+
+    puzzles = [_fixture(n) for n in names]
+    cp = compile_puzzle(puzzles[0]) if len(puzzles) == 1 else compile_batch(puzzles)
+    rng = np.random.default_rng(len(names))
+    B = 512
+    idx = torch.as_tensor(rng.integers(0, len(puzzles), B).astype(np.int32))
+    env_g, env_c = VectorEnv(cp, max_steps=9, device=dev), VectorEnv(cp, max_steps=9, device="cpu")
+    st_g, st_c = env_g.reset(None, B, idx), env_c.reset(None, B, idx)
+    for a in rng.integers(0, 4, (40, B)):
+        out_g = env_g.step(st_g, torch.as_tensor(a, device=dev))
+        out_c = env_c.step(st_c, torch.as_tensor(a))
+        torch.cuda.synchronize()
+        _assert_env_outputs_equal(out_g, out_c)
+        st_g, st_c = out_g[0], out_c[0]
+
+
+@pytest.mark.parametrize("name", ["lshape", "multi_goal", "agent_wall"])
+def test_renderers_card_equal_cpu(dev, name):
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.ops import render
+
+    p = _fixture(name)
+    cp = compile_puzzle(p)
+    rng = np.random.default_rng(len(name))
+    states = [p.initial_state]
+    for _ in range(6):
+        s = p.initial_state
+        for a in rng.integers(0, 4, 20).tolist():
+            s = p.get_next_state(s, a)
+            states.append(s)
+    states = torch.as_tensor(np.asarray(states, np.int32))
+    t_g = render.compile_render_tables(p, cp, device=dev)
+    t_c = render.compile_render_tables(p, cp, device="cpu")
+    for fn in (render.render_cells_class, render.render_cells_rgb, render.render_cells_onehot,
+               render.render_cells_onehot_batched):
+        got = fn(t_g, states.to(dev))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), fn(t_c, states)), fn.__name__
+    assert torch.equal(render.render_cells_onehot_batched(t_g, states.to(dev)),
+                       render.render_cells_onehot(t_g, states.to(dev)))
+
+
+@pytest.mark.parametrize("name", ["heur/shortest_path_tool", "heur/transitive_pushing", "lshape"])
+def test_build_reachability_card_equals_cpu(dev, name):
+    """The convolution on the card (cuDNN, TF32 allowed) gives the CPU's
+    fixpoint in the same number of iterations, and all-pairs distances go
+    through the wavefront kernel."""
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.ops import graphs
+
+    cp = compile_puzzle(_fixture(name))
+    s_g, s_c = {}, {}
+    E_g, r_g = graphs.build_reachability(cp, device=dev, stats_out=s_g)
+    E_c, r_c = graphs.build_reachability(cp, device="cpu", stats_out=s_c)
+    torch.cuda.synchronize()
+    assert torch.equal(E_g.cpu(), E_c) and torch.equal(r_g.cpu(), r_c) and s_g == s_c
+    before = LAUNCHES["wavefront"]
+    D_g = graphs.all_pairs_distances(E_g[:, 0])
+    torch.cuda.synchronize()
+    assert LAUNCHES["wavefront"] == before + 1
+    assert torch.equal(D_g.cpu(), graphs.all_pairs_distances(E_c[:, 0]))

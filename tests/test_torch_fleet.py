@@ -237,6 +237,25 @@ def test_bench_entry_loads_a_set_and_needs_a_card(monkeypatch, capsys):
         assert bench.main() == 2  # no fallback to the CPU
         assert capsys.readouterr().out == ""  # and no result line
 
+    # detail["env_throughput"]: on the set's largest grid, with the device
+    # beside the rates; PUSHWORLD_BENCH_ENV=0 leaves it out; a failure is
+    # reported in its place.
+    monkeypatch.setattr(bench, "ENV_BATCH", 8)
+    monkeypatch.setattr(bench, "ENV_HORIZON", 4)
+    monkeypatch.setattr(bench, "ENV_REPS", 1)
+    monkeypatch.delenv("PUSHWORLD_BENCH_ENV", raising=False)
+    env = bench.env_throughput_detail(named, device="cpu")
+    largest = max(named, key=lambda np_: np_[1].height * np_[1].width)
+    assert env["puzzle"] == largest[0] and env["grid"] == [largest[1].height, largest[1].width]
+    assert env["steps_per_s"] > 0 and env["batch_size"] == 8 and env["horizon"] == 4
+    assert env["device"] == {"name": "cpu", "power_limit": None} and env["hbm_roofline_pct"] is None
+    monkeypatch.setenv("PUSHWORLD_BENCH_ENV", "0")
+    assert bench.env_throughput_detail(named, device="cpu") is None
+    monkeypatch.setenv("PUSHWORLD_BENCH_ENV", "1")
+    if not torch.cuda.is_available():
+        failed = bench.env_throughput_detail(named)  # the default device: no card here
+        assert list(failed) == ["error"] and failed["error"].startswith("RuntimeError:")
+
 
 def test_launch_counts_lose_no_update_across_threads():
     """Several threads launch kernels (the fleet's device worker, the table

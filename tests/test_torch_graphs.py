@@ -138,3 +138,98 @@ def test_general_seeds_match_pallas_interpret():
         want = np.asarray(distance_fields_pallas(jnp.asarray(E), jnp.asarray(d0), max_iters=cap, interpret=True))
         got = graphs_cuda.distance_fields(torch.as_tensor(E), torch.as_tensor(d0), max_iters=cap)
         assert np.array_equal(got.numpy(), want), cap
+
+
+# ------------------------------------------------------- the device graph ops
+
+from pushworld_tpu_torch.core.compiled import compile_puzzle as t_compile  # noqa: E402
+from pushworld_tpu_torch.core.puzzle import Puzzle as TPuzzle  # noqa: E402
+
+# tests/test_graphs.py's HEUR_FIXTURES.
+HEUR_FIXTURES = [
+    "trivial", "trivial_tool", "trivial_tool2", "multiple_goals", "transitive_pushing",
+    "necessary_transitive_pushing1", "necessary_transitive_pushing2",
+    "blocked_transitive_pushing1", "blocked_transitive_pushing2", "shortest_path_tool",
+]
+
+
+def _jax_reachability(name):
+    path = os.path.join(PUZZLES, "heur", name + ".pwp")
+    cp = j_compile(JPuzzle.from_file(path))
+    E, reached = jg.build_reachability(cp)
+    return path, cp, np.asarray(E), np.asarray(reached)
+
+
+@pytest.mark.parametrize("name", HEUR_FIXTURES)
+def test_build_reachability_matches_jax(name):
+    path, _, E_want, reached_want = _jax_reachability(name)
+    stats = {}
+    E, reached = tg.build_reachability(t_compile(TPuzzle.from_file(path)), device="cpu", stats_out=stats)
+    assert E.dtype == torch.bool and reached.dtype == torch.bool
+    assert np.array_equal(E.numpy(), E_want)
+    assert np.array_equal(reached.numpy(), reached_want)
+    assert 1 <= stats["iterations"] < 512
+    # The fixpoint is also the host worklist's (what the table build uses).
+    from pushworld_tpu_torch.ops.rgd import _movement_graphs_python
+
+    tpz = TPuzzle.from_file(path)
+    assert np.array_equal(_movement_graphs_python(tpz, t_compile(tpz)), E_want)
+
+
+def test_build_reachability_iteration_cap_matches_jax():
+    path, cp, E_full, _ = _jax_reachability("shortest_path_tool")
+    E2, r2 = jg.build_reachability(cp, max_iters=2)
+    stats = {}
+    E, reached = tg.build_reachability(
+        t_compile(TPuzzle.from_file(path)).to("cpu"), max_iters=2, device="cpu", stats_out=stats)
+    assert stats["iterations"] == 2
+    assert np.array_equal(E.numpy(), np.asarray(E2)) and np.array_equal(reached.numpy(), np.asarray(r2))
+    assert not np.array_equal(np.asarray(E2), E_full)  # the cap did cut it short
+
+
+@pytest.mark.parametrize("shift", [(1, 0), (-1, 0), (0, 1), (0, -1), (2, -1), (0, 0)])
+def test_shift2d_matches_jax(shift):
+    rng = np.random.default_rng(3)
+    x = rng.random((2, 5, 7)) < 0.5
+    dx, dy = shift
+    want = np.asarray(jg._shift2d(jnp.asarray(x), dx, dy))
+    assert np.array_equal(tg._shift2d(torch.as_tensor(x), dx, dy).numpy(), want)
+    xf = rng.random((5, 7)).astype(np.float32)
+    want = np.asarray(jg._shift2d(jnp.asarray(xf), dx, dy, fill=INF))
+    assert np.array_equal(tg._shift2d(torch.as_tensor(xf), dx, dy, fill=INF).numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["trivial", "trivial_tool", "shortest_path_tool"])
+def test_distance_to_targets_and_all_pairs_match_jax(name):
+    _, cp, E, _ = _jax_reachability(name)
+    H, W = cp.height, cp.width
+    for o in range(int(np.asarray(cp.obj_mask).sum())):
+        E_o = E[:, o].copy()
+        want = np.asarray(jg.all_pairs_distances(jnp.asarray(E_o)))
+        got = tg.all_pairs_distances(torch.as_tensor(E_o))
+        assert got.dtype == torch.float32 and got.is_contiguous()
+        assert np.array_equal(got.numpy(), want)
+        targets = np.zeros((H, W), bool)
+        targets[int(cp.init_state[o, 1]), int(cp.init_state[o, 0])] = True
+        targets[H // 2, W // 2] = True
+        want = np.asarray(jg.distance_to_targets(jnp.asarray(E_o), jnp.asarray(targets)))
+        got = graphs_cuda.distance_to_targets(torch.as_tensor(E_o), torch.as_tensor(targets))
+        assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("cap", [0, 1, 3])
+def test_distance_to_targets_cap_matches_jax(cap):
+    """``max_iters`` cuts the relaxation short exactly as in the JAX function
+    (cap = min(max_iters, H * W + 8); 0 leaves the seeds)."""
+    _, cp, E, _ = _jax_reachability("shortest_path_tool")
+    E_o = E[:, 0].copy()
+    targets = np.zeros((cp.height, cp.width), bool)
+    targets[int(cp.init_state[0, 1]), int(cp.init_state[0, 0])] = True
+    full = np.asarray(jg.distance_to_targets(jnp.asarray(E_o), jnp.asarray(targets)))
+    want = np.asarray(jg.distance_to_targets(jnp.asarray(E_o), jnp.asarray(targets), max_iters=cap))
+    got = graphs_cuda.distance_to_targets(torch.as_tensor(E_o), torch.as_tensor(targets), max_iters=cap)
+    assert np.array_equal(got.numpy(), want)
+    assert not np.array_equal(want, full)
+    # Beyond the diameter bound the cap changes nothing.
+    huge = graphs_cuda.distance_to_targets(torch.as_tensor(E_o), torch.as_tensor(targets), max_iters=10**6)
+    assert np.array_equal(huge.numpy(), full)
