@@ -66,9 +66,24 @@ Phases, each printing one JSON line:
    fixtures, and the solve of the 47 x 54 puzzle timed alone and beside as
    many native threads as cores.  One lane's device bytes are measured
    beside ``fleet.bytes_per_lane``.
+10. ``parallel``: the parallel layer on the card.  (a) The frontier-sharded
+   search of the 47 x 54 puzzle at production capacities over a one-rank
+   NCCL group and over a one-rank gloo group on the CPU (on a thread beside
+   (b)-(f)): the same plan, chunks, iterations and expansions; its ms per
+   iteration beside the batched search's on the same puzzle, and the
+   collectives' device time (torch.profiler; one all-to-all an iteration).
+   (b) spill_grid with a 64-entry history and the least
+   frontier spills at least 2 epochs, evicts and still gives a valid plan;
+   no_solution gives None.  (c) ``solve_group`` on the 29 puzzles (one group
+   per RGD depth): every lane's plan is ``solve_puzzle``'s.  (d)
+   ``scripts/benchmark_distributed.py`` in two processes on the one card:
+   each has the whole merged set, and their shards partition it.  (e) The
+   fleet in shadow mode with ``PW_DEVICE_SHARDED=1`` and no native worker:
+   a 10-movable puzzle is solved by ``"device-sharded"``.  (f)
+   ``entry.dryrun_multichip(1)`` and ``entry()`` on the card.
 
-The launch counts are set to 0 before each of the phases 4, 5, 6, 8 and 9
-(and each fleet run) and read after it.  Beside ``ms`` (CUDA events around
+The launch counts are set to 0 before each of the phases 4, 5, 6, 8, 9 and
+10 (and each fleet run) and read after it.  Beside ``ms`` (CUDA events around
 the wrapper: for the small kernels the host's enqueue time) every kernel has
 ``device_ms``, its own time from ``torch.profiler``; an empty kernel, built
 from a source in this script, is launched and timed the same two ways as the
@@ -145,6 +160,20 @@ HARD_PUZZLE_TEXT = """
  .  W  W  .  . M3 M3  .  .  .  .  .  .  W  .  W
  .  .  .  .  .  .  .  .  .  .  .  .  W  .  .  .
  .  .  .  .  .  .  .  .  . G2 G2  .  .  .  .  .
+""".lstrip("\n")
+
+# A 9 x 12 puzzle (with its border walls) of ten movables: the agent, one
+# goal object three pushes from its goal, and eight obstacles.  The fleet's
+# frontier-sharded branch takes only instances of more than 8 movables, and
+# no fixture has that many.
+MANY_MOVABLES_TEXT = """
+ A  .  .  .  .  .  .  .  .  .
+ . M0  .  . G0  .  .  .  .  .
+ .  .  .  .  .  .  .  .  .  .
+ . M1  . M2  . M3  . M4  .  .
+ .  .  .  .  .  .  .  .  .  .
+ . M5  . M6  . M7  . M8  .  .
+ .  .  .  .  .  .  .  .  .  .
 """.lstrip("\n")
 
 KERNEL_NAMES = ("wavefront", "visited_set.probe_and_insert", "visited_set.probe_delete",
@@ -609,7 +638,8 @@ def phase_visited_set(dev, floor):
 
 
 def phase_solve(puzzles, generated, dev):
-    """The main path: solve_puzzle on the card for every puzzle."""
+    """The main path: solve_puzzle on the card for every puzzle.  Returns the
+    launches, each puzzle's classification and each puzzle's plan."""
     import torch
 
     from pushworld_tpu_torch.kernels import LAUNCHES
@@ -617,12 +647,13 @@ def phase_solve(puzzles, generated, dev):
 
     LAUNCHES.clear()
     t0 = time.monotonic()
-    rows = []
+    rows, plans = [], {}
     for name, p in puzzles + [("generated_47x54", generated)]:
         t = time.monotonic()
         r = solve_puzzle(p, mode="N+RGD", time_limit=60, device=dev, **PRODUCTION_CAPACITIES)
         torch.cuda.synchronize()
         wall = time.monotonic() - t
+        plans[name] = r.plan
         row = {"puzzle": name, "result": r.failure_reason or "solved",
                "plan_len": None if r.plan is None else len(r.plan),
                "wall_s": wall, "expansions": r.expansions}
@@ -641,7 +672,7 @@ def phase_solve(puzzles, generated, dev):
           "solved": sum(r["result"] == "solved" for r in rows),
           "no_solution": sum(r["result"] == "no solution" for r in rows),
           "generated": gen, "launches": launches, "per_puzzle": rows})
-    return launches, {r["puzzle"]: r["result"] for r in rows}
+    return launches, {r["puzzle"]: r["result"] for r in rows}, plans
 
 
 def phase_cpu_agreement(puzzles, dev):
@@ -1230,6 +1261,271 @@ def phase_fleet(puzzles, generated, hard, solve_classes, dev):
     return launches
 
 
+def _iterate_rate(generated, dev, caps):
+    """The batched search (``_iterate``) of the 47 x 54 puzzle at ``caps``:
+    host seconds of the whole call (table build included) per iteration.
+    The comparison for the frontier-sharded search; it runs before the
+    parallel phase counts launches."""
+    import torch
+
+    from pushworld_tpu_torch.search.batched import BatchedPlanner, required_depth
+
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    planner = BatchedPlanner(generated, max_depth=required_depth(generated), device=dev, **caps)
+    plan = planner.solve(time_limit=120)
+    torch.cuda.synchronize()
+    iterate_s = time.monotonic() - t
+    check(plan is not None and generated.is_valid_plan(plan), "batched search: no valid plan")
+    iterations = int(planner.last_state.iterations)
+    return {"iterate_ms_per_iteration": iterate_s / iterations * 1e3, "iterate_iterations": iterations}
+
+
+def _sharded_rate(generated, mesh, caps):
+    """The frontier-sharded search of the 47 x 54 puzzle over ``mesh``: host
+    seconds of the whole call (table build included) per iteration, and the
+    run again under the profiler."""
+    import torch
+
+    from pushworld_tpu_torch.parallel.frontier_sharded import solve_frontier_sharded
+
+    stats = {}
+    t = time.monotonic()
+    solve_frontier_sharded(generated, mesh=mesh, time_limit=120, stats_out=stats, **caps)
+    torch.cuda.synchronize()
+    sharded_s = time.monotonic() - t
+    sharded_iterations = stats["shard_iterations"][0]
+    prof = profile_device(lambda: solve_frontier_sharded(generated, mesh=mesh, time_limit=120, **caps))
+    # The collectives' records ("nccl:<op>") carry the device time of what
+    # each launched; a one-rank all_reduce launches nothing, so it is absent.
+    nccl = {k: v for k, v in prof["by_kernel"].items() if "nccl" in k.lower()}
+    check(nccl.get("nccl:all_to_all", [0])[0] == sharded_iterations,
+          f"(a) the profiled run made no all-to-all each iteration: {sorted(nccl)}")
+    return {
+        "sharded_ms_per_iteration": sharded_s / sharded_iterations * 1e3,
+        "sharded_iterations": sharded_iterations,
+        "profiled": {"wall_s": prof["wall_s"], "device_busy_share": prof["busy_us"] / (prof["wall_s"] * 1e6),
+                     "kernels_per_iteration": prof["n_kernels"] / sharded_iterations},
+        "nccl_kernels": {k: {"count": c, "device_ms": us / 1e3} for k, (c, us) in nccl.items()},
+        "nccl_device_ms_per_iteration": sum(us for _, us in nccl.values()) / 1e3 / sharded_iterations,
+    }
+
+
+def _two_processes_on_one_card(dev):
+    """``scripts/benchmark_distributed.py`` in two processes over the 15
+    ``heur`` fixtures, both planning on this card (gloo exchanges the
+    results).  No native worker: each process's fleet plans its shard on the
+    card, and each shard must hold solves of the device."""
+    import socket
+    import tempfile
+
+    from pushworld_tpu_torch.utils.filesystem import get_puzzle_file_paths
+
+    set_dir = os.path.join(ROOT, "tests", "puzzles", "heur")
+    names = sorted(get_puzzle_file_paths(set_dir))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"out{pid}.json") for pid in range(2)]
+        procs = []
+        t = time.monotonic()
+        for pid in range(2):
+            env = dict(os.environ, PW_COORDINATOR=f"127.0.0.1:{port}", PW_NUM_PROCESSES="2",
+                       PW_PROCESS_ID=str(pid))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "pushworld_tpu_torch.scripts.benchmark_distributed",
+                 set_dir, "--device", dev.type, "--time-limit", "60", "--native-workers", "0",
+                 "--out", outs[pid]],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        lines = []
+        try:
+            for p in procs:
+                stdout, stderr = p.communicate(timeout=300)
+                check(p.returncode == 0, f"benchmark_distributed exited {p.returncode}:\n{stderr[-3000:]}")
+                lines.append(json.loads(stdout.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        wall = time.monotonic() - t
+        docs = []
+        for o in outs:
+            with open(o) as f:
+                docs.append(json.load(f))
+    shards = [set(d["local"]) for d in docs]
+    check(shards[0].isdisjoint(shards[1]) and shards[0] | shards[1] == set(names),
+          "two processes: the local shards are not a partition of the set")
+    for line, d in zip(lines, docs):
+        check(line["count"] == len(names) and sorted(d["results"]) == names,
+              f"two processes: process {line['process_id']} lacks part of the merged set")
+        check(d["results"] == docs[0]["results"], "two processes: the merged sets differ")
+    solver = {n: r["solver"] for n, r in docs[0]["results"].items()}
+    device = [sum(solver[n] == "device" for n in s) for s in shards]
+    check(all(device), f"two processes: a shard holds no device solve: {solver}")
+    return {"puzzles": len(names), "wall_s": wall, "lines": lines, "local": [len(s) for s in shards],
+            "device_solves_by_shard": device, "solvers": sorted(set(solver.values()))}
+
+
+def phase_parallel(puzzles, generated, solve_plans, dev):
+    """The parallel layer on the card: the frontier-sharded search over a
+    one-rank NCCL group (the 47 x 54 puzzle at production capacities, card =
+    CPU; spills and a no-solution proof), solve_group on every puzzle,
+    benchmark_distributed in two processes on the card, the fleet's
+    PW_DEVICE_SHARDED=1 branch and the multi-chip dry run over one rank.
+
+    Launches are counted from after the batched comparison run of (a); each
+    kernel must be launched by the frontier-sharded runs of (a) and (b)
+    alone, and solve_group's kernels by (c) alone.  The CPU run of (a)
+    starts after (d), so (a)-(d) are timed with the host to themselves."""
+    import concurrent.futures
+
+    import torch
+    import torch.distributed as dist
+
+    from pushworld_tpu_torch import entry
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.parallel.frontier_sharded import solve_frontier_sharded
+    from pushworld_tpu_torch.parallel.mesh import make_mesh
+    from pushworld_tpu_torch.parallel.sharded import solve_group
+    from pushworld_tpu_torch.search import fleet
+    from pushworld_tpu_torch.search.batched import required_depth
+    from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES as CAP
+
+    caps = {k: CAP[k] for k in ("expand", "frontier_capacity", "visited_bits", "history_capacity")}
+    by_name = dict(puzzles)
+    out = {"phase": "parallel"}
+    t0 = time.monotonic()
+    iterate_rate = _iterate_rate(generated, dev, caps)
+    seconds = {"a_iterate_rate": time.monotonic() - t0}  # host seconds of each part, in order
+    LAUNCHES.clear()
+    part_launches = {}  # launches of each part
+    counted = {}
+
+    def lap(part: str) -> None:
+        seconds[part] = time.monotonic() - t0 - sum(seconds.values())
+        now = dict(LAUNCHES)
+        part_launches[part] = {k: now.get(k, 0) - counted.get(k, 0) for k in KERNEL_NAMES}
+        counted.update(now)
+
+    card = make_mesh(device=dev, axis_name="shard")
+    cpu = make_mesh(device="cpu", axis_name="shard")
+    check(dist.get_backend(card.get_group()) == "nccl" and card.size() == 1, "the card's mesh is no one-rank NCCL group")
+    check(dist.get_backend(cpu.get_group()) == "gloo", "the CPU's mesh is no gloo group")
+    lap("meshes")
+
+    # (a) The 47 x 54 puzzle at production capacities on the card; the same
+    # call on the CPU runs on a thread of its own beside (e) and (f) and is
+    # compared at the end.
+    def run_a(mesh):
+        stats = {}
+        t = time.monotonic()
+        plan = solve_frontier_sharded(generated, mesh=mesh, time_limit=120, stats_out=stats, **caps)
+        torch.cuda.synchronize()
+        check(plan is not None and generated.is_valid_plan(plan), f"(a) {mesh.device_type}: no valid plan")
+        return dict(stats, plan=plan, wall_s=time.monotonic() - t)
+
+    card_run = run_a(card)
+    lap("a_card")
+    out["generated_47x54"] = dict({k: v for k, v in card_run.items() if k != "plan"},
+                                  plan_len=len(card_run["plan"]), **iterate_rate,
+                                  **_sharded_rate(generated, card, caps))
+    lap("a_rate_and_profile")
+
+    # (b) Spills (and evictions: a frontier of the least size) with a valid
+    # plan; a no-solution proof.
+    spill_grid = by_name["spill_grid"]
+    stats = {}
+    plan = solve_frontier_sharded(spill_grid, mesh=card, time_limit=60, stats_out=stats, expand=4,
+                                  frontier_capacity=32, visited_bits=14, history_capacity=64, chunk=4)
+    check(plan is not None and spill_grid.is_valid_plan(plan) and stats["spill_epochs"] >= 2,
+          f"(b) spill run: {plan} {stats}")
+    out["spill"] = dict(stats, plan_len=len(plan))
+    stats = {}
+    plan = solve_frontier_sharded(by_name["no_solution"], mesh=card, time_limit=60, stats_out=stats,
+                                  expand=16, frontier_capacity=1 << 10, visited_bits=14,
+                                  history_capacity=1 << 14, chunk=8)
+    check(plan is None, f"(b) no_solution: {plan}")
+    out["no_solution"] = stats
+    lap("b")
+    frontier = {k: sum(part_launches[p][k] for p in ("a_card", "a_rate_and_profile", "b")) for k in KERNEL_NAMES}
+    for k in KERNEL_NAMES:
+        check(frontier[k] > 0, f"kernel {k} was not launched by the frontier-sharded runs")
+
+    # (c) solve_group on every puzzle at production capacities, one group
+    # per RGD depth: each lane's plan is solve_puzzle's.
+    named = puzzles + [("generated_47x54", generated)]
+    by_depth = {}
+    for name, p in named:
+        by_depth.setdefault(required_depth(p), []).append((name, p))
+    group_mesh = make_mesh(device=dev)
+    t = time.monotonic()
+    group = {}
+    for depth, sub in sorted(by_depth.items()):
+        group.update(solve_group(sub, mesh=group_mesh, time_limit=60, max_depth=depth, **caps))
+    check_results(named, group, "(c) solve_group")
+    for name, _ in named:
+        check(group[name].plan == solve_plans[name], f"(c) {name}: solve_group's plan != solve_puzzle's")
+    out["solve_group"] = {"lanes": len(named), "groups": {d: len(v) for d, v in by_depth.items()},
+                          "wall_s": time.monotonic() - t,
+                          "solved": sum(r.failure_reason is None for r in group.values())}
+    lap("c")
+    for k in ("wavefront", "visited_set.probe_and_insert", "visited_set.fingerprint_dedup_insert"):
+        check(part_launches["c"][k] > 0, f"kernel {k} was not launched by solve_group")
+
+    # (d) Two processes on this one card.
+    out["two_processes"] = _two_processes_on_one_card(dev)
+    lap("d")
+    cpu_pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    cpu_future = cpu_pool.submit(run_a, cpu)
+    cpu_pool.shutdown(wait=False)
+
+    # (e) The fleet's frontier-sharded branch: no native worker, so the
+    # instance of more than 8 movables goes to it.
+    many = Puzzle.from_text(MANY_MOVABLES_TEXT)
+    fleet_set = [("many_movables", many)] + [(n, by_name[n]) for n in ("simple", "chain")]
+    old = os.environ.get("PW_DEVICE_SHARDED")
+    os.environ["PW_DEVICE_SHARDED"] = "1"
+    try:
+        t = time.monotonic()
+        results = fleet.plan_puzzles_fleet(fleet_set, time_limit=60, native_workers=0, device_claim_delay=0.0,
+                                           device_mode="shadow", device=dev)
+        wall = time.monotonic() - t
+    finally:
+        if old is None:
+            del os.environ["PW_DEVICE_SHARDED"]
+        else:
+            os.environ["PW_DEVICE_SHARDED"] = old
+    check_results(fleet_set, results, "(e) fleet")
+    r = results["many_movables"]
+    check(r.solver == "device-sharded" and r.failure_reason is None and many.is_valid_plan(r.plan),
+          f"(e) the sharded branch did not solve the 10-movable puzzle: {r}")
+    out["fleet_sharded_branch"] = {"wall_s": wall, "solver": {n: results[n].solver for n, _ in fleet_set}}
+    lap("e")
+
+    # (f) The multi-chip dry run over this process's one rank, and the
+    # entry step on the card.
+    t = time.monotonic()
+    entry.dryrun_multichip(1, device=dev)
+    fn, args = entry.entry(device=dev)
+    nxt = fn(*args)
+    check(nxt.shape == args[1].shape and nxt.device == args[1].device, "entry(): wrong output")
+    out["dryrun_s"] = time.monotonic() - t
+    lap("f")
+    cpu_run = cpu_future.result()
+    for k in ("plan", "chunks", "spill_epochs", "shard_iterations", "shard_expansions"):
+        check(card_run[k] == cpu_run[k], f"(a) card and CPU differ in {k}")
+    out["generated_47x54"].update(cpu_wall_s=cpu_run["wall_s"], cpu_threads=torch.get_num_threads())
+    lap("a_cpu_rest")
+
+    launches = dict(LAUNCHES)
+    out.update(launches=launches, launches_by_part=part_launches, total_s=time.monotonic() - t0,
+               seconds=seconds)
+    emit(out)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the generated 47x54 puzzle")
@@ -1281,7 +1577,7 @@ def main() -> int:
     puzzles = [(os.path.relpath(f, os.path.join(ROOT, "tests", "puzzles"))[:-4], Puzzle.from_file(f))
                for f in files]
     check(len(puzzles) == 28, f"expected 28 fixtures, found {len(puzzles)}")
-    launches, solve_classes = phase_solve(puzzles, generated, dev)
+    launches, solve_classes, solve_plans = phase_solve(puzzles, generated, dev)
     phase_cpu_agreement(puzzles, dev)
     graphs_launches = phase_graphs(puzzles, generated, dev)
     envs_launches = phase_envs(puzzles, generated, dev)
@@ -1289,12 +1585,13 @@ def main() -> int:
     hard = Puzzle.from_text(HARD_PUZZLE_TEXT)
     by_phase = {"solve": launches, "graphs": graphs_launches, "envs": envs_launches,
                 "portfolio": phase_portfolio(puzzles, generated, hard, dev),
-                "fleet": phase_fleet(puzzles, generated, hard, solve_classes, dev)}
+                "fleet": phase_fleet(puzzles, generated, hard, solve_classes, dev),
+                "parallel": phase_parallel(puzzles, generated, solve_plans, dev)}
 
     # ``launches`` is the solve phase's count (``solve_puzzle`` on the 29
     # puzzles); ``launches_by_phase`` adds the graph ops, the environments,
-    # the portfolio's two passes and the fleet's device-only run, each
-    # counted from 0.
+    # the portfolio's two passes, the fleet's device-only run and the
+    # parallel layer, each counted from 0.
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_by_phase"] = {ph: c.get(k["name"], 0) for ph, c in by_phase.items()}

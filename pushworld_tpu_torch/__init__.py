@@ -24,6 +24,11 @@ semantics:
                measurement (``throughput``) and the Gym / dm_env wrappers
                (``gym_env``, ``dm_env_impl``: the only modules that need
                ``gymnasium`` or ``dm_env``, and nothing imports them for you).
+- ``parallel``: over ``torch.distributed`` (NCCL on the card, gloo on the
+               CPU): process meshes, puzzle-sharded groups
+               (``solve_group``), the frontier-sharded search of one puzzle
+               and multi-process planning; ``entry`` holds the batched step
+               and the multi-chip dry run.
 
 Every entry point takes ``device`` and defaults to ``"cuda"``; ``"cpu"`` runs
 the plain PyTorch versions of the kernels (what the tests use).  This package

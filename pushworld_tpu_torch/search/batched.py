@@ -180,8 +180,9 @@ def reconstruct_plan(s: SearchState) -> List[int]:
     return plan
 
 
-def search_status(s: SearchState) -> np.ndarray:
-    """The host-visible search status in one read.
+def search_status_tensor(s: SearchState) -> torch.Tensor:
+    """The host-visible search status as one (8,) int32 tensor on the
+    search's device.
 
     Layout: [solved, solved_hist, min_frontier_key, hist_cursor,
              expansions, evictions, iterations, needs_deeper].
@@ -195,19 +196,25 @@ def search_status(s: SearchState) -> np.ndarray:
         s.evictions,
         s.iterations,
         s.needs_deeper,
-    ]).cpu().numpy()
+    ])
 
 
-def _append_history(s: SearchState, cfg: SearchConfig, is_new, phist4, actions):
+def search_status(s: SearchState) -> np.ndarray:
+    """:func:`search_status_tensor` in one read."""
+    return search_status_tensor(s).cpu().numpy()
+
+
+def _append_history(s: SearchState, cfg: SearchConfig, is_new, phist4, actions, margin: int = 8):
     """Appends the new children's (parent, action) records to the history
-    (only the new lanes are written).  Returns hist_idx (0 for the others)."""
+    (only the new lanes are written); the cursor stops ``margin`` entries
+    short of the capacity.  Returns hist_idx (0 for the others)."""
     offs = torch.cumsum(is_new.to(torch.int32), 0, dtype=torch.int32) - 1
     hist_idx = torch.where(is_new, s.hist_cursor + offs, 0).to(torch.int32)
     w = hist_idx[is_new].long()
     s.hist_parent[w] = phist4[is_new]
     s.hist_action[w] = actions[is_new]
     n_new = is_new.sum(dtype=torch.int32)
-    s.hist_cursor = torch.clamp(s.hist_cursor + n_new, max=cfg.history_capacity - 8).to(torch.int32)
+    s.hist_cursor = torch.clamp(s.hist_cursor + n_new, max=cfg.history_capacity - margin).to(torch.int32)
     return hist_idx
 
 

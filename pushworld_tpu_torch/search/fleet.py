@@ -19,7 +19,9 @@ reference harness: time limit / no solution / memory error / invalid plan).
 The device worker runs on ``device`` ("cuda" by default, which raises
 without a card).  With ``device="cpu"`` it runs only when forced
 (``device_worker="force"``, as the tests do); ``device_worker=False`` or
-``device_mode="off"`` touches no device at all.
+``device_mode="off"`` touches no device at all.  In shadow mode with
+``PW_DEVICE_SHARDED=1`` it also runs the frontier-sharded search, once, on
+each instance of more than 8 movables (solver ``"device-sharded"``).
 """
 
 import dataclasses
@@ -467,12 +469,6 @@ def plan_puzzles_fleet(
             use_device = device_worker == "force"
     shadow = use_device and device_mode == "shadow"
     _device_stats["mode"] = device_mode if use_device else "off"
-    if shadow and os.environ.get("PW_DEVICE_SHARDED", "0") == "1":
-        raise NotImplementedError(
-            "PW_DEVICE_SHARDED=1 needs the frontier-sharded search, which is not "
-            "ported yet (ROADMAP.md, queue 1: the parallel layer, "
-            "parallel/frontier_sharded.py)"
-        )
 
     # ``results_out`` lets callers observe partial results while the fleet
     # runs (bench_torch.py's watchdog prints them if its deadline expires).
@@ -647,10 +643,58 @@ def plan_puzzles_fleet(
         start = time.monotonic()
         shadowed = set()
         prefer_tail = True
+        # Opt-in (PW_DEVICE_SHARDED=1): ONE puzzle's frontier sharded over a
+        # mesh (parallel.frontier_sharded), attempted once per instance of
+        # more than 8 movables, between the multiplex waves.  The mesh is
+        # this process's card alone: the fleets of other processes never
+        # enter the call with this one, so a mesh over every rank of the
+        # default group would wait for them forever.
+        sharded_enabled = os.environ.get("PW_DEVICE_SHARDED", "0") == "1"
+        sharded_tried = set()
+        sharded_mesh = None
         while True:
             if time.monotonic() - start < device_claim_delay:
                 time.sleep(0.05)
                 continue
+            if sharded_enabled:
+                with lock:
+                    big = next(
+                        (
+                            it for it in list(dq)
+                            if it[1].num_movables > 8
+                            and it[0] not in coordination["stolen"]
+                            and it[0] not in sharded_tried
+                        ),
+                        None,
+                    )
+                if big is not None:
+                    sharded_tried.add(big[0])
+                    shadowed.add(big[0])
+                    from pushworld_tpu_torch.parallel.frontier_sharded import (
+                        solve_frontier_sharded,
+                    )
+                    from pushworld_tpu_torch.parallel.mesh import make_local_mesh
+
+                    t0 = time.monotonic()
+                    try:
+                        if sharded_mesh is None:
+                            sharded_mesh = make_local_mesh(device)
+                        plan = solve_frontier_sharded(
+                            big[1], mesh=sharded_mesh, time_limit=time_limit,
+                            expand=256, frontier_capacity=1 << 15,
+                            visited_bits=21, history_capacity=1 << 21,
+                        )
+                        if plan is not None:
+                            r = _classify(big[1], plan, time.monotonic() - t0)
+                            r.solver = "device-sharded"
+                            if r.failure_reason is None:
+                                record(big[0], r)
+                    except TimeoutError:
+                        pass
+                    except Exception as e:
+                        _device_failure(f"sharded device path failed on {big[0]}", e)
+                        return
+                    continue
             with lock:
                 queued = list(dq)
                 if not queued:

@@ -347,3 +347,33 @@ def test_build_reachability_card_equals_cpu(dev, name):
     torch.cuda.synchronize()
     assert LAUNCHES["wavefront"] == before + 1
     assert torch.equal(D_g.cpu(), graphs.all_pairs_distances(E_c[:, 0]))
+
+
+# ------------------------------------------------------ the parallel layer on the card
+
+
+@pytest.mark.parametrize("name", ["simple", "chain", "push_left", "multi_goal", "heur/easy_search",
+                                  "spill_grid"])
+def test_frontier_sharded_nccl_equals_gloo(dev, name):
+    """The frontier-sharded search over a one-rank NCCL group on the card
+    takes the steps of a one-rank gloo run on the CPU, through the kernels."""
+    import torch.distributed as dist
+
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.parallel.frontier_sharded import solve_frontier_sharded
+    from pushworld_tpu_torch.parallel.mesh import make_mesh
+
+    p = _fixture(name)
+    kw = dict(time_limit=120.0, expand=16, frontier_capacity=1 << 10, visited_bits=14,
+              history_capacity=1 << 14, chunk=8)
+    card, cpu = make_mesh(device=dev, axis_name="shard"), make_mesh(device="cpu", axis_name="shard")
+    assert dist.get_backend(card.get_group()) == "nccl" and dist.get_backend(cpu.get_group()) == "gloo"
+    before = LAUNCHES["visited_set.fingerprint_dedup_insert"]
+    s_card, s_cpu = {}, {}
+    plan = solve_frontier_sharded(p, mesh=card, stats_out=s_card, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["visited_set.fingerprint_dedup_insert"] > before
+    assert plan == solve_frontier_sharded(p, mesh=cpu, stats_out=s_cpu, **kw)
+    assert p.is_valid_plan(plan)
+    for k in ("chunks", "spill_epochs", "shard_iterations", "shard_expansions"):
+        assert s_card[k] == s_cpu[k], k

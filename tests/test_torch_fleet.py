@@ -202,11 +202,29 @@ def test_device_failure_on_a_card_raises_after_hosts_finish(mode, monkeypatch):
     assert "device" not in {r.solver for r in info.value.results.values()}
 
 
+def _root_module(name):
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(name, os.path.join(root, name + ".py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def test_sharded_branch_and_default_device(monkeypatch):
     named = _named(["chain", "simple"])
+    # PW_DEVICE_SHARDED=1: the shadow device worker runs the frontier-sharded
+    # search on the instance of more than 8 movables (no native worker, so
+    # nothing else solves it first).
+    many = Puzzle.from_text(_root_module("chip_smoke").MANY_MOVABLES_TEXT)
+    assert many.num_movables > 8
     monkeypatch.setenv("PW_DEVICE_SHARDED", "1")
-    with pytest.raises(NotImplementedError, match="frontier_sharded"):
-        fleet.plan_puzzles_fleet(named, device_worker="force", device="cpu", device_mode="shadow")
+    results = _fleet([("many_movables", many)], device_worker="force", device="cpu",
+                     device_mode="shadow", native_workers=0, device_claim_delay=0.0)
+    r = results["many_movables"]
+    assert r.solver == "device-sharded" and r.failure_reason is None and many.is_valid_plan(r.plan)
+    assert fleet._device_stats["device_failed"] is False
     monkeypatch.delenv("PW_DEVICE_SHARDED")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
@@ -217,14 +235,9 @@ def test_sharded_branch_and_default_device(monkeypatch):
 
 
 def test_bench_entry_loads_a_set_and_needs_a_card(monkeypatch, capsys):
-    import importlib.util
-
     from pushworld_tpu_torch import config
 
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    spec = importlib.util.spec_from_file_location("bench_torch", os.path.join(root, "bench_torch.py"))
-    bench = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(bench)
+    bench = _root_module("bench_torch")
     # A folder with puzzles/<level>/*.pwp: here tests/, with heur as a level.
     monkeypatch.setattr(config, "BENCHMARK_PUZZLES_PATH", PUZZLES)
     named, paths = bench.load_set("heur:3, heur")
