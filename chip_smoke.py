@@ -68,10 +68,12 @@ Phases, each printing one JSON line:
    beside ``fleet.bytes_per_lane``.
 10. ``parallel``: the parallel layer on the card.  (a) The frontier-sharded
    search of the 47 x 54 puzzle at production capacities over a one-rank
-   NCCL group and over a one-rank gloo group on the CPU (on a thread beside
-   (b)-(f)): the same plan, chunks, iterations and expansions; its ms per
-   iteration beside the batched search's on the same puzzle, and the
-   collectives' device time (torch.profiler; one all-to-all an iteration).
+   NCCL group: a valid plan; its ms per iteration beside the batched
+   search's on the same puzzle, and the collectives' device time
+   (torch.profiler; one all-to-all an iteration).  Then spill_grid at
+   production capacities in chunks of 4 iterations over the NCCL group and
+   over a one-rank gloo group on the CPU: the same plan, chunks, iterations
+   and expansions.
    (b) spill_grid with a 64-entry history and the least
    frontier spills at least 2 epochs, evicts and still gives a valid plan;
    no_solution gives None.  (c) ``solve_group`` on the 29 puzzles (one group
@@ -81,9 +83,23 @@ Phases, each printing one JSON line:
    fleet in shadow mode with ``PW_DEVICE_SHARDED=1`` and no native worker:
    a 10-movable puzzle is solved by ``"device-sharded"``.  (f)
    ``entry.dryrun_multichip(1)`` and ``entry()`` on the card.
+11. ``tools``: the toolkit on the card.  (a) ``generate_level0_puzzles``
+   (16 candidates from ``--seed``, sizes 8-12, complex shapes) filtered with
+   ``planner="auto"`` on the card (the batched search) and with the host
+   planner: every candidate decided by a plan or "no solution", the two
+   kept sets byte-equal, every plan valid.  (b) ``create_transformed_puzzles``
+   on the kept set: each variant's mapped plan passes the oracle.  (c)
+   ``benchmark_planner(planner="batched")`` on the card over the variants
+   (at most 64) with its defaults (the portfolio), then again with no
+   native planner (as on a host without a C++ compiler: the device search
+   alone); every YAML has the schema and a valid plan; then the CLI's
+   ``benchmark --device cuda`` in a subprocess on 4 of them.  (d) The host
+   tools through the CLI: PDDL export in both modes, the plot of (c)'s
+   results (where matplotlib is installed), previews equal to
+   ``Puzzle.render``.
 
-The launch counts are set to 0 before each of the phases 4, 5, 6, 8, 9 and
-10 (and each fleet run) and read after it.  Beside ``ms`` (CUDA events around
+The launch counts are set to 0 before each of the phases 4, 5, 6, 8, 9, 10
+and 11 (and each fleet run) and read after it.  Beside ``ms`` (CUDA events around
 the wrapper: for the small kernels the host's enqueue time) every kernel has
 ``device_ms``, its own time from ``torch.profiler``; an empty kernel, built
 from a source in this script, is launched and timed the same two ways as the
@@ -1369,17 +1385,15 @@ def _two_processes_on_one_card(dev):
 
 def phase_parallel(puzzles, generated, solve_plans, dev):
     """The parallel layer on the card: the frontier-sharded search over a
-    one-rank NCCL group (the 47 x 54 puzzle at production capacities, card =
-    CPU; spills and a no-solution proof), solve_group on every puzzle,
-    benchmark_distributed in two processes on the card, the fleet's
-    PW_DEVICE_SHARDED=1 branch and the multi-chip dry run over one rank.
+    one-rank NCCL group (the 47 x 54 puzzle at production capacities;
+    spill_grid card = CPU; spills and a no-solution proof), solve_group on
+    every puzzle, benchmark_distributed in two processes on the card, the
+    fleet's PW_DEVICE_SHARDED=1 branch and the multi-chip dry run over one
+    rank.
 
     Launches are counted from after the batched comparison run of (a); each
     kernel must be launched by the frontier-sharded runs of (a) and (b)
-    alone, and solve_group's kernels by (c) alone.  The CPU run of (a)
-    starts after (d), so (a)-(d) are timed with the host to themselves."""
-    import concurrent.futures
-
+    alone, and solve_group's kernels by (c) alone."""
     import torch
     import torch.distributed as dist
 
@@ -1415,23 +1429,29 @@ def phase_parallel(puzzles, generated, solve_plans, dev):
     check(dist.get_backend(cpu.get_group()) == "gloo", "the CPU's mesh is no gloo group")
     lap("meshes")
 
-    # (a) The 47 x 54 puzzle at production capacities on the card; the same
-    # call on the CPU runs on a thread of its own beside (e) and (f) and is
-    # compared at the end.
-    def run_a(mesh):
+    # (a) The 47 x 54 puzzle at production capacities on the card; then
+    # card = CPU on spill_grid, several chunks at the same capacities.
+    def run_a(puzzle, mesh, **kw):
         stats = {}
         t = time.monotonic()
-        plan = solve_frontier_sharded(generated, mesh=mesh, time_limit=120, stats_out=stats, **caps)
+        plan = solve_frontier_sharded(puzzle, mesh=mesh, time_limit=120, stats_out=stats, **caps, **kw)
         torch.cuda.synchronize()
-        check(plan is not None and generated.is_valid_plan(plan), f"(a) {mesh.device_type}: no valid plan")
+        check(plan is not None and puzzle.is_valid_plan(plan), f"(a) {mesh.device_type}: no valid plan")
         return dict(stats, plan=plan, wall_s=time.monotonic() - t)
 
-    card_run = run_a(card)
+    card_run = run_a(generated, card)
     lap("a_card")
     out["generated_47x54"] = dict({k: v for k, v in card_run.items() if k != "plan"},
                                   plan_len=len(card_run["plan"]), **iterate_rate,
                                   **_sharded_rate(generated, card, caps))
     lap("a_rate_and_profile")
+    runs = {m.device_type: run_a(by_name["spill_grid"], m, chunk=4) for m in (card, cpu)}
+    for k in ("plan", "chunks", "spill_epochs", "shard_iterations", "shard_expansions"):
+        check(runs["cuda"][k] == runs["cpu"][k], f"(a) spill_grid: card and CPU differ in {k}")
+    check(runs["cuda"]["chunks"] > 1, "(a) spill_grid: one chunk only")
+    out["card_cpu_spill_grid"] = {"cpu_threads": torch.get_num_threads(), **{
+        m: {k: v for k, v in r.items() if k != "plan"} for m, r in runs.items()}}
+    lap("a_card_cpu")
 
     # (b) Spills (and evictions: a frontier of the least size) with a valid
     # plan; a no-solution proof.
@@ -1449,7 +1469,8 @@ def phase_parallel(puzzles, generated, solve_plans, dev):
     check(plan is None, f"(b) no_solution: {plan}")
     out["no_solution"] = stats
     lap("b")
-    frontier = {k: sum(part_launches[p][k] for p in ("a_card", "a_rate_and_profile", "b")) for k in KERNEL_NAMES}
+    frontier = {k: sum(part_launches[p][k] for p in ("a_card", "a_rate_and_profile", "a_card_cpu", "b"))
+                for k in KERNEL_NAMES}
     for k in KERNEL_NAMES:
         check(frontier[k] > 0, f"kernel {k} was not launched by the frontier-sharded runs")
 
@@ -1477,9 +1498,6 @@ def phase_parallel(puzzles, generated, solve_plans, dev):
     # (d) Two processes on this one card.
     out["two_processes"] = _two_processes_on_one_card(dev)
     lap("d")
-    cpu_pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
-    cpu_future = cpu_pool.submit(run_a, cpu)
-    cpu_pool.shutdown(wait=False)
 
     # (e) The fleet's frontier-sharded branch: no native worker, so the
     # instance of more than 8 movables goes to it.
@@ -1513,15 +1531,217 @@ def phase_parallel(puzzles, generated, solve_plans, dev):
     check(nxt.shape == args[1].shape and nxt.device == args[1].device, "entry(): wrong output")
     out["dryrun_s"] = time.monotonic() - t
     lap("f")
-    cpu_run = cpu_future.result()
-    for k in ("plan", "chunks", "spill_epochs", "shard_iterations", "shard_expansions"):
-        check(card_run[k] == cpu_run[k], f"(a) card and CPU differ in {k}")
-    out["generated_47x54"].update(cpu_wall_s=cpu_run["wall_s"], cpu_threads=torch.get_num_threads())
-    lap("a_cpu_rest")
 
     launches = dict(LAUNCHES)
     out.update(launches=launches, launches_by_part=part_launches, total_s=time.monotonic() - t0,
                seconds=seconds)
+    emit(out)
+    return launches
+
+
+# Seconds each candidate of the tools phase's generator may take: about twice
+# the slowest decision of the same batched search on a CPU for seed 0 (a
+# "no solution" proof of 30,111 expansions), so that a plan or "no solution"
+# decides every candidate, never the clock.
+GEN_TIME_LIMIT = 120.0
+
+
+def _generate_recorded(path, seed, planner, dev):
+    """``generate_level0_puzzles`` with the JAX defaults (16 candidates) and
+    ``planner`` on ``dev``; returns the filter's results, candidate by
+    candidate, as ``solve_puzzle`` gave them, and each candidate's RGD depth
+    (``required_depth``, where the batched search starts) and search
+    iterations (its fused-insert launches: one an iteration)."""
+    import pushworld_tpu_torch.search.planner as planner_mod
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.search.batched import required_depth
+    from pushworld_tpu_torch.tools.generate import generate_level0_puzzles
+
+    results, depths, iterations = [], [], []
+    solve = planner_mod.solve_puzzle
+    fused = "visited_set.fingerprint_dedup_insert"
+
+    def recording(puzzle, **kw):
+        depths.append(required_depth(puzzle))
+        before = LAUNCHES.get(fused, 0)
+        results.append(solve(puzzle, **kw))
+        iterations.append(LAUNCHES.get(fused, 0) - before)
+        return results[-1]
+
+    planner_mod.solve_puzzle = recording
+    try:
+        kept = generate_level0_puzzles(path, num_puzzles=16, random_seed=seed, time_limit=GEN_TIME_LIMIT,
+                                       planner=planner, device=dev)
+    finally:
+        planner_mod.solve_puzzle = solve
+    check(len(results) == 16, f"(a) {planner}: {len(results)} candidates planned, not 16")
+    reasons = [r.failure_reason for r in results]
+    check(set(reasons) <= {None, "no solution"}, f"(a) {planner}: a candidate not decided: {reasons}")
+    check(kept == reasons.count(None), f"(a) {planner}: kept {kept}, solved {reasons.count(None)}")
+    return results, depths, iterations
+
+
+def _check_yaml_results(results_path, puzzles_path, planner_name):
+    """Every result YAML under ``results_path``: the JAX schema, no failure,
+    a plan the oracle accepts on its puzzle."""
+    import yaml
+
+    from pushworld_tpu_torch.core.puzzle import Puzzle, plan_from_string
+
+    files = sorted(glob.glob(os.path.join(results_path, "*.yaml")))
+    for f in files:
+        with open(f) as fh:
+            doc = yaml.safe_load(fh)
+        name = os.path.basename(f)[: -len(".yaml")]
+        check(list(doc) == ["planner", "puzzle", "plan", "planning_time"], f"(c) {name}: keys {list(doc)}")
+        check(doc["planner"] == planner_name and doc["puzzle"] == name, f"(c) {name}: {doc}")
+        puzzle = Puzzle.from_file(os.path.join(puzzles_path, name + ".pwp"))
+        check(puzzle.is_valid_plan(plan_from_string(doc["plan"])), f"(c) {name}: invalid plan")
+    return len(files)
+
+
+def phase_tools(seed, dev):
+    """The toolkit on the card: the generator's filter, the transforms, the
+    benchmark harness (in this process and through the CLI) and the host
+    tools.  Launches are counted from 0 for the whole phase, and by part."""
+    import collections
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.native import bridge
+    from pushworld_tpu_torch.scripts import tools_cli
+    from pushworld_tpu_torch.tools.benchmark import benchmark_planner
+    from pushworld_tpu_torch.tools.transform import ACTION_MAPS, create_transformed_puzzles, transform_plan
+
+    work = tempfile.mkdtemp(prefix="pw_tools_")
+    t0 = time.monotonic()
+    seconds, part_launches, counted = {}, {}, {}
+    LAUNCHES.clear()
+
+    def lap(part: str) -> None:
+        seconds[part] = time.monotonic() - t0 - sum(seconds.values())
+        now = dict(LAUNCHES)
+        part_launches[part] = {k: now.get(k, 0) - counted.get(k, 0) for k in KERNEL_NAMES}
+        counted.update(now)
+
+    try:
+        out = {"phase": "tools", "seed": seed, "candidates": 16}
+        # (a) The generator, filtered on the card and by the host planner.
+        card_dir, host_dir = os.path.join(work, "card"), os.path.join(work, "host")
+        card, depths, iterations = _generate_recorded(card_dir, seed, "auto", dev)
+        lap("a_card")
+        host, _, _ = _generate_recorded(host_dir, seed, "host", dev)
+        lap("a_host")
+        names = sorted(os.listdir(card_dir))
+        check(names == sorted(os.listdir(host_dir)), "(a) the card and the host kept different puzzles")
+        for n in names:
+            with open(os.path.join(card_dir, n), "rb") as a, open(os.path.join(host_dir, n), "rb") as b:
+                check(a.read() == b.read(), f"(a) {n} differs between the card's and the host's sets")
+        plans = [r.plan for r in card if r.failure_reason is None]
+        host_plans = [r.plan for r in host if r.failure_reason is None]
+        kept = [Puzzle.from_file(os.path.join(card_dir, f"puzzle_{j}.pwp")) for j in range(len(plans))]
+        for j, p in enumerate(kept):
+            check(p.is_valid_plan(plans[j]) and p.is_valid_plan(host_plans[j]), f"(a) puzzle_{j}: invalid plan")
+        for k in ("wavefront", "visited_set.fingerprint_dedup_insert", "visited_set.probe_and_insert"):
+            check(part_launches["a_card"][k] > 0, f"(a) kernel {k} was not launched by the filter")
+        out["kept"] = len(kept)
+        out["decided"] = {w: dict(collections.Counter(r.failure_reason or "solved" for r in rs))
+                          for w, rs in (("card", card), ("host", host))}
+        out["card_by_depth"] = {d: {"candidates": depths.count(d),
+                                    "planning_s": sum(r.planning_time for r, e in zip(card, depths) if e == d),
+                                    "slowest_s": max(r.planning_time for r, e in zip(card, depths) if e == d),
+                                    "iterations": sum(i for i, e in zip(iterations, depths) if e == d),
+                                    "expansions": sum(r.expansions for r, e in zip(card, depths) if e == d)}
+                                for d in sorted(set(depths))}
+
+        # (b) The 8 symmetries of every kept puzzle, each with its mapped plan.
+        variants = os.path.join(work, "variants")
+        create_transformed_puzzles(card_dir, variants)
+        check(len(os.listdir(variants)) == 8 * len(kept), "(b) not 8 variants a puzzle")
+        for j, plan in enumerate(plans):
+            for t in ACTION_MAPS:
+                p = Puzzle.from_file(os.path.join(variants, f"puzzle_{j}_{t}.pwp"))
+                check(p.is_valid_plan(transform_plan(plan, t)), f"(b) puzzle_{j}_{t}: invalid plan")
+        out["variants"] = 8 * len(kept)
+        lap("b")
+
+        # (c) The benchmark harness over at most 64 variants: with its
+        # defaults (the portfolio), then with no native planner.
+        bench_in = os.path.join(work, "bench_in")
+        os.makedirs(bench_in)
+        for f in sorted(os.listdir(variants))[:64]:
+            shutil.copy(os.path.join(variants, f), bench_in)
+        name = "pushworld-tpu batched N+RGD"
+        res = benchmark_planner(bench_in, os.path.join(work, "results"), time_limit=60, planner="batched",
+                                progress=False, device=dev)
+        check(_check_yaml_results(os.path.join(work, "results"), bench_in, name) == len(res), "(c) YAMLs missing")
+        out["benchmark"] = {"puzzles": len(res), "solver": dict(collections.Counter(r.solver for r in res.values()))}
+        lap("c_portfolio")
+        available = bridge.is_available
+        bridge.is_available = lambda: False
+        try:
+            res = benchmark_planner(bench_in, os.path.join(work, "results_device"), time_limit=60,
+                                    planner="batched", progress=False, device=dev)
+        finally:
+            bridge.is_available = available
+        check(_check_yaml_results(os.path.join(work, "results_device"), bench_in, name) == len(res),
+              "(c) YAMLs missing")
+        device_solves = sum(r.solver == "device" for r in res.values())
+        check(device_solves == len(res), f"(c) no native planner, yet {len(res) - device_solves} not by the device")
+        out["benchmark_no_native"] = {"puzzles": len(res), "device_solves": device_solves,
+                                      "planning_s": sum(r.planning_time for r in res.values())}
+        lap("c_device")
+        check(part_launches["c_portfolio"]["wavefront"] > 0, "(c) the harness launched no wavefront kernel")
+        for k in ("wavefront", "visited_set.fingerprint_dedup_insert"):
+            check(part_launches["c_device"][k] > 0, f"(c) kernel {k} was not launched by the harness")
+        cli_in, cli_out = os.path.join(work, "cli_in"), os.path.join(work, "cli_results")
+        os.makedirs(cli_in)
+        for f in sorted(os.listdir(bench_in))[:4]:
+            shutil.copy(os.path.join(bench_in, f), cli_in)
+        run = subprocess.run(
+            [sys.executable, "-m", "pushworld_tpu_torch.scripts.tools_cli", "benchmark", "--puzzles-path", cli_in,
+             "--results-path", cli_out, "--planner", "batched", "--device", dev.type, "--time-limit", "60"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        check(run.returncode == 0, f"(c) tools_cli benchmark exited {run.returncode}: {run.stderr[-2000:]}")
+        check(_check_yaml_results(cli_out, cli_in, name) == 4, "(c) tools_cli benchmark: not 4 results")
+        lap("c_cli")
+
+        # (d) The host tools, through the CLI, on (a)'s kept set.
+        for mode in ([], ["--for-bfws"]):
+            pddl = os.path.join(work, "pddl" + "".join(mode))
+            check(tools_cli.main(["convert-to-pddl", pddl, "--puzzle-path", card_dir] + mode) == 0, "(d) pddl")
+            for j in range(len(kept)):
+                for suffix in ("_domain.pddl", "_problem.pddl"):
+                    with open(os.path.join(pddl, f"puzzle_{j}{suffix}")) as f:
+                        check(f.read().startswith("(define"), f"(d) puzzle_{j}{suffix} is no PDDL")
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            out["plot"] = "matplotlib not installed"
+        else:
+            png = os.path.join(work, "solved_vs_time.png")
+            tools_cli.main(["plot", os.path.join(work, "results"), "--output", png, "--timeout", "60"])
+            check(os.path.getsize(png) > 0, "(d) plot: no PNG")
+            out["plot"] = "ok"
+        previews = os.path.join(work, "previews")
+        check(tools_cli.main(["render-previews", previews, "--puzzle-path", card_dir]) == 0, "(d) previews")
+        check(len(os.listdir(previews)) == len(kept), "(d) not one preview a puzzle")
+        for j, p in enumerate(kept):
+            img = np.asarray(Image.open(os.path.join(previews, f"puzzle_{j}.png")))
+            check(np.array_equal(img, p.render(p.initial_state)), f"(d) preview {j} != Puzzle.render")
+        lap("d")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    launches = dict(LAUNCHES)
+    for k in KERNEL_NAMES:
+        check(launches.get(k, 0) > 0, f"kernel {k} was not launched on the toolkit's path")
+    out.update(launches=launches, launches_by_part=part_launches, total_s=time.monotonic() - t0, seconds=seconds)
     emit(out)
     return launches
 
@@ -1586,12 +1806,13 @@ def main() -> int:
     by_phase = {"solve": launches, "graphs": graphs_launches, "envs": envs_launches,
                 "portfolio": phase_portfolio(puzzles, generated, hard, dev),
                 "fleet": phase_fleet(puzzles, generated, hard, solve_classes, dev),
-                "parallel": phase_parallel(puzzles, generated, solve_plans, dev)}
+                "parallel": phase_parallel(puzzles, generated, solve_plans, dev),
+                "tools": phase_tools(args.seed, dev)}
 
     # ``launches`` is the solve phase's count (``solve_puzzle`` on the 29
     # puzzles); ``launches_by_phase`` adds the graph ops, the environments,
-    # the portfolio's two passes, the fleet's device-only run and the
-    # parallel layer, each counted from 0.
+    # the portfolio's two passes, the fleet's device-only run, the parallel
+    # layer and the toolkit, each counted from 0.
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_by_phase"] = {ph: c.get(k["name"], 0) for ph, c in by_phase.items()}

@@ -29,6 +29,9 @@ semantics:
                (``solve_group``), the frontier-sharded search of one puzzle
                and multi-process planning; ``entry`` holds the batched step
                and the multi-chip dry run.
+- ``tools``:   the generator with its solvability filter, symmetry
+               transforms, the benchmark harness, PDDL / SAS export, plots
+               and previews; ``scripts.tools_cli`` is their CLI.
 
 Every entry point takes ``device`` and defaults to ``"cuda"``; ``"cpu"`` runs
 the plain PyTorch versions of the kernels (what the tests use).  This package

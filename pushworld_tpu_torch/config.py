@@ -1,4 +1,4 @@
-"""Global configuration: file extensions and the dataset path.
+"""Global configuration: file extensions, the dataset path and tool paths.
 
 The port's copy of the JAX package's ``config.py`` (reference:
 python3/src/pushworld/config.py:20-33).
@@ -14,6 +14,10 @@ import os
 
 PUZZLE_EXTENSION = ".pwp"
 RESULT_EXTENSION = ".yaml"
+
+# PDDL export file suffixes (reference: config.py:30-33).
+DOMAIN_SUFFIX = "_domain.pddl"
+PROBLEM_SUFFIX = "_problem.pddl"
 
 
 def _default_benchmark_root() -> str:
@@ -31,3 +35,7 @@ def _default_benchmark_root() -> str:
 BENCHMARK_ROOT = _default_benchmark_root()
 BENCHMARK_PUZZLES_PATH = os.path.join(BENCHMARK_ROOT, "puzzles")
 BENCHMARK_SOLUTIONS_PATH = os.path.join(BENCHMARK_ROOT, "solutions")
+
+# Optional external binaries (for cross-checking / SAS export).
+RGD_PLANNER_PATH = os.environ.get("PUSHWORLD_RGD_PLANNER", "")
+FAST_DOWNWARD_PATH = os.environ.get("PUSHWORLD_FAST_DOWNWARD", "")

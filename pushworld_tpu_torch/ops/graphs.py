@@ -11,8 +11,10 @@ Port of the JAX package's ``ops/graphs.py``:
 - :func:`all_pairs_distances`: every target's distance field of one
   object's movement graph, through the wavefront kernel
   (:func:`pushworld_tpu_torch.ops.graphs_cuda.distance_fields`);
-- :func:`host_vertex_mask`, :func:`host_graph_distances_compact` (scipy BFS)
-  and :func:`host_distance_to_targets` (host BFS): the host references;
+- :func:`host_graph_distances` and :func:`host_graph_distances_compact`
+  (scipy BFS over all cells or over the graph's vertices),
+  :func:`host_vertex_mask` and :func:`host_distance_to_targets` (host BFS):
+  the host references;
 - :func:`distance_fields_reference`: the wavefront relaxation of
   ``graphs.distance_to_targets`` (graphs.py:313-329) over a batch of fields,
   the plain version of the CUDA kernel in ``kernels/wavefront.cu``
@@ -126,6 +128,57 @@ def all_pairs_distances(E_o: torch.Tensor) -> torch.Tensor:
     d = distance_fields(E_o[None], d0.reshape(HW, H, W))
     # d[t, y, x] = dist((x, y) -> t).  Return D[s, t].
     return d.reshape(HW, HW).T.contiguous()
+
+
+def host_graph_distances(E_o: np.ndarray, sources: Optional[np.ndarray] = None) -> np.ndarray:
+    """All-pairs distances D[s, t] on one object's movement graph, computed
+    on the host with scipy's C BFS.
+
+    Args:
+        E_o: bool (4, H, W) numpy — feasible transitions.
+        sources: optional bool (H*W,) mask restricting BFS sources (rows for
+            other sources are all-INF).
+
+    Returns:
+        float32 (H*W, H*W); unreachable pairs = INF (1e9).
+    """
+    import scipy.sparse as sp
+    import scipy.sparse.csgraph as csgraph
+
+    E_o = np.asarray(E_o)
+    H, W = E_o.shape[-2:]
+    HW = H * W
+    rows = []
+    cols = []
+    for a, (dx, dy) in enumerate(DISPLACEMENTS):
+        ys, xs = np.nonzero(E_o[a])
+        src = ys * W + xs
+        dst = (ys + dy) * W + (xs + dx)
+        ok = (xs + dx >= 0) & (xs + dx < W) & (ys + dy >= 0) & (ys + dy < H)
+        rows.append(src[ok])
+        cols.append(dst[ok])
+    rows = np.concatenate(rows) if rows else np.zeros(0, np.int64)
+    cols = np.concatenate(cols) if cols else np.zeros(0, np.int64)
+
+    out = np.full((HW, HW), float(INF), np.float32)
+    np.fill_diagonal(out, 0.0)
+    if len(rows) == 0:
+        return out
+    adj = sp.csr_matrix(
+        (np.ones(len(rows), np.int8), (rows, cols)), shape=(HW, HW)
+    )
+    active = np.zeros((HW,), bool)
+    active[rows] = True
+    active[cols] = True
+    if sources is not None:
+        active &= np.asarray(sources).reshape(-1)
+    idx = np.nonzero(active)[0]
+    if len(idx) == 0:
+        return out
+    d = csgraph.shortest_path(adj, method="D", unweighted=True, indices=idx)
+    d = np.where(np.isfinite(d), d, float(INF)).astype(np.float32)
+    out[idx] = d
+    return out
 
 
 def host_vertex_mask(E_o: np.ndarray, init_flat: int) -> np.ndarray:

@@ -174,6 +174,11 @@ def is_goal_state(cp: CompiledPuzzle, state: torch.Tensor, puzzle_idx=None) -> t
     return ((state == goal_pos).all(-1) | ~goal_mask).all(-1)
 
 
+def moved_mask(prev_state: torch.Tensor, next_state: torch.Tensor) -> torch.Tensor:
+    """(..., N) bool: which movables changed position."""
+    return (prev_state != next_state).any(-1)
+
+
 def run_plan(cp: CompiledPuzzle, actions, return_states: bool = False):
     """Applies an action sequence from the initial state.
 

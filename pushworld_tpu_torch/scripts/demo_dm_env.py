@@ -1,0 +1,58 @@
+"""Interactive dm_env demo with matplotlib arrow-key control.
+
+reference behavior: python3/scripts/demo_dm_env.py.
+Usage: ``python -m pushworld_tpu_torch.scripts.demo_dm_env <puzzle.pwp>``.
+The port's copy of the JAX package's demo, over the port's wrapper
+(``envs/dm_env_impl.py``, host-side: it takes no device).
+"""
+
+import argparse
+import sys
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Play a PushWorld puzzle (dm_env).")
+    parser.add_argument("puzzle", help="path of a .pwp file or puzzle directory")
+    parser.add_argument("--max-steps", type=int, default=None)
+    args = parser.parse_args(argv)
+
+    import matplotlib.pyplot as plt
+
+    from pushworld_tpu_torch.envs.dm_env_impl import PushWorldEnv
+
+    env = PushWorldEnv(args.puzzle, max_steps=args.max_steps)
+    ts = env.reset()
+
+    fig, ax = plt.subplots()
+    image = ax.imshow(ts.observation)
+    ax.set_axis_off()
+    status = ax.set_title("arrows: move · r: reset · q: quit")
+
+    key_to_action = {"left": 0, "right": 1, "up": 2, "down": 3}
+
+    def on_key(event):
+        if event.key == "q":
+            plt.close(fig)
+            return
+        if event.key == "r":
+            ts = env.reset()
+            status.set_text("reset")
+        elif event.key in key_to_action:
+            ts = env.step(key_to_action[event.key])
+            status.set_text(
+                f"reward={(ts.reward or 0):+.2f}" + (" · episode end" if ts.last() else "")
+            )
+            if ts.last():
+                ts = env.reset()
+        else:
+            return
+        image.set_data(ts.observation)
+        fig.canvas.draw_idle()
+
+    fig.canvas.mpl_connect("key_press_event", on_key)
+    plt.show()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

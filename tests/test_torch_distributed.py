@@ -8,8 +8,9 @@ package's, on the CPU.
   its own on a one-rank mesh (``make_local_mesh``) that the other process
   never enters;
 - ``scripts/benchmark_distributed.py`` in two processes;
-- ``entry.dryrun_multichip(1)`` on the CPU, and ``entry()``'s step against
-  ``__graft_entry__.entry()``'s forward on the same inputs.
+- ``entry.dryrun_multichip(1)`` on the CPU, and over 2 and 4 gloo ranks
+  (``torch_ranks``: the 2-D mesh is (1, 2) and (2, 2)); ``entry()``'s step
+  against ``__graft_entry__.entry()``'s forward on the same inputs.
 
 Every subprocess runs under a timeout of its own.
 """
@@ -29,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_ranks
 from pushworld_tpu.core.puzzle import Puzzle as JPuzzle
 from pushworld_tpu.parallel.distributed import shard_puzzles as j_shard_puzzles
 from pushworld_tpu_torch.core.puzzle import Puzzle
@@ -166,6 +168,25 @@ def test_dryrun_multichip_on_the_cpu(capsys):
     assert "dryrun_multichip OK: mesh=(1, 1) puzzles=2 rollouts=4" in out
     with pytest.raises(RuntimeError, match="needs a process group of 2 ranks, have 1"):
         entry.dryrun_multichip(2, device="cpu")
+
+
+@pytest.mark.parametrize("world,mesh", [(2, (1, 2)), (4, (2, 2))])
+def test_dryrun_multichip_over_gloo_ranks(tmp_path, world, mesh):
+    """Every rank runs the dry run to its end and prints the same lines: all
+    four fixtures solved by ``solve_group``, a valid frontier-sharded plan
+    over ``world`` shards, and the env step over the 2-D mesh."""
+    ranks = torch_ranks.launch(tmp_path, world, [{"kind": "dryrun"}])
+    try:
+        results = ranks.result(0)
+    finally:
+        ranks.kill()
+    lines = results[0]["lines"]
+    assert all(r["lines"] == lines and not r["jax"] for r in results)
+    assert lines[0] == "dryrun sharded planner OK: 4/4 puzzles solved"
+    assert lines[1] == f"dryrun frontier-sharded OK: plan_len=2 valid=True over {world} shards"
+    assert lines[2].startswith(f"dryrun_multichip OK: mesh={mesh} puzzles={2 * mesh[0]} "
+                               f"rollouts={4 * mesh[1]} solved=")
+    assert len(lines) == 3
 
 
 def test_entry_step_matches_graft_entry():

@@ -21,9 +21,14 @@ Jobs (dicts):
       this rank's ``shard_leading`` block of ``arange(n * 3).reshape(n, 3)``
       on the 1-D mesh and on ``make_mesh_2d(*mesh_2d_shape(world))``, with
       the rank's coordinates there.
+  {"kind": "dryrun"}
+      ``entry.dryrun_multichip(world, device="cpu")`` -> {"lines": what it
+      printed}.
 """
 
+import contextlib
 import datetime
+import io
 import json
 import os
 import subprocess
@@ -133,6 +138,13 @@ def _run(job, world):
         return {"1d": M.shard_leading(M.make_mesh(device="cpu"), x).tolist(),
                 "2d": M.shard_leading(m2, {"x": x})["x"].tolist(),
                 "coord": list(m2.get_coordinate())}
+    if job["kind"] == "dryrun":
+        from pushworld_tpu_torch import entry
+
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            entry.dryrun_multichip(world, device="cpu")
+        return {"lines": printed.getvalue().splitlines()}
     raise ValueError(f"unknown job {job['kind']!r}")
 
 
