@@ -27,8 +27,21 @@ Phases, each printing one JSON line:
    production capacities of ``plan_puzzles`` for every fixture under
    tests/puzzles and tests/puzzles/heur and for the 47 x 54 puzzle.  Every
    plan must pass the oracle; the unsolvable fixtures must report
-   "no solution"; every kernel must have been launched.  Two small fixtures
-   are also solved on the CPU and must give the same plan and expansions.
+   "no solution"; every kernel must have been launched (a search's chunks
+   are replays of its captured CUDA graph; each replay adds the kernel
+   launches its capture recorded).  Then ``chunk``: at the production
+   capacities, graphed chunks and the eager ``_iterate`` loop from the same
+   initial state must leave the same search (the visited set compared as a
+   set of keys) on the 47 x 54 puzzle (RGD depth 0) and on the first
+   depth-3 candidate of the tools phase's generator (a "no solution"
+   candidate); a chunk enqueued with no deadline must return before the
+   card has finished it; ms per iteration graphed and eager, the graphed
+   chunks' card-busy share, graph nodes, ``G``, capture and instantiation seconds, the time of
+   a chunk after the search's end (its gate closed: a no-op that costs its
+   kernels), and the overshoot of a 2 s budget on the 16 x 16 puzzle are
+   printed.  Two small
+   fixtures are also solved on the CPU and must give the same plan and
+   expansions.
 5. ``graphs``: the device graph ops.  ``build_reachability`` on the card
    must equal the native fixpoint's ``E`` and its own CPU run on ten ``heur``
    fixtures and on the 47 x 54 puzzle (iteration counts and seconds are
@@ -60,8 +73,11 @@ Phases, each printing one JSON line:
    fixtures and a 16 x 16 puzzle that outlasts the native planner, in which
    the device member must engage.
 9. ``fleet``: ``plan_puzzles_fleet`` on the 29 puzzles with the device worker
-   alone in claim mode, with the defaults (shadow mode, one native worker per
-   core) and with the device off; then a run in which every core holds a
+   alone in claim mode (again with ``PW_DEVICE_SYNC_EVERY`` at 1 and 4: the
+   same results, status reads that do not rise with the setting; and two
+   lanes of the 16 x 16 puzzle to a 3 s budget at 1, 2 and 4: reads that
+   fall, and the budget's overshoot), with the defaults (shadow mode, one
+   native worker per core) and with the device off; then a run in which every core holds a
    native worker on the 16 x 16 puzzle while the device worker shadows the
    fixtures, and the solve of the 47 x 54 puzzle timed alone and beside as
    many native threads as cores.  One lane's device bytes are measured
@@ -691,6 +707,154 @@ def phase_solve(puzzles, generated, dev):
     return launches, {r["puzzle"]: r["result"] for r in rows}, plans
 
 
+def _same_search(a, b, what: str) -> None:
+    """Two search states took the same steps, compared as phase
+    ``cpu_agreement`` holds a search: counters, frontier keys and, on live
+    slots, states, history refs and fingerprints; history, novelty tables;
+    the visited set as a SET of keys (a same-round slot race may lay a probe
+    cluster out in another order)."""
+    import torch
+
+    live = (a.frontier_h < 0x7F000000).cpu()
+    check(torch.equal(a.frontier_h.cpu(), b.frontier_h.cpu()), f"{what}: frontier keys differ")
+    for f in ("frontier_states", "frontier_hist", "frontier_key"):
+        check(torch.equal(getattr(a, f).cpu()[live], getattr(b, f).cpu()[live]), f"{what}: {f} differs")
+    for f in ("ring_cursor", "hist_parent", "hist_action", "hist_cursor", "solved", "solved_hist",
+              "iterations", "expansions", "evictions", "needs_deeper"):
+        check(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()), f"{what}: {f} differs")
+    check(torch.equal(a.novelty.seen_pos.cpu(), b.novelty.seen_pos.cpu()), f"{what}: seen_pos differs")
+    check(torch.equal(a.novelty.pair_table.cpu(), b.novelty.pair_table.cpu()), f"{what}: pair_table differs")
+
+    def keys(s):
+        k = s.visited.keys.cpu()
+        return set(k[(k != 0) & (k != -1)].tolist())
+
+    check(keys(a) == keys(b), f"{what}: visited sets differ")
+
+
+def _busy(fn) -> dict:
+    """Host wall seconds of ``fn`` (ending in a synchronise) and the share of
+    it the card was busy (torch.profiler); the share is None where the
+    profiler recorded no kernel (it may not trace a graph's nodes)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy_us = sum(dev_us(e) for e in rows)
+    return {"wall_s": wall_s, "busy_share": busy_us / (wall_s * 1e6) if rows else None,
+            "device_ms": busy_us / 1e3 if rows else None, "kernels": sum(e.count for e in rows)}
+
+
+def _chunk_lane(what, puzzle, depth, chunk, chunks, dev, masked: bool):
+    """One lane at production capacities: ``chunks`` graphed chunks of
+    ``chunk`` iterations and, from the same initial state, the eager loop
+    for the same iterations; equal searches, and their times.  ``masked``:
+    then on to the search's end, and the time of chunks whose every
+    iteration has its gate closed (host clock)."""
+    import torch
+
+    from pushworld_tpu_torch.search import chunk_graph
+    from pushworld_tpu_torch.search.batched import EMPTY, BatchedPlanner, _iterate, run_chunk, search_status
+    from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES
+
+    pl = BatchedPlanner(puzzle, max_depth=depth, device=dev, **PRODUCTION_CAPACITIES)
+    cfg = pl.config
+    s_g, s_e = pl.init_state(), pl.init_state()
+    torch.cuda.synchronize()
+    g = chunk_graph.attach(pl.cp_dev, pl.tables, cfg, s_g)
+    torch.cuda.synchronize()
+    iters = chunks * -(-chunk // g.iters) * g.iters
+    returned_early = []
+
+    def graphed():
+        for _ in range(chunks):
+            run_chunk(pl.cp_dev, pl.tables, cfg, s_g, chunk)
+            done = torch.cuda.Event()
+            done.record()
+            returned_early.append(not done.query())
+
+    g_row = _busy(graphed)
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    for _ in range(iters):
+        _iterate(pl.cp_dev, pl.tables, cfg, s_e)
+    torch.cuda.synchronize()
+    eager_s = time.monotonic() - t
+    _same_search(s_g, s_e, f"chunk ({what}): graphed vs eager")
+    check(all(returned_early), f"chunk ({what}): a chunk was complete when run_chunk returned: {returned_early}")
+    row = {}
+    if masked:
+        for _ in range(1000):
+            stat = search_status(s_g)
+            if stat[0] or stat[2] >= EMPTY or stat[3] >= cfg.history_capacity - 8 * cfg.expand:
+                break
+            run_chunk(pl.cp_dev, pl.tables, cfg, s_g, chunk)
+        before = search_status(s_g)
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        run_chunk(pl.cp_dev, pl.tables, cfg, s_g, 4 * chunk)
+        torch.cuda.synchronize()
+        row["masked_ms_per_iter"] = (time.monotonic() - t) / (4 * -(-chunk // g.iters) * g.iters) * 1e3
+        row["search_iterations"] = int(s_g.iterations)
+        check((search_status(s_g) == before).all(), f"chunk ({what}): an inactive chunk changed the status")
+    return {**row,"puzzle": what, "depth": depth, "G": g.iters, "nodes": g.nodes, "capture_s": g.capture_s,
+            "instantiate_s": g.instantiate_s, "chunk": chunk, "chunks": chunks, "iterations": iters,
+            "expansions": int(s_g.expansions), "solved": bool(s_g.solved), "launches_per_replay": g.launches,
+            "graphed_kernels_per_iter": g_row["kernels"] / iters,
+            "graphed_ms_per_iter": g_row["wall_s"] / iters * 1e3, "graphed_busy_share": g_row["busy_share"],
+            "graphed_device_ms_per_iter": None if g_row["device_ms"] is None else g_row["device_ms"] / iters,
+            "eager_ms_per_iter": eager_s / iters * 1e3, "returned_before_the_card": returned_early}
+
+
+def phase_chunk(generated, hard, seed, dev):
+    """The search chunk as CUDA graphs at production capacities: graphed =
+    eager on the 47 x 54 puzzle (depth 0) and on a depth-3 lane (a "no
+    solution" candidate of the tools phase's generator), each chunk returned
+    before the card finished it, and a 2 s budget's overshoot."""
+    import tempfile
+
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.search.batched import BatchedPlanner, required_depth
+    from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES
+    from pushworld_tpu_torch.tools.generate import generate_level0_puzzles
+
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="pw_chunk_") as work:
+        generate_level0_puzzles(work, num_puzzles=16, random_seed=seed, filter_puzzles=False)
+        candidates = [Puzzle.from_file(os.path.join(work, f"puzzle_{i}.pwp")) for i in range(16)]
+    deep = next((i for i, p in enumerate(candidates) if required_depth(p) == 3), None)
+    check(deep is not None, "chunk: no depth-3 candidate from the generator")
+    lanes = [_chunk_lane("generated_47x54", generated, required_depth(generated), 32, 2, dev, masked=True),
+             _chunk_lane(f"generator seed {seed} candidate {deep}", candidates[deep], 3, 2, 2, dev, masked=False)]
+    for row in lanes:
+        print(json.dumps({"chunk_lane": row}), file=sys.stderr, flush=True)
+
+    # A 2 s budget on the 16 x 16 puzzle that outlasts it: how late solve()
+    # returns (the capture of its graph counts against the budget).
+    planner = BatchedPlanner(hard, max_depth=required_depth(hard), device=dev, **PRODUCTION_CAPACITIES)
+    t = time.monotonic()
+    try:
+        plan = planner.solve(time_limit=2.0)
+        budget = {"result": "solved", "plan_valid": hard.is_valid_plan(plan)}
+    except TimeoutError as e:
+        budget = {"result": str(e)}
+    wall = time.monotonic() - t
+    budget.update(wall_s=wall, overshoot_s=wall - 2.0 if budget["result"] == "time budget exhausted" else None,
+                  iterations=int(planner.last_state.iterations), G=planner.last_state.graph.iters,
+                  capture_s=planner.last_state.graph.capture_s)
+    emit({"phase": "chunk", "lanes": lanes, "budget_2s_hard_16x16": budget, "total_s": time.monotonic() - t0})
+
+
 def phase_cpu_agreement(puzzles, dev):
     """Small fixtures solved on the card and on the CPU give the same search."""
     from pushworld_tpu_torch.search.planner import solve_puzzle
@@ -1253,6 +1417,47 @@ def phase_fleet(puzzles, generated, hard, solve_classes, dev):
     out["device_only_claim"] = row
     launches = row["launches"]
 
+    # (a') PW_DEVICE_SYNC_EVERY at 1 and 4 beside (a)'s default 2: the same
+    # results, and status reads that do not rise with the setting; then two
+    # lanes of the 16 x 16 puzzle, which run chunk after chunk to a 3 s
+    # budget: reads that fall, and the budget's overshoot.
+    reads, overshoot = {2: row["device_phases"]["chunk_dispatches"]}, {}
+    old_every = os.environ.get("PW_DEVICE_SYNC_EVERY")
+    try:
+        for every in (1, 4):
+            os.environ["PW_DEVICE_SYNC_EVERY"] = str(every)
+            os.environ["PW_DEVICE_DEEP"] = "1"
+            r_row, r_classes, r_results = run(f"device only, claim, sync every {every}", named, time_limit=60,
+                                              native_workers=0, device_mode="claim", device_claim_delay=0,
+                                              group_size=4)
+            check(r_classes == classes, f"fleet (a'), sync every {every}: classification differs: {r_classes}")
+            for n, _ in named:
+                if results[n].solver == r_results[n].solver == "device":
+                    check(results[n].plan == r_results[n].plan, f"fleet (a'), sync every {every}: {n}: plan differs")
+            reads[every] = r_row["device_phases"]["chunk_dispatches"]
+        check(reads[1] >= reads[2] >= reads[4], f"fleet (a'): status reads rose with the setting: {reads}")
+        hard_reads = {}
+        for every in (1, 2, 4):
+            os.environ["PW_DEVICE_SYNC_EVERY"] = str(every)
+            fleet._reset_device_stats()
+            lanes = list(fleet._device_multiplex([("hard/0", hard), ("hard/1", hard)], time_limit=3.0,
+                                                 device=dev, **fleet_kwargs))
+            check(sorted(n for n, _ in lanes) == ["hard/0", "hard/1"], "fleet (a'): lost lanes")
+            hard_reads[every] = fleet._device_stats["chunk_dispatches"]
+            overshoot[every] = [r.planning_time - 3.0 for _, r in lanes if r.failure_reason == "time limit"]
+        if all(len(v) == 2 for v in overshoot.values()):  # both lanes ran to the budget at every setting
+            check(hard_reads[1] > hard_reads[2] > hard_reads[4], f"fleet (a'): status reads did not fall: {hard_reads}")
+        else:
+            check(hard_reads[1] >= hard_reads[2] >= hard_reads[4], f"fleet (a'): status reads rose: {hard_reads}")
+    finally:
+        for key, old in (("PW_DEVICE_SYNC_EVERY", old_every), ("PW_DEVICE_DEEP", old)):
+            if old is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = old
+    out["sync_every"] = {"status_reads_fixtures": reads, "status_reads_two_hard_lanes_3s": hard_reads,
+                         "budget_overshoot_s_3s": overshoot}
+
     # (b) the defaults: shadow mode, one native worker per core.
     row, classes, _ = run("defaults", named, time_limit=60)
     check(classes == solve_classes, f"fleet (b): classification differs from the solve phase: {classes}")
@@ -1551,29 +1756,36 @@ def _generate_recorded(path, seed, planner, dev):
     ``planner`` on ``dev``; returns the filter's results, candidate by
     candidate, as ``solve_puzzle`` gave them, and each candidate's RGD depth
     (``required_depth``, where the batched search starts) and search
-    iterations (its fused-insert launches: one an iteration)."""
+    iterations (the iteration counters of every search state it made, depth
+    escalations included)."""
+    import pushworld_tpu_torch.search.batched as batched
     import pushworld_tpu_torch.search.planner as planner_mod
-    from pushworld_tpu_torch.kernels import LAUNCHES
     from pushworld_tpu_torch.search.batched import required_depth
     from pushworld_tpu_torch.tools.generate import generate_level0_puzzles
 
-    results, depths, iterations = [], [], []
-    solve = planner_mod.solve_puzzle
-    fused = "visited_set.fingerprint_dedup_insert"
+    results, depths, iterations, states = [], [], [], []
+    solve, init_state = planner_mod.solve_puzzle, batched.BatchedPlanner.init_state
 
     def recording(puzzle, **kw):
         depths.append(required_depth(puzzle))
-        before = LAUNCHES.get(fused, 0)
+        first = len(states)
         results.append(solve(puzzle, **kw))
-        iterations.append(LAUNCHES.get(fused, 0) - before)
+        iterations.append(sum(int(s.iterations) for s in states[first:]))
+        del states[first:]
         return results[-1]
 
+    def recording_init(self):
+        states.append(init_state(self))
+        return states[-1]
+
     planner_mod.solve_puzzle = recording
+    batched.BatchedPlanner.init_state = recording_init
     try:
         kept = generate_level0_puzzles(path, num_puzzles=16, random_seed=seed, time_limit=GEN_TIME_LIMIT,
                                        planner=planner, device=dev)
     finally:
         planner_mod.solve_puzzle = solve
+        batched.BatchedPlanner.init_state = init_state
     check(len(results) == 16, f"(a) {planner}: {len(results)} candidates planned, not 16")
     reasons = [r.failure_reason for r in results]
     check(set(reasons) <= {None, "no solution"}, f"(a) {planner}: a candidate not decided: {reasons}")
@@ -1798,11 +2010,12 @@ def main() -> int:
                for f in files]
     check(len(puzzles) == 28, f"expected 28 fixtures, found {len(puzzles)}")
     launches, solve_classes, solve_plans = phase_solve(puzzles, generated, dev)
+    hard = Puzzle.from_text(HARD_PUZZLE_TEXT)
+    phase_chunk(generated, hard, args.seed, dev)
     phase_cpu_agreement(puzzles, dev)
     graphs_launches = phase_graphs(puzzles, generated, dev)
     envs_launches = phase_envs(puzzles, generated, dev)
     phase_native(puzzles, generated, dev)
-    hard = Puzzle.from_text(HARD_PUZZLE_TEXT)
     by_phase = {"solve": launches, "graphs": graphs_launches, "envs": envs_launches,
                 "portfolio": phase_portfolio(puzzles, generated, hard, dev),
                 "fleet": phase_fleet(puzzles, generated, hard, solve_classes, dev),

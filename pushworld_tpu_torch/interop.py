@@ -95,7 +95,7 @@ def search_state_from_numpy(d: Arrays, device: DeviceLike = "cuda") -> SearchSta
         frontier_h=_t(d["frontier_h"], dev, torch.int32),
         frontier_hist=_t(d["frontier_hist"], dev, torch.int32),
         frontier_key=_packed(d["frontier_lo"], d["frontier_hi"], dev),
-        ring_cursor=int(d["ring_cursor"]),
+        ring_cursor=scalar("ring_cursor"),
         hist_parent=_t(d["hist_parent"], dev, torch.int32),
         hist_action=_t(d["hist_action"], dev, torch.int32),
         hist_cursor=scalar("hist_cursor"),

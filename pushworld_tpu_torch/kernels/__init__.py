@@ -6,15 +6,41 @@ can show that its main path went through the kernels.  Several threads launch
 kernels (the fleet's device worker, the portfolio's table prefetch), and
 ``LAUNCHES[name] += 1`` is a read and a write, so the update is made under a
 lock.
+
+A capture into a CUDA graph (``search/chunk_graph.py``) runs the wrappers
+but launches nothing on the card: inside :func:`recording_launches` the
+capturing thread's counts go to the block's own counter, and each replay of
+the graph adds that counter to ``LAUNCHES`` (``count_launch(name, n)``).  So
+``LAUNCHES`` keeps meaning kernels launched on the card.
 """
 
 import threading
 from collections import Counter
+from contextlib import contextmanager
+from typing import Iterator
 
 LAUNCHES: Counter = Counter()
 _LAUNCHES_LOCK = threading.Lock()
+_RECORDING = threading.local()
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, count: int = 1) -> None:
+    recorded = getattr(_RECORDING, "counter", None)
+    if recorded is not None:
+        recorded[name] += count
+        return
     with _LAUNCHES_LOCK:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += count
+
+
+@contextmanager
+def recording_launches() -> Iterator[Counter]:
+    """Inside the block, this thread's :func:`count_launch` calls add to the
+    yielded counter instead of ``LAUNCHES`` (other threads count as usual)."""
+    if getattr(_RECORDING, "counter", None) is not None:
+        raise RuntimeError("recording_launches does not nest")
+    _RECORDING.counter = Counter()
+    try:
+        yield _RECORDING.counter
+    finally:
+        _RECORDING.counter = None

@@ -124,8 +124,12 @@ def novelty_score_and_update(
     )
 
     # --- absorb: positions of moved objects + symmetric pair outer products.
+    # One max-scatter over every lane (masked-off lanes scatter 0), so the
+    # update reads nothing back to the host and repeated cells cannot race.
     upd = moved & valid[:, None]
-    t.seen_pos[n_idx[None, :].expand(B, N)[upd], flat[upd]] = True
+    t.seen_pos.view(-1).view(torch.uint8).scatter_reduce_(
+        0, (n_idx[None, :] * (t.height * t.width) + flat).reshape(-1),
+        upd.reshape(-1).to(torch.uint8), reduce="amax")
     Xv = (X & valid[:, None]).to(torch.bfloat16)
     Yv = (Y & valid[:, None]).to(torch.bfloat16)
     U = torch.matmul(Xv.T, Yv)  # (S, S): positive exactly where a pair was seen

@@ -34,12 +34,11 @@ from pushworld_tpu_torch.core.puzzle import Puzzle
 from pushworld_tpu_torch.device import DeviceLike, resolve_device
 from pushworld_tpu_torch.ops.graphs import host_vertex_mask
 from pushworld_tpu_torch.ops.graphs_cuda import distance_fields
+from pushworld_tpu_torch.ops.step import displacements
 
 INF = 1e9
 FINITE_THRESHOLD = 1e8
 D_INF = 65535  # the packed distance blocks' encoding of infinity
-
-DISPLACEMENTS_NP = np.array([(-1, 0), (1, 0), (0, -1), (0, 1)], np.int32)
 
 
 @dataclass
@@ -330,12 +329,14 @@ def _agent_push_cost(t: RGDTables, states, o: int, a: int, p) -> torch.Tensor:
     return 1.0 + v.min(1).values
 
 
-def _tool_push_cost(t: RGDTables, states, o: int, a: int, p, skip_mask, inner_tbl):
+def _tool_push_cost(t: RGDTables, states, o: int, a: int, p, skip_mask, inner_tbl, disp):
     """Depth-d (d >= 1) pushing cost: some tool q (not skipped) realizes
     pushee ``o``'s transition p -> p + d_a.
 
     ``inner_tbl``: (B, N, 4) costs of realizing each candidate pusher q's
-    own first transition Q -> Q + d_{a'} at depth d-1.  Returns (B,) f32."""
+    own first transition Q -> Q + d_{a'} at depth d-1; ``disp``: the four
+    moves' displacements (:func:`ops.step.displacements`).  Returns (B,)
+    f32."""
     N = t.n
     HW = t.width * t.height
     dev = states.device
@@ -349,7 +350,6 @@ def _tool_push_cost(t: RGDTables, states, o: int, a: int, p, skip_mask, inner_tb
     feasible = _gather_E(t, a, n_ar[None, :, None], c) & mask[None]  # (B, N, C)
     c_flat = _flat(t, c).clamp(0, HW - 1)  # (B, N, C)
 
-    disp = torch.as_tensor(DISPLACEMENTS_NP, device=dev)  # (4, 2)
     P_next = Q[:, :, None, :] + disp[None, None]  # (B, N, 4, 2)
     next_ok = _gather_E(t, a4[None, None, :], n_ar[None, :, None], Q[:, :, None, :])  # (B, N, 4)
     P_next_flat = _flat(t, P_next).clamp(0, HW - 1)  # (B, N, 4)
@@ -425,7 +425,7 @@ def _rgd_impl(t: RGDTables, states: torch.Tensor, max_depth: int):
     # goals/directions (the reference's PushingCostCache,
     # recursive_graph_distance.cc:176-252).
     cache: dict = {}
-    disp = torch.as_tensor(DISPLACEMENTS_NP, device=dev)
+    disp = displacements(dev)
 
     for k in range(t.max_goals):
         o = k + 1
@@ -448,9 +448,9 @@ def _rgd_impl(t: RGDTables, states: torch.Tensor, max_depth: int):
                     finite_dg = finite_dg | (e_ok & (goal_dist < FINITE_THRESHOLD))
                     pc = _agent_push_cost(t, states, o, a, p)
                 else:
-                    inner = _all_dirs_cost(t, states, (o,), depth - 1, cache)
+                    inner = _all_dirs_cost(t, states, (o,), depth - 1, cache, disp)
                     skip = torch.zeros((B, t.n), dtype=torch.bool, device=dev)
-                    pc = _tool_push_cost(t, states, o, a, p, skip, inner)
+                    pc = _tool_push_cost(t, states, o, a, p, skip, inner, disp)
                 cost_dirs.append(torch.where(e_ok, goal_dist + pc, INF))
             per_depth.append(torch.minimum(
                 torch.minimum(cost_dirs[0], cost_dirs[1]),
@@ -477,7 +477,8 @@ def _rgd_impl(t: RGDTables, states: torch.Tensor, max_depth: int):
 
 
 def _all_dirs_cost(
-    t: RGDTables, states: torch.Tensor, skip_objs: Tuple[int, ...], depth: int, cache: dict
+    t: RGDTables, states: torch.Tensor, skip_objs: Tuple[int, ...], depth: int, cache: dict,
+    disp: torch.Tensor,
 ) -> torch.Tensor:
     """(B, N, 4): cost of object q's transition Q -> Q + d_{a'} at pushing
     depth ``depth``, for every candidate q and direction a', with the
@@ -500,11 +501,11 @@ def _all_dirs_cost(
         cols = []
         for q in range(N):
             inner = _all_dirs_cost(
-                t, states, tuple(sorted(set(skip_objs) | {q})), depth - 1, cache
+                t, states, tuple(sorted(set(skip_objs) | {q})), depth - 1, cache, disp
             )
             pq = states[:, q, :]
             cols.append(torch.stack(
-                [_tool_push_cost(t, states, q, a2, pq, skip, inner) for a2 in range(4)], dim=1
+                [_tool_push_cost(t, states, q, a2, pq, skip, inner, disp) for a2 in range(4)], dim=1
             ))  # (B, 4)
         out = torch.stack(cols, dim=1)  # (B, N, 4)
     cache[key] = out

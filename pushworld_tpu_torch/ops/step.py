@@ -32,6 +32,16 @@ from pushworld_tpu_torch.core.compiled import CompiledPuzzle
 DISPLACEMENTS = np.array([(-1, 0), (1, 0), (0, -1), (0, 1)], np.int32)
 
 
+def displacements(device) -> torch.Tensor:
+    """:data:`DISPLACEMENTS` as an int32 (4, 2) tensor made on ``device``
+    from ``arange``: no host-to-device copy, which a search iteration
+    captured into a CUDA graph may not make."""
+    a = torch.arange(4, device=device)
+    sign = (a % 2) * 2 - 1  # -1, 1, -1, 1
+    zero = torch.zeros_like(a)
+    return torch.stack([torch.where(a < 2, sign, zero), torch.where(a < 2, zero, sign)], -1).to(torch.int32)
+
+
 def _closure_from_agent(m: torch.Tensor) -> torch.Tensor:
     """(..., N) bool: movables transitively pushed from the agent.
     ``m``: (..., N, N) bool push relation."""
@@ -144,7 +154,7 @@ def expand_children(
     blocked = sb_flat[a_idx, n_idx, flat[None]]  # (4, B, N)
     nothing = blocked[..., 0] | (pushed[..., 1:] & blocked[..., 1:]).any(-1)  # (4, B)
     moved = pushed & ~nothing.unsqueeze(-1) & cp.obj_mask  # (4, B, N)
-    disp = torch.as_tensor(DISPLACEMENTS, device=parents.device)  # (4, 2)
+    disp = displacements(parents.device)  # (4, 2)
     out = parents[None] + disp[:, None, None, :] * moved.unsqueeze(-1).to(parents.dtype)
     return out.reshape(4 * B, N, 2)
 

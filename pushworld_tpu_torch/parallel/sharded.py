@@ -88,9 +88,11 @@ def solve_group(
 
     t0 = time.monotonic()
     deadline = None if time_limit is None else t0 + time_limit
+    ended = [False] * len(states)  # by the last status: its chunks would be no-ops
     while True:
-        for pl, s in zip(planners, states):
-            run_chunk(pl.cp_dev, pl.tables, pl.config, s, chunk)
+        for pl, s, done in zip(planners, states, ended):
+            if not done:  # on the card a no-op chunk still costs its iterations
+                run_chunk(pl.cp_dev, pl.tables, pl.config, s, chunk)
         # One packed all-gather per chunk: every lane's status, and each
         # rank's vote on the deadline (its own clock), after them.
         over = deadline is not None and time.monotonic() > deadline
@@ -105,6 +107,7 @@ def solve_group(
         hist_full = stat[:, 3] >= history_capacity - 8 * expand
         if not (~solved & ~exhausted & ~hist_full).any():
             break
+        ended = [bool(solved[i] | exhausted[i] | hist_full[i]) for i in mine]
         if every[:, -1].any():
             break
 

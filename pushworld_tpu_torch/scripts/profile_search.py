@@ -3,11 +3,16 @@
 ``python -m pushworld_tpu_torch.scripts.profile_search PUZZLE.pwp [--iters N]``
 
 Builds the kernels, then the planner and its RGD tables (timed, with the
-host movement-graph fixpoint timed on its own), then runs ``--iters`` search iterations at the
-production capacities under ``torch.profiler`` and prints one JSON line: the
-table-build time, the host-clock time per iteration (under the profiler),
-the device-busy share (summed kernel time over the wall time), kernels per
-iteration, and the operators with the most device time.  Needs a CUDA device.
+host movement-graph fixpoint timed on its own), then runs ``--iters`` search
+iterations at the production capacities under ``torch.profiler`` twice:
+eagerly (``_iterate`` in a Python loop) and as the card's ``run_chunk`` does
+(replays of the captured CUDA graph of ``search/chunk_graph.py``, on a second
+state from the same start).  Prints one JSON line: the table-build time; for
+each way the host-clock time per iteration (under the profiler), the
+device-busy share (summed kernel time over the wall time) and kernels per
+iteration; the graph's iterations, nodes and capture and instantiate
+seconds; and the operators with the most device time in the eager loop.
+Needs a CUDA device.
 """
 
 import argparse
@@ -20,6 +25,8 @@ def main(argv=None) -> int:
     ap.add_argument("puzzle", help="path of a .pwp puzzle file")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--graph-iters", type=int, default=None,
+                    help="iterations in one CUDA graph (default: chunk_graph.GRAPH_ITERS at the depth)")
     args = ap.parse_args(argv)
 
     import torch
@@ -31,7 +38,8 @@ def main(argv=None) -> int:
     from pushworld_tpu_torch.kernels import LAUNCHES, _build
     from pushworld_tpu_torch.native import bridge
     from pushworld_tpu_torch.ops.rgd import _movement_graphs_host
-    from pushworld_tpu_torch.search.batched import BatchedPlanner, _iterate, required_depth
+    from pushworld_tpu_torch.search import chunk_graph
+    from pushworld_tpu_torch.search.batched import BatchedPlanner, _iterate, required_depth, run_chunk
     from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES
 
     dev = torch.device("cuda", 0)
@@ -47,39 +55,55 @@ def main(argv=None) -> int:
     planner = BatchedPlanner(puzzle, max_depth=depth, device=dev, **PRODUCTION_CAPACITIES)
     torch.cuda.synchronize()
     build_s = time.monotonic() - t0
-    s = planner.init_state()
     cfg = planner.config
+    eager_s, graphed_s = planner.init_state(), planner.init_state()
     for _ in range(2):  # warm-up
-        _iterate(planner.cp_dev, planner.tables, cfg, s)
+        _iterate(planner.cp_dev, planner.tables, cfg, eager_s)
+    if args.graph_iters is not None:
+        chunk_graph.GRAPH_ITERS[min(depth, 3)] = args.graph_iters
+    g = chunk_graph.attach(planner.cp_dev, planner.tables, cfg, graphed_s)
+    run_chunk(planner.cp_dev, planner.tables, cfg, graphed_s, 2 * g.iters)  # warm-up
     torch.cuda.synchronize()
-    LAUNCHES.clear()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for _ in range(args.iters):
-            _iterate(planner.cp_dev, planner.tables, cfg, s)
-        torch.cuda.synchronize()
-        wall_s = time.monotonic() - t0
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    # Kernel rows carry the device time once; operator rows repeat it.
-    avgs = prof.key_averages()
-    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    def profiled(run, iters):
+        LAUNCHES.clear()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            run()
+            torch.cuda.synchronize()
+            wall_s = time.monotonic() - t0
+        # Kernel rows carry the device time once; operator rows repeat it.
+        avgs = prof.key_averages()
+        kernels = [e for e in avgs if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+        busy_us = sum(dev_us(e) for e in kernels)
+        row = {"iters": iters, "ms_per_iter": wall_s / iters * 1e3,
+               "device_busy_share": busy_us / (wall_s * 1e6),
+               "device_ms_per_iter": busy_us / 1e3 / iters,
+               "kernels_per_iter": sum(e.count for e in kernels) / iters,
+               "hand_kernel_launches": dict(LAUNCHES)}
+        return row, avgs
+
+    def eager():
+        for _ in range(args.iters):
+            _iterate(planner.cp_dev, planner.tables, cfg, eager_s)
+
+    eager_row, avgs = profiled(eager, args.iters)
+    replays = -(-args.iters // g.iters)
+    graphed_row, _ = profiled(
+        lambda: run_chunk(planner.cp_dev, planner.tables, cfg, graphed_s, args.iters), replays * g.iters)
     ops = [e for e in avgs if e.device_type == DeviceType.CPU and dev_us(e) > 0]
-    busy_us = sum(dev_us(e) for e in kernels)
-    n_kernels = sum(e.count for e in kernels)
     top = sorted(ops, key=dev_us, reverse=True)[: args.top]
     print(json.dumps({
         "puzzle": args.puzzle, "depth": depth, "device": torch.cuda.get_device_name(0),
         "table_build_s": build_s, "of_which_host_movement_graphs_s": graphs_s,
-        "iters": args.iters,
-        "ms_per_iter": wall_s / args.iters * 1e3,
-        "device_busy_share": busy_us / (wall_s * 1e6),
-        "kernels_per_iter": n_kernels / args.iters,
-        "hand_kernel_launches": dict(LAUNCHES),
+        "eager": eager_row,
+        "graphed": dict(graphed_row, graph_iters=g.iters, nodes=g.nodes, capture_s=g.capture_s,
+                        instantiate_s=g.instantiate_s),
         "top_ops_device_ms_per_iter": {e.key: dev_us(e) / 1e3 / args.iters for e in top},
-        "expansions": int(s.expansions),
+        "expansions": {"eager": int(eager_s.expansions), "graphed": int(graphed_s.expansions)},
     }))
     return 0
 

@@ -17,13 +17,19 @@ Search *order* differs from the reference (lockstep novelty, batch
 expansion); acceptance is valid plans within budget.  Plans are rebuilt from
 a device-side history of (parent index, action) records.
 
-The loop is a Python loop over iterations.  The host waits for the device
-at the stop test of each iteration, at the boolean-mask writes (only new
-lanes are written to the history and the novelty position table), and for
-the ring cursor when the ring compacts.  State is updated in place where
-that saves memory (the visited set, the novelty tables, the history and
-frontier arrays).  Iteration for iteration it takes the JAX package's steps
-and stops after the same iterations.
+An iteration reads nothing back to the host: as in the JAX package's
+jitted body, it is gated on the device.  ``active`` (not solved, a live
+frontier entry, history below its limit) masks the selection, so an
+inactive iteration expands, inserts and scores nothing and leaves the state
+exactly as it was; every write is an index or scatter at device-computed
+positions, and the ring's compaction is decided on the device.  Every field
+of :class:`SearchState` is allocated once by :func:`init_search_state` and
+updated in place from then on, so a CUDA graph can replay iterations over
+fixed addresses (``search/chunk_graph.py``).  :func:`run_chunk` on the card
+enqueues captured graphs and returns without a host read, like the JAX
+package's asynchronous ``run_chunk``; the callers read the status of chunk
+k while chunk k+1 runs (:class:`PendingStatus`).  Iteration for iteration it
+takes the JAX package's steps and stops after the same iterations.
 """
 
 import time
@@ -98,7 +104,7 @@ class SearchState:
     frontier_h: torch.Tensor  # (F,) int32 priority keys (EMPTY = free slot)
     frontier_hist: torch.Tensor  # (F,) int32
     frontier_key: torch.Tensor  # (F,) int64 packed fingerprints (for eviction deletes)
-    ring_cursor: int  # next append window offset (host-side)
+    ring_cursor: torch.Tensor  # int32 scalar: next append window offset
     hist_parent: torch.Tensor  # (Hcap,) int32
     hist_action: torch.Tensor  # (Hcap,) int32
     hist_cursor: torch.Tensor  # int32 scalar
@@ -112,6 +118,9 @@ class SearchState:
     # Count of scored states whose RGD was INF at the search's depth although
     # the goal was graph-reachable (drives depth escalation).
     needs_deeper: torch.Tensor  # int32 scalar
+    # The captured CUDA graph of this search's chunks (search/chunk_graph.py),
+    # made at the first run_chunk on the card and released with the state.
+    graph: Optional[object] = None
 
 
 def init_search_state(
@@ -151,7 +160,7 @@ def init_search_state(
         frontier_h=frontier_h,
         frontier_hist=torch.zeros((F,), **i32),
         frontier_key=frontier_key,
-        ring_cursor=1,  # slot 0 holds the initial state
+        ring_cursor=torch.ones((), **i32),  # slot 0 holds the initial state
         hist_parent=torch.full((cfg.history_capacity,), -1, **i32),
         hist_action=torch.full((cfg.history_capacity,), -1, **i32),
         hist_cursor=torch.ones((), **i32),
@@ -205,79 +214,117 @@ def search_status(s: SearchState) -> np.ndarray:
 
 
 def _append_history(s: SearchState, cfg: SearchConfig, is_new, phist4, actions, margin: int = 8):
-    """Appends the new children's (parent, action) records to the history
-    (only the new lanes are written); the cursor stops ``margin`` entries
-    short of the capacity.  Returns hist_idx (0 for the others)."""
+    """Appends the new children's (parent, action) records to the history,
+    in place; the cursor stops ``margin`` entries short of the capacity.
+    Returns hist_idx (0 for the other lanes).
+
+    As in the JAX package, every lane writes: the others write the last
+    entry's own value back to it, so no boolean index is needed."""
     offs = torch.cumsum(is_new.to(torch.int32), 0, dtype=torch.int32) - 1
     hist_idx = torch.where(is_new, s.hist_cursor + offs, 0).to(torch.int32)
-    w = hist_idx[is_new].long()
-    s.hist_parent[w] = phist4[is_new]
-    s.hist_action[w] = actions[is_new]
+    write_idx = torch.where(is_new, hist_idx, cfg.history_capacity - 1).long()
+    s.hist_parent.index_copy_(0, write_idx, torch.where(is_new, phist4, s.hist_parent[write_idx]))
+    s.hist_action.index_copy_(0, write_idx, torch.where(is_new, actions, s.hist_action[write_idx]))
     n_new = is_new.sum(dtype=torch.int32)
-    s.hist_cursor = torch.clamp(s.hist_cursor + n_new, max=cfg.history_capacity - margin).to(torch.int32)
+    s.hist_cursor.copy_(torch.clamp(s.hist_cursor + n_new, max=cfg.history_capacity - margin))
     return hist_idx
 
 
-def _append_frontier(s: SearchState, h, children, hist_idx, keys) -> torch.Tensor:
-    """Writes the 4B scored children into free space at the ring cursor.
+_FRONTIER_FIELDS = ("frontier_h", "frontier_states", "frontier_hist", "frontier_key")
+
+
+def _append_frontier(s: SearchState, h, children, hist_idx, keys, active=None) -> torch.Tensor:
+    """Writes the 4B scored children into free space at the ring cursor, in
+    place.
 
     The frontier is a COMPACTING ring: the region at and beyond the cursor is
     always EMPTY (holes before it come only from selection), so an append is
-    one contiguous slice.  When the next window would overflow the capacity,
-    one stable sort gathers the valid entries to the front in key order and,
-    only if the frontier is over the keep-bound, drops the WORST tail; dropped
-    entries are deleted from the visited set so they can be re-generated
-    later.  Returns the number of evicted states (int32 scalar)."""
+    one contiguous window.  When the next window would overflow the capacity
+    (``need``), one stable sort gathers the valid entries to the front in
+    key order and, only if the frontier is over the keep-bound, drops the
+    WORST tail; dropped entries are deleted from the visited set so they can
+    be re-generated later.  The decision is made on the device: the gather
+    runs through the sort's permutation when ``need`` holds and through the
+    identity when it does not (bit-equal to the JAX package's ``lax.cond``).
+
+    ``active`` (a bool scalar, or None for always) gates the iteration: an
+    inactive append neither compacts nor moves the cursor, and writes each
+    window slot's own contents back.  Returns the number of evicted states
+    (int32 scalar)."""
     nb = h.shape[0]  # 4B
     F = s.frontier_h.shape[0]
     keep = F - max(nb, F // 4)
-    n_evicted = torch.zeros((), dtype=torch.int32, device=h.device)
-    if s.ring_cursor + nb > F:
-        order = torch.argsort(s.frontier_h, stable=True)  # EMPTY slots sort last
-        s.frontier_h = s.frontier_h[order]
-        s.frontier_states = s.frontier_states[order]
-        s.frontier_hist = s.frontier_hist[order]
-        s.frontier_key = s.frontier_key[order]
-        live = s.frontier_h < EMPTY
-        drop = live & (torch.arange(F, device=h.device) >= keep)
-        probe_delete(s.visited, s.frontier_key, drop)
-        s.frontier_h = torch.where(drop, EMPTY, s.frontier_h).to(torch.int32)
-        n_evicted = drop.sum(dtype=torch.int32)
-        s.ring_cursor = min(int(live.sum()), keep)
-    c = s.ring_cursor
-    s.frontier_h[c : c + nb] = h
-    s.frontier_states[c : c + nb] = children
-    s.frontier_hist[c : c + nb] = hist_idx
-    s.frontier_key[c : c + nb] = keys
-    s.ring_cursor = c + nb
+    slots = torch.arange(F, device=h.device)
+    need = s.ring_cursor + nb > F
+    if active is not None:
+        need = need & active
+    order = torch.where(need, torch.argsort(s.frontier_h, stable=True), slots)  # EMPTY sorts last
+    for name in _FRONTIER_FIELDS:
+        buf = getattr(s, name)
+        buf.copy_(buf[order])
+    live = s.frontier_h < EMPTY
+    drop = live & (slots >= keep) & need
+    probe_delete(s.visited, s.frontier_key, drop)
+    s.frontier_h.masked_fill_(drop, EMPTY)
+    n_evicted = drop.sum(dtype=torch.int32)
+    cursor = torch.where(need, torch.clamp(live.sum(dtype=torch.int32), max=keep), s.ring_cursor)
+    pos = cursor + torch.arange(nb, device=h.device)
+    new = (h, children, hist_idx, keys)
+    if active is not None:
+        # An active window always fits (the cursor is at most F - nb after a
+        # compaction); an inactive one may not, and writes slots back.
+        pos = pos % F
+        new = tuple(
+            torch.where(active.reshape((1,) * v.dim()), v, getattr(s, name)[pos])
+            for name, v in zip(_FRONTIER_FIELDS, new)
+        )
+        nb = nb * active.to(torch.int32)
+    for name, v in zip(_FRONTIER_FIELDS, new):
+        getattr(s, name).index_copy_(0, pos, v)
+    s.ring_cursor.copy_(cursor + nb)
     return n_evicted
 
 
-def _select_frontier(s: SearchState, B: int):
+def _select_frontier(s: SearchState, B: int, active=None):
     """Picks the B lowest-key frontier entries, in ascending (key, slot)
     order as the JAX package's top-k returns them, and frees their slots.
+    ``active`` (a bool scalar, or None for always) masks the selection.
 
     Returns (parents, parent_hist, sel_valid)."""
     _, idx = torch.sort(s.frontier_h, stable=True)
     idx = idx[:B]
     sel_h = s.frontier_h[idx]
     sel_valid = sel_h < EMPTY
+    if active is not None:
+        sel_valid = sel_valid & active
     parents = s.frontier_states[idx]
     parent_hist = s.frontier_hist[idx]
-    s.frontier_h[idx] = torch.where(sel_valid, EMPTY, sel_h).to(torch.int32)
+    s.frontier_h.index_copy_(0, idx, torch.where(sel_valid, EMPTY, sel_h).to(torch.int32))
     return parents, parent_hist, sel_valid
 
 
+def _active(cfg: SearchConfig, s: SearchState) -> torch.Tensor:
+    """The JAX package's gate of an iteration (bool scalar on the device):
+    not solved, a live frontier entry, and history below its limit."""
+    return (
+        ~s.solved
+        & (s.frontier_h.min() < EMPTY)
+        & (s.hist_cursor < cfg.history_capacity - 8 * cfg.expand)
+    )
+
+
 def _iterate(cp: CompiledPuzzle, t: RGDTables, cfg: SearchConfig, s: SearchState) -> SearchState:
-    """One search iteration, in place on ``s``."""
+    """One gated search iteration, in place on ``s``; reads nothing back to
+    the host.  When the gate is closed it is an exact no-op."""
     B = cfg.expand
     dev = s.frontier_h.device
+    active = _active(cfg, s)
 
     # 1. select the B best frontier entries (their slots are freed).
-    parents, parent_hist, sel_valid = _select_frontier(s, B)
+    parents, parent_hist, sel_valid = _select_frontier(s, B, active)
 
     # 2. expand all 4 actions (action-block order).
-    actions = torch.arange(4, dtype=torch.int32, device=dev).repeat_interleave(B)
+    actions = torch.arange(4 * B, dtype=torch.int32, device=dev) // B
     par4 = parents.repeat(4, 1, 1)  # (4B, N, 2)
     phist4 = parent_hist.repeat(4)
     pvalid4 = sel_valid.repeat(4)
@@ -294,11 +341,11 @@ def _iterate(cp: CompiledPuzzle, t: RGDTables, cfg: SearchConfig, s: SearchState
     # 5. goal check (the first solved child wins).
     goal = is_goal_state(cp, children) & is_new
     any_goal = goal.any()
-    first_goal = goal.to(torch.int32).argmax()
-    s.solved_hist = torch.where(
-        s.solved, s.solved_hist, torch.where(any_goal, hist_idx[first_goal], 0)
-    ).to(torch.int32)
-    s.solved = s.solved | any_goal
+    first_goal = goal.to(torch.int32).argmax().reshape(1)  # a 1-d index: no host read
+    s.solved_hist.copy_(
+        torch.where(s.solved, s.solved_hist, torch.where(any_goal, hist_idx[first_goal][0], 0))
+    )
+    s.solved.logical_or_(any_goal)
 
     # 6. score new children: novelty exact per child; RGD per child (eager)
     # or inherited from the selected parent (lazy).
@@ -314,11 +361,11 @@ def _iterate(cp: CompiledPuzzle, t: RGDTables, cfg: SearchConfig, s: SearchState
     n_deeper = (deeper_flag & is_new).sum(dtype=torch.int32)
 
     # 7. append into the ring frontier (eviction when over capacity).
-    n_evicted = _append_frontier(s, h, children, hist_idx, keys)
-    s.iterations = s.iterations + 1
-    s.expansions = s.expansions + sel_valid.sum(dtype=torch.int32)
-    s.evictions = s.evictions + n_evicted
-    s.needs_deeper = s.needs_deeper + n_deeper
+    n_evicted = _append_frontier(s, h, children, hist_idx, keys, active)
+    s.iterations.add_(active.to(torch.int32))
+    s.expansions.add_(sel_valid.sum(dtype=torch.int32))
+    s.evictions.add_(n_evicted)
+    s.needs_deeper.add_(n_deeper)
     return s
 
 
@@ -330,24 +377,76 @@ def run_chunk(
     chunk: int = 32,
     deadline: Optional[float] = None,
 ) -> SearchState:
-    """Runs up to ``chunk`` iterations, stopping early once the search is
-    solved, the frontier is empty, or the history is nearly full (the JAX
-    package's gated no-op iterations).  Updates ``s`` in place and returns it.
+    """Runs ``chunk`` gated iterations on ``s`` in place and returns it:
+    once the search is solved, the frontier is empty or the history is
+    nearly full, the rest are no-ops (the JAX package's contract).
 
-    ``deadline`` (a ``time.monotonic()`` value) also ends the chunk early, so
-    a caller's budget is held to one iteration, not to one chunk; the caller
-    still reads the clock itself to tell a budget end from a full chunk."""
-    limit = cfg.history_capacity - 8 * cfg.expand
+    On the card the iterations are replays of a captured CUDA graph of ``G``
+    iterations (``search/chunk_graph.py``; captured at the first call for
+    this state, tables and configuration), ``ceil(chunk / G)`` of them.
+    With ``deadline=None`` the replays are enqueued and the call returns
+    without reading anything back; with a deadline (a ``time.monotonic()``
+    value) the host clock is read before each replay and at most two replays
+    are left unconfirmed, so a budget is held to two replays.  A failed
+    capture or replay raises.
+
+    On the CPU the loop reads the gate between iterations and stops early
+    (a masked iteration costs a full one there), and ``deadline`` is tested
+    before each iteration; the caller still reads the clock itself to tell a
+    budget end from a full chunk."""
+    if s.frontier_h.is_cuda:
+        from pushworld_tpu_torch.search.chunk_graph import run_graphed
+
+        return run_graphed(cp, tables, cfg, s, chunk, deadline)
     for _ in range(chunk):
         if deadline is not None and time.monotonic() > deadline:
             break
-        solved, min_h, cursor = torch.stack([
-            s.solved.to(torch.int32), s.frontier_h.min(), s.hist_cursor
-        ]).tolist()
-        if solved or min_h >= EMPTY or cursor >= limit:
+        if not bool(_active(cfg, s)):
             break
         _iterate(cp, tables, cfg, s)
     return s
+
+
+def chunk_length(chunk: Optional[int], cfg: SearchConfig, device: torch.device) -> int:
+    """Iterations of a chunk: ``chunk`` where the caller gives one, else 128
+    on the CPU and, on the card, one replay of the search's graph
+    (``chunk_graph.GRAPH_ITERS`` at its RGD depth): an iteration after the
+    search's end costs a whole iteration there, so chunks are short."""
+    if chunk is not None:
+        return chunk
+    if device.type != "cuda":
+        return 128
+    from pushworld_tpu_torch.search.chunk_graph import graph_iters
+
+    return graph_iters(cfg.max_depth)
+
+
+class PendingStatus:
+    """:func:`search_status_tensor` of a state as it stands after the work
+    enqueued so far, copied to the host without a wait.
+
+    On the card the (8,) int32 status goes into pinned host memory with
+    ``non_blocking=True`` behind an event: :meth:`ready` asks the event,
+    :meth:`read` waits for it.  On the CPU the status is taken at once."""
+
+    def __init__(self, s: SearchState):
+        status = search_status_tensor(s)
+        self._event = None
+        if status.is_cuda:
+            self._host = torch.empty(status.shape, dtype=status.dtype, pin_memory=True)
+            self._host.copy_(status, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = status
+
+    def ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def read(self) -> List[int]:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.tolist()
 
 
 class BatchedPlanner:
@@ -435,12 +534,13 @@ class BatchedPlanner:
         self,
         time_limit: Optional[float] = None,
         max_expansions: Optional[int] = None,
-        chunk: int = 128,
+        chunk: Optional[int] = None,
         escalate_depth: bool = True,
     ) -> Optional[List[int]]:
         """Searches for a plan.  Returns the action list, None if the search
         space is exhausted (no solution), or raises TimeoutError on budget
-        exhaustion.
+        exhaustion.  ``chunk``: iterations between status reads
+        (:func:`chunk_length` when None).
 
         DEPTH ESCALATION: when the best frontier entry is INF-scored and
         states flagged as depth-limited exist, the search restarts one
@@ -468,21 +568,27 @@ class BatchedPlanner:
         self,
         deadline: Optional[float],
         max_expansions: Optional[int],
-        chunk: int,
+        chunk: Optional[int],
         escalate_depth: bool,
     ) -> Optional[List[int]]:
-        """One full search at the current depth; the status of each chunk is
-        read before the next one runs."""
+        """One full search at the current depth.
+
+        The chunk loop is PIPELINED as in the JAX package: chunk k+1 is
+        enqueued before chunk k's status is read, so on the card the read
+        overlaps the device's work.  The plan is rebuilt from the newest
+        state (a chunk after a solve is a no-op)."""
         s = self.init_state()
         self.last_state = s
         if self.puzzle.is_goal_state(self.puzzle.initial_state):
             return []
         cfg = self.config
+        chunk = chunk_length(chunk, cfg, self.device)
+        run_chunk(self.cp_dev, self.tables, cfg, s, chunk, deadline)
+        pending = PendingStatus(s)
         while True:
             run_chunk(self.cp_dev, self.tables, cfg, s, chunk, deadline)
-            solved, _, min_key, cursor, expansions, evictions, _, n_deeper = (
-                int(v) for v in search_status(s)
-            )
+            pending, stat = PendingStatus(s), pending.read()
+            solved, _, min_key, cursor, expansions, evictions, _, n_deeper = stat
             if solved:
                 return reconstruct_plan(s)
             if min_key >= EMPTY:

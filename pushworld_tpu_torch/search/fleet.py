@@ -77,11 +77,12 @@ DEVICE_STEAL_GRACE_S = float(os.environ.get("PW_DEVICE_STEAL_GRACE_S", "6"))
 #   "off" — host workers only.
 DEVICE_MODE = os.environ.get("PW_DEVICE_MODE", "shadow")
 
-# A device lane's turn ends after CHUNK iterations or after this many
-# seconds, whichever comes first, while other lanes of its wave wait: a
+# On the CPU a device lane's turn ends after CHUNK iterations or after this
+# many seconds, whichever comes first, while other lanes of its wave wait: a
 # chunk runs to its end before the next lane's starts, so without the cap a
-# lane of slow iterations (a deep RGD recursion) would hold the card for its
-# whole chunk while the others' budgets run out.
+# lane of slow iterations (a deep RGD recursion) would hold the device for
+# its whole chunk while the others' budgets run out.  (On the card a chunk
+# is enqueued, and its length is bounded per RGD depth instead.)
 LANE_TURN_S = 0.5
 
 # Per-run device phase breakdown: reset by plan_puzzles_fleet, filled by
@@ -96,7 +97,7 @@ def _reset_device_stats() -> None:
     _device_stats.clear()
     _device_stats.update(
         table_build_s=0.0, table_bytes=0, chunk_dispatches=0,
-        status_sync_s=0.0, lanes=0, solved=0, mode=DEVICE_MODE,
+        status_sync_s=0.0, graph_capture_s=0.0, lanes=0, solved=0, mode=DEVICE_MODE,
         device_failed=False,
     )
 
@@ -179,26 +180,41 @@ def _device_multiplex(
     lanes whose name lands in ``stolen`` are dropped without yielding a
     result (the stealing host worker reports the instance instead).
 
-    The lanes are taken in turn, one chunk each (cut at ``LANE_TURN_S``
-    seconds where other lanes wait), and a wave's lanes share one budget
-    clock.  ``run_chunk`` works in place and reads its stop test on the host
-    every iteration, so a chunk is finished when it returns and its status
-    is read straight after it.  (The JAX package defers and pipelines the
-    status reads behind asynchronous chunks; that returns here with a
-    ``run_chunk`` that does not wait on the host.)  Wall-clock deadlines are
-    enforced host-side every pass and inside a chunk, per iteration.
+    The lanes are taken in turn, one chunk each, and a wave's lanes share
+    one budget clock.  STATUS READS follow the JAX package's rules: a status
+    is enqueued behind every ``PW_DEVICE_SYNC_EVERY`` chunks (default 2), it
+    is read only once its event says that the card has produced it, a lane
+    has at most two unconfirmed sync windows, the thread sleeps 0.02 s when
+    every lane waits on the card, and one authoritative read classifies a
+    lane when its budget ends (host clock), so that a solve which landed is
+    not reported as "time limit".
+
+    On the card a turn is one chunk enqueued without a wait: one replay of
+    the lane's captured CUDA graph (``search/chunk_graph.py``; a wave's
+    graphs are captured into one memory pool before its clock starts), whose
+    length is chosen per RGD depth (``batched.chunk_length``): 2-26 ms of
+    device time at production capacities, well under 0.25 s.  A lane has at most ``2 * sync_every``
+    chunks in flight, so a budget ends at most that much device work late
+    for each lane of the wave, and a lane that has ended wastes at most as
+    much (overshoot measured: PERF.md §5).  On the CPU a turn is a chunk cut at
+    ``LANE_TURN_S`` seconds where other lanes wait, and a status is ready
+    when it is taken.
     """
     from pushworld_tpu_torch.ops.rgd import build_rgd_tables
+    from pushworld_tpu_torch.search import chunk_graph
     from pushworld_tpu_torch.search.batched import (
         EMPTY,
         BatchedPlanner,
+        PendingStatus,
+        chunk_length,
         reconstruct_plan,
         required_depth,
         run_chunk,
-        search_status,
     )
 
     device = resolve_device(device)
+    on_card = device.type == "cuda"
+    sync_every = max(1, int(os.environ.get("PW_DEVICE_SYNC_EVERY", "2")))
     # Full per-lane device-memory budget (tables + search state).
     table_budget = float(os.environ.get("PW_DEVICE_TABLE_BUDGET_GB", "4")) * 1e9
 
@@ -291,6 +307,8 @@ def _device_multiplex(
                         "s": None,
                         "t0": None,
                         "deadline": None,
+                        "chunks": 0,
+                        "pending": deque(),
                     }
                 )
                 if coordination is not None and not shadow:
@@ -305,9 +323,22 @@ def _device_multiplex(
                         ts = prev[2] if prev is not None else time.monotonic()
                         coordination["lanes"][name] = (p, None, ts)
 
-            def read_status(s):
+            if on_card and lanes:
+                # Every lane's graph is captured before the wave's clock
+                # starts (the JAX package warms its compiled program first),
+                # into one memory pool for the wave.
+                pool = torch.cuda.graph_pool_handle()
+                c0 = time.monotonic()
+                for lane in lanes:
+                    pl = lane["planner"]
+                    lane["s"] = pl.init_state()
+                    chunk_graph.attach(pl.cp_dev, pl.tables, pl.config, lane["s"], pool)
+                if _device_stats:
+                    _device_stats["graph_capture_s"] += time.monotonic() - c0
+
+            def read_status(pending: PendingStatus) -> List[int]:
                 sync0 = time.monotonic()
-                stat = [int(v) for v in search_status(s)]
+                stat = pending.read()
                 if _device_stats:
                     _device_stats["status_sync_s"] += time.monotonic() - sync0
                     _device_stats["chunk_dispatches"] += 1
@@ -321,16 +352,48 @@ def _device_multiplex(
                 turn = time.monotonic() + LANE_TURN_S
                 return turn if lane["deadline"] is None else min(turn, lane["deadline"])
 
+            def dispatch(lane) -> None:
+                """One turn: one chunk (enqueued without a wait on the card),
+                and every ``sync_every`` chunks a status behind it."""
+                pl = lane["planner"]
+                if on_card:
+                    run_chunk(pl.cp_dev, pl.tables, pl.config, lane["s"],
+                              chunk_length(None, pl.config, device))
+                else:
+                    run_chunk(pl.cp_dev, pl.tables, pl.config, lane["s"], CHUNK, turn_end(lane))
+                lane["chunks"] += 1
+                if lane["chunks"] % sync_every == 0:
+                    lane["pending"].append(PendingStatus(lane["s"]))
+
             def ended(lane, reason: Optional[str], plan=None) -> PlanResult:
                 dt = time.monotonic() - lane["t0"]
+                if reason is None and _device_stats:
+                    _device_stats["solved"] += 1
                 r = PlanResult(None, dt, reason) if reason else _classify(lane["puzzle"], plan, dt)
                 r.solver = "device"
                 return r
+
+            def classify(lane, stat) -> Optional[PlanResult]:
+                """The lane's result if a status says that it has ended."""
+                solved, _, min_key, cursor, _, evictions, _, _ = stat
+                if solved:
+                    return ended(lane, None, reconstruct_plan(lane["s"]))
+                if min_key >= EMPTY:
+                    # With evictions the search is inconclusive (pruned
+                    # states can't be re-generated): distinct reason for
+                    # debugging; the harness maps it to the reference's
+                    # "time limit" taxonomy at reporting.
+                    return ended(lane, "no solution" if evictions == 0
+                                 else "frontier exhausted after evictions")
+                if cursor >= history_capacity - 8 * expand:
+                    return ended(lane, "time limit")
+                return None
 
             wave_t0 = None
             while lanes:
                 finished = []
                 stolen_now = []
+                progressed = False
                 for lane in lanes:
                     pl = lane["planner"]
                     if coordination is not None:
@@ -338,21 +401,22 @@ def _device_multiplex(
                             if lane["name"] in coordination["stolen"]:
                                 stolen_now.append(lane)
                                 continue
-                    if lane["s"] is None:
-                        # First dispatch.  Nothing is compiled here, and a
-                        # chunk is finished when it returns, so the wave's
-                        # lanes share ONE budget clock, started at the
-                        # wave's first dispatch (the JAX package starts a
-                        # lane's clock when its asynchronous first dispatch
-                        # returns, which is at once for every lane): the
-                        # lanes then share the card inside one budget.
+                    if lane["chunks"] == 0:
+                        # First dispatch.  Nothing is compiled here, so the
+                        # wave's lanes share ONE budget clock, started at
+                        # the wave's first dispatch (the JAX package starts
+                        # a lane's clock when its asynchronous first
+                        # dispatch returns, which is at once for every
+                        # lane): the lanes then share the card inside one
+                        # budget.
                         if wave_t0 is None:
                             wave_t0 = time.monotonic()
                         lane["t0"] = wave_t0
                         lane["deadline"] = (
                             None if time_limit is None else lane["t0"] + time_limit
                         )
-                        lane["s"] = pl.init_state()
+                        if lane["s"] is None:
+                            lane["s"] = pl.init_state()
                         if coordination is not None and not shadow:
                             with coordination["lock"]:
                                 coordination["lanes"][lane["name"]] = (
@@ -360,35 +424,38 @@ def _device_multiplex(
                                     lane["deadline"],
                                     time.monotonic(),
                                 )
-                    elif lane["deadline"] is not None and time.monotonic() > lane["deadline"]:
-                        # The budget ran out while other lanes had the card
-                        # (host clock); the status read behind this lane's
-                        # last chunk already said that it had not solved.
-                        finished.append((lane, ended(lane, "time limit")))
+                        dispatch(lane)
+                        progressed = True
                         continue
-                    # One chunk, then its status: the chunk works in place
-                    # and is finished when it returns, so the read waits for
-                    # nothing and classifies the newest state.
-                    run_chunk(pl.cp_dev, pl.tables, pl.config, lane["s"], CHUNK, turn_end(lane))
-                    solved, _, min_key, cursor, _, evictions, _, _ = read_status(lane["s"])
-                    if solved:
-                        if _device_stats:
-                            _device_stats["solved"] += 1
-                        finished.append((lane, ended(lane, None, reconstruct_plan(lane["s"]))))
-                    elif min_key >= EMPTY:
-                        # With evictions the search is inconclusive (pruned
-                        # states can't be re-generated): distinct reason for
-                        # debugging; the harness maps it to the reference's
-                        # "time limit" taxonomy at reporting.
-                        finished.append((lane, ended(
-                            lane,
-                            "no solution" if evictions == 0
-                            else "frontier exhausted after evictions",
-                        )))
-                    elif cursor >= history_capacity - 8 * expand or (
-                        lane["deadline"] is not None and time.monotonic() > lane["deadline"]
-                    ):
-                        finished.append((lane, ended(lane, "time limit")))
+                    if lane["deadline"] is not None and time.monotonic() > lane["deadline"]:
+                        # Budget over (host clock).  One final authoritative
+                        # read of the NEWEST state: a solve that landed since
+                        # the last status read is reported, not discarded as
+                        # "time limit".
+                        if read_status(PendingStatus(lane["s"]))[0]:
+                            finished.append((lane, ended(lane, None, reconstruct_plan(lane["s"]))))
+                        else:
+                            finished.append((lane, ended(lane, "time limit")))
+                        continue
+                    # The OLDEST pending status is read only once the card
+                    # has produced it, so this thread never waits on the
+                    # card's compute here.
+                    if lane["pending"] and lane["pending"][0].ready():
+                        progressed = True
+                        r = classify(lane, read_status(lane["pending"].popleft()))
+                        if r is not None:
+                            finished.append((lane, r))
+                            continue
+                    # At most two unconfirmed sync windows a lane: a bounded
+                    # queue in flight (chunks after a solve, an exhaustion or
+                    # a full history are no-ops on the device).
+                    if len(lane["pending"]) < 2:
+                        dispatch(lane)
+                        progressed = True
+                if not progressed and not finished and not stolen_now:
+                    # Every lane waits on the card: yield the core to the
+                    # host planner threads instead of polling hot.
+                    time.sleep(0.02)
                 for lane in stolen_now:
                     lanes.remove(lane)
                 for lane, r in finished:

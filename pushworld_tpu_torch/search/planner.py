@@ -45,7 +45,7 @@ class PlanResult:
     solver: str = ""  # which fleet/portfolio member produced the result
 
 
-CHUNK = 128  # iterations between host status checks
+CHUNK = 128  # iterations of a chunk on the CPU: one status read each (the card's: chunk_length)
 
 # Upcoming puzzles whose tables ``plan_puzzles`` builds ahead, on one thread.
 PREFETCH = 6
@@ -91,9 +91,10 @@ def _portfolio_solve(
     from pushworld_tpu_torch.native import bridge
     from pushworld_tpu_torch.search.batched import (
         EMPTY,
+        PendingStatus,
+        chunk_length,
         reconstruct_plan,
         run_chunk,
-        search_status,
     )
 
     def won(member: str) -> None:
@@ -140,7 +141,12 @@ def _portfolio_solve(
     cfg = planner.config
     chunks = 0
     device_dead = None  # None = running; otherwise its terminal outcome
+    # Pipelined as in BatchedPlanner.solve: chunk k+1 is enqueued before
+    # chunk k's status is read; the plan comes from the newest state.
     s = planner.init_state()
+    chunk = chunk_length(None if planner.device.type == "cuda" else CHUNK, cfg, planner.device)
+    run_chunk(planner.cp_dev, planner.tables, cfg, s, chunk, deadline)
+    pending = PendingStatus(s)
     while True:
         if fut is not None and fut.done():
             try:
@@ -156,12 +162,9 @@ def _portfolio_solve(
                     return None  # native search is complete
             fut = None
         if device_dead is None:
-            # The chunk works in place and is finished when it returns, so
-            # its status is read at once (no chunk is in flight behind it).
-            run_chunk(planner.cp_dev, planner.tables, cfg, s, CHUNK, deadline)
-            solved, _, min_key, cursor, _, evictions, iters, _ = (
-                int(v) for v in search_status(s)
-            )
+            run_chunk(planner.cp_dev, planner.tables, cfg, s, chunk, deadline)
+            pending, stat = PendingStatus(s), pending.read()
+            solved, _, min_key, cursor, _, evictions, iters, _ = stat
             chunks += 1
             if debug:
                 print(f"    [chunk {chunks} iters={iters}]", flush=True)

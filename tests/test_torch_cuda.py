@@ -377,3 +377,139 @@ def test_frontier_sharded_nccl_equals_gloo(dev, name):
     assert p.is_valid_plan(plan)
     for k in ("chunks", "spill_epochs", "shard_iterations", "shard_expansions"):
         assert s_card[k] == s_cpu[k], k
+
+
+# -------------------------------------------- the search chunk as CUDA graphs
+
+
+def _planner_on(name, d, depth=None, lazy=False, **caps):
+    from pushworld_tpu_torch.search import batched
+
+    p = _fixture(name)
+    kw = dict(expand=16, frontier_capacity=1 << 7, visited_bits=12, history_capacity=1 << 12, pair_bits=12)
+    kw.update(caps)
+    depth = batched.required_depth(p) if depth is None else depth
+    return batched.BatchedPlanner(p, max_depth=depth, lazy=lazy, device=d, **kw)
+
+
+def _assert_same_search(a, b, where):
+    """Two search states took the same steps: every tensor equal (frontier
+    contents on live slots), the visited set as a SET of keys (a same-round
+    slot race may lay a probe cluster out in another order)."""
+    live = (a.frontier_h < 0x7F000000).cpu()
+    assert torch.equal(a.frontier_h.cpu(), b.frontier_h.cpu()), where
+    for f in ("frontier_states", "frontier_hist", "frontier_key"):
+        assert torch.equal(getattr(a, f).cpu()[live], getattr(b, f).cpu()[live]), (where, f)
+    for f in ("ring_cursor", "hist_parent", "hist_action", "hist_cursor", "solved", "solved_hist",
+              "iterations", "expansions", "evictions", "needs_deeper"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()), (where, f)
+    assert torch.equal(a.novelty.seen_pos.cpu(), b.novelty.seen_pos.cpu()), where
+    assert torch.equal(a.novelty.pair_table.cpu(), b.novelty.pair_table.cpu()), where
+
+    def keys(s):
+        k = s.visited.keys.cpu()
+        return set(k[(k != 0) & (k != -1)].tolist())
+
+    assert keys(a) == keys(b), where
+
+
+@pytest.mark.parametrize("name,depth,lazy", [("spill_grid", 0, False), ("heur/trivial_tool", 1, True)])
+def test_graphed_run_chunk_equals_eager_and_cpu(dev, name, depth, lazy):
+    """spill_grid's 128-slot ring compacts, evicts and solves inside the
+    chunks; the graphed chunks, the eager loop on the card and run_chunk on
+    the CPU leave the same search.  (A 2^16-slot visited set: in a crowded
+    table a same-round slot race can end in probe exhaustion on one side
+    only, ROADMAP queue 3.)"""
+    from pushworld_tpu_torch.search import batched, chunk_graph
+
+    pl_g, pl_e, pl_c = (_planner_on(name, d, depth, lazy, visited_bits=16) for d in (dev, dev, "cpu"))
+    s_g, s_e, s_c = pl_g.init_state(), pl_e.init_state(), pl_c.init_state()
+    G = chunk_graph.graph_iters(depth)
+    per_chunk = -(-5 // G) * G  # a chunk of 5 is ceil(5 / G) replays of G iterations
+    for k in range(6):
+        batched.run_chunk(pl_g.cp_dev, pl_g.tables, pl_g.config, s_g, 5)
+        for _ in range(per_chunk):
+            batched._iterate(pl_e.cp_dev, pl_e.tables, pl_e.config, s_e)
+        batched.run_chunk(pl_c.cp_dev, pl_c.tables, pl_c.config, s_c, per_chunk)
+        torch.cuda.synchronize()
+        _assert_same_search(s_g, s_e, f"chunk {k}: graphed vs eager")
+        _assert_same_search(s_g, s_c, f"chunk {k}: card vs CPU")
+    assert s_g.graph is not None and s_g.graph.iters == G and s_g.graph.nodes > 0
+    assert bool(s_g.solved) and pl_g.puzzle.is_valid_plan(batched.reconstruct_plan(s_g))
+    if name == "spill_grid":
+        assert int(s_g.evictions) > 0
+
+
+def test_graph_replays_add_the_captured_launches(dev):
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.search import batched, chunk_graph
+
+    pl = _planner_on("spill_grid", dev, 0, history_capacity=1 << 14)
+    s = pl.init_state()
+    g = chunk_graph.attach(pl.cp_dev, pl.tables, pl.config, s)
+    fused = "visited_set.fingerprint_dedup_insert"
+    assert g.launches[fused] == g.iters and g.launches["visited_set.probe_delete"] == g.iters
+    before = dict(LAUNCHES)
+    batched.run_chunk(pl.cp_dev, pl.tables, pl.config, s, 3 * g.iters)
+    torch.cuda.synchronize()
+    for k, n in g.launches.items():
+        assert LAUNCHES[k] - before.get(k, 0) == 3 * n, k
+    assert s.graph is g  # the same state, tables and configuration: no new capture
+
+
+def test_a_failed_capture_raises(dev):
+    """A host read inside the captured iteration invalidates the capture:
+    run_chunk raises and falls back to nothing.  In a process of its own, as
+    PyTorch's own tests run capture errors."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = """if True:
+        import torch
+        from pushworld_tpu_torch.core.puzzle import Puzzle
+        from pushworld_tpu_torch.search import batched, chunk_graph
+        p = Puzzle.from_file("tests/puzzles/spill_grid.pwp")
+        pl = batched.BatchedPlanner(p, max_depth=0, expand=16, frontier_capacity=1 << 7, visited_bits=12,
+                                    history_capacity=1 << 12, pair_bits=12, device="cuda")
+        s = pl.init_state()
+        real = chunk_graph._iterate
+        def reading(cp, t, cfg, s):
+            int(s.hist_cursor)  # a host read
+            return real(cp, t, cfg, s)
+        chunk_graph._iterate = reading
+        try:
+            batched.run_chunk(pl.cp_dev, pl.tables, pl.config, s, 4)
+        except RuntimeError as e:
+            print("raised:", isinstance(e, RuntimeError), int(s.iterations))
+        else:
+            print("did not raise")
+    """
+    run = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=300)
+    assert "raised: True 0" in run.stdout, (run.stdout, run.stderr[-3000:])
+
+
+def test_a_chunk_returns_before_the_card_finishes(dev):
+    """run_chunk with deadline=None enqueues its replays and returns: an
+    event recorded right after it is not yet complete."""
+    import importlib.util
+
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.search import batched
+    from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    p = Puzzle.from_text(smoke.HARD_PUZZLE_TEXT)
+    pl = batched.BatchedPlanner(p, max_depth=0, device=dev, **PRODUCTION_CAPACITIES)
+    s = pl.init_state()
+    batched.run_chunk(pl.cp_dev, pl.tables, pl.config, s, 1)  # the capture
+    torch.cuda.synchronize()
+    batched.run_chunk(pl.cp_dev, pl.tables, pl.config, s, 128)
+    done = torch.cuda.Event()
+    done.record()
+    assert not done.query()
+    done.synchronize()
+    assert int(s.iterations) > 1

@@ -360,3 +360,29 @@ def test_device_multiplex_equals_jax():
         for n, r in jfleet._device_multiplex(jnamed, time_limit=120.0, **SMALL))
     assert got == want
     assert [g[0] for g in got] == sorted(names) and all(g[2] is None for g in got)
+
+
+def test_status_reads_follow_sync_every_as_in_jax(monkeypatch):
+    """``PW_DEVICE_SYNC_EVERY`` at 1, 2 and 4, on both sides with chunks of 2
+    iterations, so that a lane takes several chunks: the same (name, plan,
+    reason) as the JAX package's fleet at every setting, and fewer status
+    reads as the setting grows."""
+    import pushworld_tpu.search.planner as jplanner
+
+    names = ["chain", "spill_grid", "heur/trivial_tool"]
+    monkeypatch.setattr(fleet, "CHUNK", 2)
+    monkeypatch.setattr(jplanner, "CHUNK", 2)
+    jnamed = [(n, JPuzzle.from_file(os.path.join(PUZZLES, n + ".pwp"))) for n in names]
+    reads = []
+    for every in (1, 2, 4):
+        monkeypatch.setenv("PW_DEVICE_SYNC_EVERY", str(every))
+        fleet._reset_device_stats()
+        got = sorted((n, r.plan, r.failure_reason, r.solver)
+                     for n, r in fleet._device_multiplex(_named(names), time_limit=120.0, device="cpu",
+                                                         **SMALL))
+        reads.append(fleet._device_stats["chunk_dispatches"])
+        want = sorted((n, r.plan, r.failure_reason, r.solver)
+                      for n, r in jfleet._device_multiplex(jnamed, time_limit=120.0, **SMALL))
+        assert got == want, every
+        assert all(g[2] is None for g in got)
+    assert reads[0] > reads[1] > reads[2] > 0, reads

@@ -48,12 +48,12 @@ def _np(x):
     return np.asarray(x)
 
 
-def _jax_init(jp, depth):
+def _jax_init(jp, depth, caps=SMALL):
     """The JAX planner's initial state with PAIR_BITS novelty tables (the
     JAX init reads the pair-table size from the environment at import)."""
     jcp = j_compile(jp)
     jt = jr.build_rgd_tables(jp, jcp, max_depth=depth)
-    planner = jb.BatchedPlanner(jp, cp=jcp, tables=jt, max_depth=depth, **SMALL)
+    planner = jb.BatchedPlanner(jp, cp=jcp, tables=jt, max_depth=depth, **caps)
     s = planner.init_state()
     nt = jn.init_novelty(jcp.n, jcp.height, jcp.width, pair_bits=PAIR_BITS)
     moved = jnp.asarray(np.asarray(jcp.obj_mask)[None])
@@ -70,7 +70,7 @@ def _assert_state_equal(ts, js, where):
     jkey = pack_key(torch.as_tensor(d["frontier_lo"].astype(np.int64)),
                     torch.as_tensor(d["frontier_hi"].astype(np.int64)))
     assert torch.equal(ts.frontier_key[torch.as_tensor(live)], jkey[torch.as_tensor(live)]), where
-    assert ts.ring_cursor == int(d["ring_cursor"]), where
+    assert ts.ring_cursor.dtype == torch.int32 and int(ts.ring_cursor) == int(d["ring_cursor"]), where
     assert np.array_equal(ts.hist_parent.numpy(), d["hist_parent"]), where
     assert np.array_equal(ts.hist_action.numpy(), d["hist_action"]), where
     vis = d["visited"]
@@ -85,33 +85,51 @@ def _assert_state_equal(ts, js, where):
         assert int(getattr(ts, f)) == int(d[f]), (where, f)
 
 
-@pytest.mark.parametrize("name,depth", [("spill_grid", 0), ("heur/shortest_path_tool", 1),
-                                        ("heur/trivial_tool2", 1)])
-def test_run_chunk_state_matches_jax(name, depth):
+# The last case: a 128-slot ring (the least for expand 16) compacts from the
+# second iteration on and evicts from the ninth; spill_grid solves in the
+# 23rd, so the fifth chunk of 5 straddles the solve and the sixth runs after.
+@pytest.mark.parametrize("name,depth,frontier,chunk,chunks", [
+    pytest.param("spill_grid", 0, SMALL["frontier_capacity"], 6, 3, id="spill_grid-0"),
+    pytest.param("heur/shortest_path_tool", 1, SMALL["frontier_capacity"], 6, 3,
+                 id="heur/shortest_path_tool-1"),
+    pytest.param("heur/trivial_tool2", 1, SMALL["frontier_capacity"], 6, 3, id="heur/trivial_tool2-1"),
+    pytest.param("spill_grid", 0, 1 << 7, 5, 6, id="spill_grid-0-compacting-across-a-solve"),
+])
+def test_run_chunk_state_matches_jax(name, depth, frontier, chunk, chunks):
     path = os.path.join(PUZZLES, name + ".pwp")
     p, jp = Puzzle.from_file(path), JPuzzle.from_file(path)
-    jcp, jt, jcfg, js = _jax_init(jp, depth)
+    caps = dict(SMALL, frontier_capacity=frontier)
+    jcp, jt, jcfg, js = _jax_init(jp, depth, caps)
 
     # The port's own init gives the same state as the JAX init.
     cp = compile_puzzle(p)
     tt = tb.build_rgd_tables(p, cp, max_depth=depth, device="cpu")
     cfg = tb.SearchConfig(expand=SMALL["expand"], history_capacity=SMALL["history_capacity"],
                           max_depth=depth)
-    own = tb.init_search_state(cp.to("cpu"), tt, cfg, SMALL["frontier_capacity"],
-                               SMALL["visited_bits"], PAIR_BITS, False)
+    own = tb.init_search_state(cp.to("cpu"), tt, cfg, frontier, SMALL["visited_bits"], PAIR_BITS, False)
     _assert_state_equal(own, js, "init")
 
     # Carry the JAX state (and tables) in; run k chunks on both sides.
     ts = interop.search_state_from_numpy(_np(js), device="cpu")
     tcp = interop.compiled_from_numpy(_np(jcp), device="cpu")
     ttab = interop.rgd_tables_from_numpy(_np(jt), device="cpu")
-    for k in range(3):
+    cursors, solved_at = [int(ts.ring_cursor)], []
+    for k in range(chunks):
         h_before = np.asarray(js.frontier_h)
-        js = jb.run_chunk(jcp, jt, jcfg, js, 6)
-        ts = tb.run_chunk(tcp, ttab, cfg, ts, 6)
+        js = jb.run_chunk(jcp, jt, jcfg, js, chunk)
+        ts = tb.run_chunk(tcp, ttab, cfg, ts, chunk)
         _assert_state_equal(ts, js, f"chunk {k}")
         assert not np.array_equal(h_before, np.asarray(js.frontier_h)) or int(js.solved)
+        cursors.append(int(ts.ring_cursor))
+        solved_at.append(bool(ts.solved))
     assert int(ts.iterations) > 6
+    if frontier == 1 << 7:
+        assert int(ts.evictions) > 0  # a compaction that evicted
+        assert any(b < a for a, b in zip(cursors, cursors[1:]))  # a compaction moved the cursor back
+        # The solve lands inside the fifth chunk (not at its end) and the
+        # sixth chunk runs after it.
+        assert solved_at == [False] * 4 + [True, True]
+        assert int(ts.iterations) % chunk != 0
 
 
 def test_jax_selection_order_is_key_order_at_test_sizes():
