@@ -22,6 +22,16 @@ Phases, each printing one JSON line:
    fingerprint + dedup + insert kernel gets batches of states with duplicate
    children, invalid lanes and keys already in the table, under the same
    rule, and is timed beside the three-step composition it replaces.
+   Then ``rgd_novelty``: the RGD kernel against its plain version,
+   bit-equal (totals and needs-deeper flags), on 1,024 children of real
+   search states and on their 256 parents, at the production capacities:
+   the 47 x 54 puzzle at depth 0, three_tools and the generator's first
+   depth-3 candidate at depth 3, and the four-tool chain at depth 4; the
+   novelty kernels (score, then update) on four such batches of the 47 x 54 search, from its own pair_bits 24
+   tables: scores, seen_pos and the pair table bit-equal after every
+   batch.  Each is timed (events and profiler) beside its plain version
+   and its bound (the bytes this run's states need; the launch floor where
+   larger).
 4. ``solve`` (the main path): the launch counts are set to 0, then
    ``solve_puzzle(mode="N+RGD", time_limit=60)`` runs on the card at the
    production capacities of ``plan_puzzles`` for every fixture under
@@ -114,8 +124,8 @@ Phases, each printing one JSON line:
    results (where matplotlib is installed), previews equal to
    ``Puzzle.render``.
 
-The launch counts are set to 0 before each of the phases 4, 5, 6, 8, 9, 10
-and 11 (and each fleet run) and read after it.  Beside ``ms`` (CUDA events around
+The launch counts are set to 0 before each of the phases 4 (and its
+``chunk``), 5, 6, 8, 9, 10 and 11 (and each fleet run) and read after it.  Beside ``ms`` (CUDA events around
 the wrapper: for the small kernels the host's enqueue time) every kernel has
 ``device_ms``, its own time from ``torch.profiler``; an empty kernel, built
 from a source in this script, is launched and timed the same two ways as the
@@ -128,6 +138,7 @@ a result when there is no CUDA device or no port package beside it.
 
 import argparse
 import glob
+import itertools
 import json
 import os
 import subprocess
@@ -208,8 +219,28 @@ MANY_MOVABLES_TEXT = """
  .  .  .  .  .  .  .  .  .  .
 """.lstrip("\n")
 
+# A 14 x 8 puzzle (with its border walls) of six movables whose goal needs
+# a chain of four tools: the agent pushes M4 across its wall, M4 pushes M3,
+# and so on down to M0.  Pushing depths 4 and 5 run the RGD kernel's loop
+# over T(., 2) tables, which no fixture reaches (phase ``rgd_novelty`` and
+# the tests).
+FOUR_TOOLS_TEXT = """
+ .  .  AW    .  .  .
+ A  .  AW    .  .  .
+ M4 M4 AW+M4 .  .  .
+ .  .  AW    .  .  .
+ .  .  AW+M3 M3 .  .
+ .  .  AW    .  .  .
+ .  .  AW    M2 M2 .
+ .  .  AW    .  .  .
+ .  .  AW    .  M1 M1
+ .  .  AW    .  .  M0
+ .  .  AW    .  .  G0
+ .  .  AW    .  .  .
+""".lstrip("\n")
+
 KERNEL_NAMES = ("wavefront", "visited_set.probe_and_insert", "visited_set.probe_delete",
-                "visited_set.fingerprint_dedup_insert")
+                "visited_set.fingerprint_dedup_insert", "rgd.heuristic", "novelty.score", "novelty.absorb")
 
 
 def check_results(named, results, what: str):
@@ -267,12 +298,14 @@ def start_launch_floor_build():
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
 
 
-def profile_device(fn, reps: int = 1) -> dict:
+def profile_device(fn, reps: int = 1, attempts: int = 3) -> dict:
     """``fn`` called ``reps`` times under torch.profiler, as
     ``scripts/profile_search.py`` counts: wall seconds (host clock, ending in
     a synchronise), the device's busy microseconds, the number of device
     kernels (copies and memsets included) and [count, microseconds] by
-    kernel name."""
+    kernel name.  A trace that holds no device time (CUPTI now and then
+    delivers none for a window) is taken again, up to ``attempts`` traces in
+    all, so ``fn`` must bear being called again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -280,15 +313,19 @@ def profile_device(fn, reps: int = 1) -> dict:
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for _ in range(reps):
-            fn()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-        wall_s = time.monotonic() - t0
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    check(len(rows) > 0, "torch.profiler recorded no device time")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_s = time.monotonic() - t0
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+        if rows:
+            break
+        print(json.dumps({"profiler": "a trace held no device time; tracing again"}), file=sys.stderr, flush=True)
+    check(len(rows) > 0, f"torch.profiler recorded no device time in {attempts} traces")
     return {"wall_s": wall_s, "busy_us": sum(dev_us(e) for e in rows),
             "n_kernels": sum(e.count for e in rows),
             "by_kernel": {e.key: [e.count, dev_us(e)] for e in rows}}
@@ -514,7 +551,7 @@ def _fused_checks_and_times(dev, rng, bits, B):
         check(len(torch.unique(hs_mod.fingerprint(fresh, 54))) == n_kern * B, "timing states repeat")
 
         def over_batches(fn, table):
-            it = iter(range(n_kern))
+            it = itertools.cycle(range(n_kern))  # a second trace (profile_device) meets keys again
             return lambda: fn(table, fresh[next(it)], 54, valid)
 
         def three_steps(table, states, width, valid):
@@ -615,7 +652,7 @@ def phase_visited_set(dev, floor):
     valid = torch.ones(B, dtype=torch.bool, device=dev)
 
     def over_batches(fn, table):
-        it = iter(range(len(batches)))
+        it = itertools.cycle(range(len(batches)))  # a second trace (profile_device) meets keys again
         return lambda: fn(table, batches[next(it)], valid)
 
     t1 = hs_mod.init_hashset(bits, device=dev)
@@ -667,6 +704,210 @@ def phase_visited_set(dev, floor):
              plain_ms=fused["n_obj_4"]["plain_ms"], max_abs_err=fused["max_abs_err"],
              **bound(8 * 4 + 26)),
     ]
+
+
+def _search_batches(puzzle, depth, dev, batches, iters=8, parents=256):
+    """Batches of the main path's shape from a real search at the production
+    capacities: ``iters`` eager iterations from the initial state, then, for
+    each batch, ``parents`` live frontier entries (cycled where fewer) and
+    their 4 * ``parents`` children as ``_iterate`` expands them, with the
+    moved masks.  Returns (planner, search state, [(parents, children,
+    moved)])."""
+    import torch
+
+    from pushworld_tpu_torch.ops.step import expand_children
+    from pushworld_tpu_torch.search.batched import EMPTY, BatchedPlanner, _iterate
+    from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES
+
+    pl = BatchedPlanner(puzzle, max_depth=depth, device=dev, **PRODUCTION_CAPACITIES)
+    s = pl.init_state()
+    for _ in range(iters):
+        _iterate(pl.cp_dev, pl.tables, pl.config, s)
+    live = torch.nonzero(s.frontier_h < EMPTY).flatten()
+    check(len(live) > 0, "the search left an empty frontier")
+    out = []
+    for k in range(batches):
+        par = s.frontier_states[live[(torch.arange(parents, device=dev) + k * parents) % len(live)]]
+        children = expand_children(pl.cp_dev, pl.tables.contacts, pl.tables.contacts_mask, par)
+        out.append((par, children, (children != par.repeat(4, 1, 1)).any(-1)))
+    return pl, s, out
+
+
+def _rgd_work(t, batch, reached):
+    """(bytes, operations) the RGD heuristic of a batch of ``batch`` states
+    needs, each table entry it gathers read once: the positions and the
+    outputs; per state, each goal's four moves (a feasibility byte, a
+    distance-to-goal float) and its agent contacts (an int16 vertex id and
+    an int32 distance each); and where ``reached`` (per state, the deepest
+    pushing depth its goals take, from the plain version's depth-by-depth
+    results) is 1 or more, the pushers' first moves and agent contacts and
+    the contact rows of the push table, 26 bytes a contact (mask, offset,
+    feasibility, vertex id, four distances): the goal's row at depth 1,
+    every row from depth 2.  Operations: an add and a min for each term of
+    the tables each depth up to ``reached`` needs (16 nr + ... + 16 nr^d
+    terms a goal at depth d)."""
+    n, nr = t.n, t.n_real
+    ca = t.contacts_a_mask.cpu().numpy().sum(-1)  # (4, N): agent contacts of each pushee and move
+    cm = t.contacts_mask.cpu().numpy().sum(-1)  # (4, pusher, pushee)
+    goals = [o for o in range(1, t.max_goals + 1) if bool(t.goal_mask[o])]
+    pushers = range(1, nr)
+    row = {q: 26 * int(cm[:, 1:nr, q].sum()) for q in range(n)}
+    per_goal = sum(4 * 5 + 6 * int(ca[:, o].sum()) + 4 for o in goals)
+    by_depth = {0: 0, 1: 20 * nr + sum(6 * int(ca[:, q].sum()) for q in pushers) + sum(row[o] for o in goals)}
+    by_depth[2] = by_depth[1] + sum(row[q] for q in pushers if q not in goals)
+    ops = [0]
+    for d in range(1, max(reached, default=0) + 1):
+        ops.append(ops[-1] + 2 * len(goals) * sum(16 * nr ** k for k in range(1, d + 1)))
+    n_bytes = batch * (8 * n + 5 + per_goal) + sum(by_depth[min(int(r), 2)] for r in reached)
+    return n_bytes, sum(ops[int(r)] for r in reached)
+
+
+def phase_rgd_novelty(generated, seed, dev, floor):
+    """The RGD and novelty kernels against their plain versions at the main
+    path's shapes, bit-equal (totals, flags, scores and both tables): 1,024
+    children of real search states, and their 256 parents (the lazy mode's
+    batch), on the 47 x 54 puzzle at depth 0, on three_tools and the
+    generator's depth-3 candidate at depth 3 and on the four-tool chain at
+    depth 4; the novelty kernels at
+    pair_bits 24 on 4 batches of the 47 x 54 search, from its own tables.
+    Times (events and profiler), plain ms and bounds; returns three
+    kernels-line entries."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.ops import novelty, rgd
+
+    def bound(n_bytes, n_ops):
+        """The larger of the bytes over the memory rate and the operations
+        over the float32 rate, or the empty kernel's device time where that
+        is larger still: no kernel ends sooner than a launch."""
+        b_ms, o_ms = n_bytes / H100_BYTES_PER_S * 1e3, n_ops / H100_F32_OPS_PER_S * 1e3
+        ms, by = (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+        if floor["device_ms"] > ms:
+            ms, by = floor["device_ms"], "launch"
+        return {"bound_ms": ms, "bound_by": by, "bytes_bound_ms": b_ms}
+
+    three = Puzzle.from_file(os.path.join(ROOT, "tests", "puzzles", "heur", "three_tools.pwp"))
+    deep, candidate = depth3_candidate(seed)
+    lanes = {}
+    searches = {}
+    for what, puzzle, depth in (("generated_47x54", generated, 0), ("three_tools", three, 3),
+                                (f"generator seed {seed} candidate {deep}", candidate, 3),
+                                ("four_tools", Puzzle.from_text(FOUR_TOOLS_TEXT), 4)):
+        pl, s, batches = _search_batches(puzzle, depth, dev, batches=4 if depth == 0 else 1)
+        searches[what] = (pl, s, batches)
+        t = pl.tables
+        err = 0.0
+        for par, children, _ in batches:
+            for states in (children, par):
+                total, flags = rgd.rgd_heuristic_with_flags(t, states, depth)
+                want, want_flags = rgd.rgd_heuristic_with_flags_reference(t, states, depth)
+                torch.cuda.synchronize()
+                err = max(err, (total - want).abs().max().item())
+                check(torch.equal(total, want) and torch.equal(flags, want_flags),
+                      f"rgd ({what}): kernel != plain version")
+        children = batches[0][1]
+        deepest = max(0, min(depth, t.n_real - 2))
+        reached = torch.full((children.shape[0],), deepest, dtype=torch.int32, device=dev)
+        for d in reversed(range(deepest + 1)):
+            finite = rgd.rgd_heuristic_with_flags_reference(t, children, d)[0] < 1e8
+            reached = torch.where(finite, d, reached)
+        n_bytes, n_ops = _rgd_work(t, children.shape[0], reached.cpu().numpy())
+        lanes[what] = dict(
+            depth=depth, batch=children.shape[0], max_abs_err=err, finite=int(finite.sum()),
+            reached_depth={d: int((reached == d).sum()) for d in range(depth + 1)},
+            ms=cuda_time_ms(lambda: rgd.rgd_heuristic_with_flags(t, children, depth), reps=50),
+            device_ms=kernel_device_ms(profile_device(lambda: rgd.rgd_heuristic_with_flags(t, children, depth),
+                                                      reps=20), "rgd_kernel", calls=20),
+            plain_ms=cuda_time_ms(lambda: rgd.rgd_heuristic_with_flags_reference(t, children, depth), reps=3),
+            bytes=n_bytes, operations=n_ops, **bound(n_bytes, n_ops))
+
+    # Novelty at pair_bits 24 from the 47 x 54 search's own tables.
+    pl, s, batches = searches["generated_47x54"]
+    kern, ref = (dataclasses.replace(s.novelty, seen_pos=s.novelty.seen_pos.clone(),
+                                     pair_table=s.novelty.pair_table.clone()) for _ in range(2))
+    check(kern.pair_bits == 24, f"the search's pair table has {kern.pair_bits} bits, not 24")
+    rng = np.random.default_rng(seed)
+    scores, nov_err = {}, 0.0
+    score_bytes = absorb_bytes = 0
+    for _, children, moved in batches:
+        valid = moved.any(-1) & torch.as_tensor(rng.random(children.shape[0]) < 0.9, device=dev)
+        got, _ = novelty.novelty_score_and_update(kern, children, moved, valid)
+        want, _ = novelty.novelty_score_and_update_reference(ref, children, moved, valid)
+        torch.cuda.synchronize()
+        nov_err = max(nov_err, (got - want).abs().max().item())
+        check(torch.equal(got, want), "novelty: scores != plain version")
+        check(torch.equal(kern.seen_pos, ref.seen_pos), "novelty: seen_pos != plain version")
+        check(torch.equal(kern.pair_table.view(torch.int16), ref.pair_table.view(torch.int16)),
+              "novelty: pair table != plain version")
+        for v in want.tolist():
+            scores[v] = scores.get(v, 0) + 1
+        sb, ab = _novelty_bytes(children, moved, valid, want, kern)
+        score_bytes, absorb_bytes = max(score_bytes, sb), max(absorb_bytes, ab)
+    _, children, moved = batches[0]
+    valid = moved.any(-1)
+    args = novelty._checked(kern, children, moved, valid)
+    out = torch.empty((children.shape[0],), dtype=torch.float32, device=dev)
+    nov = {}
+    for name, fn_name, extra in (("novelty.score", "pw_novelty_score", (out,)),
+                                 ("novelty.absorb", "pw_novelty_absorb", ())):
+        def launch(fn_name=fn_name, name=name, extra=extra):
+            novelty._launch(fn_name, name, kern, *args, *extra)
+
+        nov[name] = {"ms": cuda_time_ms(launch, reps=50),
+                     "device_ms": kernel_device_ms(profile_device(launch, reps=20),
+                                                   name.replace(".", "_") + "_kernel", calls=20)}
+    plain_ms = cuda_time_ms(lambda: novelty.novelty_score_and_update_reference(ref, children, moved, valid), reps=5)
+    emit({"phase": "rgd_novelty", "rgd": lanes,
+          "novelty": {"pair_bits": 24, "batches": len(batches), "batch": children.shape[0], "scores": scores,
+                      "max_abs_err": nov_err, "plain_ms_score_and_absorb": plain_ms,
+                      "score_bytes": score_bytes, "absorb_bytes": absorb_bytes, **nov}})
+    main = lanes["generated_47x54"]
+    common = {"route": "cuda", "library_ms": None}
+    return [
+        dict(common, name="rgd.heuristic", source="pushworld_tpu_torch/kernels/rgd.cu",
+             replaces="pushworld_tpu/ops/rgd.py:526", lanes=lanes,
+             **{k: main[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                     "bytes_bound_ms")}),
+        dict(common, name="novelty.score", source="pushworld_tpu_torch/kernels/novelty.cu",
+             replaces="pushworld_tpu/ops/novelty.py:106", max_abs_err=nov_err, plain_ms=plain_ms,
+             **nov["novelty.score"], **bound(score_bytes, 0)),
+        dict(common, name="novelty.absorb", source="pushworld_tpu_torch/kernels/novelty.cu",
+             replaces="pushworld_tpu/ops/novelty.py:106", max_abs_err=nov_err, plain_ms=plain_ms,
+             **nov["novelty.absorb"], **bound(absorb_bytes, 0)),
+    ]
+
+
+def _novelty_bytes(states, moved, valid, scores, t):
+    """(score bytes, absorb bytes) one batch needs, each entry read or
+    written once: the positions, masks and scores; for each valid state its
+    moved objects' seen_pos bytes, and, where no moved object is at an
+    unseen cell (score 2 or 3), the distinct pair-table cells (2 bytes) of
+    its (moved bucket, other bucket) pairs; the update writes the moved
+    objects' seen_pos bytes and the distinct cells of every valid state's
+    pairs, both orders."""
+    import numpy as np
+    import torch
+
+    from pushworld_tpu_torch.ops.novelty import _atom_hash
+
+    B, n = moved.shape
+    cell = (states[..., 1].long() * t.width + states[..., 0].long()).clamp(0, t.height * t.width - 1)
+    h = _atom_hash(torch.arange(n, device=states.device)[None, :], cell, t.side).cpu().numpy()
+    mv, ok, sc = moved.cpu().numpy(), valid.cpu().numpy(), scores.cpu().numpy()
+    read, written = set(), set()
+    for b in np.nonzero(ok)[0]:
+        X, Y = set(h[b][mv[b]].tolist()), set(h[b].tolist())
+        pairs = {(k, l) for l in X for k in Y}
+        if sc[b] != 1.0:
+            read |= {(k, l) for k, l in pairs if k != l}
+        written |= pairs | {(l, k) for k, l in pairs}
+    io = B * (8 * n + n + 1)
+    n_moved = int((mv & ok[:, None]).sum())
+    return io + 4 * B + n_moved + 2 * len(read), io + n_moved + 2 * len(written)
 
 
 def phase_solve(puzzles, generated, dev):
@@ -816,26 +1057,38 @@ def _chunk_lane(what, puzzle, depth, chunk, chunks, dev, masked: bool):
             "eager_ms_per_iter": eager_s / iters * 1e3, "returned_before_the_card": returned_early}
 
 
+def depth3_candidate(seed: int):
+    """The first of the generator's 16 candidates from ``seed`` (the tools
+    phase's filter) whose RGD depth at the initial state is 3, and its index."""
+    import tempfile
+
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.search.batched import required_depth
+    from pushworld_tpu_torch.tools.generate import generate_level0_puzzles
+
+    with tempfile.TemporaryDirectory(prefix="pw_gen_") as work:
+        generate_level0_puzzles(work, num_puzzles=16, random_seed=seed, filter_puzzles=False)
+        candidates = [Puzzle.from_file(os.path.join(work, f"puzzle_{i}.pwp")) for i in range(16)]
+    deep = next((i for i, p in enumerate(candidates) if required_depth(p) == 3), None)
+    check(deep is not None, "no depth-3 candidate from the generator")
+    return deep, candidates[deep]
+
+
 def phase_chunk(generated, hard, seed, dev):
     """The search chunk as CUDA graphs at production capacities: graphed =
     eager on the 47 x 54 puzzle (depth 0) and on a depth-3 lane (a "no
     solution" candidate of the tools phase's generator), each chunk returned
-    before the card finished it, and a 2 s budget's overshoot."""
-    import tempfile
-
-    from pushworld_tpu_torch.core.puzzle import Puzzle
+    before the card finished it, and a 2 s budget's overshoot.  Launches
+    are counted from 0 for the phase and returned."""
+    from pushworld_tpu_torch.kernels import LAUNCHES
     from pushworld_tpu_torch.search.batched import BatchedPlanner, required_depth
     from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES
-    from pushworld_tpu_torch.tools.generate import generate_level0_puzzles
 
     t0 = time.monotonic()
-    with tempfile.TemporaryDirectory(prefix="pw_chunk_") as work:
-        generate_level0_puzzles(work, num_puzzles=16, random_seed=seed, filter_puzzles=False)
-        candidates = [Puzzle.from_file(os.path.join(work, f"puzzle_{i}.pwp")) for i in range(16)]
-    deep = next((i for i, p in enumerate(candidates) if required_depth(p) == 3), None)
-    check(deep is not None, "chunk: no depth-3 candidate from the generator")
+    deep, candidate = depth3_candidate(seed)
+    LAUNCHES.clear()
     lanes = [_chunk_lane("generated_47x54", generated, required_depth(generated), 32, 2, dev, masked=True),
-             _chunk_lane(f"generator seed {seed} candidate {deep}", candidates[deep], 3, 2, 2, dev, masked=False)]
+             _chunk_lane(f"generator seed {seed} candidate {deep}", candidate, 3, 2, 2, dev, masked=False)]
     for row in lanes:
         print(json.dumps({"chunk_lane": row}), file=sys.stderr, flush=True)
 
@@ -852,7 +1105,12 @@ def phase_chunk(generated, hard, seed, dev):
     budget.update(wall_s=wall, overshoot_s=wall - 2.0 if budget["result"] == "time budget exhausted" else None,
                   iterations=int(planner.last_state.iterations), G=planner.last_state.graph.iters,
                   capture_s=planner.last_state.graph.capture_s)
-    emit({"phase": "chunk", "lanes": lanes, "budget_2s_hard_16x16": budget, "total_s": time.monotonic() - t0})
+    launches = dict(LAUNCHES)
+    for k in ("rgd.heuristic", "novelty.score", "novelty.absorb", "visited_set.fingerprint_dedup_insert"):
+        check(launches.get(k, 0) > 0, f"chunk: kernel {k} was not launched")
+    emit({"phase": "chunk", "lanes": lanes, "budget_2s_hard_16x16": budget, "launches": launches,
+          "total_s": time.monotonic() - t0})
+    return launches
 
 
 def phase_cpu_agreement(puzzles, dev):
@@ -1159,6 +1417,7 @@ def phase_envs(puzzles, generated, dev, batch=4096, horizon=128):
     out["wrappers"] = _wrappers_against_oracle(os.path.join(ROOT, "tests", "puzzles", "simple.pwp"), simple)
     launches = dict(LAUNCHES)
     check(launches.get("wavefront", 0) >= 1, "the envs phase launched no wavefront kernel")
+    check(launches.get("rgd.heuristic", 0) >= 1, "the greedy policy launched no RGD kernel")
     out["launches"] = launches
     emit(out)
     return launches
@@ -1697,7 +1956,8 @@ def phase_parallel(puzzles, generated, solve_plans, dev):
                           "wall_s": time.monotonic() - t,
                           "solved": sum(r.failure_reason is None for r in group.values())}
     lap("c")
-    for k in ("wavefront", "visited_set.probe_and_insert", "visited_set.fingerprint_dedup_insert"):
+    for k in ("wavefront", "visited_set.probe_and_insert", "visited_set.fingerprint_dedup_insert",
+              "rgd.heuristic", "novelty.score", "novelty.absorb"):
         check(part_launches["c"][k] > 0, f"kernel {k} was not launched by solve_group")
 
     # (d) Two processes on this one card.
@@ -1859,7 +2119,8 @@ def phase_tools(seed, dev):
         kept = [Puzzle.from_file(os.path.join(card_dir, f"puzzle_{j}.pwp")) for j in range(len(plans))]
         for j, p in enumerate(kept):
             check(p.is_valid_plan(plans[j]) and p.is_valid_plan(host_plans[j]), f"(a) puzzle_{j}: invalid plan")
-        for k in ("wavefront", "visited_set.fingerprint_dedup_insert", "visited_set.probe_and_insert"):
+        for k in ("wavefront", "visited_set.fingerprint_dedup_insert", "visited_set.probe_and_insert",
+                  "rgd.heuristic", "novelty.score", "novelty.absorb"):
             check(part_launches["a_card"][k] > 0, f"(a) kernel {k} was not launched by the filter")
         out["kept"] = len(kept)
         out["decided"] = {w: dict(collections.Counter(r.failure_reason or "solved" for r in rs))
@@ -2003,6 +2264,7 @@ def main() -> int:
     floor = measure_launch_floor(*floor_build)
     kernels = [phase_wavefront(generated, dev)]
     kernels += phase_visited_set(dev, floor)
+    kernels += phase_rgd_novelty(generated, args.seed, dev, floor)
 
     files = sorted(glob.glob(os.path.join(ROOT, "tests", "puzzles", "*.pwp"))
                    + glob.glob(os.path.join(ROOT, "tests", "puzzles", "heur", "*.pwp")))
@@ -2011,19 +2273,19 @@ def main() -> int:
     check(len(puzzles) == 28, f"expected 28 fixtures, found {len(puzzles)}")
     launches, solve_classes, solve_plans = phase_solve(puzzles, generated, dev)
     hard = Puzzle.from_text(HARD_PUZZLE_TEXT)
-    phase_chunk(generated, hard, args.seed, dev)
+    chunk_launches = phase_chunk(generated, hard, args.seed, dev)
     phase_cpu_agreement(puzzles, dev)
     graphs_launches = phase_graphs(puzzles, generated, dev)
     envs_launches = phase_envs(puzzles, generated, dev)
     phase_native(puzzles, generated, dev)
-    by_phase = {"solve": launches, "graphs": graphs_launches, "envs": envs_launches,
+    by_phase = {"solve": launches, "chunk": chunk_launches, "graphs": graphs_launches, "envs": envs_launches,
                 "portfolio": phase_portfolio(puzzles, generated, hard, dev),
                 "fleet": phase_fleet(puzzles, generated, hard, solve_classes, dev),
                 "parallel": phase_parallel(puzzles, generated, solve_plans, dev),
                 "tools": phase_tools(args.seed, dev)}
 
     # ``launches`` is the solve phase's count (``solve_puzzle`` on the 29
-    # puzzles); ``launches_by_phase`` adds the graph ops, the environments,
+    # puzzles); ``launches_by_phase`` adds the search chunk, the graph ops, the environments,
     # the portfolio's two passes, the fleet's device-only run, the parallel
     # layer and the toolkit, each counted from 0.
     for k in kernels:

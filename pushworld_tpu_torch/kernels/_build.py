@@ -39,6 +39,15 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "pw_dedup_shared_slots": [],
         "pw_fingerprint_dedup_insert": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _u, _u, _i, _vp],
     },
+    "rgd": {
+        "pw_rgd_heuristic": [_vp] * 14 + [_i] * 9 + [_vp],
+        "pw_rgd_max_objects": [],
+    },
+    "novelty": {
+        "pw_novelty_score": [_vp] * 6 + [_i] * 5 + [_vp],
+        "pw_novelty_absorb": [_vp] * 5 + [_i] * 5 + [_vp],
+        "pw_novelty_max_objects": [],
+    },
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -17,6 +17,13 @@ structures absorb every evaluated state.
   a small count (the query side at most N <= 20, exact in bf16) or only
   tested for being positive (the update side).
 
+That GEMM form is :func:`novelty_score_and_update_reference`, run on CPU
+tensors.  On CUDA tensors :func:`novelty_score_and_update` launches
+``kernels/novelty.cu`` instead: a state has at most N atoms, so it reads
+and writes at most N^2 cells of the table by direct gathers and scatters
+(no (B, S) indicator rows, no GEMM over the S x S table).  The two are
+bit-equal.
+
 Hash collisions only perturb search order (see the JAX module's docstring);
 the scores here are bit-identical to the JAX function's, collisions
 included.  States in one batch are scored against the tables as of the
@@ -24,6 +31,7 @@ start of the batch, then all their updates are applied at once.  The tables
 are updated IN PLACE.
 """
 
+import ctypes
 import os
 from dataclasses import dataclass
 from typing import Tuple
@@ -31,6 +39,7 @@ from typing import Tuple
 import torch
 
 from pushworld_tpu_torch.device import DeviceLike, resolve_device
+from pushworld_tpu_torch.kernels import _build, count_launch
 from pushworld_tpu_torch.ops.hashset import mul32
 
 # Pair-table size knob, as in the JAX package (read once at import).
@@ -79,13 +88,72 @@ def _atom_hash(i: torch.Tensor, p: torch.Tensor, side: int) -> torch.Tensor:
     return h & (side - 1)
 
 
+# The largest N (objects a state) the kernels take: one lane of a warp an
+# object (kernels/novelty.cu kMaxObjects).
+NOVELTY_MAX_OBJECTS = 32
+
+
 def novelty_score_and_update(
     t: NoveltyTables,
     states: torch.Tensor,  # (B, N, 2) int32
     moved: torch.Tensor,  # (B, N) bool — which objects moved into this state
     valid: torch.Tensor,  # (B,) bool — score/absorb only valid entries
 ) -> Tuple[torch.Tensor, NoveltyTables]:
-    """Returns ((B,) float32 novelty in {1, 2, 3}, the updated tables)."""
+    """Returns ((B,) float32 novelty in {1, 2, 3}, the updated tables).
+
+    On a CUDA tensor this is two launches of ``kernels/novelty.cu`` on the
+    current stream, the score and then the update (direct gathers and
+    scatters, no GEMM); on a CPU tensor it runs
+    :func:`novelty_score_and_update_reference`.  The two are bit-equal."""
+    if states.device.type == "cpu":
+        return novelty_score_and_update_reference(t, states, moved, valid)
+    states, moved, valid = _checked(t, states, moved, valid)
+    novelty = torch.empty((states.shape[0],), dtype=torch.float32, device=states.device)
+    _launch("pw_novelty_score", "novelty.score", t, states, moved, valid, novelty)
+    _launch("pw_novelty_absorb", "novelty.absorb", t, states, moved, valid)
+    return novelty, t
+
+
+def _checked(t: NoveltyTables, states: torch.Tensor, moved: torch.Tensor, valid: torch.Tensor):
+    """The kernels' inputs, contiguous; raises ValueError on what they do not take."""
+    B, N = states.shape[0], t.n
+    if states.shape != (B, N, 2) or states.dtype != torch.int32:
+        raise ValueError(f"states: expected (B, {N}, 2) int32, got {tuple(states.shape)} {states.dtype}")
+    if moved.shape != (B, N) or valid.shape != (B,) or moved.dtype != torch.bool or valid.dtype != torch.bool:
+        raise ValueError("moved must be (B, N) bool and valid (B,) bool")
+    if N > NOVELTY_MAX_OBJECTS:
+        raise ValueError(f"the novelty kernels take at most {NOVELTY_MAX_OBJECTS} objects a state, got {N}")
+    for name, x, dtype, shape in (("seen_pos", t.seen_pos, torch.bool, (N, t.height * t.width)),
+                                  ("pair_table", t.pair_table, torch.bfloat16, (t.side, t.side))):
+        if x.dtype != dtype or x.shape != shape or x.device != states.device or not x.is_contiguous():
+            raise ValueError(f"NoveltyTables.{name}: expected a contiguous {dtype} {shape} tensor on {states.device}")
+    if moved.device != states.device or valid.device != states.device:
+        raise ValueError("states, moved and valid must be on one device")
+    return states.contiguous(), moved.contiguous(), valid.contiguous()
+
+
+def _launch(fn_name: str, count_name: str, t: NoveltyTables, states, moved, valid, *out) -> None:
+    """``fn_name(states, moved, valid, seen_pos, pair_table, *out, B, N, H, W,
+    S, stream)`` of ``kernels/novelty.cu`` on the current stream; raises if
+    the launch is refused.  No host read: a CUDA graph may capture it."""
+    B = states.shape[0]
+    if B == 0:
+        return
+    fn = getattr(_build.load("novelty"), fn_name)
+    with torch.cuda.device(states.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        rc = fn(states.data_ptr(), moved.data_ptr(), valid.data_ptr(), t.seen_pos.data_ptr(),
+                t.pair_table.data_ptr(), *(x.data_ptr() for x in out), B, t.n, t.height, t.width, t.side, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
+    count_launch(count_name)
+
+
+def novelty_score_and_update_reference(
+    t: NoveltyTables, states: torch.Tensor, moved: torch.Tensor, valid: torch.Tensor
+) -> Tuple[torch.Tensor, NoveltyTables]:
+    """Plain PyTorch version of :func:`novelty_score_and_update`: the JAX
+    package's factored-table form, one GEMM to score and one to update."""
     B, N, S = states.shape[0], t.n, t.side
     dev = states.device
     flat = (states[..., 1].long() * t.width + states[..., 0].long()).clamp(

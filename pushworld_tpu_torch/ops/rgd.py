@@ -21,8 +21,15 @@ the values are identical.)
 recursive_graph_distance.cc:101-112): the cost at the smallest pushing depth
 with a finite value, trying depths 0..max_depth.  Table lookups are integer
 gathers (the JAX package's one-hot f32 GEMM lookups were a TPU form).
+
+:func:`rgd_heuristic_with_flags` is ONE launch of ``kernels/rgd.cu`` on a
+CUDA tensor (a CTA a state, the recursion's memo in shared memory, as the
+reference's per-state PushingCostCache) and, on a CPU tensor,
+:func:`rgd_heuristic_with_flags_reference`, the tensorized recursion (the
+JAX package's ``_rgd_impl``).  The two are bit-equal.
 """
 
+import ctypes
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -32,6 +39,7 @@ import torch
 from pushworld_tpu_torch.core.compiled import CompiledPuzzle
 from pushworld_tpu_torch.core.puzzle import Puzzle
 from pushworld_tpu_torch.device import DeviceLike, resolve_device
+from pushworld_tpu_torch.kernels import _build, count_launch
 from pushworld_tpu_torch.ops.graphs import host_vertex_mask
 from pushworld_tpu_torch.ops.graphs_cuda import distance_fields
 from pushworld_tpu_torch.ops.step import displacements
@@ -396,8 +404,15 @@ def rgd_heuristic_with_flags(
     """Like :func:`rgd_heuristic` but also returns a per-state bool flag:
     True when some goal object's cost is INF at ``max_depth`` although its
     graph distance to the goal is finite — deeper pushing chains could give
-    a finite value.  Drives the planner's depth escalation."""
-    return _rgd_impl(t, states, max_depth)
+    a finite value.  Drives the planner's depth escalation.
+
+    On a CUDA tensor this is one launch of ``kernels/rgd.cu`` (states of at
+    most :data:`RGD_MAX_OBJECTS` objects; more raise ValueError); on a CPU
+    tensor it runs :func:`rgd_heuristic_with_flags_reference`.  The two are
+    bit-equal."""
+    if states.device.type == "cpu":
+        return rgd_heuristic_with_flags_reference(t, states, max_depth)
+    return _rgd_cuda(t, states, max_depth)
 
 
 def rgd_heuristic(t: RGDTables, states: torch.Tensor, max_depth: int = 1) -> torch.Tensor:
@@ -411,12 +426,69 @@ def rgd_heuristic(t: RGDTables, states: torch.Tensor, max_depth: int = 1) -> tor
 
     Returns:
         (B,) float32; unreachable goals yield values >= 1e9.
+
+    The kernel on a CUDA tensor, the plain version on a CPU tensor, as
+    :func:`rgd_heuristic_with_flags`.
     """
-    return _rgd_impl(t, states, max_depth)[0]
+    return rgd_heuristic_with_flags(t, states, max_depth)[0]
 
 
-def _rgd_impl(t: RGDTables, states: torch.Tensor, max_depth: int):
-    """Returns (total cost, needs-deeper flag) per state."""
+# The largest N (objects a state) the kernel takes: its skip sets are 32-bit
+# masks and its shared memory holds an (N, 4, N, 4) push table (kernels/rgd.cu
+# kMaxObjects).  Every fixture, the generator's puzzles and the benchmark's
+# have far fewer.
+RGD_MAX_OBJECTS = 32
+
+_TABLE_TYPES = (("E", torch.bool), ("Dflat", torch.int32), ("vidx", torch.int32), ("doff", torch.int32),
+                ("dstride", torch.int32), ("DG", torch.float32), ("contacts", torch.int16),
+                ("contacts_mask", torch.bool), ("cvidx_a", torch.int16), ("goal_pos", torch.int32),
+                ("goal_mask", torch.bool))
+
+
+def _rgd_cuda(t: RGDTables, states: torch.Tensor, max_depth: int):
+    """One launch of ``kernels/rgd.cu``: outputs from ``torch.empty``, no host
+    read, the launch on the current stream, so a CUDA graph may capture it."""
+    if states.dim() != 3 or states.shape[1:] != (t.n, 2) or states.dtype != torch.int32:
+        raise ValueError(f"states: expected (B, {t.n}, 2) int32, got {tuple(states.shape)} {states.dtype}")
+    if t.n > RGD_MAX_OBJECTS:
+        raise ValueError(f"the RGD kernel takes at most {RGD_MAX_OBJECTS} objects a state, got {t.n}")
+    if max_depth < 0 or t.max_goals >= t.n:
+        raise ValueError(f"max_depth {max_depth} < 0 or max_goals {t.max_goals} >= n {t.n}")
+    if min(max_depth, t.n_real - 2) >= 1 and t.vidx.shape[0] < t.n_real:
+        raise ValueError("tables built for depth 0 hold the agent's distances only")
+    n, H, W = t.n, t.height, t.width
+    shapes = {"E": (4, n, H, W), "DG": (n, H, W), "contacts": (4, n, n, t.cmax, 2),
+              "contacts_mask": (4, n, n, t.cmax), "cvidx_a": (4, n, H * W, t.cmax_agent)}
+    tensors = []
+    for name, dtype in _TABLE_TYPES:
+        x = getattr(t, name)
+        if x.dtype != dtype or x.device != states.device or not x.is_contiguous():
+            raise ValueError(f"RGDTables.{name}: expected a contiguous {dtype} tensor on {states.device}")
+        if name in shapes and x.shape != shapes[name]:
+            raise ValueError(f"RGDTables.{name}: expected shape {shapes[name]}, got {tuple(x.shape)}")
+        tensors.append(x)
+    states = states.contiguous()
+    B = states.shape[0]
+    total = torch.empty((B,), dtype=torch.float32, device=states.device)
+    deeper = torch.empty((B,), dtype=torch.bool, device=states.device)
+    if B == 0:
+        return total, deeper
+    fn = _build.load("rgd").pw_rgd_heuristic
+    with torch.cuda.device(states.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(states.data_ptr(), *(x.data_ptr() for x in tensors), total.data_ptr(), deeper.data_ptr(),
+                B, t.n, t.n_real, t.max_goals, t.height, t.width, t.cmax, t.cmax_agent, max_depth,
+                ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"pw_rgd_heuristic launch failed: CUDA error {rc}")
+    count_launch("rgd.heuristic")
+    return total, deeper
+
+
+def rgd_heuristic_with_flags_reference(t: RGDTables, states: torch.Tensor, max_depth: int):
+    """Plain PyTorch version of :func:`rgd_heuristic_with_flags`, the JAX
+    package's unrolled recursion of whole-batch gathers: returns (total
+    cost, needs-deeper flag) per state."""
     B = states.shape[0]
     dev = states.device
     total = torch.zeros((B,), dtype=torch.float32, device=dev)

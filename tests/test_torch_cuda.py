@@ -8,6 +8,7 @@ CPU mode).  On a machine with a card, and without JAX, run them with
 (``--noconftest`` skips tests/conftest.py, which configures JAX).
 """
 
+import glob
 import os
 
 import numpy as np
@@ -150,6 +151,149 @@ def test_visited_set_kernels_match_plain_version(dev):
     assert again[dele].all()
     live = kern.keys[(kern.keys != 0) & (kern.keys != -1)]
     assert set(live.tolist()) == set(keys[valid].tolist())
+
+
+def _smoke():
+    """chip_smoke.py as a module (its puzzle texts)."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _walks(p, count, seed):
+    """``count`` states of random walks from the initial state, and the four
+    children of each (action-block order, as the search expands)."""
+    rng = np.random.default_rng(seed)
+    s = p.initial_state
+    out = [s]
+    for _ in range(count - 1):
+        for a in rng.integers(0, 4, size=rng.integers(1, 6)).tolist():
+            s = p.get_next_state(s, a)
+        out.append(s)
+    children = [p.get_next_state(s, a) for a in range(4) for s in out]
+    return np.asarray(out, np.int32), np.asarray(children, np.int32)
+
+
+def _rgd_kernel_equals_plain(t, states, depths):
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.ops import rgd
+
+    before = LAUNCHES["rgd.heuristic"]
+    for depth in depths:
+        total, deeper = rgd.rgd_heuristic_with_flags(t, states, depth)
+        want_total, want_deeper = rgd.rgd_heuristic_with_flags_reference(t, states, depth)
+        torch.cuda.synchronize()
+        assert torch.equal(total, want_total) and torch.equal(deeper, want_deeper), depth
+    assert LAUNCHES["rgd.heuristic"] == before + len(depths)
+
+
+RGD_FIXTURES = sorted(os.path.relpath(f, PUZZLES)[:-4]
+                      for f in glob.glob(os.path.join(PUZZLES, "**", "*.pwp"), recursive=True))
+
+
+@pytest.mark.parametrize("name", RGD_FIXTURES)
+def test_rgd_kernel_bit_equal_on_fixtures(dev, name):
+    """Totals and flags at depths 0..3, bit-equal to the plain version on the
+    card: parents (the lazy mode's batch) with masked lanes (empty frontier
+    slots hold zeros), and their children (the eager mode's)."""
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.ops import rgd
+
+    p = Puzzle.from_file(os.path.join(PUZZLES, name + ".pwp"))
+    parents, children = _walks(p, 24, seed=len(name))
+    parents = np.concatenate([parents, np.zeros((8,) + parents.shape[1:], np.int32)])
+    t = rgd.build_rgd_tables(p, compile_puzzle(p), device=dev)
+    for states in (parents, children):
+        _rgd_kernel_equals_plain(t, torch.as_tensor(states, device=dev), (0, 1, 2, 3))
+    t0 = rgd.build_rgd_tables(p, compile_puzzle(p), max_depth=0, device=dev)
+    _rgd_kernel_equals_plain(t0, torch.as_tensor(children, device=dev), (0,))
+
+
+def test_rgd_kernel_bit_equal_on_47x54_and_deep_chains(dev):
+    """1,024 children at depth 0 on the 47 x 54 puzzle; depths 3-5 on a
+    goal that needs four tools (the kernel's loop over T(., 2) tables); ten
+    movables on unreachable states (every INF path), depth 4."""
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.ops import rgd
+
+    smoke = _smoke()
+    g = Puzzle.from_text(smoke.generated_puzzle_text(0))
+    _, children = _walks(g, 256, seed=0)
+    t = rgd.build_rgd_tables(g, compile_puzzle(g), max_depth=0, device=dev)
+    _rgd_kernel_equals_plain(t, torch.as_tensor(children, device=dev), (0,))
+    four = Puzzle.from_text(smoke.FOUR_TOOLS_TEXT)
+    parents, children = _walks(four, 16, seed=5)
+    t = rgd.build_rgd_tables(four, compile_puzzle(four), device=dev)
+    _rgd_kernel_equals_plain(t, torch.as_tensor(children, device=dev), (3, 4, 5))
+    assert bool((rgd.rgd_heuristic(t, torch.as_tensor(parents, device=dev), 4) < 1e8).all())
+    many = Puzzle.from_text(smoke.MANY_MOVABLES_TEXT)
+    rng = np.random.default_rng(1)
+    states = np.stack([rng.integers(0, many.width, (32, 10)), rng.integers(0, many.height, (32, 10))], -1)
+    t = rgd.build_rgd_tables(many, compile_puzzle(many), device=dev)
+    _rgd_kernel_equals_plain(t, torch.as_tensor(states.astype(np.int32), device=dev), (0, 4))
+
+
+@pytest.mark.parametrize("pair_bits", [8, 24])
+def test_novelty_kernels_bit_equal(dev, pair_bits):
+    """Scores, seen_pos and the pair table after every batch of a sequence,
+    bit-equal to the plain version's: 1,024 states a batch with invalid
+    lanes on a small grid (positions repeat; at pair_bits 24 every score
+    occurs, at 8 the 16 x 16 table fills in the first batch) and on the
+    47 x 54 grid."""
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.ops import novelty
+
+    rng = np.random.default_rng(pair_bits)
+    for n, H, W in ((4, 3, 4), (4, 47, 54), (20, 5, 6)):
+        kern = novelty.init_novelty(n, H, W, pair_bits=pair_bits, device=dev)
+        ref = novelty.init_novelty(n, H, W, pair_bits=pair_bits, device=dev)
+        before = (LAUNCHES["novelty.score"], LAUNCHES["novelty.absorb"])
+        scores = set()
+        for r in range(4):
+            B = 1024
+            states = torch.as_tensor(
+                np.stack([rng.integers(0, W, (B, n)), rng.integers(0, H, (B, n))], -1).astype(np.int32), device=dev)
+            moved = torch.as_tensor(rng.random((B, n)) < 0.3, device=dev)
+            valid = torch.as_tensor(rng.random(B) < 0.9, device=dev)
+            got, _ = novelty.novelty_score_and_update(kern, states, moved, valid)
+            want, _ = novelty.novelty_score_and_update_reference(ref, states, moved, valid)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (n, r)
+            assert torch.equal(kern.seen_pos, ref.seen_pos), (n, r)
+            assert torch.equal(kern.pair_table.view(torch.int16), ref.pair_table.view(torch.int16)), (n, r)
+            scores |= set(got.tolist())
+        assert (LAUNCHES["novelty.score"], LAUNCHES["novelty.absorb"]) == (before[0] + 4, before[1] + 4)
+        if (n, H, pair_bits) == (4, 3, 24):
+            assert scores == {1.0, 2.0, 3.0}
+
+
+def test_rgd_and_novelty_wrappers_raise_above_their_cap(dev):
+    """States of more objects than a kernel takes raise ValueError on the
+    card (the caps are the sources' own)."""
+    import dataclasses
+
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.kernels import _build
+    from pushworld_tpu_torch.ops import novelty, rgd
+
+    assert _build.load("rgd").pw_rgd_max_objects() == rgd.RGD_MAX_OBJECTS == 32
+    assert _build.load("novelty").pw_novelty_max_objects() == novelty.NOVELTY_MAX_OBJECTS == 32
+    p = Puzzle.from_file(os.path.join(PUZZLES, "simple.pwp"))
+    t = dataclasses.replace(rgd.build_rgd_tables(p, compile_puzzle(p), device=dev), n=33)
+    states = torch.zeros((4, 33, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="at most 32 objects"):
+        rgd.rgd_heuristic_with_flags(t, states, 0)
+    nt = novelty.init_novelty(33, 5, 6, pair_bits=8, device=dev)
+    with pytest.raises(ValueError, match="at most 32 objects"):
+        novelty.novelty_score_and_update(nt, states, torch.ones((4, 33), dtype=torch.bool, device=dev),
+                                         torch.ones(4, dtype=torch.bool, device=dev))
 
 
 def test_solve_on_card_matches_cpu(dev):

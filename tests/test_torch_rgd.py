@@ -128,3 +128,182 @@ def test_interop_tables_round_trip():
     states = torch.as_tensor(_reachable(p, 16, seed=1))
     ref = tr.build_rgd_tables(p, compile_puzzle(p), device="cpu")
     assert torch.equal(tr.rgd_heuristic(tt, states, 1), tr.rgd_heuristic(ref, states, 1))
+
+
+# ------------------------------------------- the kernel's algorithm, per state
+#
+# ``kernels/rgd.cu`` computes each state on its own, memoizing the recursion
+# in shared memory.  ``_rgd_loop_form`` is that algorithm written as a numpy
+# loop over one state (the same lazily filled A0 and M rows, the same
+# tables, nothing computed for depths above n_real - 2 or for pushers the
+# valid-pusher mask drops), held exactly against the JAX function.  The
+# card tests hold the kernel itself against its plain version.
+
+F32_INF, F32_FINITE = np.float32(1e9), np.float32(1e8)
+MOVES = ((-1, 0), (1, 0), (0, -1), (0, 1))
+
+
+def _rgd_loop_form(t, s, max_depth):
+    """(total float32, needs_deeper) of one state ``s`` (N, 2) from the
+    tables ``t`` (a dict of numpy arrays and ints), as kernels/rgd.cu
+    computes it."""
+    n, nr, H, W = t["n"], t["n_real"], t["height"], t["width"]
+    HW = H * W
+    E, vidx, Dflat, doff, dstride = t["E"], t["vidx"], t["Dflat"], t["doff"], t["dstride"]
+    dmax = min(max_depth, nr - 2)
+
+    def edge(a, o, x, y):
+        return 0 <= x < W and 0 <= y < H and bool(E[a, o, y, x])
+
+    def cell(x, y):
+        return min(max(y * W + x, 0), HW - 1)
+
+    def dist(r, iu, iv):
+        if iu < 0 or iv < 0:
+            return F32_INF
+        d = int(Dflat[int(doff[r]) + iu * int(dstride[r]) + iv])
+        return np.float32(d) if d != 65535 else F32_INF
+
+    A0, M = {}, {}
+
+    def a0(q, a):  # depth 0: the agent pushes q (row filled on first use)
+        if (q, a) not in A0:
+            iA = int(vidx[0, cell(*s[0])])
+            cv = t["cvidx_a"][a, q, cell(*s[q])]
+            A0[q, a] = np.float32(1) + min([dist(0, iA, int(v)) for v in cv] + [F32_INF])
+        return A0[q, a]
+
+    def push(q, a, r):  # M[q][a][r][0..3]: pusher r realizes q's move a
+        if (q, a, r) not in M:
+            m = [F32_INF] * 4
+            for c in range(t["cmax"]):
+                if not t["contacts_mask"][a, r, q, c]:
+                    continue
+                cx, cy = s[q] + t["contacts"][a, r, q, c]
+                if not edge(a, r, cx, cy):
+                    continue
+                iv = int(vidx[r, cell(cx, cy)])
+                for a2, (dx, dy) in enumerate(MOVES):
+                    if not edge(a2, r, *s[r]):
+                        continue
+                    iu = int(vidx[r, cell(s[r][0] + dx, s[r][1] + dy)])
+                    same = cx == s[r][0] and cy == s[r][1] and a2 == a
+                    m[a2] = min(m[a2], np.float32(0) if same else dist(r, iu, iv) + np.float32(1))
+            M[q, a, r] = m
+        return M[q, a, r]
+
+    def best(q, a, excl, inner):  # min over pushers outside excl of M + inner
+        out = F32_INF
+        for r in range(1, nr):
+            if r not in excl:
+                for a2 in range(4):
+                    out = min(out, push(q, a, r)[a2] + inner(r, a2))
+        return out
+
+    def table(S, d):  # T(S, d) as a function of (pusher, move); entries outside S only
+        if d == 0:
+            return a0
+        vals = {}
+        for q in range(1, nr):
+            if q not in S:
+                sub = table(S | {q}, d - 1)
+                for a in range(4):
+                    vals[q, a] = best(q, a, S | {q}, sub)
+        return lambda r, a2: vals[r, a2]
+
+    total, deeper = np.float32(0), False
+    for k in range(t["max_goals"]):
+        o = k + 1
+        cost = np.float32(0)
+        at_goal = tuple(s[o]) == tuple(t["goal_pos"][o])
+        if t["goal_mask"][o] and not at_goal:
+            eok = [edge(a, o, *s[o]) for a in range(4)]
+            gd = [t["DG"][o, min(max(s[o][1] + dy, 0), H - 1), min(max(s[o][0] + dx, 0), W - 1)]
+                  for dx, dy in MOVES]
+            finite_dg = any(e and g < F32_FINITE for e, g in zip(eok, gd))
+            last, found = F32_INF, False
+            for D in range(dmax + 1):  # fewest tools: stop at the first finite depth
+                inner = table({o}, D - 1) if D >= 1 else None
+                pc = [a0(o, a) if D == 0 else best(o, a, {o}, inner) if eok[a] else None for a in range(4)]
+                last = min(gd[a] + pc[a] if eok[a] else F32_INF for a in range(4))
+                found = last < F32_FINITE
+                if found:
+                    break
+            cost = last if found else (F32_INF if max_depth > nr - 2 else last)
+            deeper |= max_depth < nr - 2 and finite_dg and cost >= F32_FINITE
+            cost = min(cost, F32_INF)
+        total = total + cost
+    return total, deeper
+
+
+def _loop_form_against_jax(jt, states, depths):
+    t = {f: np.asarray(getattr(jt, f)) for f in TABLE_FIELDS} | {f: int(getattr(jt, f)) for f in STATIC_FIELDS}
+    for depth in depths:
+        jv, jf = jr.rgd_heuristic_with_flags(jt, jnp.asarray(states), max_depth=depth)
+        got = [_rgd_loop_form(t, s.astype(np.int64), depth) for s in states]
+        assert np.array_equal(np.asarray([g[0] for g in got], np.float32), np.asarray(jv)), depth
+        assert np.array_equal(np.asarray([g[1] for g in got]), np.asarray(jf)), depth
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_kernel_loop_form_matches_jax(name):
+    """The kernel's per-state algorithm, totals and needs-deeper flags, equal
+    to the JAX function at depths 0..3 on every fixture."""
+    p, jp = _both(name)
+    jt = jr.build_rgd_tables(jp, j_compile(jp))
+    _loop_form_against_jax(jt, _reachable(p, 12, seed=11), (0, 1, 2, 3))
+
+
+def test_kernel_loop_form_deep_chain_matches_plain_version_and_host_oracle():
+    """Depths 4 and 5 (the kernel's loop over T(., 2) tables): on a puzzle
+    whose goal needs four tools, the loop form equals the port's plain
+    version (held to JAX at depths 0..3 above) and the host oracle; on
+    unreachable states of ten movables (every INF path), the plain version.
+    (JAX's trace at these depths takes minutes to compile.)"""
+    import importlib.util
+
+    from pushworld_tpu.search.heuristics_host import RecursiveGraphDistance
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(root, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+
+    def against_plain(puzzle, states, depths):
+        tt = tr.build_rgd_tables(puzzle, compile_puzzle(puzzle), device="cpu")
+        t = {f: getattr(tt, f).numpy() for f in TABLE_FIELDS} | {f: getattr(tt, f) for f in STATIC_FIELDS}
+        for depth in depths:
+            want = tr.rgd_heuristic_with_flags_reference(tt, torch.as_tensor(states), depth)
+            got = [_rgd_loop_form(t, s.astype(np.int64), depth) for s in states]
+            assert np.array_equal(np.asarray([g[0] for g in got], np.float32), want[0].numpy()), depth
+            assert np.array_equal(np.asarray([g[1] for g in got]), want[1].numpy()), depth
+            yield want[0].numpy()
+
+    p, jp = Puzzle.from_text(chip_smoke.FOUR_TOOLS_TEXT), JPuzzle.from_text(chip_smoke.FOUR_TOOLS_TEXT)
+    states = _reachable(p, 8, seed=5)
+    d3, d4, d5 = against_plain(p, states, (3, 4, 5))
+    host = RecursiveGraphDistance(jp, j_compile(jp), fewest_tools=True)
+    for i, s in enumerate(states):
+        assert d4[i] == d5[i] == host.estimate(tuple(map(tuple, s.tolist()))) and d3[i] >= 1e8, i
+    m = Puzzle.from_text(chip_smoke.MANY_MOVABLES_TEXT)
+    rng = np.random.default_rng(1)
+    W, H = m.width, m.height
+    states = np.stack([rng.integers(0, W, (6, m.num_movables)), rng.integers(0, H, (6, m.num_movables))], -1)
+    list(against_plain(m, states.astype(np.int32), (0, 4)))
+
+
+def test_wrappers_on_cpu_run_the_plain_version():
+    """On CPU tensors the wrappers return the plain version's values and
+    launch no kernel."""
+    from pushworld_tpu_torch.kernels import LAUNCHES
+
+    p, _ = _both("heur/two_tools")
+    tt = tr.build_rgd_tables(p, compile_puzzle(p), device="cpu")
+    states = torch.as_tensor(_reachable(p, 16, seed=2))
+    before = dict(LAUNCHES)
+    for depth in (0, 2):
+        want = tr.rgd_heuristic_with_flags_reference(tt, states, depth)
+        got = tr.rgd_heuristic_with_flags(tt, states, depth)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(tr.rgd_heuristic(tt, states, depth), want[0])
+    assert dict(LAUNCHES) == before
