@@ -35,13 +35,22 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "visited_set": {
         "pw_probe_and_insert": [_vp, _vp, _vp, _vp, _i, _u, _vp],
-        "pw_probe_delete": [_vp, _vp, _vp, _i, _u, _vp],
+        "pw_probe_delete": [_vp, _vp, _vp, _vp, _i, _u, _vp],
         "pw_dedup_shared_slots": [],
-        "pw_fingerprint_dedup_insert": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _u, _u, _i, _vp],
+        "pw_fingerprint_dedup_insert": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _u, _u, _i, _vp],
     },
     "rgd": {
-        "pw_rgd_heuristic": [_vp] * 14 + [_i] * 9 + [_vp],
+        "pw_rgd_heuristic": [_vp] * 15 + [_i] * 9 + [_vp],
         "pw_rgd_max_objects": [],
+    },
+    "expand": {
+        "pw_expand": [_vp] * 13 + [_i] * 5 + [_vp],
+        "pw_expand_max_objects": [],
+    },
+    "frontier": {
+        "pw_frontier_select": [_vp] * 5 + [_i] + [_vp] * 4 + [_i] * 3 + [_vp],
+        "pw_frontier_compact": [_vp] * 13 + [_i] * 4 + [_vp],
+        "pw_frontier_append": [_vp] * 25 + [_i] * 10 + [_vp],
     },
     "novelty": {
         "pw_novelty_score": [_vp] * 6 + [_i] * 5 + [_vp],

@@ -53,6 +53,12 @@
 // (the agent, padding objects, the pushee and the skip set).  No fast-math,
 // no FMA (there is no product).
 //
+// Valid mask.  With a `valid` array (the search passes its is_new or
+// sel_valid lanes), a CTA whose state is not valid writes the fill
+// (total INF, deeper false) and returns before it reads the state: the
+// search drops those lanes' values, and at a closed gate their states are
+// never written.  The plain version applies the same fill.
+//
 // Limits: n <= kMaxObjects (skip sets are 32-bit masks; M is 64 KB at 32
 // objects), any max_depth (depths above 3 run the loop of T(., 2) tables).
 //
@@ -84,6 +90,7 @@ struct Rgd {
   const int16_t* cvidx_a;    // (4, n, H*W, Ca)
   const int* goal_pos;       // (n, 2)
   const uint8_t* goal_mask;  // (n,)
+  const uint8_t* valid;      // (B,) or null: every state valid
   float* total;              // (B,)
   uint8_t* deeper;           // (B,)
   int n, n_real, max_goals, H, W, C, Ca, max_depth;
@@ -299,6 +306,13 @@ __global__ void __launch_bounds__(kThreads) rgd_kernel(Rgd t) {
   s.nr = t.n_real;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
+  if (t.valid != nullptr && !t.valid[b]) {
+    if (tid == 0) {
+      t.total[b] = kInf;
+      t.deeper[b] = 0;
+    }
+    return;
+  }
   const int HW = t.H * t.W;
   const int dmax = deepest(t.max_depth, t.n_real);
 
@@ -395,8 +409,9 @@ extern "C" int pw_rgd_max_objects() { return kMaxObjects; }
 extern "C" int pw_rgd_heuristic(const void* states, const void* E, const void* Dflat, const void* vidx,
                                 const void* doff, const void* dstride, const void* DG, const void* contacts,
                                 const void* contacts_mask, const void* cvidx_a, const void* goal_pos,
-                                const void* goal_mask, void* total, void* deeper, int B, int n, int n_real,
-                                int max_goals, int H, int W, int C, int Ca, int max_depth, void* stream) {
+                                const void* goal_mask, const void* valid, void* total, void* deeper, int B,
+                                int n, int n_real, int max_goals, int H, int W, int C, int Ca, int max_depth,
+                                void* stream) {
   if (B <= 0 || n < 1 || n > kMaxObjects || n_real < 1 || n_real > n || max_goals < 0 || max_goals >= n ||
       max_depth < 0 || C < 1 || Ca < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -404,7 +419,8 @@ extern "C" int pw_rgd_heuristic(const void* states, const void* E, const void* D
         static_cast<const int*>(vidx), static_cast<const int*>(doff), static_cast<const int*>(dstride),
         static_cast<const float*>(DG), static_cast<const int16_t*>(contacts),
         static_cast<const uint8_t*>(contacts_mask), static_cast<const int16_t*>(cvidx_a),
-        static_cast<const int*>(goal_pos), static_cast<const uint8_t*>(goal_mask), static_cast<float*>(total),
+        static_cast<const int*>(goal_pos), static_cast<const uint8_t*>(goal_mask),
+        static_cast<const uint8_t*>(valid), static_cast<float*>(total),
         static_cast<uint8_t*>(deeper), n, n_real, max_goals, H, W, C, Ca, max_depth};
   const size_t smem = static_cast<size_t>(layout(n, n_real, max_goals, max_depth).words) * 4;
   if (smem > 48 * 1024) {

@@ -37,6 +37,8 @@
 //      owner == i.  The lowest index wins whatever the order of the claims,
 //      so the result is deterministic;
 //   3. insert_key for the first occurrences, is_new written out.
+// With a gate flag that is 0 (the search iteration is a no-op), the kernel
+// writes is_new = 0 and returns: keys are not written.
 // The dedup table lives in shared memory (2,048 slots, 24 KB, at n = 1,024;
 // up to 16,384 slots, 192 KB, for n <= 8,192); a larger batch passes a
 // scratch table in device memory and the same code runs on it.  One CTA is
@@ -94,9 +96,10 @@ __global__ void probe_and_insert_kernel(u64* __restrict__ table, const u64* __re
 }
 
 __global__ void probe_delete_kernel(u64* __restrict__ table, const u64* __restrict__ keys,
-                                    const uint8_t* __restrict__ valid, int n, unsigned int mask) {
+                                    const uint8_t* __restrict__ valid, const uint8_t* __restrict__ gate, int n,
+                                    unsigned int mask) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || !valid[i]) return;
+  if (i >= n || (gate != nullptr && !*gate) || !valid[i]) return;
   const u64 key = keys[i];
   unsigned int slot = first_slot(key, mask);
   for (int r = 0; r < kProbes; ++r) {
@@ -135,10 +138,14 @@ __device__ __forceinline__ u64 fingerprint(const int* __restrict__ state, int n_
 // the CTA's shared memory.  slots is a power of two >= 2n.
 __global__ void __launch_bounds__(kFusedThreads)
 fingerprint_dedup_insert_kernel(u64* __restrict__ table, const int* __restrict__ states,
-                                const uint8_t* __restrict__ valid, u64* __restrict__ keys,
-                                uint8_t* __restrict__ is_new, void* dedup, int n, int n_obj,
-                                unsigned int width, unsigned int mask, int slots) {
+                                const uint8_t* __restrict__ valid, const uint8_t* __restrict__ gate,
+                                u64* __restrict__ keys, uint8_t* __restrict__ is_new, void* dedup, int n,
+                                int n_obj, unsigned int width, unsigned int mask, int slots) {
   extern __shared__ __align__(8) unsigned char smem[];
+  if (gate != nullptr && !*gate) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) is_new[i] = 0;
+    return;
+  }
   u64* dkey = static_cast<u64*>(dedup ? dedup : static_cast<void*>(smem));
   int* owner = reinterpret_cast<int*>(dkey + slots);
   const unsigned int dmask = static_cast<unsigned int>(slots) - 1u;
@@ -191,12 +198,14 @@ extern "C" int pw_probe_and_insert(void* table, const void* keys, const void* va
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int pw_probe_delete(void* table, const void* keys, const void* valid, int n,
+// gate (a bool scalar on the device) may be null; where it is 0 nothing is
+// deleted.
+extern "C" int pw_probe_delete(void* table, const void* keys, const void* valid, const void* gate, int n,
                                unsigned int mask, void* stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
   probe_delete_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<u64*>(table), static_cast<const u64*>(keys),
-      static_cast<const uint8_t*>(valid), n, mask);
+      static_cast<const uint8_t*>(valid), static_cast<const uint8_t*>(gate), n, mask);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -207,8 +216,9 @@ extern "C" int pw_dedup_shared_slots() { return kMaxSharedSlots; }
 // dedup: null, or slots * 12 bytes of device scratch (8-byte aligned); the
 // kernel clears it.  slots: a power of two >= 2n, at most
 // pw_dedup_shared_slots() when dedup is null.
+// gate (a bool scalar on the device) may be null.
 extern "C" int pw_fingerprint_dedup_insert(void* table, const void* states, const void* valid,
-                                           void* keys, void* is_new, void* dedup, int n,
+                                           const void* gate, void* keys, void* is_new, void* dedup, int n,
                                            int n_obj, unsigned int width, unsigned int mask,
                                            int slots, void* stream) {
   if (slots < 2 * n || (slots & (slots - 1)) != 0 || (!dedup && slots > kMaxSharedSlots))
@@ -222,7 +232,7 @@ extern "C" int pw_fingerprint_dedup_insert(void* table, const void* states, cons
   }
   fingerprint_dedup_insert_kernel<<<1, kFusedThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<u64*>(table), static_cast<const int*>(states),
-      static_cast<const uint8_t*>(valid), static_cast<u64*>(keys),
+      static_cast<const uint8_t*>(valid), static_cast<const uint8_t*>(gate), static_cast<u64*>(keys),
       static_cast<uint8_t*>(is_new), dedup, n, n_obj, width, mask, slots);
   return static_cast<int>(cudaGetLastError());
 }

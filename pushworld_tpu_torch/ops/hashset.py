@@ -225,18 +225,23 @@ def probe_and_insert(
     return is_new, hs
 
 
-def probe_delete(hs: HashSet, keys: torch.Tensor, valid: torch.Tensor) -> HashSet:
+def probe_delete(hs: HashSet, keys: torch.Tensor, valid: torch.Tensor, gate=None) -> HashSet:
     """Removes keys from the table (tombstoning their slots), in place.
 
     Used to un-visit states evicted from the bounded search frontier so they
-    can be re-generated later.  Missing keys are ignored.  On a CUDA tensor
-    this launches ``visited_set.cu``'s delete kernel; on a CPU tensor it runs
+    can be re-generated later.  Missing keys are ignored.  ``gate`` (a bool
+    scalar on the device, or None for open): where it is False nothing is
+    deleted and ``valid`` is not read (the search's compaction writes its
+    drop mask only when it compacts).  On a CUDA tensor this launches
+    ``visited_set.cu``'s delete kernel; on a CPU tensor it runs
     :func:`probe_delete_reference`."""
     if hs.keys.device.type == "cpu":
-        return probe_delete_reference(hs, keys, valid)
+        return probe_delete_reference(hs, keys, valid if gate is None else valid & gate)
     _check(hs, keys, valid)
+    if gate is not None and (gate.dtype != torch.bool or gate.shape != () or gate.device != hs.keys.device):
+        raise ValueError(f"gate: expected a bool scalar on {hs.keys.device}")
     if keys.numel():
-        _launch("pw_probe_delete", hs, keys, valid, keys.numel(), _mask(hs))
+        _launch("pw_probe_delete", hs, keys, valid, gate, keys.numel(), _mask(hs))
         count_launch("visited_set.probe_delete")
     return hs
 
@@ -252,7 +257,7 @@ def fingerprint_dedup_insert_reference(
 
 
 def fingerprint_dedup_insert(
-    hs: HashSet, states: torch.Tensor, width: int, valid: torch.Tensor
+    hs: HashSet, states: torch.Tensor, width: int, valid: torch.Tensor, gate=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """From a batch of states to their keys and ``is_new`` flags, inserting
     the new keys in place: :func:`fingerprint`, :func:`dedup_batch` and
@@ -263,6 +268,10 @@ def fingerprint_dedup_insert(
         states: (n, N, 2) int32 packed states.
         width: the grid width the fingerprint flattens positions with.
         valid: (n,) bool — only valid entries are deduplicated and inserted.
+        gate: a bool scalar on the device, or None for open.  Where it is
+            False (the search iteration is a no-op; ``valid`` is then all
+            False) the kernel writes ``is_new`` False and returns, and the
+            keys hold anything.  The plain version ignores it.
 
     Returns:
         (keys, is_new): keys (n,) packed int64 fingerprints of ALL entries;
@@ -276,6 +285,8 @@ def fingerprint_dedup_insert(
     """
     if hs.keys.device.type == "cpu":
         return fingerprint_dedup_insert_reference(hs, states, width, valid)
+    if gate is not None and (gate.dtype != torch.bool or gate.shape != () or gate.device != hs.keys.device):
+        raise ValueError(f"gate: expected a bool scalar on {hs.keys.device}")
     if states.dim() != 3 or states.shape[2] != 2 or states.dtype != torch.int32:
         raise ValueError(f"states: expected (n, N, 2) int32, got {tuple(states.shape)} {states.dtype}")
     n, n_obj = states.shape[:2]
@@ -291,7 +302,7 @@ def fingerprint_dedup_insert(
         scratch = None
         if slots > _build.load("visited_set").pw_dedup_shared_slots():
             scratch = torch.empty((slots * 12,), dtype=torch.uint8, device=states.device)
-        _launch("pw_fingerprint_dedup_insert", hs, states, valid, keys, is_new, scratch,
+        _launch("pw_fingerprint_dedup_insert", hs, states, valid, gate, keys, is_new, scratch,
                 n, n_obj, width, _mask(hs), slots)
         count_launch("visited_set.fingerprint_dedup_insert")
     return keys, is_new

@@ -399,23 +399,29 @@ def _push_cost_all_dirs_depth0(t: RGDTables, states) -> torch.Tensor:
 
 
 def rgd_heuristic_with_flags(
-    t: RGDTables, states: torch.Tensor, max_depth: int = 1
+    t: RGDTables, states: torch.Tensor, max_depth: int = 1, valid: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Like :func:`rgd_heuristic` but also returns a per-state bool flag:
     True when some goal object's cost is INF at ``max_depth`` although its
     graph distance to the goal is finite — deeper pushing chains could give
     a finite value.  Drives the planner's depth escalation.
 
+    ``valid`` ((B,) bool, or None for all): states that are not valid get
+    the fill (total :data:`INF`, flag False) and are not evaluated by the
+    kernel, so their rows may hold anything.
+
     On a CUDA tensor this is one launch of ``kernels/rgd.cu`` (states of at
     most :data:`RGD_MAX_OBJECTS` objects; more raise ValueError); on a CPU
     tensor it runs :func:`rgd_heuristic_with_flags_reference`.  The two are
     bit-equal."""
     if states.device.type == "cpu":
-        return rgd_heuristic_with_flags_reference(t, states, max_depth)
-    return _rgd_cuda(t, states, max_depth)
+        return rgd_heuristic_with_flags_reference(t, states, max_depth, valid)
+    return _rgd_cuda(t, states, max_depth, valid)
 
 
-def rgd_heuristic(t: RGDTables, states: torch.Tensor, max_depth: int = 1) -> torch.Tensor:
+def rgd_heuristic(
+    t: RGDTables, states: torch.Tensor, max_depth: int = 1, valid: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """Fewest-tools RGD estimate for a batch of states.
 
     Args:
@@ -423,6 +429,7 @@ def rgd_heuristic(t: RGDTables, states: torch.Tensor, max_depth: int = 1) -> tor
         states: (B, N, 2) int32, reachable from the puzzle's initial state
             (the compact tables cover only each object's movement graph).
         max_depth: maximum pushing depth.
+        valid: (B,) bool or None; see :func:`rgd_heuristic_with_flags`.
 
     Returns:
         (B,) float32; unreachable goals yield values >= 1e9.
@@ -430,7 +437,7 @@ def rgd_heuristic(t: RGDTables, states: torch.Tensor, max_depth: int = 1) -> tor
     The kernel on a CUDA tensor, the plain version on a CPU tensor, as
     :func:`rgd_heuristic_with_flags`.
     """
-    return rgd_heuristic_with_flags(t, states, max_depth)[0]
+    return rgd_heuristic_with_flags(t, states, max_depth, valid)[0]
 
 
 # The largest N (objects a state) the kernel takes: its skip sets are 32-bit
@@ -445,7 +452,7 @@ _TABLE_TYPES = (("E", torch.bool), ("Dflat", torch.int32), ("vidx", torch.int32)
                 ("goal_mask", torch.bool))
 
 
-def _rgd_cuda(t: RGDTables, states: torch.Tensor, max_depth: int):
+def _rgd_cuda(t: RGDTables, states: torch.Tensor, max_depth: int, valid: Optional[torch.Tensor]):
     """One launch of ``kernels/rgd.cu``: outputs from ``torch.empty``, no host
     read, the launch on the current stream, so a CUDA graph may capture it."""
     if states.dim() != 3 or states.shape[1:] != (t.n, 2) or states.dtype != torch.int32:
@@ -469,6 +476,9 @@ def _rgd_cuda(t: RGDTables, states: torch.Tensor, max_depth: int):
         tensors.append(x)
     states = states.contiguous()
     B = states.shape[0]
+    if valid is not None and (valid.shape != (B,) or valid.dtype != torch.bool or valid.device != states.device):
+        raise ValueError(f"valid: expected a ({B},) bool tensor on {states.device}")
+    valid = None if valid is None else valid.contiguous()
     total = torch.empty((B,), dtype=torch.float32, device=states.device)
     deeper = torch.empty((B,), dtype=torch.bool, device=states.device)
     if B == 0:
@@ -476,7 +486,8 @@ def _rgd_cuda(t: RGDTables, states: torch.Tensor, max_depth: int):
     fn = _build.load("rgd").pw_rgd_heuristic
     with torch.cuda.device(states.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(states.data_ptr(), *(x.data_ptr() for x in tensors), total.data_ptr(), deeper.data_ptr(),
+        rc = fn(states.data_ptr(), *(x.data_ptr() for x in tensors), None if valid is None else valid.data_ptr(),
+                total.data_ptr(), deeper.data_ptr(),
                 B, t.n, t.n_real, t.max_goals, t.height, t.width, t.cmax, t.cmax_agent, max_depth,
                 ctypes.c_void_p(stream))
     if rc != 0:
@@ -485,10 +496,20 @@ def _rgd_cuda(t: RGDTables, states: torch.Tensor, max_depth: int):
     return total, deeper
 
 
-def rgd_heuristic_with_flags_reference(t: RGDTables, states: torch.Tensor, max_depth: int):
+def rgd_heuristic_with_flags_reference(
+    t: RGDTables, states: torch.Tensor, max_depth: int, valid: Optional[torch.Tensor] = None
+):
     """Plain PyTorch version of :func:`rgd_heuristic_with_flags`, the JAX
     package's unrolled recursion of whole-batch gathers: returns (total
-    cost, needs-deeper flag) per state."""
+    cost, needs-deeper flag) per state, the fill where ``valid`` is False."""
+    total, needs_deeper = _rgd_reference(t, states, max_depth)
+    if valid is None:
+        return total, needs_deeper
+    return torch.where(valid, total, INF), needs_deeper & valid
+
+
+def _rgd_reference(t: RGDTables, states: torch.Tensor, max_depth: int):
+    """The JAX package's ``_rgd_impl`` on every state."""
     B = states.shape[0]
     dev = states.device
     total = torch.zeros((B,), dtype=torch.float32, device=dev)

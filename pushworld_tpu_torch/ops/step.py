@@ -20,14 +20,22 @@ early-exit BFS.
 
 The functions take a :class:`CompiledPuzzle` whose fields are tensors
 (``CompiledPuzzle.to(device)``); states are int32 ``(..., N, 2)`` (x, y).
+
+The search's expansion (:func:`expand_children`, and :func:`expand_and_test`
+with the moved masks, the ``effective`` flags and the goal test) is one
+launch of ``kernels/expand.cu`` on a CUDA tensor and its plain version
+(:func:`expand_children_reference`, :func:`expand_and_test_reference`) on a
+CPU tensor; the two are bit-equal.
 """
 
-from typing import Tuple
+import ctypes
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from pushworld_tpu_torch.core.compiled import CompiledPuzzle
+from pushworld_tpu_torch.kernels import _build, count_launch
 
 DISPLACEMENTS = np.array([(-1, 0), (1, 0), (0, -1), (0, 1)], np.int32)
 
@@ -125,14 +133,13 @@ def build_contact_lists(cp: CompiledPuzzle, cmax_pad: int = 0) -> Tuple[np.ndarr
     return contacts, mask
 
 
-def expand_children(
+def expand_children_reference(
     cp: CompiledPuzzle,
     contacts: torch.Tensor,  # int16/int32 (4, N, N, C, 2) rel offsets pos_i - pos_j
     contacts_mask: torch.Tensor,  # bool (4, N, N, C)
     parents: torch.Tensor,  # (B, N, 2) int32
 ) -> torch.Tensor:
-    """All four children of every parent, in action-block order
-    ``[a=0 children..., a=1 children..., ...]`` — (4B, N, 2) int32.
+    """Plain PyTorch version of :func:`expand_children`.
 
     The per-pair push relation is found by comparing the batch's relative
     offsets with the compacted contact lists (packed (rx, ry) into one int per
@@ -157,6 +164,109 @@ def expand_children(
     disp = displacements(parents.device)  # (4, 2)
     out = parents[None] + disp[:, None, None, :] * moved.unsqueeze(-1).to(parents.dtype)
     return out.reshape(4 * B, N, 2)
+
+
+def expand_children(
+    cp: CompiledPuzzle,
+    contacts: torch.Tensor,  # int16/int32 (4, N, N, C, 2) rel offsets pos_i - pos_j
+    contacts_mask: torch.Tensor,  # bool (4, N, N, C)
+    parents: torch.Tensor,  # (B, N, 2) int32
+) -> torch.Tensor:
+    """All four children of every parent, in action-block order
+    ``[a=0 children..., a=1 children..., ...]`` — (4B, N, 2) int32.
+
+    On a CUDA tensor this is one launch of ``kernels/expand.cu`` (the flags
+    it also writes are dropped; at most :data:`EXPAND_MAX_OBJECTS` objects,
+    more raise ValueError); on a CPU tensor it runs
+    :func:`expand_children_reference`."""
+    if parents.device.type == "cpu":
+        return expand_children_reference(cp, contacts, contacts_mask, parents)
+    return _expand_cuda(cp, contacts, contacts_mask, parents, None, None)[0]
+
+
+def expand_and_test_reference(
+    cp: CompiledPuzzle, contacts: torch.Tensor, contacts_mask: torch.Tensor, parents: torch.Tensor,
+    sel_valid: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`expand_and_test`: the search
+    iteration's expansion, moved masks, ``effective`` flags and goal test as
+    the JAX package's ``_iterate`` computes them."""
+    children = expand_children_reference(cp, contacts, contacts_mask, parents)
+    moved = (children != parents.repeat(4, 1, 1)).any(-1)  # (4B, N)
+    effective = moved.any(-1) & sel_valid.repeat(4)  # no-op moves are duplicates
+    return children, moved, effective, is_goal_state(cp, children)
+
+
+def expand_and_test(
+    cp: CompiledPuzzle, contacts: torch.Tensor, contacts_mask: torch.Tensor, parents: torch.Tensor,
+    sel_valid: torch.Tensor, gate: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The expansion of a search iteration in one step: (children (4B, N, 2)
+    int32, moved (4B, N) bool, effective (4B,) bool, goal (4B,) bool), where
+    ``moved`` says which objects a child moved, ``effective`` that some
+    object moved and the parent (``sel_valid``, (B,) bool) was selected, and
+    ``goal`` that the child is a goal state.
+
+    ``gate`` (a bool scalar on the device, or None): where it is False, the
+    kernel writes ``effective`` and ``goal`` False and nothing else, so the
+    other outputs hold anything (their parents were never written).  On the
+    CPU the gate is already in ``sel_valid`` and every output is computed.
+
+    On a CUDA tensor this is one launch of ``kernels/expand.cu``; on a CPU
+    tensor it runs :func:`expand_and_test_reference`.  The two are
+    bit-equal where the gate is open."""
+    if parents.device.type == "cpu":
+        return expand_and_test_reference(cp, contacts, contacts_mask, parents, sel_valid)
+    return _expand_cuda(cp, contacts, contacts_mask, parents, sel_valid, gate)
+
+
+# The largest N (objects a state) the expansion kernel takes: a pusher's
+# pushees are a 32-bit mask (kernels/expand.cu kMaxObjects).
+EXPAND_MAX_OBJECTS = 32
+
+
+def _expand_cuda(cp: CompiledPuzzle, contacts: torch.Tensor, contacts_mask: torch.Tensor,
+                 parents: torch.Tensor, sel_valid: Optional[torch.Tensor], gate: Optional[torch.Tensor]):
+    """One launch of ``kernels/expand.cu``: outputs from ``torch.empty``, no
+    host read, the launch on the current stream, so a CUDA graph may
+    capture it."""
+    dev = parents.device
+    if parents.dim() != 3 or parents.shape[1:] != (cp.n, 2) or parents.dtype != torch.int32:
+        raise ValueError(f"parents: expected (B, {cp.n}, 2) int32, got {tuple(parents.shape)} {parents.dtype}")
+    B, N = parents.shape[:2]
+    if N > EXPAND_MAX_OBJECTS:
+        raise ValueError(f"the expansion kernel takes at most {EXPAND_MAX_OBJECTS} objects a state, got {N}")
+    if contacts.dtype == torch.int32:
+        contacts = contacts.to(torch.int16)  # offsets are bounded by delta << 2**15
+    C = contacts.shape[3]
+    H, W = cp.static_block.shape[2:]
+    for name, x, dtype, shape in (
+        ("contacts", contacts, torch.int16, (4, N, N, C, 2)), ("contacts_mask", contacts_mask, torch.bool, (4, N, N, C)),
+        ("static_block", cp.static_block, torch.bool, (4, N, H, W)), ("obj_mask", cp.obj_mask, torch.bool, (N,)),
+        ("goal_pos", cp.goal_pos, torch.int32, (N, 2)), ("goal_mask", cp.goal_mask, torch.bool, (N,)),
+        ("sel_valid", sel_valid, torch.bool, (B,)), ("gate", gate, torch.bool, ()),
+    ):
+        if x is not None and (x.dtype != dtype or tuple(x.shape) != shape or x.device != dev
+                              or not x.is_contiguous()):
+            raise ValueError(f"{name}: expected a contiguous {dtype} {shape} tensor on {dev}")
+    parents = parents.contiguous()
+    children = torch.empty((4 * B, N, 2), dtype=torch.int32, device=dev)
+    moved = torch.empty((4 * B, N), dtype=torch.bool, device=dev)
+    effective = torch.empty((4 * B,), dtype=torch.bool, device=dev)
+    goal = torch.empty((4 * B,), dtype=torch.bool, device=dev)
+    if B == 0:
+        return children, moved, effective, goal
+    fn = _build.load("expand").pw_expand
+    ptr = [None if x is None else x.data_ptr() for x in (
+        parents, contacts, contacts_mask, cp.static_block, cp.obj_mask, cp.goal_pos, cp.goal_mask, sel_valid,
+        gate, children, moved, effective, goal)]
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        rc = fn(*ptr, B, N, C, H, W, stream)
+    if rc != 0:
+        raise RuntimeError(f"pw_expand launch failed: CUDA error {rc}")
+    count_launch("step.expand")
+    return children, moved, effective, goal
 
 
 def _goal_tables(cp: CompiledPuzzle, puzzle_idx):

@@ -51,16 +51,15 @@ from pushworld_tpu_torch.ops.novelty import (
     novelty_score_and_update,
 )
 from pushworld_tpu_torch.ops.rgd import RGDTables, build_rgd_tables, rgd_heuristic
-from pushworld_tpu_torch.ops.step import expand_children, is_goal_state
+from pushworld_tpu_torch.ops.step import expand_and_test, is_goal_state
 from pushworld_tpu_torch.parallel.mesh import make_mesh, mesh_device
 from pushworld_tpu_torch.search.batched import (
     EMPTY,
     SearchConfig,
     SearchState,
-    _append_frontier,
-    _append_history,
-    _priority,
     _select_frontier,
+    append_children,
+    compact_frontier,
     init_search_state,
     required_depth,
 )
@@ -100,10 +99,7 @@ def _shard_iterate(sh: _Shard, s: SearchState) -> torch.Tensor:
     # 1. local selection + expansion.
     parents, parent_hist, sel_valid = _select_frontier(s, B)
     actions = torch.arange(4, **i32).repeat_interleave(B)
-    par4 = parents.repeat(4, 1, 1)
-    children = expand_children(cp, t.contacts, t.contacts_mask, parents)
-    moved4 = (children != par4).any(-1)  # (4B, N)
-    effective = moved4.any(-1) & sel_valid.repeat(4)
+    children, moved4, effective, _ = expand_and_test(cp, t.contacts, t.contacts_mask, parents, sel_valid)
 
     # 2. owner routing.  Parent refs become global BEFORE routing (they
     # index this rank's history).
@@ -134,19 +130,16 @@ def _shard_iterate(sh: _Shard, s: SearchState) -> torch.Tensor:
     rcv_moved = rcv[:, 2 * N + 2 : 3 * N + 2].bool()
     rcv_valid = rcv[:, 3 * N + 2].bool().contiguous()
 
-    # 3. owner-side dedup + history + goal + scoring + ring append.
+    # 3. owner-side dedup + scoring + ring compaction + append (history,
+    # keys, window, counters) + goal.
     keys, is_new = fingerprint_dedup_insert(s.visited, rcv_states, cp.width, rcv_valid)
-    hist_idx = _append_history(s, cfg, is_new, rcv_parent, rcv_action, margin=8 * B * D)
+    nov, _ = novelty_score_and_update(s.novelty, rcv_states, rcv_moved, is_new)
+    rgd = rgd_heuristic(t, rcv_states, max_depth=cfg.max_depth, valid=is_new)
+    compact_frontier(s, D * C)
+    hist_idx = append_children(s, cfg, None, is_new, rcv_parent, rcv_action, None, nov, rgd, None, sel_valid,
+                               rcv_states, keys, margin=8 * B * D)
     goal = is_goal_state(cp, rcv_states) & is_new
     cand = torch.where(goal.any(), me * Hcap + hist_idx[goal.to(torch.int32).argmax()], NO_GOAL)
-
-    nov, _ = novelty_score_and_update(s.novelty, rcv_states, rcv_moved, is_new)
-    rgd = rgd_heuristic(t, rcv_states, max_depth=cfg.max_depth)
-    h = torch.where(is_new, _priority(nov, rgd, hist_idx, cfg.use_novelty), EMPTY).to(torch.int32)
-    n_evicted = _append_frontier(s, h, rcv_states, hist_idx, keys)
-    s.iterations = s.iterations + 1
-    s.expansions = s.expansions + sel_valid.sum(dtype=torch.int32)
-    s.evictions = s.evictions + n_evicted
     return cand.to(torch.int32)
 
 

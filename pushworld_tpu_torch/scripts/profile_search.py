@@ -3,15 +3,16 @@
 ``python -m pushworld_tpu_torch.scripts.profile_search PUZZLE.pwp [--iters N]``
 
 Builds the kernels, then the planner and its RGD tables (timed, with the
-host movement-graph fixpoint timed on its own), then runs ``--iters`` search
+host movement-graph fixpoint timed on its own) at the puzzle's RGD depth or
+``--depth``, then runs ``--iters`` search
 iterations at the production capacities under ``torch.profiler`` twice:
 eagerly (``_iterate`` in a Python loop) and as the card's ``run_chunk`` does
 (replays of the captured CUDA graph of ``search/chunk_graph.py``, on a second
 state from the same start).  Prints one JSON line: the table-build time; for
 each way the host-clock time per iteration (under the profiler), the
-device-busy share (summed kernel time over the wall time) and kernels per
-iteration; the graph's iterations, nodes and capture and instantiate
-seconds; and the operators with the most device time in the eager loop.
+device-busy share (summed kernel time over the wall time), kernels per
+iteration and how many of the iterations were active (their gate open); the graph's iterations, nodes and capture and instantiate
+seconds; and the kernels with the most device time in the eager loop.
 Needs a CUDA device.
 """
 
@@ -25,6 +26,8 @@ def main(argv=None) -> int:
     ap.add_argument("puzzle", help="path of a .pwp puzzle file")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--depth", type=int, default=None,
+                    help="RGD pushing depth (default: the puzzle's required_depth)")
     ap.add_argument("--graph-iters", type=int, default=None,
                     help="iterations in one CUDA graph (default: chunk_graph.GRAPH_ITERS at the depth)")
     args = ap.parse_args(argv)
@@ -46,7 +49,7 @@ def main(argv=None) -> int:
     _build.build()
     bridge.is_available()  # builds the native planner before the fixpoint is timed
     puzzle = Puzzle.from_file(args.puzzle)
-    depth = required_depth(puzzle)
+    depth = required_depth(puzzle) if args.depth is None else args.depth
     t0 = time.monotonic()
     _movement_graphs_host(puzzle, compile_puzzle(puzzle))
     graphs_s = time.monotonic() - t0
@@ -90,19 +93,23 @@ def main(argv=None) -> int:
         for _ in range(args.iters):
             _iterate(planner.cp_dev, planner.tables, cfg, eager_s)
 
+    counted = int(eager_s.iterations)
     eager_row, avgs = profiled(eager, args.iters)
+    eager_row["active_iters"] = int(eager_s.iterations) - counted  # the others had their gate closed
     replays = -(-args.iters // g.iters)
+    counted = int(graphed_s.iterations)
     graphed_row, _ = profiled(
         lambda: run_chunk(planner.cp_dev, planner.tables, cfg, graphed_s, args.iters), replays * g.iters)
-    ops = [e for e in avgs if e.device_type == DeviceType.CPU and dev_us(e) > 0]
-    top = sorted(ops, key=dev_us, reverse=True)[: args.top]
+    graphed_row["active_iters"] = int(graphed_s.iterations) - counted
+    rows = [e for e in avgs if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    top = sorted(rows, key=dev_us, reverse=True)[: args.top]
     print(json.dumps({
         "puzzle": args.puzzle, "depth": depth, "device": torch.cuda.get_device_name(0),
         "table_build_s": build_s, "of_which_host_movement_graphs_s": graphs_s,
         "eager": eager_row,
         "graphed": dict(graphed_row, graph_iters=g.iters, nodes=g.nodes, capture_s=g.capture_s,
                         instantiate_s=g.instantiate_s),
-        "top_ops_device_ms_per_iter": {e.key: dev_us(e) / 1e3 / args.iters for e in top},
+        "top_kernels_device_ms_per_iter": {e.key[:120]: dev_us(e) / 1e3 / args.iters for e in top},
         "expansions": {"eager": int(eager_s.expansions), "graphed": int(graphed_s.expansions)},
     }))
     return 0

@@ -17,12 +17,20 @@ Search *order* differs from the reference (lockstep novelty, batch
 expansion); acceptance is valid plans within budget.  Plans are rebuilt from
 a device-side history of (parent index, action) records.
 
+On the card an iteration is nine launches of hand kernels
+(``kernels/frontier.cu``'s select, ``kernels/expand.cu``, the visited set's
+fused fingerprint + dedup + insert, the novelty score and update, the RGD
+heuristic, ``frontier.cu``'s compaction with the visited set's gated
+delete, and ``frontier.cu``'s append); on the CPU each wrapper runs its
+plain version, the JAX package's code (``*_reference``).
+
 An iteration reads nothing back to the host: as in the JAX package's
-jitted body, it is gated on the device.  ``active`` (not solved, a live
-frontier entry, history below its limit) masks the selection, so an
-inactive iteration expands, inserts and scores nothing and leaves the state
-exactly as it was; every write is an index or scatter at device-computed
-positions, and the ring's compaction is decided on the device.  Every field
+jitted body, it is gated on the device.  The gate (not solved, a live
+frontier entry, history below its limit) is computed by the selection and
+read by every later kernel, so an inactive iteration expands, inserts and
+scores nothing and leaves the state exactly as it was; every write is at
+device-computed positions, and the ring's compaction is decided on the
+device.  Every field
 of :class:`SearchState` is allocated once by :func:`init_search_state` and
 updated in place from then on, so a CUDA graph can replay iterations over
 fixed addresses (``search/chunk_graph.py``).  :func:`run_chunk` on the card
@@ -32,6 +40,7 @@ k while chunk k+1 runs (:class:`PendingStatus`).  Iteration for iteration it
 takes the JAX package's steps and stops after the same iterations.
 """
 
+import ctypes
 import time
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional
@@ -42,6 +51,7 @@ import torch
 from pushworld_tpu_torch.core.compiled import CompiledPuzzle, compile_puzzle
 from pushworld_tpu_torch.core.puzzle import Puzzle
 from pushworld_tpu_torch.device import DeviceLike, resolve_device
+from pushworld_tpu_torch.kernels import _build, count_launch
 from pushworld_tpu_torch.ops.hashset import (
     HashSet,
     fingerprint,
@@ -62,7 +72,7 @@ from pushworld_tpu_torch.ops.rgd import (
     rgd_heuristic,
     rgd_heuristic_with_flags,
 )
-from pushworld_tpu_torch.ops.step import expand_children, is_goal_state
+from pushworld_tpu_torch.ops.step import expand_and_test
 
 # Frontier priorities are int32 keys: novelty tier (2 bits) | clamped RGD
 # value (13 bits) | inverted recency (15 bits).  The recency bits make
@@ -213,82 +223,21 @@ def search_status(s: SearchState) -> np.ndarray:
     return search_status_tensor(s).cpu().numpy()
 
 
-def _append_history(s: SearchState, cfg: SearchConfig, is_new, phist4, actions, margin: int = 8):
-    """Appends the new children's (parent, action) records to the history,
-    in place; the cursor stops ``margin`` entries short of the capacity.
-    Returns hist_idx (0 for the other lanes).
-
-    As in the JAX package, every lane writes: the others write the last
-    entry's own value back to it, so no boolean index is needed."""
-    offs = torch.cumsum(is_new.to(torch.int32), 0, dtype=torch.int32) - 1
-    hist_idx = torch.where(is_new, s.hist_cursor + offs, 0).to(torch.int32)
-    write_idx = torch.where(is_new, hist_idx, cfg.history_capacity - 1).long()
-    s.hist_parent.index_copy_(0, write_idx, torch.where(is_new, phist4, s.hist_parent[write_idx]))
-    s.hist_action.index_copy_(0, write_idx, torch.where(is_new, actions, s.hist_action[write_idx]))
-    n_new = is_new.sum(dtype=torch.int32)
-    s.hist_cursor.copy_(torch.clamp(s.hist_cursor + n_new, max=cfg.history_capacity - margin))
-    return hist_idx
+# ------------------------------------------------------------------ frontier
+#
+# The frontier's bookkeeping is three hand kernels on the card
+# (kernels/frontier.cu: select, compact, append) and their plain versions on
+# the CPU, the JAX package's code: select_frontier_reference (with _active,
+# the gate), compact_frontier_reference and append_frontier_reference (the
+# two halves of JAX's _append_frontier), append_history_reference and
+# append_children_reference.
 
 
-_FRONTIER_FIELDS = ("frontier_h", "frontier_states", "frontier_hist", "frontier_key")
-
-
-def _append_frontier(s: SearchState, h, children, hist_idx, keys, active=None) -> torch.Tensor:
-    """Writes the 4B scored children into free space at the ring cursor, in
-    place.
-
-    The frontier is a COMPACTING ring: the region at and beyond the cursor is
-    always EMPTY (holes before it come only from selection), so an append is
-    one contiguous window.  When the next window would overflow the capacity
-    (``need``), one stable sort gathers the valid entries to the front in
-    key order and, only if the frontier is over the keep-bound, drops the
-    WORST tail; dropped entries are deleted from the visited set so they can
-    be re-generated later.  The decision is made on the device: the gather
-    runs through the sort's permutation when ``need`` holds and through the
-    identity when it does not (bit-equal to the JAX package's ``lax.cond``).
-
-    ``active`` (a bool scalar, or None for always) gates the iteration: an
-    inactive append neither compacts nor moves the cursor, and writes each
-    window slot's own contents back.  Returns the number of evicted states
-    (int32 scalar)."""
-    nb = h.shape[0]  # 4B
-    F = s.frontier_h.shape[0]
-    keep = F - max(nb, F // 4)
-    slots = torch.arange(F, device=h.device)
-    need = s.ring_cursor + nb > F
-    if active is not None:
-        need = need & active
-    order = torch.where(need, torch.argsort(s.frontier_h, stable=True), slots)  # EMPTY sorts last
-    for name in _FRONTIER_FIELDS:
-        buf = getattr(s, name)
-        buf.copy_(buf[order])
-    live = s.frontier_h < EMPTY
-    drop = live & (slots >= keep) & need
-    probe_delete(s.visited, s.frontier_key, drop)
-    s.frontier_h.masked_fill_(drop, EMPTY)
-    n_evicted = drop.sum(dtype=torch.int32)
-    cursor = torch.where(need, torch.clamp(live.sum(dtype=torch.int32), max=keep), s.ring_cursor)
-    pos = cursor + torch.arange(nb, device=h.device)
-    new = (h, children, hist_idx, keys)
-    if active is not None:
-        # An active window always fits (the cursor is at most F - nb after a
-        # compaction); an inactive one may not, and writes slots back.
-        pos = pos % F
-        new = tuple(
-            torch.where(active.reshape((1,) * v.dim()), v, getattr(s, name)[pos])
-            for name, v in zip(_FRONTIER_FIELDS, new)
-        )
-        nb = nb * active.to(torch.int32)
-    for name, v in zip(_FRONTIER_FIELDS, new):
-        getattr(s, name).index_copy_(0, pos, v)
-    s.ring_cursor.copy_(cursor + nb)
-    return n_evicted
-
-
-def _select_frontier(s: SearchState, B: int, active=None):
-    """Picks the B lowest-key frontier entries, in ascending (key, slot)
-    order as the JAX package's top-k returns them, and frees their slots.
-    ``active`` (a bool scalar, or None for always) masks the selection.
+def select_frontier_reference(s: SearchState, B: int, active=None):
+    """Plain version of the selection: the B lowest-key frontier entries, in
+    ascending (key, slot) order as the JAX package's top-k returns them,
+    their slots freed.  ``active`` (a bool scalar, or None for always)
+    masks the selection.
 
     Returns (parents, parent_hist, sel_valid)."""
     _, idx = torch.sort(s.frontier_h, stable=True)
@@ -313,59 +262,307 @@ def _active(cfg: SearchConfig, s: SearchState) -> torch.Tensor:
     )
 
 
+def _select_frontier(s: SearchState, B: int):
+    """The B lowest-key frontier entries in (key, slot) order, their slots
+    freed, with no gate (the frontier-sharded search's selection).  Returns
+    (parents, parent_hist, sel_valid).
+
+    On a CUDA tensor one launch of ``frontier.cu``'s select kernel; on a CPU
+    tensor :func:`select_frontier_reference`."""
+    if not s.frontier_h.is_cuda:
+        return select_frontier_reference(s, B)
+    return _select_cuda(s, B, None)[:3]
+
+
+def select_and_gate(cfg: SearchConfig, s: SearchState):
+    """The gate of an iteration (:func:`_active`, read before the selection)
+    and the ``cfg.expand`` lowest-key entries, masked by it.  Returns
+    (parents, parent_hist, sel_valid, gate), ``gate`` a bool scalar on the
+    device.
+
+    On a CUDA tensor one launch of ``frontier.cu``'s select kernel: with the
+    gate closed it writes ``sel_valid`` False and the gate, and leaves
+    ``parents`` and ``parent_hist`` unwritten.  On a CPU tensor
+    :func:`_active` and :func:`select_frontier_reference`."""
+    if not s.frontier_h.is_cuda:
+        gate = _active(cfg, s)
+        return (*select_frontier_reference(s, cfg.expand, gate), gate)
+    return _select_cuda(s, cfg.expand, cfg.history_capacity - 8 * cfg.expand)
+
+
+def append_history_reference(s: SearchState, cfg: SearchConfig, is_new, phist4, actions, margin: int = 8):
+    """Appends the new children's (parent, action) records to the history,
+    in place; the cursor stops ``margin`` entries short of the capacity.
+    Returns hist_idx (0 for the other lanes).
+
+    As in the JAX package, every lane writes: the others write the last
+    entry's own value back to it, so no boolean index is needed."""
+    offs = torch.cumsum(is_new.to(torch.int32), 0, dtype=torch.int32) - 1
+    hist_idx = torch.where(is_new, s.hist_cursor + offs, 0).to(torch.int32)
+    write_idx = torch.where(is_new, hist_idx, cfg.history_capacity - 1).long()
+    s.hist_parent.index_copy_(0, write_idx, torch.where(is_new, phist4, s.hist_parent[write_idx]))
+    s.hist_action.index_copy_(0, write_idx, torch.where(is_new, actions, s.hist_action[write_idx]))
+    n_new = is_new.sum(dtype=torch.int32)
+    s.hist_cursor.copy_(torch.clamp(s.hist_cursor + n_new, max=cfg.history_capacity - margin))
+    return hist_idx
+
+
+_FRONTIER_FIELDS = ("frontier_h", "frontier_states", "frontier_hist", "frontier_key")
+
+
+def compact_frontier_reference(s: SearchState, nb: int, active=None) -> None:
+    """Plain version of the compaction, in place: when the next window of
+    ``nb`` would overflow the capacity (``need``, and ``active``: a bool
+    scalar or None for always), one stable sort gathers the valid entries to
+    the front in key order and, only if the frontier is over the keep-bound,
+    drops the WORST tail; dropped entries are deleted from the visited set
+    so they can be re-generated later, and counted in ``s.evictions``.
+
+    The frontier is a COMPACTING ring: the region at and beyond the cursor is
+    always EMPTY (holes before it come only from selection), so an append is
+    one contiguous window.  The branch is taken on the host, as the JAX
+    package's ``lax.cond`` takes it: the sort runs only when it is needed."""
+    F = s.frontier_h.shape[0]
+    keep = F - max(nb, F // 4)
+    need = s.ring_cursor + nb > F
+    if active is not None:
+        need = need & active
+    if not bool(need):
+        return
+    order = torch.argsort(s.frontier_h, stable=True)  # EMPTY sorts last
+    for name in _FRONTIER_FIELDS:
+        buf = getattr(s, name)
+        buf.copy_(buf[order])
+    live = s.frontier_h < EMPTY
+    drop = live & (torch.arange(F, device=s.frontier_h.device) >= keep)
+    probe_delete(s.visited, s.frontier_key, drop)
+    s.frontier_h.masked_fill_(drop, EMPTY)
+    s.evictions.add_(drop.sum(dtype=torch.int32))
+    s.ring_cursor.copy_(torch.clamp(live.sum(dtype=torch.int32), max=keep))
+
+
+def append_frontier_reference(s: SearchState, h, children, hist_idx, keys, active=None) -> None:
+    """Plain version of the window write: the nb scored children go into the
+    free space at the ring cursor, in place (after
+    :func:`compact_frontier_reference`, the window always fits).
+
+    ``active`` (a bool scalar, or None for always) gates the iteration: an
+    inactive append does not move the cursor and writes each window slot's
+    own contents back."""
+    nb = h.shape[0]
+    F = s.frontier_h.shape[0]
+    pos = s.ring_cursor + torch.arange(nb, device=h.device)
+    new = (h, children, hist_idx, keys)
+    if active is not None:
+        # An active window always fits (the cursor is at most F - nb after a
+        # compaction); an inactive one may not, and writes slots back.
+        pos = pos % F
+        new = tuple(
+            torch.where(active.reshape((1,) * v.dim()), v, getattr(s, name)[pos])
+            for name, v in zip(_FRONTIER_FIELDS, new)
+        )
+        nb = nb * active.to(torch.int32)
+    for name, v in zip(_FRONTIER_FIELDS, new):
+        getattr(s, name).index_copy_(0, pos, v)
+    s.ring_cursor.add_(nb)
+
+
+def compact_frontier(s: SearchState, nb: int, gate=None) -> None:
+    """Compacts the ring before a window of ``nb`` children when it would
+    overflow (see :func:`compact_frontier_reference`), in place.  ``gate``
+    (a bool scalar on the device, or None for open) closes it.
+
+    On a CUDA tensor one launch of ``frontier.cu``'s compact kernel, which
+    reads ``need`` on the device and returns at once without it, and one of
+    ``visited_set.cu``'s delete kernel, gated on ``need``, for the dropped
+    entries; on a CPU tensor :func:`compact_frontier_reference`."""
+    if not s.frontier_h.is_cuda:
+        return compact_frontier_reference(s, nb, gate)
+    _compact_cuda(s, nb, gate)
+
+
+def append_children_reference(s: SearchState, cfg: SearchConfig, gate, is_new, parent_hist, actions, goal, nov,
+                              rgd, deeper, sel_valid, children, keys, margin: int = 8) -> torch.Tensor:
+    """Plain version of :func:`append_children`: the JAX package's history
+    append, goal resolution, priority keys, window write and counters."""
+    nb, dev = is_new.shape[0], is_new.device
+    phist = parent_hist.repeat(nb // parent_hist.shape[0])
+    if actions is None:
+        actions = torch.arange(nb, dtype=torch.int32, device=dev) // cfg.expand
+    hist_idx = append_history_reference(s, cfg, is_new, phist, actions, margin)
+    if goal is not None:
+        # The first solved child wins.
+        goal = goal & is_new
+        any_goal = goal.any()
+        first_goal = goal.to(torch.int32).argmax().reshape(1)  # a 1-d index: no host read
+        s.solved_hist.copy_(
+            torch.where(s.solved, s.solved_hist, torch.where(any_goal, hist_idx[first_goal][0], 0))
+        )
+        s.solved.logical_or_(any_goal)
+    h = _priority(nov, rgd.repeat(nb // rgd.shape[0]), hist_idx, cfg.use_novelty)
+    h = torch.where(is_new, h, EMPTY).to(torch.int32)
+    append_frontier_reference(s, h, children, hist_idx, keys, gate)
+    s.iterations.add_(1 if gate is None else gate.to(torch.int32))
+    s.expansions.add_(sel_valid.sum(dtype=torch.int32))
+    if deeper is not None:
+        s.needs_deeper.add_((deeper.repeat(nb // deeper.shape[0]) & is_new).sum(dtype=torch.int32))
+    return hist_idx
+
+
+def append_children(s: SearchState, cfg: SearchConfig, gate, is_new, parent_hist, actions, goal, nov, rgd,
+                    deeper, sel_valid, children, keys, margin: int = 8) -> torch.Tensor:
+    """Appends an iteration's nb scored children, in place: history records
+    for the new ones (the cursor stops ``margin`` short of the capacity),
+    the first goal among them in lane order, their priority keys (EMPTY for
+    the others) into the window at the ring cursor, and the counters
+    (iterations, expansions from ``sel_valid``, needs_deeper).  Returns the
+    history indices (0 for lanes that are not new).
+
+    Lanes are in action-block order.  ``parent_hist`` has nb entries, or B
+    (``cfg.expand``), read at lane % B; ``actions`` None means lane // B;
+    ``rgd`` and ``deeper`` have nb entries or B (the lazy mode's per-parent
+    values).  ``goal`` None: no goal resolution (the sharded search resolves
+    its goals across ranks); ``deeper`` None: needs_deeper is not counted.
+    ``gate`` (a bool scalar, or None for open) closes the append.
+
+    On a CUDA tensor one launch of ``frontier.cu``'s append kernel; on a CPU
+    tensor :func:`append_children_reference`.  The two are bit-equal."""
+    if not s.frontier_h.is_cuda:
+        return append_children_reference(s, cfg, gate, is_new, parent_hist, actions, goal, nov, rgd, deeper,
+                                         sel_valid, children, keys, margin)
+    return _append_cuda(s, cfg, gate, is_new, parent_hist, actions, goal, nov, rgd, deeper, sel_valid, children,
+                        keys, margin)
+
+
+def _check(name: str, x, dtype, shape, dev) -> None:
+    if x is not None and (x.dtype != dtype or tuple(x.shape) != tuple(shape) or x.device != dev
+                          or not x.is_contiguous()):
+        raise ValueError(f"{name}: expected a contiguous {dtype} {tuple(shape)} tensor on {dev}")
+
+
+def _check_state(s: SearchState) -> None:
+    F, N = s.frontier_states.shape[:2]
+    dev = s.frontier_h.device
+    for name, dtype, shape in (("frontier_h", torch.int32, (F,)), ("frontier_states", torch.int32, (F, N, 2)),
+                               ("frontier_hist", torch.int32, (F,)), ("frontier_key", torch.int64, (F,))):
+        _check(name, getattr(s, name), dtype, shape, dev)
+
+
+def _launch(fn_name: str, count_name: str, dev: torch.device, *args) -> None:
+    """``fn_name(*args, stream)`` of ``kernels/frontier.cu`` on the current
+    stream (tensors pass as their data pointers, None as a null pointer);
+    raises if the launch is refused.  No host read: a CUDA graph may
+    capture it."""
+    fn = getattr(_build.load("frontier"), fn_name)
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        rc = fn(*ptrs, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
+    count_launch(count_name)
+
+
+def _select_cuda(s: SearchState, B: int, hist_limit: Optional[int]):
+    _check_state(s)
+    F, N = s.frontier_states.shape[:2]
+    dev = s.frontier_h.device
+    if not 0 < B <= F:
+        raise ValueError(f"cannot select {B} of {F} frontier slots")
+    gated = hist_limit is not None
+    if gated:
+        _check("solved", s.solved, torch.bool, (), dev)
+        _check("hist_cursor", s.hist_cursor, torch.int32, (), dev)
+    parents = torch.empty((B, N, 2), dtype=torch.int32, device=dev)
+    parent_hist = torch.empty((B,), dtype=torch.int32, device=dev)
+    sel_valid = torch.empty((B,), dtype=torch.bool, device=dev)
+    gate = torch.empty((), dtype=torch.bool, device=dev)
+    _launch("pw_frontier_select", "frontier.select", dev, s.frontier_h, s.frontier_states, s.frontier_hist,
+            s.solved if gated else None, s.hist_cursor if gated else None, hist_limit if gated else 0,
+            parents, parent_hist, sel_valid, gate, F, B, N)
+    return parents, parent_hist, sel_valid, gate
+
+
+def _compact_cuda(s: SearchState, nb: int, gate) -> None:
+    _check_state(s)
+    F, N = s.frontier_states.shape[:2]
+    dev = s.frontier_h.device
+    for name, x in (("ring_cursor", s.ring_cursor), ("evictions", s.evictions)):
+        _check(name, x, torch.int32, (), dev)
+    _check("gate", gate, torch.bool, (), dev)
+    drop = torch.empty((F,), dtype=torch.bool, device=dev)
+    need = torch.empty((), dtype=torch.bool, device=dev)
+    _launch("pw_frontier_compact", "frontier.compact", dev, s.frontier_h, s.frontier_states, s.frontier_hist,
+            s.frontier_key, s.ring_cursor, s.evictions, drop, need, gate,
+            torch.empty((2 * F,), dtype=torch.int64, device=dev), torch.empty_like(s.frontier_states),
+            torch.empty_like(s.frontier_hist), torch.empty_like(s.frontier_key), F, N, nb, F - max(nb, F // 4))
+    # The dropped entries leave the visited set; drop is written only where
+    # need holds, and the delete kernel reads it only then.
+    probe_delete(s.visited, s.frontier_key, drop, need)
+
+
+def _append_cuda(s: SearchState, cfg: SearchConfig, gate, is_new, parent_hist, actions, goal, nov, rgd, deeper,
+                 sel_valid, children, keys, margin: int) -> torch.Tensor:
+    _check_state(s)
+    F, N = s.frontier_states.shape[:2]
+    nb, dev = is_new.shape[0], s.frontier_h.device
+    parent_hist, actions, rgd, children = (
+        None if x is None else x.contiguous() for x in (parent_hist, actions, rgd, children))
+    for name, x, dtype, shape in (
+        ("gate", gate, torch.bool, ()), ("is_new", is_new, torch.bool, (nb,)),
+        ("parent_hist", parent_hist, torch.int32, parent_hist.shape[:1]), ("actions", actions, torch.int32, (nb,)),
+        ("goal", goal, torch.bool, (nb,)), ("nov", nov, torch.float32, (nb,)),
+        ("rgd", rgd, torch.float32, rgd.shape[:1]), ("deeper", deeper, torch.bool, rgd.shape[:1]),
+        ("sel_valid", sel_valid, torch.bool, sel_valid.shape[:1]), ("children", children, torch.int32, (nb, N, 2)),
+        ("keys", keys, torch.int64, (nb,)), ("hist_parent", s.hist_parent, torch.int32, (cfg.history_capacity,)),
+        ("hist_action", s.hist_action, torch.int32, (cfg.history_capacity,)), ("solved", s.solved, torch.bool, ()),
+    ):
+        _check(name, x, dtype, shape, dev)
+    for name in ("ring_cursor", "hist_cursor", "solved_hist", "iterations", "expansions", "needs_deeper"):
+        _check(name, getattr(s, name), torch.int32, (), dev)
+    if parent_hist.dim() != 1 or rgd.dim() != 1 or nb % parent_hist.shape[0] or nb % rgd.shape[0]:
+        raise ValueError("parent_hist and rgd must be 1-D with a length dividing the lane count")
+    hist_idx = torch.empty((nb,), dtype=torch.int32, device=dev)
+    if nb == 0:
+        return hist_idx
+    _launch("pw_frontier_append", "frontier.append", dev, gate, is_new, parent_hist, actions, goal, nov, rgd,
+            deeper, sel_valid, children, keys, s.frontier_h, s.frontier_states, s.frontier_hist, s.frontier_key,
+            s.ring_cursor, s.hist_parent, s.hist_action, s.hist_cursor, s.solved, s.solved_hist, s.iterations,
+            s.expansions, s.needs_deeper, hist_idx, nb, cfg.expand, N, F, cfg.history_capacity, margin,
+            int(cfg.use_novelty), parent_hist.shape[0], rgd.shape[0], sel_valid.shape[0])
+    return hist_idx
+
+
 def _iterate(cp: CompiledPuzzle, t: RGDTables, cfg: SearchConfig, s: SearchState) -> SearchState:
     """One gated search iteration, in place on ``s``; reads nothing back to
-    the host.  When the gate is closed it is an exact no-op."""
-    B = cfg.expand
-    dev = s.frontier_h.device
-    active = _active(cfg, s)
+    the host.  When the gate is closed it is an exact no-op.
 
-    # 1. select the B best frontier entries (their slots are freed).
-    parents, parent_hist, sel_valid = _select_frontier(s, B, active)
+    On the card it is seven hand kernels, each of which reads the gate (or a
+    mask it closed) on the device: select, expand, fingerprint + dedup +
+    insert, the novelty score and update, the RGD heuristic, the ring's
+    compaction and the append."""
+    # 1. the gate, and the B best frontier entries (their slots are freed).
+    parents, parent_hist, sel_valid, gate = select_and_gate(cfg, s)
 
-    # 2. expand all 4 actions (action-block order).
-    actions = torch.arange(4 * B, dtype=torch.int32, device=dev) // B
-    par4 = parents.repeat(4, 1, 1)  # (4B, N, 2)
-    phist4 = parent_hist.repeat(4)
-    pvalid4 = sel_valid.repeat(4)
-    children = expand_children(cp, t.contacts, t.contacts_mask, parents)
-    moved = (children != par4).any(-1)  # (4B, N)
-    effective = moved.any(-1) & pvalid4  # no-op moves are duplicates
+    # 2. expand all 4 actions (action-block order); moved masks, effective
+    # children (no-op moves are duplicates) and the goal test.
+    children, moved, effective, goal = expand_and_test(cp, t.contacts, t.contacts_mask, parents, sel_valid, gate)
 
     # 3. dedup against the batch and the visited set.
-    keys, is_new = fingerprint_dedup_insert(s.visited, children.contiguous(), cp.width, effective)
+    keys, is_new = fingerprint_dedup_insert(s.visited, children, cp.width, effective, gate)
 
-    # 4. history append for new children.
-    hist_idx = _append_history(s, cfg, is_new, phist4, actions)
-
-    # 5. goal check (the first solved child wins).
-    goal = is_goal_state(cp, children) & is_new
-    any_goal = goal.any()
-    first_goal = goal.to(torch.int32).argmax().reshape(1)  # a 1-d index: no host read
-    s.solved_hist.copy_(
-        torch.where(s.solved, s.solved_hist, torch.where(any_goal, hist_idx[first_goal][0], 0))
-    )
-    s.solved.logical_or_(any_goal)
-
-    # 6. score new children: novelty exact per child; RGD per child (eager)
+    # 4. score new children: novelty exact per child; RGD per child (eager)
     # or inherited from the selected parent (lazy).
     nov, _ = novelty_score_and_update(s.novelty, children, moved, is_new)
     if cfg.lazy:
-        rgd_p, deeper_p = rgd_heuristic_with_flags(t, parents, max_depth=cfg.max_depth)
-        rgd = rgd_p.repeat(4)
-        deeper_flag = (deeper_p & sel_valid).repeat(4)
+        rgd, deeper = rgd_heuristic_with_flags(t, parents, max_depth=cfg.max_depth, valid=sel_valid)
     else:
-        rgd, deeper_flag = rgd_heuristic_with_flags(t, children, max_depth=cfg.max_depth)
-    h = _priority(nov, rgd, hist_idx, cfg.use_novelty)
-    h = torch.where(is_new, h, EMPTY).to(torch.int32)
-    n_deeper = (deeper_flag & is_new).sum(dtype=torch.int32)
+        rgd, deeper = rgd_heuristic_with_flags(t, children, max_depth=cfg.max_depth, valid=is_new)
 
-    # 7. append into the ring frontier (eviction when over capacity).
-    n_evicted = _append_frontier(s, h, children, hist_idx, keys, active)
-    s.iterations.add_(active.to(torch.int32))
-    s.expansions.add_(sel_valid.sum(dtype=torch.int32))
-    s.evictions.add_(n_evicted)
-    s.needs_deeper.add_(n_deeper)
+    # 5. compact the ring if the window would overflow (eviction when over
+    # capacity), then append: history, goal, keys, window and counters.
+    compact_frontier(s, children.shape[0], gate)
+    append_children(s, cfg, gate, is_new, parent_hist, None, goal, nov, rgd, deeper, sel_valid, children, keys)
     return s
 
 

@@ -1,22 +1,21 @@
 """Search chunks on the card as CUDA graphs.
 
 The JAX package needs no counterpart: ``jit`` makes its ``run_chunk`` one
-program, enqueued at once.  Here a search iteration is some 550 small
-kernels at RGD depth 0 and up to some 15,000 at depth 3 (PERF.md §5), and
-when PyTorch launches them one by one the host's launch time is most of an
-iteration.  The iteration reads nothing back (``search/batched.py``), so
-``G`` gated iterations are captured once into one ``torch.cuda.CUDAGraph``
-and a chunk is ``ceil(chunk / G)`` replays of it.
+program, enqueued at once.  Here a search iteration is nine launches of hand
+kernels (PERF.md §5), and when the host launches them one by one its launch
+time is most of an iteration.  The iteration reads nothing back
+(``search/batched.py``), so ``G`` gated iterations are captured once into
+one ``torch.cuda.CUDAGraph`` and a chunk is ``ceil(chunk / G)`` replays of
+it.
 
 An iteration whose gate is closed (after a solve, an exhaustion or a full
-history) is a no-op by masking, as on the CPU, and so costs a whole
-iteration of device time: the PyTorch this runs on has no conditional graph
-nodes, JAX's ``lax.cond``.  So a chunk on the card is short (:data:`GRAPH_ITERS`
-iterations, one replay: 2-26 ms of device time), and a search that has
-ended wastes at most the chunks its caller has in flight.
+history) is a no-op: each of its kernels reads the gate on the device and
+returns at once.  It still costs its nine launches, since the PyTorch this
+runs on has no conditional graph nodes (JAX's ``lax.cond``).  So a chunk on
+the card is short (:data:`GRAPH_ITERS` iterations, one replay), and a search
+that has ended wastes at most the chunks its caller has in flight.
 
-- ``G`` is chosen per RGD depth (:data:`GRAPH_ITERS`), so that a graph stays
-  within tens of thousands of nodes.
+- ``G`` is chosen per RGD depth (:data:`GRAPH_ITERS`).
 - Before the capture, one iteration runs on a side stream with the gate
   closed (an exact no-op): the ctypes kernel libraries are loaded, any
   ``cudaFuncSetAttribute`` has run, and PyTorch's lazy initialisations are
@@ -53,12 +52,13 @@ from pushworld_tpu_torch.search.batched import SearchConfig, SearchState, _itera
 
 # Iterations in one graph, by RGD depth (depths above 3 use 3's), and the
 # length of a chunk on the card where the caller leaves it to the depth.
-# At production capacities an iteration is some 550, 1,100, 3,300 and
-# 6,600-15,000 kernels and 1.4-1.5, 2.3, 6.1 and 12-26 ms of device time at
-# depths 0-3 (scripts/profile_search.py and chip_smoke.py on an H100,
-# PERF.md §5).  A capture costs about the eager host time of its
-# iterations, once a search, and most searches are short, so a graph holds
-# one or two iterations: 1,100-15,000 nodes, 2.3-26 ms of device time.
+# At production capacities an active iteration is 0.067-0.078 ms of device
+# time at every depth and a closed one 0.011 ms, 1/6-1/7 of it
+# (scripts/profile_search.py and chip_smoke.py on an H100, PERF.md §5).  A
+# replay in flight after a search's end wastes up to G - 1 closed
+# iterations, and the chunk length rises only where a closed iteration
+# costs at most 1/8 of an active one (PERF.md §6), so a graph holds one or
+# two iterations.
 GRAPH_ITERS: Dict[int, int] = {0: 2, 1: 1, 2: 1, 3: 1}
 
 

@@ -126,6 +126,12 @@ def test_fused_fingerprint_dedup_insert_matches_plain_version(dev, n, n_obj):
         if n > 1:
             assert n_k.sum() < valid.sum()  # the batch does hold duplicates
     assert LAUNCHES["visited_set.fingerprint_dedup_insert"] == before + 3
+    # A closed gate: nothing is new and nothing is inserted.
+    table = kern.keys.clone()
+    _, n_k = hs.fingerprint_dedup_insert(kern, states, 54, valid & False, torch.zeros((), dtype=torch.bool,
+                                                                                       device=dev))
+    torch.cuda.synchronize()
+    assert not n_k.any() and torch.equal(kern.keys, table)
 
 
 def test_visited_set_kernels_match_plain_version(dev):
@@ -271,6 +277,269 @@ def test_novelty_kernels_bit_equal(dev, pair_bits):
         assert (LAUNCHES["novelty.score"], LAUNCHES["novelty.absorb"]) == (before[0] + 4, before[1] + 4)
         if (n, H, pair_bits) == (4, 3, 24):
             assert scores == {1.0, 2.0, 3.0}
+
+
+# ------------------------------------- the search iteration's other kernels
+
+
+def _expand_inputs(p, dev, count, seed, n_pad=None):
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.ops import step
+
+    cp = compile_puzzle(p, n_pad=n_pad)
+    contacts, mask = step.build_contact_lists(cp)
+    parents, _ = _walks(p, count, seed)
+    padded = np.tile(np.asarray(cp.init_state, np.int32)[None], (count, 1, 1))
+    padded[:, : parents.shape[1]] = parents
+    sel_valid = np.random.default_rng(seed).random(count) < 0.8
+    return (cp.to(dev), torch.as_tensor(contacts, device=dev), torch.as_tensor(mask, device=dev),
+            torch.as_tensor(padded, device=dev), torch.as_tensor(sel_valid, device=dev))
+
+
+def _expand_kernel_equals_plain(cp, contacts, mask, parents, sel_valid):
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.ops import step
+
+    before = LAUNCHES["step.expand"]
+    got = step.expand_and_test(cp, contacts, mask, parents, sel_valid)
+    want = step.expand_and_test_reference(cp, contacts, mask, parents, sel_valid)
+    children = step.expand_children(cp, contacts, mask, parents)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert torch.equal(children, want[0])
+    closed = torch.zeros((), dtype=torch.bool, device=parents.device)
+    _, _, effective, goal = step.expand_and_test(cp, contacts, mask, parents, sel_valid, closed)
+    torch.cuda.synchronize()
+    assert not effective.any() and not goal.any()
+    assert LAUNCHES["step.expand"] == before + 3
+
+
+@pytest.mark.parametrize("name", RGD_FIXTURES)
+def test_expand_kernel_bit_equal_on_fixtures(dev, name):
+    """Children, moved masks, effective flags and the goal test of 64
+    parents (a fifth of them not selected), bit-equal to the plain version;
+    with the gate closed, no lane is effective or a goal."""
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+
+    p = Puzzle.from_file(os.path.join(PUZZLES, name + ".pwp"))
+    _expand_kernel_equals_plain(*_expand_inputs(p, dev, 64, len(name)))
+
+
+def test_expand_kernel_on_47x54_at_32_objects_and_above(dev):
+    """256 parents on the 47 x 54 puzzle; the chain of ten movables; a
+    puzzle padded to the cap of 32 objects; 33 objects raise ValueError."""
+    import dataclasses
+
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.ops import step
+
+    smoke = _smoke()
+    g = Puzzle.from_text(smoke.generated_puzzle_text(0))
+    _expand_kernel_equals_plain(*_expand_inputs(g, dev, 256, 0))
+    _expand_kernel_equals_plain(*_expand_inputs(Puzzle.from_text(smoke.MANY_MOVABLES_TEXT), dev, 64, 1))
+    three = Puzzle.from_file(os.path.join(PUZZLES, "heur", "three_tools.pwp"))
+    _expand_kernel_equals_plain(*_expand_inputs(three, dev, 32, 2, n_pad=step.EXPAND_MAX_OBJECTS))
+    cp, contacts, mask, parents, sel_valid = _expand_inputs(three, dev, 4, 3)
+    wide = dataclasses.replace(cp, obj_mask=torch.ones(33, dtype=torch.bool, device=dev))
+    with pytest.raises(ValueError):
+        step.expand_and_test(wide, contacts, mask, torch.zeros((4, 33, 2), dtype=torch.int32, device=dev),
+                             sel_valid)
+
+
+def _frontier_state(dev, F, kind, seed, cursor, N=4, bits=16, solved=False, hist_cursor=17):
+    """A search state on ``dev`` whose frontier is of ``kind`` ("distinct",
+    "tied", "sparse": fewer than 256 live, "empty", "full"), with the live
+    fingerprints in its visited set."""
+    from pushworld_tpu_torch.ops import hashset as hs
+    from pushworld_tpu_torch.search import batched
+
+    rng = np.random.default_rng(seed)
+    keys = ((rng.integers(1, 4, F) << 28) | (rng.integers(0, 60, F) << 15) | rng.integers(0, 0x8000, F))
+    live = rng.random(F) < 0.75
+    if kind == "tied":
+        keys[:] = (2 << 28) | (7 << 15) | 5
+    elif kind == "sparse":
+        live = np.zeros(F, bool)
+        live[rng.choice(F, 100, replace=False)] = True
+    elif kind in ("empty", "full"):
+        live[:] = kind == "full"
+    i32 = dict(dtype=torch.int32, device=dev)
+    h = torch.as_tensor(np.where(live, keys, batched.EMPTY).astype(np.int32), device=dev)
+    fkey = torch.as_tensor(rng.integers(1, 1 << 62, F), device=dev)
+    visited = hs.init_hashset(bits, device=dev)
+    hs.probe_and_insert_reference(visited, fkey, h < batched.EMPTY)
+    Hcap = 1 << 16
+    return batched.SearchState(
+        frontier_states=torch.as_tensor(rng.integers(0, 50, (F, N, 2)).astype(np.int32), device=dev),
+        frontier_h=h, frontier_hist=torch.as_tensor(rng.integers(0, Hcap, F).astype(np.int32), device=dev),
+        frontier_key=fkey, ring_cursor=torch.tensor(cursor, **i32),
+        hist_parent=torch.full((Hcap,), -1, **i32), hist_action=torch.full((Hcap,), -1, **i32),
+        hist_cursor=torch.tensor(hist_cursor, **i32), visited=visited, novelty=None,
+        solved=torch.tensor(solved, device=dev), solved_hist=torch.tensor(0, **i32),
+        iterations=torch.tensor(5, **i32), expansions=torch.tensor(50, **i32), evictions=torch.tensor(0, **i32),
+        needs_deeper=torch.tensor(0, **i32))
+
+
+def _clone_state(s):
+    import dataclasses
+
+    from pushworld_tpu_torch.ops.hashset import HashSet
+
+    out = dataclasses.replace(s, **{k: v.clone() for k, v in vars(s).items() if isinstance(v, torch.Tensor)})
+    out.visited = HashSet(keys=s.visited.keys.clone(), capacity_bits=s.visited.capacity_bits)
+    return out
+
+
+def _assert_states_equal(a, b, where):
+    for k, v in vars(a).items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(v, getattr(b, k)), (where, k)
+    assert torch.equal(a.visited.keys, b.visited.keys), where
+
+
+@pytest.mark.parametrize("F,kind", [(1 << 15, "distinct"), (1 << 15, "tied"), (1 << 15, "sparse"),
+                                    (1 << 15, "empty"), (1 << 16, "distinct"), (1 << 8, "full")])
+def test_frontier_select_kernel_bit_equal(dev, F, kind):
+    """The gate and the (key, slot)-ordered selection of 256 (16 at F =
+    256) entries, bit-equal to the plain version; F = 2^16 reads its keys
+    from device memory; a closed gate selects and frees nothing."""
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.search import batched
+
+    B = 16 if F == 256 else 256
+    cfg = batched.SearchConfig(expand=B, history_capacity=1 << 16)
+    before = LAUNCHES["frontier.select"]
+    for solved in (False, True):
+        sk = _frontier_state(dev, F, kind, F + len(kind), F // 2, solved=solved)
+        sr = _clone_state(sk)
+        got = batched.select_and_gate(cfg, sk)
+        active = batched._active(cfg, sr)
+        want = (*batched.select_frontier_reference(sr, B, active), active)
+        torch.cuda.synchronize()
+        assert bool(got[3]) == bool(want[3]) == (not solved and kind != "empty")
+        assert torch.equal(got[2], want[2]) and torch.equal(sk.frontier_h, sr.frontier_h), (kind, solved)
+        if bool(want[3]):
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), kind
+        sk, sr = _frontier_state(dev, F, kind, 1, F // 2), _frontier_state(dev, F, kind, 1, F // 2)
+        got, want = batched._select_frontier(sk, B), batched.select_frontier_reference(sr, B)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), kind
+        assert torch.equal(sk.frontier_h, sr.frontier_h)
+    assert LAUNCHES["frontier.select"] == before + 4
+
+
+@pytest.mark.parametrize("case", ["window", "compacts", "evicts", "evicts_at_the_edge", "sharded", "lazy",
+                                  "closed"])
+def test_frontier_compact_and_append_kernels_bit_equal(dev, case):
+    """The compaction and the append on 2^15 slots and 1,024 children (2,048
+    from two ranks for "sharded", with its margin), bit-equal to the plain
+    versions in every tensor of the state, the visited set's deletes
+    included; with the gate closed nothing changes."""
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.search import batched
+
+    F, B, N = 1 << 15, 256, 4
+    sharded = case == "sharded"
+    nb = 8 * B if sharded else 4 * B
+    cursor = {"window": 5000, "evicts_at_the_edge": F - 1}.get(case, F - nb + 1)
+    kind = "full" if case.startswith("evicts") or sharded else "distinct"
+    sk = _frontier_state(dev, F, kind, len(case), cursor, N=N, solved=case == "closed")
+    sr, before_state = _clone_state(sk), _clone_state(sk)
+    rng = np.random.default_rng(len(case) + 1)
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    is_new = t(rng.random(nb) < 0.6)
+    per_parent = case == "lazy"
+    args = dict(
+        gate=None if sharded else t(case != "closed"), is_new=is_new,
+        parent_hist=t(rng.integers(0, 1000, nb if sharded else B).astype(np.int32)),
+        actions=t(rng.integers(0, 4, nb).astype(np.int32)) if sharded else None,
+        goal=None if sharded else t(rng.random(nb) < 0.01),
+        nov=t(rng.integers(1, 4, nb).astype(np.float32)),
+        rgd=t(np.where(rng.random(B if per_parent else nb) < 0.1, 1e9,
+                       rng.integers(0, 9000, B if per_parent else nb)).astype(np.float32)),
+        deeper=None if sharded else t(rng.random(B if per_parent else nb) < 0.2),
+        sel_valid=t(rng.random(B) < 0.9), children=t(rng.integers(0, 50, (nb, N, 2)).astype(np.int32)),
+        keys=t(rng.integers(1, 1 << 62, nb)))
+    if case == "closed":  # what the iteration's kernels give at a closed gate
+        args["is_new"] = is_new & False
+        args["sel_valid"] = args["sel_valid"] & False
+    cfg = batched.SearchConfig(expand=B, history_capacity=1 << 16, use_novelty=case != "lazy")
+    margin = 8 * B * 2 if sharded else 8
+    before = (LAUNCHES["frontier.compact"], LAUNCHES["frontier.append"])
+    batched.compact_frontier(sk, nb, args["gate"])
+    batched.compact_frontier_reference(sr, nb, args["gate"])
+    got = batched.append_children(sk, cfg, margin=margin, **args)
+    want = batched.append_children_reference(sr, cfg, margin=margin, **args)
+    torch.cuda.synchronize()
+    if case != "closed":
+        assert torch.equal(got, want)
+    _assert_states_equal(sk, sr, case)
+    if case.startswith("evicts") or sharded:
+        assert int(sk.evictions) > 0
+    if case == "closed":
+        _assert_states_equal(sk, before_state, case)
+    assert (LAUNCHES["frontier.compact"], LAUNCHES["frontier.append"]) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("case", ["window", "compacts", "evicts", "closed"])
+def test_compact_frontier_captures_into_a_cuda_graph(dev, case):
+    """compact_frontier (the compaction kernel and the gated visited-set
+    deletes) reads nothing back: it captures into a CUDA graph, and a replay
+    on the state it was captured from equals the plain version."""
+    from pushworld_tpu_torch.search import batched
+
+    F, nb = 1 << 15, 1024
+    cursor = 5000 if case == "window" else F - nb + 1
+    sk = _frontier_state(dev, F, "full" if case == "evicts" else "distinct", len(case) + 7, cursor)
+    before, sr = _clone_state(sk), _clone_state(sk)
+    gate = torch.tensor(case != "closed", device=dev)
+
+    def restore():
+        for k, v in vars(before).items():
+            if isinstance(v, torch.Tensor):
+                getattr(sk, k).copy_(v)
+        sk.visited.keys.copy_(before.visited.keys)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the warm-up, as PyTorch's capture wants
+        batched.compact_frontier(sk, nb, gate)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        batched.compact_frontier(sk, nb, gate)
+    restore()
+    graph.replay()
+    batched.compact_frontier_reference(sr, nb, gate)
+    torch.cuda.synchronize()
+    _assert_states_equal(sk, sr, case)
+    if case == "evicts":
+        assert int(sk.evictions) > 0
+    if case in ("window", "closed"):
+        _assert_states_equal(sk, before, case)
+
+
+def test_rgd_kernel_valid_mask(dev):
+    """With a valid mask, valid states keep the kernel's values and the
+    others get the fill, as the plain version."""
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.ops import rgd
+
+    p = Puzzle.from_file(os.path.join(PUZZLES, "heur", "three_tools.pwp"))
+    _, children = _walks(p, 64, seed=3)
+    states = torch.as_tensor(children, device=dev)
+    valid = torch.as_tensor(np.random.default_rng(3).random(len(children)) < 0.5, device=dev)
+    t = rgd.build_rgd_tables(p, compile_puzzle(p), device=dev)
+    for depth in (0, 3):
+        got = rgd.rgd_heuristic_with_flags(t, states, depth, valid)
+        want = rgd.rgd_heuristic_with_flags_reference(t, states, depth, valid)
+        full = rgd.rgd_heuristic_with_flags(t, states, depth)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), depth
+        assert torch.equal(got[0][valid], full[0][valid]) and (got[0][~valid] == rgd.INF).all()
 
 
 def test_rgd_and_novelty_wrappers_raise_above_their_cap(dev):
@@ -584,6 +853,11 @@ def test_graphed_run_chunk_equals_eager_and_cpu(dev, name, depth, lazy):
         assert int(s_g.evictions) > 0
 
 
+ITERATION_KERNELS = ("frontier.select", "step.expand", "visited_set.fingerprint_dedup_insert", "novelty.score",
+                     "novelty.absorb", "rgd.heuristic", "frontier.compact", "visited_set.probe_delete",
+                     "frontier.append")
+
+
 def test_graph_replays_add_the_captured_launches(dev):
     from pushworld_tpu_torch.kernels import LAUNCHES
     from pushworld_tpu_torch.search import batched, chunk_graph
@@ -593,6 +867,7 @@ def test_graph_replays_add_the_captured_launches(dev):
     g = chunk_graph.attach(pl.cp_dev, pl.tables, pl.config, s)
     fused = "visited_set.fingerprint_dedup_insert"
     assert g.launches[fused] == g.iters and g.launches["visited_set.probe_delete"] == g.iters
+    assert g.launches == {k: g.iters for k in ITERATION_KERNELS}  # one launch each an iteration, nothing else
     before = dict(LAUNCHES)
     batched.run_chunk(pl.cp_dev, pl.tables, pl.config, s, 3 * g.iters)
     torch.cuda.synchronize()

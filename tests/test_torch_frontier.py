@@ -1,0 +1,528 @@
+"""The search iteration's frontier bookkeeping (``search/batched.py``: the
+gate and the selection, the ring's compaction, the append of the scored
+children) against the JAX package's, exactly.
+
+Held against ``pushworld_tpu.search.batched._select_frontier``,
+``_append_history``, ``_append_frontier`` and the tail of ``_iterate``
+(goal, priority keys, counters), on the same numpy-seeded frontiers,
+including adversarial ones: every key tied, mostly EMPTY, a cursor that
+forces a compaction, a frontier over its keep-bound (evictions), the
+frontier-sharded search's ``nb`` and history ``margin``, and a closed gate
+(the state unchanged):
+
+- the plain versions, which the CPU runs;
+- the algorithms of ``kernels/frontier.cu``, written here as numpy loops
+  per CTA: the radix select with its (key, slot) tie-break and bitonic sort,
+  the LSD radix sort of the compaction with its per-warp stable ranks, and
+  the append's block-wide scan.
+
+JAX's ``approx_min_k`` picks among tied keys in its own order (ROADMAP
+queue 3); where keys tie, the selection is held against JAX's exact top-k in
+(key, slot) order, as tests/test_torch_parallel.py does.  The kernels
+themselves are held against the plain versions on the card
+(tests/test_torch_cuda.py, chip_smoke.py).  Every value is an integer:
+tolerance 0.
+"""
+
+from types import SimpleNamespace
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pushworld_tpu.search.batched as jb
+from pushworld_tpu.ops import hashset as jh
+from pushworld_tpu_torch.ops.hashset import HashSet, pack_key
+from pushworld_tpu_torch.search import batched as tb
+
+EMPTY = tb.EMPTY
+B, N, F, BITS, HCAP = 16, 3, 256, 10, 1 << 12
+U32 = 0xFFFFFFFF
+
+
+# ------------------------------------------------------------ the frontier
+
+
+def _frontier(kind, seed, F=F, cursor=None):
+    """A numpy frontier of ``kind``: "distinct" (tie-free keys, a quarter
+    EMPTY), "tied" (every live key equal), "sparse" (fewer than B live),
+    "empty", "full" (every slot live: a compaction evicts)."""
+    rng = np.random.default_rng(seed)
+    nov = rng.integers(1, 4, size=F)
+    rgd = rng.integers(0, 60, size=F)
+    keys = ((nov << 28) | (rgd << 15) | rng.permutation(0x8000)[:F]).astype(np.int32)
+    live = rng.random(F) < 0.75
+    if kind == "tied":
+        keys[:] = (2 << 28) | (7 << 15) | 5
+    elif kind == "sparse":
+        live = np.zeros(F, bool)
+        live[rng.choice(F, B // 2, replace=False)] = True
+    elif kind == "empty":
+        live[:] = False
+    elif kind == "full":
+        live[:] = True
+    keys = np.where(live, keys, EMPTY).astype(np.int32)
+    lo = rng.integers(2, U32 - 1, size=F, dtype=np.uint64).astype(np.uint32)
+    hi = rng.integers(2, U32 - 1, size=F, dtype=np.uint64).astype(np.uint32)
+    return dict(h=keys, states=rng.integers(0, 30, size=(F, N, 2)).astype(np.int32),
+                hist=rng.integers(0, HCAP, size=F).astype(np.int32), lo=lo, hi=hi,
+                cursor=np.int32(F - 4 * B if cursor is None else cursor))
+
+
+def _visited(fr):
+    """A JAX visited set holding the live frontier's fingerprints (and a
+    few others)."""
+    vis = jh.init_hashset(BITS)
+    _, vis = jh.probe_and_insert(vis, jnp.asarray(fr["lo"]), jnp.asarray(fr["hi"]), jnp.asarray(fr["h"] < EMPTY))
+    return vis
+
+
+def _history(seed, cursor):
+    rng = np.random.default_rng(seed + 100)
+    return dict(parent=rng.integers(-1, HCAP, size=HCAP).astype(np.int32),
+                action=rng.integers(-1, 4, size=HCAP).astype(np.int32), cursor=np.int32(cursor))
+
+
+def _jax_state(fr, hist, vis, solved=False, solved_hist=0):
+    j = jnp.asarray
+    return SimpleNamespace(frontier_h=j(fr["h"]), frontier_states=j(fr["states"]), frontier_hist=j(fr["hist"]),
+                           frontier_lo=j(fr["lo"]), frontier_hi=j(fr["hi"]), ring_cursor=j(fr["cursor"]),
+                           hist_parent=j(hist["parent"]), hist_action=j(hist["action"]),
+                           hist_cursor=j(hist["cursor"]), visited=vis, solved=j(solved),
+                           solved_hist=j(np.int32(solved_hist)))
+
+
+def _packed(lo, hi):
+    return pack_key(torch.as_tensor(np.asarray(lo).astype(np.int64)),
+                    torch.as_tensor(np.asarray(hi).astype(np.int64)))
+
+
+def _port_state(fr, hist, vis, solved=False, solved_hist=0):
+    t = torch.as_tensor
+    i32 = lambda v: torch.tensor(int(v), dtype=torch.int32)  # noqa: E731
+    return tb.SearchState(
+        frontier_states=t(fr["states"]).clone(), frontier_h=t(fr["h"]).clone(), frontier_hist=t(fr["hist"]).clone(),
+        frontier_key=_packed(fr["lo"], fr["hi"]), ring_cursor=i32(fr["cursor"]),
+        hist_parent=t(hist["parent"]).clone(), hist_action=t(hist["action"]).clone(), hist_cursor=i32(hist["cursor"]),
+        visited=HashSet(keys=_packed(vis.key_lo, vis.key_hi), capacity_bits=BITS), novelty=None,
+        solved=torch.tensor(bool(solved)), solved_hist=i32(solved_hist), iterations=i32(3), expansions=i32(40),
+        evictions=i32(2), needs_deeper=i32(1))
+
+
+def _exact_select(s, B):
+    """JAX's _select_frontier with an exact top-k in (key, slot) order."""
+    idx = jnp.argsort(s.frontier_h, stable=True)[:B]
+    sel_valid = s.frontier_h[idx] < EMPTY
+    frontier_h = s.frontier_h.at[idx].set(jnp.where(sel_valid, EMPTY, s.frontier_h[idx]))
+    return s.frontier_states[idx], s.frontier_hist[idx], sel_valid, frontier_h
+
+
+# ---------------------------------------------------- kernels as numpy loops
+
+
+def _ord(h):
+    return (np.asarray(h).astype(np.int64) & U32) ^ 0x80000000
+
+
+def select_kernel_np(h, states, fhist, B, solved=None, hist_cursor=None, hist_limit=0):
+    """``frontier.cu``'s select kernel, one CTA of 32 warps: the gate, a
+    radix select of 4 passes of 8 bits, the collect (keys below T in any
+    order, the first k equal to T by warp ranges in slot order), a bitonic
+    sort.  Returns (parents, parent_hist, sel_valid, gate, new keys)."""
+    F = h.shape[0]
+    u = _ord(h)
+    h = h.copy()
+    gate = solved is None or (not solved and int(u.min() ^ 0x80000000) < EMPTY and hist_cursor < hist_limit)
+    if not gate:
+        return None, None, np.zeros(B, bool), False, h
+    prefix = pmask = 0
+    k = B
+    for shift in (24, 16, 8, 0):
+        hist = np.bincount((u[(u & pmask) == prefix] >> shift) & 255, minlength=256)
+        run = 0
+        for d in range(256):
+            if run + hist[d] >= k:
+                break
+            run += hist[d]
+        prefix |= d << shift
+        pmask |= 255 << shift
+        k -= run
+    n_less = B - k
+    P = 1 << (B - 1).bit_length()
+    sel = np.full(P, (1 << 64) - 1, dtype=object)
+    less = np.flatnonzero(u < prefix)
+    order = np.random.default_rng(0).permutation(len(less))  # atomicAdd order: any
+    for r, i in enumerate(less[order]):
+        sel[r] = int(u[i]) << 32 | int(i)
+    chunk = -(-F // 32)
+    counts = [int((u[w * chunk:(w + 1) * chunk] == prefix).sum()) for w in range(32)]
+    for w in range(32):
+        rank = sum(counts[:w])
+        for i in range(w * chunk, min(F, (w + 1) * chunk)):
+            if rank >= k:
+                break
+            if u[i] == prefix:
+                sel[n_less + rank] = int(prefix) << 32 | i
+                rank += 1
+    size = 2
+    while size <= P:  # the bitonic network
+        j = size >> 1
+        while j > 0:
+            for i in range(P):
+                ixj = i ^ j
+                if ixj > i and (sel[i] > sel[ixj]) == ((i & size) == 0):
+                    sel[i], sel[ixj] = sel[ixj], sel[i]
+            j >>= 1
+        size <<= 1
+    slots = np.array([int(e) & U32 for e in sel[:B]])
+    keys = np.array([(int(e) >> 32) ^ 0x80000000 for e in sel[:B]])
+    valid = keys < EMPTY
+    h[slots[valid]] = EMPTY
+    return states[slots], fhist[slots], valid, True, h
+
+
+def _first_slot(key):
+    lo, hi = key & U32, (key >> 32) & U32
+    return (lo ^ ((hi * 0x9E3779B1) & U32)) & ((1 << BITS) - 1)
+
+
+def compact_kernel_np(h, states, fhist, fkey, cursor, table, nb, gate=True):
+    """``frontier.cu``'s compact kernel: need, an LSD radix sort of the
+    (key, slot) words by key (4 passes of 8 bits; warp w owns positions
+    [w * chunk, (w + 1) * chunk) and writes each digit's elements in their
+    order after the lower warps' and digits'), the permutation from copies,
+    the drops with their delete probes, the cursor.  Returns the new arrays,
+    the cursor and the evicted count (None, None when it does not run)."""
+    F = h.shape[0]
+    keep = F - max(nb, F // 4)
+    if not (gate and cursor + nb > F):
+        return None, None
+    words = [int(_ord(h[i])) << 32 | i for i in range(F)]
+    chunk = -(-F // 32)
+    for p in range(4):
+        shift = 32 + 8 * p
+        digit = [(e >> shift) & 255 for e in words]
+        count = np.zeros((256, 32), np.int64)
+        for i, d in enumerate(digit):
+            count[d, i // chunk] += 1
+        off = (np.cumsum(count.reshape(-1)) - count.reshape(-1)).reshape(256, 32)
+        out = [None] * F
+        for i, e in enumerate(words):
+            d, w = digit[i], i // chunk
+            out[off[d, w]] = e
+            off[d, w] += 1
+        words = out
+    slots = np.array([e & U32 for e in words])
+    keys = np.array([(e >> 32) ^ 0x80000000 for e in words]).astype(np.int32)
+    n_live = int((keys < EMPTY).sum())
+    drop = (keys < EMPTY) & (np.arange(F) >= keep)
+    new_key = fkey[slots]
+    table = table.copy()
+    for p in np.flatnonzero(drop):
+        key = int(new_key[p])
+        slot = _first_slot(key & ((1 << 64) - 1))
+        for _ in range(8):
+            if table[slot] == key:
+                table[slot] = -1
+                break
+            slot = (slot + 1) & ((1 << BITS) - 1)
+    arrays = dict(h=np.where(drop, EMPTY, keys).astype(np.int32), states=states[slots], hist=fhist[slots],
+                  key=new_key, table=table)
+    return arrays, (min(n_live, keep), int(drop.sum()))
+
+
+def append_kernel_np(cursor, ring, nb, Bexp, is_new, phist, actions, goal, nov, rgd, deeper, sel_valid,
+                     use_novelty, hcap, margin, solved, solved_hist):
+    """``frontier.cu``'s append kernel: 1,024 threads, thread t owning lanes
+    [t * per, (t + 1) * per), a block-wide exclusive scan of is_new, then per
+    lane the history record, the key and the window slot; the first goal by
+    atomicMin; the counters.  Returns the writes it makes."""
+    per = -(-nb // 1024)
+    counts = [int(is_new[t * per:(t + 1) * per].sum()) for t in range(1024)]
+    starts = np.cumsum(counts) - counts
+    hist_idx = np.zeros(nb, np.int32)
+    records, window = {}, {}
+    first, n_deeper = None, 0
+    for t in range(1024):
+        rank = int(starts[t])
+        for lane in range(t * per, min(nb, (t + 1) * per)):
+            fresh = bool(is_new[lane])
+            idx = cursor + rank if fresh else 0
+            rank += fresh
+            hist_idx[lane] = idx
+            if fresh and idx < hcap:
+                records[idx] = (int(phist[lane % len(phist)]), int(actions[lane]) if actions is not None
+                                else lane // Bexp)
+            key = EMPTY
+            if fresh:
+                nv = int(nov[lane]) if use_novelty else 1
+                r = int(min(max(float(rgd[lane % len(rgd)]), 0.0), 8190.0))
+                key = (nv << 28) | (r << 15) | (~idx & 0x7FFF)
+                if goal is not None and goal[lane]:
+                    first = lane if first is None else min(first, lane)
+                if deeper is not None and deeper[lane % len(rgd)]:
+                    n_deeper += 1
+            window[ring + lane] = (key, idx, lane)
+    n_new = int(is_new.sum())
+    out = dict(hist_idx=hist_idx, records=records, window=window, hist_cursor=min(cursor + n_new, hcap - margin),
+               ring_cursor=ring + nb, expansions=int(sel_valid.sum()), n_deeper=n_deeper,
+               solved=solved, solved_hist=solved_hist)
+    if goal is not None and not solved:
+        out["solved_hist"] = int(hist_idx[first]) if first is not None else 0
+        out["solved"] = first is not None
+    return out
+
+
+# ------------------------------------------------------------------ select
+
+
+@pytest.mark.parametrize("kind", ["distinct", "tied", "sparse", "empty", "full"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_select_matches_jax(kind, seed):
+    fr = _frontier(kind, seed)
+    js = _jax_state(fr, _history(seed, 10), _visited(fr))
+    want = [np.asarray(x) for x in _exact_select(js, B)]
+    ts = _port_state(fr, _history(seed, 10), _visited(fr))
+    got = [x.numpy() for x in tb._select_frontier(ts, B)] + [ts.frontier_h.numpy()]
+    for g, w, what in zip(got, want, ("parents", "parent_hist", "sel_valid", "frontier_h")):
+        assert np.array_equal(g, w), (kind, what)
+    # JAX's own selection: the same keys freed; where live keys do not tie,
+    # the same slots, and where they do not tie at all, the same lanes in
+    # the same order.
+    jp, jhist, jvalid, jh_after = (np.asarray(x) for x in jb._select_frontier(js, B))
+    assert np.array_equal(np.sort(jh_after), np.sort(want[3])) and np.array_equal(jvalid, want[2]), kind
+    if kind != "tied":
+        assert np.array_equal(jh_after, want[3]), kind
+    if kind in ("distinct", "full"):
+        assert np.array_equal(jp, want[0]) and np.array_equal(jhist, want[1]), kind
+    # The kernel's algorithm.
+    kp, khist, kvalid, gate, kh = select_kernel_np(fr["h"], fr["states"], fr["hist"], B)
+    assert gate and np.array_equal(kvalid, want[2]) and np.array_equal(kh, want[3]), kind
+    assert np.array_equal(kp, want[0]) and np.array_equal(khist, want[1]), kind
+
+
+@pytest.mark.parametrize("case", ["open", "solved", "exhausted", "history_full"])
+def test_gated_select(case):
+    """select_and_gate: JAX's gate (read before the selection) and the
+    selection masked by it; a closed gate selects nothing and frees
+    nothing."""
+    fr = _frontier("empty" if case == "exhausted" else "distinct", 5)
+    cfg = tb.SearchConfig(expand=B, history_capacity=HCAP)
+    limit = HCAP - 8 * B
+    hist = _history(5, limit if case == "history_full" else limit - 1)
+    ts = _port_state(fr, hist, _visited(fr), solved=case == "solved")
+    parents, phist, valid, gate = tb.select_and_gate(cfg, ts)
+    assert bool(gate) == (case == "open")
+    _, _, kvalid, kgate, kh = select_kernel_np(fr["h"], fr["states"], fr["hist"], B, case == "solved",
+                                               int(hist["cursor"]), limit)
+    assert kgate == bool(gate) and np.array_equal(kvalid, valid.numpy())
+    assert np.array_equal(kh, ts.frontier_h.numpy())
+    if case == "open":
+        want = [np.asarray(x) for x in _exact_select(_jax_state(fr, hist, _visited(fr)), B)]
+        assert np.array_equal(valid.numpy(), want[2]) and np.array_equal(parents.numpy(), want[0])
+    else:
+        assert not valid.any() and np.array_equal(ts.frontier_h.numpy(), fr["h"])
+
+
+# ------------------------------------------------- compaction and append
+
+
+def _children(seed, nb):
+    """nb scored children: states, fingerprints, novelty, rgd, flags."""
+    rng = np.random.default_rng(seed + 7)
+    return dict(states=rng.integers(0, 30, size=(nb, N, 2)).astype(np.int32),
+                lo=rng.integers(2, U32 - 1, size=nb, dtype=np.uint64).astype(np.uint32),
+                hi=rng.integers(2, U32 - 1, size=nb, dtype=np.uint64).astype(np.uint32),
+                is_new=rng.random(nb) < 0.6, nov=rng.integers(1, 4, size=nb).astype(np.float32),
+                rgd=np.where(rng.random(nb) < 0.1, 1e9, rng.integers(0, 9000, size=nb)).astype(np.float32),
+                deeper=rng.random(nb) < 0.2, goal=rng.random(nb) < 0.05)
+
+
+def _jax_tail(js, cfg, ch, phist, actions, sel_valid, nb, margin, rgd_per_lane, deeper_per_lane, with_goal):
+    """The JAX package's steps 4-7 of _iterate (the sharded search's margin
+    and goal-free form where asked): history, goal, keys, ring append."""
+    j = jnp.asarray
+    is_new = j(ch["is_new"])
+    if margin == 8:
+        hist_parent, hist_action, hist_cursor, hist_idx = jb._append_history(js, cfg, is_new, j(phist), j(actions))
+    else:  # pushworld_tpu/parallel/frontier_sharded.py's inline append
+        offs = jnp.cumsum(is_new.astype(jnp.int32)) - 1
+        hist_idx = jnp.where(is_new, js.hist_cursor + offs, 0)
+        write_idx = jnp.where(is_new, hist_idx, cfg.history_capacity - 1)
+        hist_parent = js.hist_parent.at[write_idx].set(jnp.where(is_new, j(phist), js.hist_parent[write_idx]))
+        hist_action = js.hist_action.at[write_idx].set(jnp.where(is_new, j(actions), js.hist_action[write_idx]))
+        hist_cursor = jnp.minimum(js.hist_cursor + jnp.sum(is_new.astype(jnp.int32)), cfg.history_capacity - margin)
+    out = dict(hist_parent=hist_parent, hist_action=hist_action, hist_cursor=hist_cursor, hist_idx=hist_idx)
+    if with_goal:
+        goal = j(ch["goal"]) & is_new
+        any_goal = jnp.any(goal)
+        out["solved"] = js.solved | any_goal
+        out["solved_hist"] = jnp.where(js.solved, js.solved_hist, jnp.where(any_goal, hist_idx[jnp.argmax(goal)], 0))
+    h = jnp.where(is_new, jb._priority(j(ch["nov"]), j(rgd_per_lane), hist_idx, cfg.use_novelty), np.int32(EMPTY))
+    out["n_deeper"] = jnp.sum((j(deeper_per_lane) & is_new).astype(jnp.int32))
+    (out["frontier_states"], out["frontier_h"], out["frontier_hist"], lo, hi, out["ring_cursor"], vis,
+     out["n_evicted"]) = jb._append_frontier(js, B, h, j(ch["states"]), hist_idx, j(ch["lo"]), j(ch["hi"]),
+                                             js.visited)
+    out["frontier_key"] = _packed(lo, hi).numpy()
+    out["table"] = _packed(vis.key_lo, vis.key_hi).numpy()
+    out["expansions"] = int(np.asarray(sel_valid).sum())
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+CASES = {
+    # name: (frontier kind, ring cursor (None: window only), lanes, margin, lazy)
+    "window": ("distinct", 40, 4 * B, 8, False),
+    "compacts": ("distinct", F - 4 * B + 1, 4 * B, 8, False),
+    "evicts": ("full", F - 4 * B + 1, 4 * B, 8, False),
+    "evicts_at_the_edge": ("full", F - 1, 4 * B, 8, True),
+    "tied_compaction": ("tied", F - 4 * B + 3, 4 * B, 8, False),
+    "sharded_two_ranks": ("full", F - 8 * B + 5, 8 * B, 8 * B * 2, False),
+    "history_at_its_limit": ("distinct", 12, 4 * B, 8, False),
+}
+
+
+@pytest.mark.parametrize("solved", [False, True])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_compact_and_append_match_jax(case, solved):
+    kind, cursor, nb, margin, lazy = CASES[case]
+    seed = len(case)
+    fr = _frontier(kind, seed, cursor=cursor)
+    ch = _children(seed, nb)
+    # At its limit, the new records end 2 short of the capacity, past the
+    # cursor's clamp at capacity - margin.
+    hist = _history(seed, HCAP - int(ch["is_new"].sum()) - 2 if case == "history_at_its_limit" else 17)
+    sharded = margin != 8
+    cfg = tb.SearchConfig(expand=B, history_capacity=HCAP, use_novelty=seed % 2 == 0)
+    rng = np.random.default_rng(seed)
+    sel_valid = rng.random(B) < 0.9
+    parent_hist = rng.integers(0, 100, size=nb if sharded else B).astype(np.int32)
+    actions = rng.integers(0, 4, size=nb).astype(np.int32) if sharded else None
+    phist4 = parent_hist if sharded else np.tile(parent_hist, 4)
+    act4 = actions if sharded else np.repeat(np.arange(4, dtype=np.int32), B)
+    rgd, deeper = ch["rgd"], ch["deeper"]
+    if lazy:  # per-parent values (the lazy mode), repeated over the four action blocks
+        rgd, deeper = rgd[:B], deeper[:B]
+    js = _jax_state(fr, hist, _visited(fr), solved=solved, solved_hist=9 if solved else 0)
+    want = _jax_tail(js, cfg, ch, phist4, act4, sel_valid, nb, margin, np.tile(rgd, nb // len(rgd)),
+                     np.tile(deeper, nb // len(deeper)), not sharded)
+
+    ts = _port_state(fr, hist, _visited(fr), solved=solved, solved_hist=9 if solved else 0)
+    before = {k: int(getattr(ts, k)) for k in ("iterations", "expansions", "evictions", "needs_deeper")}
+    t = torch.as_tensor
+    tb.compact_frontier(ts, nb)
+    hist_idx = tb.append_children(
+        ts, cfg, None, t(ch["is_new"]), t(parent_hist), None if actions is None else t(actions),
+        None if sharded else t(ch["goal"]), t(ch["nov"]), t(rgd), None if sharded else t(deeper), t(sel_valid),
+        t(ch["states"]), _packed(ch["lo"], ch["hi"]), margin=margin)
+    assert np.array_equal(hist_idx.numpy(), want["hist_idx"])
+    for f in ("frontier_h", "frontier_states", "frontier_hist", "frontier_key", "hist_parent", "hist_action"):
+        assert np.array_equal(getattr(ts, f).numpy(), want[f]), (case, f)
+    assert np.array_equal(ts.visited.keys.numpy(), want["table"]), case
+    assert int(ts.ring_cursor) == int(want["ring_cursor"]) and int(ts.hist_cursor) == int(want["hist_cursor"])
+    assert int(ts.evictions) - before["evictions"] == int(want["n_evicted"])
+    assert int(ts.iterations) - before["iterations"] == 1
+    assert int(ts.expansions) - before["expansions"] == want["expansions"]
+    assert int(ts.needs_deeper) - before["needs_deeper"] == (0 if sharded else int(want["n_deeper"]))
+    if not sharded:
+        assert bool(ts.solved) == bool(want["solved"]) and int(ts.solved_hist) == int(want["solved_hist"])
+    if case.startswith("evicts") or case == "sharded_two_ranks":
+        assert int(want["n_evicted"]) > 0
+    if case == "history_at_its_limit":
+        assert int(want["hist_cursor"]) == HCAP - margin
+
+    # The kernels' algorithms, on the same inputs.
+    keys = _packed(fr["lo"], fr["hi"]).numpy()
+    table = _packed(js.visited.key_lo, js.visited.key_hi).numpy()
+    arrays, counts = compact_kernel_np(fr["h"], fr["states"], fr["hist"], keys, int(fr["cursor"]), table, nb)
+    if arrays is None:
+        arrays = dict(h=fr["h"].copy(), states=fr["states"].copy(), hist=fr["hist"].copy(), key=keys, table=table)
+        counts = (int(fr["cursor"]), 0)
+    ring, n_evicted = counts
+    assert n_evicted == int(want["n_evicted"]) and np.array_equal(arrays["table"], want["table"]), case
+    app = append_kernel_np(int(hist["cursor"]), ring, nb, B, ch["is_new"], parent_hist, actions,
+                           None if sharded else ch["goal"], ch["nov"], rgd, None if sharded else deeper, sel_valid,
+                           cfg.use_novelty, HCAP, margin, solved, 9 if solved else 0)
+    for idx, (p, a) in app["records"].items():
+        arrays.setdefault("parent", hist["parent"].copy())[idx] = p
+        arrays.setdefault("action", hist["action"].copy())[idx] = a
+    new_keys = _packed(ch["lo"], ch["hi"]).numpy()
+    for pos, (key, idx, lane) in app["window"].items():
+        arrays["h"][pos], arrays["hist"][pos] = key, idx
+        arrays["states"][pos], arrays["key"][pos] = ch["states"][lane], new_keys[lane]
+    assert np.array_equal(app["hist_idx"], want["hist_idx"])
+    for mine, theirs in (("h", "frontier_h"), ("states", "frontier_states"), ("hist", "frontier_hist"),
+                         ("key", "frontier_key"), ("parent", "hist_parent"), ("action", "hist_action")):
+        assert np.array_equal(arrays.get(mine, hist.get(mine)), want[theirs]), (case, mine)
+    assert app["ring_cursor"] == int(want["ring_cursor"]) and app["hist_cursor"] == int(want["hist_cursor"])
+    assert app["expansions"] == want["expansions"]
+    if not sharded:
+        assert app["n_deeper"] == int(want["n_deeper"])
+        assert app["solved"] == bool(want["solved"]) and app["solved_hist"] == int(want["solved_hist"])
+
+
+@pytest.mark.parametrize("kind", ["distinct", "full"])
+def test_closed_gate_leaves_the_state_unchanged(kind):
+    """With the gate closed, the compaction (even where the cursor asks for
+    one) and the append change nothing."""
+    fr = _frontier(kind, 3, cursor=F - 4 * B + 1)
+    hist = _history(3, 30)
+    ch = _children(3, 4 * B)
+    ts = _port_state(fr, hist, _visited(fr))
+    before = {k: v.clone() for k, v in vars(ts).items() if isinstance(v, torch.Tensor)}
+    table = ts.visited.keys.clone()
+    cfg = tb.SearchConfig(expand=B, history_capacity=HCAP)
+    closed = torch.tensor(False)
+    t = torch.as_tensor
+    tb.compact_frontier(ts, 4 * B, closed)
+    tb.append_children(ts, cfg, closed, t(ch["is_new"]) & closed, t(np.arange(B, dtype=np.int32)), None,
+                       t(ch["goal"]), t(ch["nov"]), t(ch["rgd"]), t(ch["deeper"]), torch.zeros(B, dtype=torch.bool),
+                       t(ch["states"]), _packed(ch["lo"], ch["hi"]))
+    for k, v in before.items():
+        assert torch.equal(getattr(ts, k), v), k
+    assert torch.equal(ts.visited.keys, table)
+    assert compact_kernel_np(fr["h"], fr["states"], fr["hist"], None, int(fr["cursor"]), None, 4 * B,
+                             gate=False) == (None, None)
+
+
+def test_compaction_sorts_only_when_it_compacts(monkeypatch):
+    """The plain compaction takes JAX's lax.cond branch on the host: no
+    sort of the keys when the window fits."""
+    calls = []
+    real = torch.argsort
+    monkeypatch.setattr(torch, "argsort", lambda *a, **k: calls.append(1) or real(*a, **k))
+    fr = _frontier("distinct", 4, cursor=20)
+    ts = _port_state(fr, _history(4, 5), _visited(fr))
+    tb.compact_frontier(ts, 4 * B)
+    assert not calls and np.array_equal(ts.frontier_h.numpy(), fr["h"])
+    ts.ring_cursor.fill_(F - 4 * B + 1)
+    tb.compact_frontier(ts, 4 * B)
+    assert calls and int(ts.ring_cursor) <= F - 4 * B
+
+
+# -------------------------------------------------- RGD with a valid mask
+
+
+@pytest.mark.parametrize("name,depth", [("heur/three_tools", 2), ("heur/two_tools", 1), ("multi_goal", 0)])
+def test_rgd_valid_mask_fills_invalid_lanes(name, depth):
+    import os
+
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.ops import rgd
+
+    p = Puzzle.from_file(os.path.join(os.path.dirname(__file__), "puzzles", name + ".pwp"))
+    t = rgd.build_rgd_tables(p, compile_puzzle(p), max_depth=depth, device="cpu")
+    rng = np.random.default_rng(depth)
+    states, s = [p.initial_state], p.initial_state
+    for _ in range(31):
+        for a in rng.integers(0, 4, size=3).tolist():
+            s = p.get_next_state(s, a)
+        states.append(s)
+    states = torch.as_tensor(np.asarray(states, np.int32))
+    valid = torch.as_tensor(rng.random(32) < 0.5)
+    total, deeper = rgd.rgd_heuristic_with_flags(t, states, depth)
+    vt, vd = rgd.rgd_heuristic_with_flags(t, states, depth, valid=valid)
+    assert torch.equal(vt[valid], total[valid]) and torch.equal(vd[valid], deeper[valid])
+    assert (vt[~valid] == rgd.INF).all() and not vd[~valid].any()
+    assert torch.equal(rgd.rgd_heuristic(t, states, depth, valid=valid), vt)
