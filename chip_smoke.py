@@ -37,13 +37,17 @@ Phases, each printing one JSON line:
    depth 3 after up to 8 iterations): the gate and the selection, the
    expansion of the selected parents, the RGD kernel with its is_new mask,
    the compaction (idle, and forced by a cursor within a window of the
-   end) and the append, every tensor of the state compared; the 47 x 54
+   end) and the append, every tensor of the state compared; the select on
+   the 47 x 54 search at twice the production frontier (2^16 slots); the 47 x 54
    search with the least frontier (2,048 slots) caught at a compaction that
    evicts; a closed gate (a solved search), where ``_iterate`` must leave
    the state bit-unchanged (its device time and kernels per iteration are
    printed).  Each kernel is timed beside its plain version, its bound and,
    for the select and the compaction, the one PyTorch call that computes
-   the same function (``torch.topk``, a stable ``torch.sort``).
+   the same function (``torch.topk``, a stable ``torch.sort``): its event
+   time (``library_ms``, the host's enqueue included) and its kernels'
+   device time (``library_device_ms``, beside the hand kernel's
+   ``device_ms``).
 4. ``solve`` (the main path): the launch counts are set to 0, then
    ``solve_puzzle(mode="N+RGD", time_limit=60)`` runs on the card at the
    production capacities of ``plan_puzzles`` for every fixture under
@@ -372,6 +376,14 @@ def kernel_device_ms(prof: dict, *names: str, calls: int) -> float:
     return sum(us for _, us in hit) / 1e3 / calls
 
 
+def library_device_ms(fn, reps: int = 50) -> float:
+    """Device milliseconds per call of one PyTorch library call (every kernel
+    it launches, from :func:`profile_device`): the yardstick beside a hand
+    kernel's ``device_ms``, where ``library_ms`` (events) also counts the
+    host's enqueue."""
+    return profile_device(fn, reps=reps)["busy_us"] / 1e3 / reps
+
+
 def _top_kernels(prof: dict, n: int):
     """The ``n`` kernels with the most device time of a
     :func:`profile_device` result, as (shortened name, microseconds)."""
@@ -513,6 +525,7 @@ def phase_wavefront(puzzle, dev):
         "bound_ms": bound_s * 1e3,
         "bound_by": "bytes" if n_bytes / H100_BYTES_PER_S >= n_ops / H100_F32_OPS_PER_S else "operations",
         "library_ms": None,
+        "library_device_ms": None,
     }
 
 
@@ -709,7 +722,7 @@ def phase_visited_set(dev, floor):
           "delete_ms": del_ms, "delete_device_ms": del_dev, "delete_plain_ms": del_plain,
           "fused": fused})
     common = {"route": "cuda", "source": "pushworld_tpu_torch/kernels/visited_set.cu",
-              "library_ms": None}
+              "library_ms": None, "library_device_ms": None}
 
     def bound(lane_bytes):
         """The bytes a batch must move at the card's memory rate, or the
@@ -899,7 +912,7 @@ def phase_rgd_novelty(generated, seed, dev, floor):
                       "max_abs_err": nov_err, "plain_ms_score_and_absorb": plain_ms,
                       "score_bytes": score_bytes, "absorb_bytes": absorb_bytes, **nov}})
     main = lanes["generated_47x54"]
-    common = {"route": "cuda", "library_ms": None}
+    common = {"route": "cuda", "library_ms": None, "library_device_ms": None}
     return [
         dict(common, name="rgd.heuristic", source="pushworld_tpu_torch/kernels/rgd.cu",
              replaces="pushworld_tpu/ops/rgd.py:526", lanes=lanes,
@@ -1144,6 +1157,27 @@ def phase_iteration_kernels(generated, dev, floor):
         if what == "generated_47x54":
             timing = dict(pl=pl, s=s, w=w, args=args, parents=parents, sel_valid=sel_valid, gate=gate)
 
+    # The select at twice the production frontier (F = 2^16: tiles of 8,192
+    # slots), on the 47 x 54 search after up to 8 iterations.
+    pl = batched.BatchedPlanner(generated, max_depth=0, device=dev,
+                                **dict(PRODUCTION_CAPACITIES, frontier_capacity=1 << 16))
+    s = pl.init_state()
+    for _ in range(8):
+        nxt = _clone_state(s)
+        batched._iterate(pl.cp_dev, pl.tables, pl.config, nxt)
+        if not bool(batched._active(pl.config, nxt)):
+            break
+        s = nxt
+    k, r = _clone_state(s), _clone_state(s)
+    got = batched.select_and_gate(pl.config, k)
+    active = batched._active(pl.config, r)
+    want = (*batched.select_frontier_reference(r, pl.config.expand, active), active)
+    torch.cuda.synchronize()
+    wide = {"frontier": pl.frontier_capacity, "iterations": int(s.iterations),
+            "live": int((s.frontier_h < batched.EMPTY).sum()),
+            "select_max_abs_err": max(_max_abs_err(zip(got, want)), _state_error(k, r))}
+    check(wide["select_max_abs_err"] == 0, f"iteration_kernels: the select at F = 2^16: {wide}")
+
     # A compaction that evicts: the 47 x 54 search with the least frontier,
     # caught before the iteration whose compaction drops live entries.
     pl = batched.BatchedPlanner(generated, max_depth=0, device=dev,
@@ -1202,6 +1236,7 @@ def phase_iteration_kernels(generated, dev, floor):
         plain_ms=_reset_timed(lambda: batched.select_frontier_reference(sel_r, B, batched._active(cfg, sel_r)),
                               reset_select(sel_r), 5),
         library_ms=cuda_time_ms(lambda: torch.topk(h0, B, largest=False), reps=50),
+        library_device_ms=library_device_ms(lambda: torch.topk(h0, B, largest=False)),
         **bound(4 * F + B * (2 * (8 * N + 4) + 1) + 4 * B))
     kernels["step.expand"] = dict(
         ms=cuda_time_ms(lambda: step.expand_and_test(cp, t.contacts, t.contacts_mask, parents, sel_valid, gate),
@@ -1212,6 +1247,7 @@ def phase_iteration_kernels(generated, dev, floor):
         plain_ms=cuda_time_ms(lambda: step.expand_and_test_reference(cp, t.contacts, t.contacts_mask, parents,
                                                                      sel_valid), reps=5),
         library_ms=None,
+        library_device_ms=None,
         **bound(B * (8 * N + 1) + 4 * N * N * t.cmax * 5 + nb * N + 4 * N * 10 + nb * (9 * N + 2)))
     saved = {f: getattr(w, f).clone() for f in ("frontier_h", "frontier_states", "frontier_hist", "frontier_key")}
     comp_k, comp_r = _clone_state(w), _clone_state(w)
@@ -1230,6 +1266,7 @@ def phase_iteration_kernels(generated, dev, floor):
             "compact_kernel", calls=10),
         plain_ms=_reset_timed(lambda: batched.compact_frontier_reference(comp_r, nb, gate), reset_compact(comp_r), 5),
         library_ms=cuda_time_ms(lambda: torch.sort(saved["frontier_h"], stable=True), reps=50),
+        library_device_ms=library_device_ms(lambda: torch.sort(saved["frontier_h"], stable=True)),
         idle_device_ms=kernel_device_ms(profile_device(lambda: batched.compact_frontier(comp_k, nb, gate), reps=20),
                                         "compact_kernel", calls=20),
         **bound(2 * F * (4 + 8 * N + 4 + 8) + F + 1))
@@ -1251,8 +1288,10 @@ def phase_iteration_kernels(generated, dev, floor):
             "append_kernel", calls=20),
         plain_ms=_reset_timed(lambda: batched.append_children_reference(app_r, cfg, **args), reset_append(app_r), 5),
         library_ms=None,
+        library_device_ms=None,
         **bound(nb * (1 + 1 + 4 + 4 + 1 + 8 * N + 8) + B * 5 + 8 * n_new + nb * (4 + 8 * N + 4 + 8 + 4) + 32))
-    emit({"phase": "iteration_kernels", "lanes": lanes, "evicting_compaction": evicting, "closed_gate": gated,
+    emit({"phase": "iteration_kernels", "lanes": lanes, "select_at_2_16": wide, "evicting_compaction": evicting,
+          "closed_gate": gated,
           "kernels": kernels, "total_s": time.monotonic() - t_phase})
     source = {"step.expand": "pushworld_tpu_torch/kernels/expand.cu"}
     replaces = {"step.expand": "pushworld_tpu/ops/step.py:131",
@@ -1264,7 +1303,7 @@ def phase_iteration_kernels(generated, dev, floor):
               "step.expand": [r["expand_max_abs_err"] for r in lanes.values()],
               "frontier.compact": [r[k]["compact_max_abs_err"] for r in rows for k in r if k.endswith("compaction")],
               "frontier.append": [r[k]["append_max_abs_err"] for r in rows for k in r if k.endswith("compaction")]}
-    errors["frontier.select"].append(gated["select_and_expand_max_abs_err"])
+    errors["frontier.select"] += [gated["select_and_expand_max_abs_err"], wide["select_max_abs_err"]]
     errors["frontier.compact"].append(gated["iterate_max_abs_err"])
     errors["frontier.append"].append(gated["iterate_max_abs_err"])
     return [dict(name=name, route="cuda", source=source.get(name, "pushworld_tpu_torch/kernels/frontier.cu"),
@@ -2682,7 +2721,8 @@ def main() -> int:
         k["launches_by_phase"] = {ph: c.get(k["name"], 0) for ph, c in by_phase.items()}
     emit({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "launches_by_phase", "max_abs_err",
-        "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes_bound_ms", "library_ms")}
+        "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes_bound_ms", "library_ms",
+        "library_device_ms")}
         for k in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

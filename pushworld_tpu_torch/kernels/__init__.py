@@ -19,6 +19,8 @@ from collections import Counter
 from contextlib import contextmanager
 from typing import Iterator
 
+import torch
+
 LAUNCHES: Counter = Counter()
 _LAUNCHES_LOCK = threading.Lock()
 _RECORDING = threading.local()
@@ -44,3 +46,18 @@ def recording_launches() -> Iterator[Counter]:
         yield _RECORDING.counter
     finally:
         _RECORDING.counter = None
+
+
+def launch_on(device: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)`` with ``device`` current and its current CUDA
+    stream's handle as the last argument; returns what ``fn`` returns.
+
+    A wrapper's host time is the enqueue of its launch: the raw handle is
+    read without building the Python stream object that
+    ``torch.cuda.current_stream()`` returns, and the device is switched only
+    when it is not current."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if device.index == torch.cuda.current_device():
+        return fn(*args, raw(device.index) if raw else torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, raw(device.index) if raw else torch.cuda.current_stream(device).cuda_stream)

@@ -48,7 +48,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "pw_expand_max_objects": [],
     },
     "frontier": {
-        "pw_frontier_select": [_vp] * 5 + [_i] + [_vp] * 4 + [_i] * 3 + [_vp],
+        "pw_frontier_select": [_vp] * 5 + [_i] + [_vp] * 5 + [_i] * 3 + [_vp],
+        "pw_frontier_select_scratch_words": [_i, _i],
         "pw_frontier_compact": [_vp] * 13 + [_i] * 4 + [_vp],
         "pw_frontier_append": [_vp] * 25 + [_i] * 10 + [_vp],
     },

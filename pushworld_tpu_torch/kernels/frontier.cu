@@ -5,8 +5,8 @@
 // Replaces XLA code of the JAX package, not a TPU kernel, in
 // pushworld_tpu/search/batched.py: _select_frontier (lines 520-534, a top-k
 // of the int32 keys), _append_history (439-454), _append_frontier (457-517,
-// with the lax.cond of its compaction), the goal resolution, the priority
-// keys and the counters of _iterate (537-623), and run_chunk's gate
+// with the lax.cond of its compaction at 504), the goal resolution, the
+// priority keys and the counters of _iterate (537-623), and run_chunk's gate
 // (the fixed trip count's cond).  Their plain PyTorch form
 // (pushworld_tpu_torch/search/batched.py *_reference) is some 150 kernels an
 // iteration, two stable sorts of the F keys among them.
@@ -14,34 +14,69 @@
 // Keys.  Every key is a non-negative int32 at most EMPTY = 0x7F000000 (a free
 // slot).  The kernels order keys as unsigned words with the sign bit flipped,
 // which is the int32 order, and carry a slot beside a key as one 64-bit word
-// (key << 32 | slot), so that (key, slot) order is the order of the words.
+// (key << 32 | slot), so that (key, slot) order is the order of the words and
+// no two words are equal.
 //
-// pw_frontier_select (one CTA of 1,024 threads).  The gate first, as the JAX
-// package's run_chunk reads it before an iteration: not solved, the history
-// cursor below its limit, and a key below EMPTY (read only when the first two
-// hold; the sharded search passes no gate inputs: always open).  The gate goes to a device flag that the
-// iteration's later kernels read; a closed gate writes sel_valid = 0 and
-// nothing else.  Then the B lowest keys in (key, slot) order, EMPTY slots
-// included when fewer than B are live (their lanes feed children that land
-// in the window with EMPTY keys): a radix select of 4 passes of 8 bits over
-// the keys (held in shared memory, 128 KB at F = 2^15; read from device
-// memory above 227 KB), a warp-aggregated histogram each pass, gives the B-th
-// key T and how many keys equal to T to take; the keys below T are all
-// taken, those equal to T in slot order (warp ballots over contiguous
-// ranges).  A bitonic sort of the B words orders them.  The selected slots
-// that were live are freed (EMPTY), and parents, parent_hist and sel_valid
-// are gathered.
+// The select and the compaction: one cluster of kCluster = 8 CTAs of 1,024
+// threads (the portable cluster size of sm_90), each CTA on an SM of its own.
+// CTA c owns the tile of slots [c * T, c * T + T), T = ceil(F / 8).  The CTAs
+// exchange through distributed shared memory (a CTA reads and writes the
+// others' shared memory) and meet at the cluster barrier, which the hardware
+// keeps: no cooperative launch, no counter in device memory and no grid-wide
+// barrier through L2, and a launch captures into a CUDA graph as any other.
+// Eight CTAs, not one per 1,024 keys: 8 is the largest cluster that every
+// sm_90 card schedules without a non-portable attribute, and on the H100 a
+// cluster of 16 sped the compaction up but slowed the select down (its
+// regions go to twice as many CTAs).  A tile too
+// large for shared memory (F above ~96K for the compaction and ~200K for the
+// select, at B = 256) lives in device scratch instead, through the same
+// code: the pointers are generic.
 //
-// pw_frontier_compact (one CTA).  need = gate and cursor + nb > F, read on
-// the device; without need the CTA returns at once.  Else, as the lax.cond
-// branch: a stable sort of the F keys (an LSD radix sort of the (key, slot)
-// words, 4 passes of 8 bits; each warp ranks its contiguous range in order
-// with __match_any_sync, so the sort is stable), states, hist and
-// fingerprints permuted through it from copies, live slots at or beyond keep
-// dropped (EMPTY; a drop mask and the need flag go to the caller, whose
+// pw_frontier_select.  The gate first, as the JAX package's run_chunk reads
+// it before an iteration: not solved and the history cursor below its limit
+// (every CTA reads them, so all agree; the sharded search passes no gate
+// inputs: always open), then a key below EMPTY (the tiles' lowest words).
+// The gate goes to a device flag that the iteration's later kernels read; a
+// closed gate writes sel_valid = 0 and the flag, and nothing else.  Else the
+// B lowest words, EMPTY slots included when fewer than B are live (their
+// lanes feed children that land in the window with EMPTY keys):
+//   1. each CTA takes the min(B, T) lowest words of its tile (block_lowest: a
+//      radix select over the keys from the top byte, a histogram in shared
+//      memory a pass, which stops once the words that match its prefix are
+//      exactly those still wanted, or once they share their key: then the
+//      first of them in slot order are taken, in order, with no pass over
+//      the slots), places the words below a tied key by counting for each
+//      the words below it (at most B^2 comparisons spread over the CTA) and
+//      writes them in order into its region in every CTA's shared memory,
+//      padded with all-ones words;
+//   2. after the cluster barrier every CTA reads the gate from the regions'
+//      first words and gives each of its own candidates its row: the words
+//      below it in the 8 sorted regions, by binary lifting in the 8 in step.
+//      The candidates of row < B are the B lowest words in (key, slot)
+//      order; their CTAs free the live ones and gather parents, parent_hist
+//      and sel_valid.
+// Nothing is written before the barrier, so a closed gate writes nothing else.
+//
+// pw_frontier_compact.  need = gate and cursor + nb > F, read on the device
+// by every CTA before the first cluster barrier (CTA 0 writes the cursor only
+// after the last); without need every CTA returns at once.  Else, as the
+// lax.cond branch: a stable sort of the F keys, an LSD radix sort of the
+// words by key, 4 passes of 8 bits.  In a pass each CTA counts its tile's
+// digits by (digit, warp), warp w owning a contiguous range that it ranks in
+// order (the lanes of equal digit by __match_any_sync, only in the scatter:
+// counting needs none), a word after its digit's words in the lower warps;
+// across the
+// cluster each CTA reads the others' digit totals and places its group of a
+// digit after every lower digit and after the lower tiles' words of that
+// digit, so the sort stays stable; the words go straight into the shared
+// memory of the CTA that owns their new position.  A pass whose digit is the
+// same for every word (the cluster's totals say so, alike in every CTA) moves
+// nothing and is skipped.  Each CTA copies the states, hist and fingerprints
+// of its own slots to scratch before the passes and, after them, permutes its
+// own positions from the copies; live slots at or beyond keep are dropped
+// (EMPTY; a drop mask and the need flag go to the caller, whose
 // visited_set.cu probe_delete launch, gated on the flag, tombstones the
 // dropped fingerprints), cursor = min(live, keep), evictions += dropped.
-// The sort and the copies use device scratch from the caller.
 //
 // pw_frontier_append (one CTA).  With the gate open: a block-wide exclusive
 // scan of is_new over the nb lanes gives each new child its history index
@@ -63,32 +98,66 @@
 // runs the compaction first and the append after it; the visited set's
 // deletes still come after the iteration's inserts.
 //
-// Bound.  The select and the compaction read the F keys (128 KB at 2^15)
-// a few times from shared memory or L2, and move the selected or all states
-// (B * 8N bytes; F * (8N + 12) for a compaction); the append moves ~40
-// bytes a lane.  At the search's sizes every kernel but a compaction is a
-// few microseconds, near the launch; a compaction (one in every ~8-24
-// iterations) is bound by one SM's bandwidth to L2.
+// Bound.  The select reads the F keys once (128 KB at 2^15) and moves the
+// selected states (B * 8N bytes); a compaction reads and writes the keys,
+// states, hist and fingerprints once, F * (8N + 16) bytes each way (3.2 MB
+// at F = 2^15, N = 4: 0.001 ms at 3.35 TB/s); the append moves ~40 bytes a
+// lane.  At the search's sizes every kernel is bound by latency, not bytes:
+// the select by its chain of CTA barriers (2 a radix pass, a few around
+// them) and one cluster barrier, the compaction by its sort
+// passes (5 CTA barriers and 2 cluster barriers each) and by moving the
+// states through 8 SMs (the copies and the permutation, with 8 loads in
+// flight a thread), the append by the launch.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (see _build.py);
 // plain C interface, loaded with ctypes.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 typedef unsigned long long u64;
 
-constexpr int kThreads = 1024;  // every kernel here: one CTA of 32 warps
+constexpr int kThreads = 1024;  // every kernel here: CTAs of 32 warps
+constexpr int kCluster = 8;     // the select's and the compaction's CTAs: one cluster
 constexpr int kEmpty = 0x7F000000;
 constexpr int kMaxSmem = 232448;  // a CTA's shared memory on sm_90
-constexpr int kStaticSmem = 4096;  // room for the select kernel's static arrays
+constexpr u64 kPad = ~0ull;       // above every word: a slot is below 2^26
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 __device__ __forceinline__ unsigned ord(int key) { return static_cast<unsigned>(key) ^ 0x80000000u; }
 __device__ __forceinline__ int unord(unsigned u) { return static_cast<int>(u ^ 0x80000000u); }
 __device__ __forceinline__ unsigned lanes_below(int lane) { return (1u << lane) - 1u; }
+__device__ __forceinline__ int slot_of(u64 w) { return static_cast<int>(static_cast<unsigned>(w)); }
+__device__ __forceinline__ int key_of(u64 w) { return unord(static_cast<unsigned>(w >> 32)); }
+
+// The AND and the OR of v over the warp.
+__device__ __forceinline__ u64 and_reduce(u64 v) {
+  return static_cast<u64>(__reduce_and_sync(kFull, static_cast<unsigned>(v >> 32))) << 32 |
+         __reduce_and_sync(kFull, static_cast<unsigned>(v));
+}
+__device__ __forceinline__ u64 or_reduce(u64 v) {
+  return static_cast<u64>(__reduce_or_sync(kFull, static_cast<unsigned>(v >> 32))) << 32 |
+         __reduce_or_sync(kFull, static_cast<unsigned>(v));
+}
+
+// hist[d] += 1 for each lane with on: one add of 32 where the whole warp has
+// one digit (a tile of EMPTY slots), else a shared atomic a lane (faster on
+// the H100 than aggregating equal digits with __match_any_sync or ballots).
+// Every lane of the warp must call it.
+__device__ __forceinline__ void warp_count(int* hist, unsigned d, bool on) {
+  const unsigned d0 = __shfl_sync(kFull, d, 0);
+  if (__all_sync(kFull, on && d == d0)) {
+    if ((threadIdx.x & 31) == 0) atomicAdd(&hist[d0], 32);
+  } else if (on) {
+    atomicAdd(&hist[d], 1);
+  }
+}
 
 // Exclusive prefix sum of v over the CTA's 1,024 threads, in thread order;
 // *total gets the sum.  sh holds 33 ints.  Every thread must call it.
@@ -96,7 +165,7 @@ __device__ int block_exclusive_scan(int v, int* total, int* sh) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int x = v;
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xFFFFFFFFu, x, o);
+    const int y = __shfl_up_sync(kFull, x, o);
     if (lane >= o) x += y;
   }
   if (lane == 31) sh[warp] = x;
@@ -105,7 +174,7 @@ __device__ int block_exclusive_scan(int v, int* total, int* sh) {
     const int w = sh[lane];
     int incl = w;
     for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+      const int y = __shfl_up_sync(kFull, incl, o);
       if (lane >= o) incl += y;
     }
     sh[lane] = incl - w;
@@ -118,7 +187,208 @@ __device__ int block_exclusive_scan(int v, int* total, int* sh) {
   return out;
 }
 
+// dst[i] = src[i] for i in [0, n) over the CTA, up to kIlp loads (64 bytes)
+// in flight a thread (one load at a time leaves one SM a few GB/s).
+constexpr int kIlp = 8;
+template <class V>
+__device__ void block_copy(V* __restrict__ dst, const V* __restrict__ src, size_t n) {
+  constexpr int kU = sizeof(V) > 8 ? kIlp / 2 : kIlp;
+  for (size_t base = threadIdx.x; base < n; base += static_cast<size_t>(kThreads) * kU) {
+    V v[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const size_t i = base + static_cast<size_t>(u) * kThreads;
+      if (i < n) v[u] = src[i];
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const size_t i = base + static_cast<size_t>(u) * kThreads;
+      if (i < n) dst[i] = v[u];
+    }
+  }
+}
+
 // ---------------------------------------------------------------- select
+
+struct LowestShared {
+  __align__(16) int hist[2][256];  // by pass parity: one is counted while the other is zeroed
+  u64 wand[32], wor[32];           // a warp's AND and OR of the words a pass counted
+  u64 all_and, all_or;             // the CTA's
+  int wcount[32];                  // a warp's words of the tied key
+  int digit, below, eq, count;
+};
+
+// The words of the slots [lo, lo + m), from the keys in device memory.
+struct KeyWords {
+  const int* h;
+  int lo;
+  __device__ u64 operator()(int i) const {
+    return static_cast<u64>(ord(h[lo + i])) << 32 | static_cast<unsigned>(lo + i);
+  }
+};
+
+// Words held in memory (shared, another CTA's shared, or device).
+struct Words {
+  const u64* w;
+  __device__ u64 operator()(int i) const { return w[i]; }
+};
+
+// Writes the take lowest of the m distinct words src(0), ..., src(m - 1)
+// (take <= m; words of equal key in slot order, as a tile's are) to
+// out[0, take) and returns n: out[0, n) holds the words below the tied key
+// in no set order, out[n, take) the tied words in order (n = take when no
+// key ties).  A radix select over the keys from the top byte: a pass
+// histograms the next 8 bits of the words that match the prefix so far
+// (warp_count) and warp 0 finds the digit of the take-th lowest.  The pass
+// also ANDs and ORs the words it counts: the words that match the new prefix
+// agree wherever those all did, so the next pass starts at the highest byte
+// in which they differ.  It stops once the words that match are exactly
+// those still wanted (every word <= prefix | ~mask is taken), or once they
+// all have one key: then every lower key is taken, and of that key the
+// first words in slot order, by a scan over the warps' contiguous ranges (a
+// tile cut among its EMPTY slots takes 1 pass, as the top byte of EMPTY is
+// no other key's; a tile of one key takes 1 pass; no pass goes over the
+// slots).  Two barriers a pass.  Every thread of the CTA calls it, with
+// sh.hist[0] zeroed before a barrier; it ends with a barrier.
+template <class Src>
+__device__ int block_lowest(const Src& src, int m, int take, u64* out, LowestShared& sh) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  u64 lim = ~0ull;   // every word <= lim is taken,
+  u64 tie = kPad;    // and of the key tie >> 32 the first tie_take words
+  int tie_take = 0;
+  if (take < m) {
+    u64 prefix = 0ull, mask = 0ull;
+    int k = take;  // the words still wanted among those that match the prefix
+    for (int pass = 0, shift = 56; pass < 4; ++pass) {
+      int* hist = sh.hist[pass & 1];
+      // The other histogram was last read by warp 0 before the previous
+      // pass's second barrier.
+      if (tid < 256) sh.hist[(pass + 1) & 1][tid] = 0;
+      u64 w_and = ~0ull, w_or = 0ull;
+      for (int base = warp * 32; base < m; base += kThreads) {
+        const int i = base + lane;
+        const u64 u = i < m ? src(i) : 0ull;
+        const bool on = i < m && (u & mask) == prefix;
+        warp_count(hist, static_cast<unsigned>(u >> shift) & 255u, on);
+        if (on) {
+          w_and &= u;
+          w_or |= u;
+        }
+      }
+      w_and = and_reduce(w_and);
+      w_or = or_reduce(w_or);
+      if (lane == 0) sh.wand[warp] = w_and, sh.wor[warp] = w_or;
+      __syncthreads();
+      if (warp == 0) {
+        // all_and and all_or were last read before this pass's first barrier.
+        const u64 all_and = and_reduce(sh.wand[lane]), all_or = or_reduce(sh.wor[lane]);
+        if (lane == 0) sh.all_and = all_and, sh.all_or = all_or;
+        const int4 lo4 = reinterpret_cast<const int4*>(hist)[2 * lane];
+        const int4 hi4 = reinterpret_cast<const int4*>(hist)[2 * lane + 1];
+        const int c[8] = {lo4.x, lo4.y, lo4.z, lo4.w, hi4.x, hi4.y, hi4.z, hi4.w};
+        int sum = 0;
+        for (int j = 0; j < 8; ++j) sum += c[j];
+        int incl = sum;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(kFull, incl, o);
+          if (lane >= o) incl += y;
+        }
+        int run = incl - sum;
+        if (run < k && k <= incl) {
+          for (int j = 0; j < 8; ++j) {
+            if (run + c[j] >= k) {
+              sh.digit = lane * 8 + j;
+              sh.below = run;
+              sh.eq = c[j];
+              break;
+            }
+            run += c[j];
+          }
+        }
+      }
+      __syncthreads();
+      prefix |= static_cast<u64>(sh.digit) << shift;
+      mask |= 255ull << shift;
+      k -= sh.below;
+      if (sh.eq == k) {  // read by all before warp 0 writes again, a barrier on
+        lim = prefix | ~mask;
+        break;
+      }
+      if (pass == 0 && sh.digit == (ord(kEmpty) >> 24)) {
+        // No key is above EMPTY, so the words of this top byte are EMPTY's.
+        tie = static_cast<u64>(ord(kEmpty)) << 32;
+        tie_take = k;
+        lim = tie - 1;
+        break;
+      }
+      // Two or more words match and differ below shift (they are distinct),
+      // so diff is not 0; the bytes above the highest set bit of diff join
+      // the prefix as they are.  Where that bit is in the slot, the words
+      // that match share their key.
+      const u64 lower = (1ull << shift) - 1;
+      const u64 diff = (sh.all_and ^ sh.all_or) & lower;
+      const int next = (63 - __clzll(static_cast<long long>(diff))) & ~7;
+      const u64 same = lower & ~((1ull << (next + 8)) - 1);
+      prefix |= sh.all_and & same;
+      mask |= same;
+      if (next < 32) {
+        tie = prefix & ~0xFFFFFFFFull;
+        tie_take = k;
+        lim = tie - 1;
+        break;
+      }
+      shift = next;
+    }
+  }
+  // Warp w walks the contiguous range [wlo, whi) in order; a word of the tied
+  // key is taken when fewer than tie_take such words come before it.
+  const int chunk = (m + 31) / 32;
+  const int wlo = min(warp * chunk, m), whi = min(wlo + chunk, m);
+  int before = 0;  // this warp's range: the tied words of the lower warps
+  if (tid == 0) sh.count = 0;
+  if (tie_take > 0) {
+    int n_tie = 0;
+    for (int base = wlo; base < whi; base += 32) {
+      const int i = base + lane;
+      n_tie += __popc(__ballot_sync(kFull, i < whi && (src(i) & ~0xFFFFFFFFull) == tie));
+    }
+    if (lane == 0) sh.wcount[warp] = n_tie;
+    __syncthreads();
+    const int w = sh.wcount[lane];
+    int incl = w;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    before = __shfl_sync(kFull, incl - w, warp);
+  } else {
+    __syncthreads();
+  }
+  // The words below the tied key (or lim) go to out[0, n), a warp's in a
+  // round at a place from one atomic; a tied word goes to out[n + its rank].
+  const int n = take - tie_take;
+  int ties = before;
+  for (int base = wlo; base < whi; base += 32) {
+    const int i = base + lane;
+    const u64 u = i < whi ? src(i) : kPad;
+    const bool below = i < whi && u <= lim;
+    const unsigned ballot = __ballot_sync(kFull, below);
+    if (ballot != 0u) {
+      int at = 0;
+      if (lane == 0) at = atomicAdd(&sh.count, __popc(ballot));
+      at = __shfl_sync(kFull, at, 0);
+      if (below) out[at + __popc(ballot & lanes_below(lane))] = u;
+    }
+    if (tie_take > 0) {
+      const unsigned tied = __ballot_sync(kFull, i < whi && (u & ~0xFFFFFFFFull) == tie);
+      const int r = ties + __popc(tied & lanes_below(lane));
+      if ((tied >> lane & 1u) && r < tie_take) out[n + r] = u;
+      ties += __popc(tied);
+    }
+  }
+  __syncthreads();
+  return n;
+}
 
 struct Select {
   int* h;                     // (F,) keys; selected live slots become EMPTY
@@ -131,151 +401,163 @@ struct Select {
   int* parent_hist;           // (B,)
   uint8_t* sel_valid;         // (B,)
   uint8_t* gate;              // scalar or null
-  int F, B, n, P;             // P: a power of two >= B
+  u64* scratch;               // the regions when they do not fit in shared memory
+  int F, B, n;
+  int T, stride;              // slots a tile, ceil(F / kCluster); words a region, min(B, T)
+  int cand_in_smem;
 };
 
-template <bool kSharedKeys>
-__global__ void __launch_bounds__(kThreads) select_kernel(Select s) {
+// Dynamic shared memory, laid out alike in every CTA: the tile's lowest
+// words (stride), the 8 regions (kCluster * stride words) when
+// cand_in_smem, the tile's words (T) when kTileInSmem, then their ranks
+// (stride ints).
+template <bool kTileInSmem>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1) select_kernel(Select s) {
   extern __shared__ __align__(16) u64 dyn[];
-  u64* sel = dyn;                                        // P words
-  unsigned* keys = reinterpret_cast<unsigned*>(dyn + s.P);  // F keys (kSharedKeys)
-  __shared__ int hist[256];
-  __shared__ unsigned umin[32];
-  __shared__ int wcount[32];
-  __shared__ int digit_sh, below_sh, less_sh;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  auto key_at = [&](int i) -> unsigned { return kSharedKeys ? keys[i] : ord(s.h[i]); };
+  __shared__ LowestShared sh;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  u64* low = dyn;
+  u64* cand = low + s.stride;
+  u64* tile = cand + (s.cand_in_smem ? kCluster * s.stride : 0);
+  int* rank = reinterpret_cast<int*>(tile + (kTileInSmem ? s.T : 0));
 
   // 1. The gate: solved and the history first (after a solve the gate closes
-  // without a look at the keys), then a live key, from the least key.
-  bool open = s.solved == nullptr || (!*s.solved && *s.hist_cursor < s.hist_limit);
-  if (open) {
-    unsigned mn = 0xFFFFFFFFu;
-    for (int i = tid; i < s.F; i += kThreads) {
-      const unsigned u = ord(s.h[i]);
-      if (kSharedKeys) keys[i] = u;
-      mn = u < mn ? u : mn;
+  // without a look at the keys).
+  if (s.solved != nullptr && (*s.solved || *s.hist_cursor >= s.hist_limit)) {
+    if (c == 0) {
+      if (tid == 0 && s.gate != nullptr) *s.gate = 0;
+      for (int r = tid; r < s.B; r += kThreads) s.sel_valid[r] = 0;
     }
-    mn = __reduce_min_sync(0xFFFFFFFFu, mn);
-    if (lane == 0) umin[warp] = mn;
-    __syncthreads();
-    mn = __reduce_min_sync(0xFFFFFFFFu, umin[lane]);
-    open = s.solved == nullptr || unord(mn) < kEmpty;
-  }
-  if (tid == 0 && s.gate != nullptr) *s.gate = open;
-  if (!open) {
-    for (int r = tid; r < s.B; r += kThreads) s.sel_valid[r] = 0;
     return;
   }
 
-  // 2. Radix select: the B-th key T (prefix) and k, the keys equal to T to take.
-  unsigned prefix = 0u, pmask = 0u;
-  int k = s.B;
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int i = tid; i < 256; i += kThreads) hist[i] = 0;
-    __syncthreads();
-    for (int base = warp * 32; base < s.F; base += kThreads) {
-      const int i = base + lane;
-      unsigned d = 256u;
-      if (i < s.F) {
-        const unsigned u = key_at(i);
-        if ((u & pmask) == prefix) d = (u >> shift) & 255u;
-      }
-      const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
-      if (d < 256u && lane == __ffs(peers) - 1) atomicAdd(&hist[d], __popc(peers));
-    }
-    __syncthreads();
-    if (warp == 0) {
-      int c[8], sum = 0;
-      for (int j = 0; j < 8; ++j) {
-        c[j] = hist[lane * 8 + j];
-        sum += c[j];
-      }
-      int incl = sum;
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
-        if (lane >= o) incl += y;
-      }
-      int run = incl - sum;
-      if (run < k && k <= incl) {
-        for (int j = 0; j < 8; ++j) {
-          if (run + c[j] >= k) {
-            digit_sh = lane * 8 + j;
-            below_sh = run;
-            break;
-          }
-          run += c[j];
-        }
+  // 2. The tile's min(B, m) lowest words, sorted, into region c of every
+  // CTA, padded.  block_lowest finds the first histogram zeroed.
+  const int lo = min(c * s.T, s.F);
+  const int m = min(s.T, s.F - lo);
+  const int take = min(s.B, m);
+  if (tid < 256) sh.hist[0][tid] = 0;
+  int unsorted;
+  if (kTileInSmem) {
+    for (int base = tid; base < m; base += kThreads * kIlp) {
+      int key[kIlp];
+#pragma unroll
+      for (int u = 0; u < kIlp; ++u) key[u] = base + u * kThreads < m ? s.h[lo + base + u * kThreads] : 0;
+#pragma unroll
+      for (int u = 0; u < kIlp; ++u) {
+        const int i = base + u * kThreads;
+        if (i < m) tile[i] = static_cast<u64>(ord(key[u])) << 32 | static_cast<unsigned>(lo + i);
       }
     }
     __syncthreads();
-    prefix |= static_cast<unsigned>(digit_sh) << shift;
-    pmask |= 255u << shift;
-    k -= below_sh;
+    unsorted = block_lowest(Words{tile}, m, take, low, sh);
+  } else {
+    __syncthreads();
+    unsorted = block_lowest(KeyWords{s.h, lo}, m, take, low, sh);
+  }
+  // low[0, unsorted) are placed by counting the words below each (parts
+  // threads a word, each counting a span); the tied words after them are in
+  // place already.
+  if (unsorted > 1) {
+    for (int r = tid; r < unsorted; r += kThreads) rank[r] = 0;
+    __syncthreads();
+    const int parts = unsorted >= kThreads ? 1 : kThreads / unsorted;
+    const int span = (unsorted + parts - 1) / parts;
+    for (int idx = tid; idx < unsorted * parts; idx += kThreads) {
+      const int r = idx % unsorted, q = idx / unsorted;
+      const u64 w = low[r];
+      const int j1 = min(unsorted, (q + 1) * span);
+      int below = 0;
+      for (int j = q * span; j < j1; ++j) below += low[j] < w;
+      if (below != 0) atomicAdd(&rank[r], below);
+    }
     __syncthreads();
   }
-  const int n_less = s.B - k;
-
-  // 3. Collect: every key below T (any order), the first k keys equal to T
-  // in slot order (warp w walks the slots [w * chunk, (w + 1) * chunk)).
-  if (tid == 0) less_sh = 0;
-  for (int r = s.B + tid; r < s.P; r += kThreads) sel[r] = ~0ull;
-  __syncthreads();
-  const int chunk = (s.F + 31) / 32;
-  const int lo = warp * chunk < s.F ? warp * chunk : s.F;
-  const int hi = lo + chunk < s.F ? lo + chunk : s.F;
-  int eq = 0;
-  for (int base = lo; base < hi; base += 32) {
-    const int i = base + lane;
-    const unsigned u = i < hi ? key_at(i) : 0xFFFFFFFFu;
-    if (i < hi && u < prefix) sel[atomicAdd(&less_sh, 1)] = static_cast<u64>(u) << 32 | static_cast<unsigned>(i);
-    eq += __popc(__ballot_sync(0xFFFFFFFFu, i < hi && u == prefix));
-  }
-  if (lane == 0) wcount[warp] = eq;
-  __syncthreads();
-  int rank = 0;
-  for (int w = 0; w < warp; ++w) rank += wcount[w];
-  for (int base = lo; base < hi && rank < k; base += 32) {
-    const int i = base + lane;
-    const bool is_eq = i < hi && key_at(i) == prefix;
-    const unsigned ballot = __ballot_sync(0xFFFFFFFFu, is_eq);
-    const int mine = rank + __popc(ballot & lanes_below(lane));
-    if (is_eq && mine < k) sel[n_less + mine] = static_cast<u64>(prefix) << 32 | static_cast<unsigned>(i);
-    rank += __popc(ballot);
-  }
-  __syncthreads();
-
-  // 4. Bitonic sort of the P words: (key, slot) order.
-  for (int size = 2; size <= s.P; size <<= 1) {
-    for (int j = size >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < s.P; i += kThreads) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const u64 x = sel[i], y = sel[ixj];
-          if ((x > y) == ((i & size) == 0)) {
-            sel[i] = y;
-            sel[ixj] = x;
-          }
-        }
-      }
-      __syncthreads();
+  // Region c: in every CTA's shared memory when they fit, else once in scratch.
+  if (s.cand_in_smem) {
+    for (int idx = tid; idx < kCluster * s.stride; idx += kThreads) {
+      const int q = idx / s.stride, r = idx - q * s.stride;
+      const int at = r < unsorted && unsorted > 1 ? rank[r] : r;
+      cluster.map_shared_rank(cand, q)[c * s.stride + at] = r < take ? low[r] : kPad;
     }
+  } else {
+    for (int r = tid; r < s.stride; r += kThreads)
+      s.scratch[static_cast<size_t>(c) * s.stride + (r < unsorted && unsorted > 1 ? rank[r] : r)] =
+          r < take ? low[r] : kPad;
   }
+  // Thread r owns the candidate low[r]: its history index and the first
+  // kRowRegs int2 of its state row are loaded while the cluster meets.
+  constexpr int kRowRegs = 4;
+  const int2* rows = reinterpret_cast<const int2*>(s.states);  // a state row is n int2
+  u64 w = kPad;
+  int hist_of = 0;
+  int2 row_of[kRowRegs];
+  if (tid < take) {
+    w = low[tid];
+    const int slot = slot_of(w);
+    hist_of = s.fhist[slot];
+#pragma unroll
+    for (int j = 0; j < kRowRegs; ++j)
+      if (j < s.n) row_of[j] = rows[static_cast<size_t>(slot) * s.n + j];
+  }
+  cluster.sync();  // the regions are written; no CTA reads h or another's memory again
 
-  // 5. Gather and free.
-  for (int r = tid; r < s.B; r += kThreads) {
-    const u64 e = sel[r];
-    const int slot = static_cast<int>(static_cast<unsigned>(e));
-    const bool valid = unord(static_cast<unsigned>(e >> 32)) < kEmpty;
-    s.sel_valid[r] = valid;
-    s.parent_hist[r] = s.fhist[slot];
+  // 3. The gate from the regions' first words, alike in every CTA.
+  const u64* regions = s.cand_in_smem ? cand : s.scratch;
+  u64 first = kPad;
+  for (int q = 0; q < kCluster; ++q) {
+    const u64 head = regions[static_cast<size_t>(q) * s.stride];
+    first = head < first ? head : first;
+  }
+  const bool open = s.solved == nullptr || key_of(first) < kEmpty;
+  if (!open) {
+    if (c == 0) {
+      if (tid == 0 && s.gate != nullptr) *s.gate = 0;
+      for (int r = tid; r < s.B; r += kThreads) s.sel_valid[r] = 0;
+    }
+    return;
+  }
+  if (c == 0 && tid == 0 && s.gate != nullptr) *s.gate = 1;
+
+  // 4. Each CTA's candidates: a candidate's row is the number of words below
+  // it in the 8 sorted regions (its own place in its own), by binary lifting
+  // in the 8 in step; the B lowest of the F words are those of row < B.
+  // Free the live ones and write their rows.
+  int top = 1;
+  while (2 * top <= s.stride) top *= 2;
+  int2* out = reinterpret_cast<int2*>(s.parents);
+  for (int r = tid; r < take; r += kThreads) {
+    if (r >= kThreads) {  // only where take > 1,024: no registers loaded
+      w = low[r];
+      hist_of = s.fhist[slot_of(w)];
+#pragma unroll
+      for (int j = 0; j < kRowRegs; ++j)
+        if (j < s.n) row_of[j] = rows[static_cast<size_t>(slot_of(w)) * s.n + j];
+    }
+    int pos[kCluster] = {};
+    for (int bit = top; bit > 0; bit >>= 1) {
+#pragma unroll
+      for (int q = 0; q < kCluster; ++q) {
+        const int t = pos[q] + bit;
+        if (t <= s.stride && regions[static_cast<size_t>(q) * s.stride + t - 1] < w) pos[q] = t;
+      }
+    }
+    int row = 0;
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q) row += pos[q];
+    if (row >= s.B) continue;
+    const int slot = slot_of(w);
+    const bool valid = key_of(w) < kEmpty;
+    s.sel_valid[row] = valid;
+    s.parent_hist[row] = hist_of;
     if (valid) s.h[slot] = kEmpty;
-  }
-  const int row = 2 * s.n;
-  for (int idx = tid; idx < s.B * row; idx += kThreads) {
-    const int r = idx / row;
-    const int slot = static_cast<int>(static_cast<unsigned>(sel[r]));
-    s.parents[idx] = s.states[static_cast<size_t>(slot) * row + (idx - r * row)];
+#pragma unroll
+    for (int j = 0; j < kRowRegs; ++j)
+      if (j < s.n) out[static_cast<size_t>(row) * s.n + j] = row_of[j];
+    for (int j = kRowRegs; j < s.n; ++j)
+      out[static_cast<size_t>(row) * s.n + j] = rows[static_cast<size_t>(slot) * s.n + j];
   }
 }
 
@@ -291,109 +573,225 @@ struct Compact {
   uint8_t* drop;              // (F,) out, written when need
   uint8_t* need;              // scalar out
   const uint8_t* gate;        // scalar or null: open
-  u64* sort_a;                // (F,) scratch
-  u64* sort_b;                // (F,) scratch
+  u64* sort;                  // (2F,) scratch: the words when a tile does not fit in shared memory
   int* states_copy;           // (F, n, 2) scratch
   int* hist_copy;             // (F,) scratch
   long long* key_copy;        // (F,) scratch
   int F, n, nb, keep;
+  int T;                      // slots a tile, ceil(F / kCluster)
 };
 
-__global__ void __launch_bounds__(kThreads) compact_kernel(Compact c) {
-  __shared__ int off[256 * 32];  // per (digit, warp): counts, then write offsets
-  __shared__ int sh[33];
-  __shared__ int live_sh;
+constexpr int kOffRow = 257;  // off[warp * kOffRow + digit]: a warp's digits in distinct banks
+
+struct SortShared {
+  int off[32 * kOffRow];  // per (warp, digit): counts, then the warp's words before it of the digit
+  int tot[2][256];    // the tile's count of each digit, by pass parity (the other CTAs read it)
+  __align__(16) int all[256];  // the array's count of each digit
+  int below[256];     // the lower tiles' count of each digit
+  int delta[256];     // where the tile's words of a digit start in the array
+  int live, skip;
+};
+
+// Copies the rows of the positions [0, m) from rows[slot] (per V's a row),
+// slot by slot as the sorted words fin say, 64 bytes in flight a thread.
+template <class V>
+__device__ void gather_rows(V* __restrict__ out, const V* __restrict__ rows, const u64* fin, int m, int per) {
+  constexpr int kU = sizeof(V) > 8 ? kIlp / 2 : kIlp;
+  const int total = m * per;
+  for (int base = threadIdx.x; base < total; base += kThreads * kU) {
+    V v[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int j = base + u * kThreads;
+      if (j < total) {
+        const int p = j / per;
+        v[u] = rows[static_cast<size_t>(slot_of(fin[p])) * per + (j - p * per)];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      if (base + u * kThreads < total) out[base + u * kThreads] = v[u];
+  }
+}
+
+// Dynamic shared memory (kSmem): the two buffers of the tile's words, T each.
+template <bool kSmem>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1) compact_kernel(Compact c) {
+  extern __shared__ __align__(16) u64 dyn[];
+  __shared__ SortShared ss;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int me = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool need = (c.gate == nullptr || *c.gate) && *c.ring_cursor + c.nb > c.F;
-  if (tid == 0) *c.need = need;
+  if (me == 0 && tid == 0) *c.need = need;
   if (!need) return;
-  const int row = 2 * c.n;
+  const int lo = min(me * c.T, c.F);
+  const int m = min(c.T, c.F - lo);
+  // Buffer b holds the array's positions [q * T, q * T + T) in CTA q.
+  auto buffer = [&](int b, int q) -> u64* {
+    return kSmem ? cluster.map_shared_rank(dyn + b * c.T, q)
+                 : c.sort + static_cast<size_t>(b) * c.F + static_cast<size_t>(q) * c.T;
+  };
+  u64* own[2] = {kSmem ? dyn : c.sort + lo, kSmem ? dyn + c.T : c.sort + c.F + lo};
 
-  for (int i = tid; i < c.F * row; i += kThreads) c.states_copy[i] = c.states[i];
-  for (int i = tid; i < c.F; i += kThreads) {
-    c.hist_copy[i] = c.fhist[i];
-    c.key_copy[i] = c.fkey[i];
+  // The copies of the tile's slots, its words in slot order, its live count.
+  // A state row is n int2 (n / 2 int4 where n is even).
+  const size_t row0 = static_cast<size_t>(lo) * c.n;
+  if (c.n % 2 == 0)
+    block_copy(reinterpret_cast<int4*>(c.states_copy + 2 * row0), reinterpret_cast<const int4*>(c.states + 2 * row0),
+               static_cast<size_t>(m) * c.n / 2);
+  else
+    block_copy(reinterpret_cast<int2*>(c.states_copy) + row0, reinterpret_cast<const int2*>(c.states) + row0,
+               static_cast<size_t>(m) * c.n);
+  block_copy(c.hist_copy + lo, c.fhist + lo, m);
+  block_copy(c.key_copy + lo, c.fkey + lo, m);
+  int live = 0;
+  for (int base = tid; base < m; base += kThreads * kIlp) {
+    int key[kIlp];
+#pragma unroll
+    for (int u = 0; u < kIlp; ++u) key[u] = base + u * kThreads < m ? c.h[lo + base + u * kThreads] : kEmpty;
+#pragma unroll
+    for (int u = 0; u < kIlp; ++u) {
+      const int i = base + u * kThreads;
+      if (i < m) own[0][i] = static_cast<u64>(ord(key[u])) << 32 | static_cast<unsigned>(lo + i);
+      live += key[u] < kEmpty;
+    }
   }
-  if (tid == 0) live_sh = 0;
+  live = __reduce_add_sync(kFull, live);
+  if (tid == 0) ss.live = 0;
+  int* row = ss.off + warp * kOffRow;  // this warp's counts: only it writes them, but in the prefix
+  for (int i = lane; i < kOffRow; i += 32) row[i] = 0;
   __syncthreads();
+  if (lane == 0) atomicAdd(&ss.live, live);
 
-  // LSD radix sort of the (key, slot) words by key, stable: warp w owns the
-  // positions [lo, hi) and ranks its elements in their order.
-  const int chunk = (c.F + 31) / 32;
-  const int lo = warp * chunk < c.F ? warp * chunk : c.F;
-  const int hi = lo + chunk < c.F ? lo + chunk : c.F;
-  const u64* src = nullptr;
-  u64* dst = c.sort_a;
+  // LSD radix sort of the words by key, stable: warp w ranks the tile's
+  // positions [wlo, whi) in order.  A pass: the warps' counts (1 barrier),
+  // each digit's prefix over the warps and the tile's totals (published by
+  // the cluster barrier), the array's totals and their prefix (warp 0; 2
+  // barriers), the scatter (a cluster barrier).
+  const int chunk = (m + 31) / 32;
+  const int wlo = min(warp * chunk, m), whi = min(wlo + chunk, m);
+  int cur = 0, n_live = 0;
+  bool moved = true;
   for (int pass = 0; pass < 4; ++pass) {
     const int shift = 32 + 8 * pass;
-    for (int i = tid; i < 256 * 32; i += kThreads) off[i] = 0;
-    __syncthreads();
-    int live = 0;
-    for (int base = lo; base < hi; base += 32) {
+    const u64* src = own[cur];
+    for (int base = wlo; base < whi; base += 32) {  // counts need no ranks
       const int i = base + lane;
-      unsigned d = 256u;
-      if (i < hi) {
-        const u64 e = pass == 0 ? static_cast<u64>(ord(c.h[i])) << 32 | static_cast<unsigned>(i) : src[i];
-        d = static_cast<unsigned>(e >> shift) & 255u;
-        if (pass == 0 && c.h[i] < kEmpty) ++live;
+      warp_count(row, i < whi ? static_cast<unsigned>(src[i] >> shift) & 255u : 0u, i < whi);
+    }
+    __syncthreads();
+    int* tot = ss.tot[pass & 1];
+    if (tid < 256) {  // digit tid: the words of the lower warps, and the tile's total
+      int run = 0;
+      for (int w = 0; w < 32; ++w) {
+        const int n_w = ss.off[w * kOffRow + tid];
+        ss.off[w * kOffRow + tid] = run;
+        run += n_w;
       }
-      const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
-      if (d < 256u && lane == __ffs(peers) - 1) off[d * 32 + warp] += __popc(peers);
-      __syncwarp();
+      tot[tid] = run;
     }
-    if (pass == 0) {
-      for (int o = 16; o > 0; o >>= 1) live += __shfl_down_sync(0xFFFFFFFFu, live, o);
-      if (lane == 0) atomicAdd(&live_sh, live);
-    }
-    __syncthreads();
-    int v[8], sum = 0;
-    for (int j = 0; j < 8; ++j) {
-      v[j] = off[tid * 8 + j];
-      sum += v[j];
-    }
-    int total;
-    int start = block_exclusive_scan(sum, &total, sh);
-    for (int j = 0; j < 8; ++j) {
-      off[tid * 8 + j] = start;
-      start += v[j];
-    }
-    __syncthreads();
-    for (int base = lo; base < hi; base += 32) {
-      const int i = base + lane;
-      unsigned d = 256u;
-      u64 e = 0ull;
-      if (i < hi) {
-        e = pass == 0 ? static_cast<u64>(ord(c.h[i])) << 32 | static_cast<unsigned>(i) : src[i];
-        d = static_cast<unsigned>(e >> shift) & 255u;
+    cluster.sync();  // every tile's digit totals (and, in pass 0, its live count and copies)
+    if (pass == 0 && tid == 0 && me == 0)
+      for (int q = 0; q < kCluster; ++q) n_live += *cluster.map_shared_rank(&ss.live, q);
+    if (tid < 256) {
+      int all = 0, below = 0;
+#pragma unroll
+      for (int q = 0; q < kCluster; ++q) {
+        const int t = *cluster.map_shared_rank(tot + tid, q);
+        all += t;
+        below += q < me ? t : 0;
       }
-      const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
-      if (d < 256u) dst[off[d * 32 + warp] + __popc(peers & lanes_below(lane))] = e;
-      __syncwarp();
-      if (d < 256u && lane == __ffs(peers) - 1) off[d * 32 + warp] += __popc(peers);
-      __syncwarp();
+      ss.all[tid] = all;
+      ss.below[tid] = below;
     }
     __syncthreads();
-    src = dst;
-    dst = dst == c.sort_a ? c.sort_b : c.sort_a;
+    if (warp == 0) {  // lane l: digits 8l .. 8l + 7
+      const int4 lo4 = reinterpret_cast<const int4*>(ss.all)[2 * lane];
+      const int4 hi4 = reinterpret_cast<const int4*>(ss.all)[2 * lane + 1];
+      const int n_d[8] = {lo4.x, lo4.y, lo4.z, lo4.w, hi4.x, hi4.y, hi4.z, hi4.w};
+      int sum = 0;
+      bool one = false;  // one digit for every word: the pass moves nothing
+      for (int j = 0; j < 8; ++j) {
+        sum += n_d[j];
+        one |= n_d[j] == c.F;
+      }
+      int incl = sum;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += y;
+      }
+      int first = incl - sum;
+      for (int j = 0; j < 8; ++j) {
+        ss.delta[lane * 8 + j] = first + ss.below[lane * 8 + j];
+        first += n_d[j];
+      }
+      const unsigned any_one = __ballot_sync(kFull, one);
+      if (lane == 0) ss.skip = any_one != 0u;
+    }
+    __syncthreads();
+    moved = !ss.skip;
+    if (moved) {
+      for (int base = wlo; base < whi; base += 32) {
+        const int i = base + lane;
+        u64 e = 0ull;
+        unsigned d = 256u;
+        if (i < whi) {
+          e = src[i];
+          d = static_cast<unsigned>(e >> shift) & 255u;
+        }
+        const unsigned peers = __match_any_sync(kFull, d);
+        if (d < 256u) {
+          const int pos = row[d] + ss.delta[d] + __popc(peers & lanes_below(lane));
+          const int q = pos / c.T;
+          buffer(cur ^ 1, q)[pos - q * c.T] = e;
+        }
+        __syncwarp();
+        if (d < 256u && lane == __ffs(peers) - 1) row[d] += __popc(peers);
+        __syncwarp();
+      }
+    }
+    for (int i = lane; i < kOffRow; i += 32) row[i] = 0;  // for the next pass's counts
+    if (!moved) continue;
+    cluster.sync();  // the words of the pass are in place
+    cur ^= 1;
   }
+  if (!moved) cluster.sync();  // no CTA leaves while another reads its totals
 
-  const int n_live = live_sh;
-  for (int p = tid; p < c.F; p += kThreads) {
-    const u64 e = src[p];
-    const int slot = static_cast<int>(static_cast<unsigned>(e));
-    const int key = unord(static_cast<unsigned>(e >> 32));
-    const bool drop = key < kEmpty && p >= c.keep;
-    c.h[p] = drop ? kEmpty : key;
-    c.fhist[p] = c.hist_copy[slot];
-    c.fkey[p] = c.key_copy[slot];
-    c.drop[p] = drop;
+  // The tile's positions, from the sorted words and the copies.
+  const u64* fin = own[cur];
+  constexpr int kHalf = kIlp / 2;
+  for (int base = tid; base < m; base += kThreads * kHalf) {
+    int hv[kHalf];
+    long long kv[kHalf];
+#pragma unroll
+    for (int u = 0; u < kHalf; ++u) {
+      const int i = base + u * kThreads;
+      if (i < m) {
+        const int slot = slot_of(fin[i]);
+        hv[u] = c.hist_copy[slot];
+        kv[u] = c.key_copy[slot];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kHalf; ++u) {
+      const int i = base + u * kThreads, p = lo + i;
+      if (i < m) {
+        const int key = key_of(fin[i]);
+        const bool dropped = key < kEmpty && p >= c.keep;
+        c.h[p] = dropped ? kEmpty : key;
+        c.fhist[p] = hv[u];
+        c.fkey[p] = kv[u];
+        c.drop[p] = dropped;
+      }
+    }
   }
-  for (int idx = tid; idx < c.F * row; idx += kThreads) {
-    const int p = idx / row;
-    const int slot = static_cast<int>(static_cast<unsigned>(src[p]));
-    c.states[idx] = c.states_copy[static_cast<size_t>(slot) * row + (idx - p * row)];
-  }
-  if (tid == 0) {
+  if (c.n % 2 == 0)
+    gather_rows(reinterpret_cast<int4*>(c.states + 2 * row0), reinterpret_cast<const int4*>(c.states_copy), fin, m,
+                c.n / 2);
+  else
+    gather_rows(reinterpret_cast<int2*>(c.states) + row0, reinterpret_cast<const int2*>(c.states_copy), fin, m, c.n);
+  if (me == 0 && tid == 0) {
     *c.ring_cursor = n_live < c.keep ? n_live : c.keep;
     if (n_live > c.keep) *c.evictions += n_live - c.keep;
   }
@@ -505,61 +903,106 @@ __global__ void __launch_bounds__(kThreads) append_kernel(Append a) {
   }
 }
 
-size_t select_smem(int F, int P, bool shared_keys) {
-  return static_cast<size_t>(P) * 8 + (shared_keys ? static_cast<size_t>(F) * 4 : 0);
+// Shared memory a select launch takes: the tile's lowest words and their
+// ranks (stride words and ints), the regions when cand, the tile's words
+// when tile.
+size_t select_smem(int T, int stride, bool cand, bool tile) {
+  return static_cast<size_t>(stride) * 12 + (cand ? static_cast<size_t>(kCluster) * stride * 8 : 0) +
+         (tile ? static_cast<size_t>(T) * 8 : 0);
 }
 
-bool shared_keys(int F, int P) { return select_smem(F, P, true) + kStaticSmem <= kMaxSmem; }
+// Lets fn take up to its share of a CTA's shared memory (static plus dynamic:
+// kMaxSmem), once a device; one value for every launch, so that threads that
+// launch at once never undo each other's setting.
+template <int kKernel>
+cudaError_t allow_dynamic_smem(const void* fn, size_t static_bytes) {
+  static bool done[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kMaxSmem - static_bytes));
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+constexpr size_t kSelectStatic = sizeof(LowestShared) + 1024;  // with room to spare
+constexpr size_t kCompactStatic = sizeof(SortShared) + 1024;
 
 }  // namespace
 
 // ---------------------------------------------------------------- C interface
 
+// Where a select launch keeps its tiles' candidates: 0 words of scratch when
+// shared memory holds them, else kCluster * min(B, ceil(F / 8)); -1
+// for sizes it does not take.
+extern "C" int pw_frontier_select_scratch_words(int F, int B) {
+  if (F < 1 || B < 1 || B > F || F > (1 << 26)) return -1;
+  const int T = (F + kCluster - 1) / kCluster;
+  const int stride = B < T ? B : T;
+  const size_t cap = kMaxSmem - kSelectStatic;
+  if (select_smem(T, stride, false, false) > cap) return -1;
+  return select_smem(T, stride, true, false) <= cap ? 0 : kCluster * stride;
+}
+
 // Selects the B lowest keys; solved and hist_cursor null: no gate (always
-// open).  gate (a bool scalar) may be null.
+// open).  gate (a bool scalar) may be null.  scratch: the number of u64 words
+// pw_frontier_select_scratch_words gives (null when 0).  min(B, ceil(F / 8))
+// up to ~17,000.
 extern "C" int pw_frontier_select(void* h, const void* states, const void* fhist, const void* solved,
                                   const void* hist_cursor, int hist_limit, void* parents, void* parent_hist,
-                                  void* sel_valid, void* gate, int F, int B, int n, void* stream) {
-  if (F < 1 || B < 1 || B > F || n < 1 || F > (1 << 26) || (solved == nullptr) != (hist_cursor == nullptr))
+                                  void* sel_valid, void* gate, void* scratch, int F, int B, int n, void* stream) {
+  const int words = pw_frontier_select_scratch_words(F, B);
+  if (words < 0 || n < 1 || (solved == nullptr) != (hist_cursor == nullptr) || (words > 0 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  int P = 1;
-  while (P < B) P <<= 1;
-  if (select_smem(0, P, false) + kStaticSmem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const int T = (F + kCluster - 1) / kCluster;
+  const int stride = B < T ? B : T;
+  const size_t cap = kMaxSmem - kSelectStatic;
+  const bool cand = words == 0;
+  const bool tile = select_smem(T, stride, cand, true) <= cap;
+  const size_t smem = select_smem(T, stride, cand, tile);
   Select s{static_cast<int*>(h),          static_cast<const int*>(states), static_cast<const int*>(fhist),
            static_cast<const uint8_t*>(solved), static_cast<const int*>(hist_cursor), hist_limit,
            static_cast<int*>(parents),    static_cast<int*>(parent_hist),  static_cast<uint8_t*>(sel_valid),
-           static_cast<uint8_t*>(gate),   F, B, n, P};
-  const bool in_shared = shared_keys(F, P);
-  const size_t smem = select_smem(F, P, in_shared);
-  const void* fn = in_shared ? reinterpret_cast<const void*>(select_kernel<true>)
-                             : reinterpret_cast<const void*>(select_kernel<false>);
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (in_shared)
-    select_kernel<true><<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(s);
+           static_cast<uint8_t*>(gate),   static_cast<u64*>(scratch),      F, B, n, T, stride, cand};
+  const cudaError_t err =
+      tile ? allow_dynamic_smem<0>(reinterpret_cast<const void*>(select_kernel<true>), kSelectStatic)
+           : allow_dynamic_smem<1>(reinterpret_cast<const void*>(select_kernel<false>), kSelectStatic);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (tile)
+    select_kernel<true><<<kCluster, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(s);
   else
-    select_kernel<false><<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(s);
+    select_kernel<false><<<kCluster, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(s);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Compacts the ring when gate (null: open) and cursor + nb > F; writes need
-// and, when it holds, the drop mask.  Scratch: sort (2F,) u64, states_copy
-// (F, n, 2) int32, hist_copy (F,) int32, key_copy (F,) int64.
+// and, when it holds, the drop mask.  Scratch: sort (2F,) u64 (the words,
+// when a tile does not fit in shared memory: F above ~96K), states_copy
+// (F, n, 2) int32 (16-byte aligned where n is even), hist_copy (F,) int32,
+// key_copy (F,) int64.
 extern "C" int pw_frontier_compact(void* h, void* states, void* fhist, void* fkey, void* ring_cursor,
                                    void* evictions, void* drop, void* need, const void* gate, void* sort,
                                    void* states_copy, void* hist_copy, void* key_copy, int F, int n, int nb,
                                    int keep, void* stream) {
   if (F < 1 || n < 1 || nb < 0 || keep < 0 || keep > F || F > (1 << 26) / n)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int T = (F + kCluster - 1) / kCluster;
   Compact c{static_cast<int*>(h),          static_cast<int*>(states),     static_cast<int*>(fhist),
             static_cast<long long*>(fkey), static_cast<int*>(ring_cursor), static_cast<int*>(evictions),
             static_cast<uint8_t*>(drop),   static_cast<uint8_t*>(need),   static_cast<const uint8_t*>(gate),
-            static_cast<u64*>(sort),       static_cast<u64*>(sort) + F,   static_cast<int*>(states_copy),
-            static_cast<int*>(hist_copy),  static_cast<long long*>(key_copy), F, n, nb, keep};
-  compact_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(c);
+            static_cast<u64*>(sort),       static_cast<int*>(states_copy), static_cast<int*>(hist_copy),
+            static_cast<long long*>(key_copy), F, n, nb, keep, T};
+  const size_t smem = static_cast<size_t>(T) * 16;
+  const bool in_smem = smem <= kMaxSmem - kCompactStatic;
+  const cudaError_t err =
+      in_smem ? allow_dynamic_smem<2>(reinterpret_cast<const void*>(compact_kernel<true>), kCompactStatic)
+              : allow_dynamic_smem<3>(reinterpret_cast<const void*>(compact_kernel<false>), kCompactStatic);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (in_smem)
+    compact_kernel<true><<<kCluster, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(c);
+  else
+    compact_kernel<false><<<kCluster, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(c);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,11 +12,9 @@ those of the JAX package's ``distance_fields_pallas`` /
 ``ops.graphs.distance_to_targets``.
 """
 
-import ctypes
-
 import torch
 
-from pushworld_tpu_torch.kernels import count_launch
+from pushworld_tpu_torch.kernels import count_launch, launch_on
 from pushworld_tpu_torch.ops.graphs import INF, distance_fields_reference
 
 
@@ -69,10 +67,8 @@ def distance_fields(E: torch.Tensor, d0: torch.Tensor, max_iters: int = 0) -> to
     lib = _build.load("wavefront")
     if not lib.pw_wavefront_fits(H, W):
         raise ValueError(f"grid {H}x{W} exceeds the kernel's shared-memory planes")
-    with torch.cuda.device(d0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.pw_wavefront(E.data_ptr(), e_stride, E.stride(1), packed.data_ptr(),
-                              d0.data_ptr(), out.data_ptr(), B, H, W, cap, ctypes.c_void_p(stream))
+    rc = launch_on(d0.device, lib.pw_wavefront, E.data_ptr(), e_stride, E.stride(1), packed.data_ptr(),
+                   d0.data_ptr(), out.data_ptr(), B, H, W, cap)
     if rc != 0:
         raise RuntimeError(f"wavefront launch failed: CUDA error {rc}")
     count_launch("wavefront")

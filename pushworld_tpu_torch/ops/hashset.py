@@ -32,14 +32,13 @@ Failure modes and their effect on the search (all benign for greedy search):
   (:func:`dedup_batch`); ``fingerprint_dedup_insert`` does so itself.
 """
 
-import ctypes
 from dataclasses import dataclass
 from typing import Tuple
 
 import torch
 
 from pushworld_tpu_torch.device import DeviceLike, resolve_device
-from pushworld_tpu_torch.kernels import count_launch
+from pushworld_tpu_torch.kernels import count_launch, launch_on
 
 N_PROBES = 8
 EMPTY_KEY = 0
@@ -190,9 +189,7 @@ def _launch(fn_name: str, hs: HashSet, *args) -> None:
 
     fn = getattr(_build.load("visited_set"), fn_name)
     ptrs = [None if a is None else a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(hs.keys.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(hs.keys.data_ptr(), *ptrs, ctypes.c_void_p(stream))
+    rc = launch_on(hs.keys.device, fn, hs.keys.data_ptr(), *ptrs)
     if rc != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
 

@@ -31,7 +31,6 @@ start of the batch, then all their updates are applied at once.  The tables
 are updated IN PLACE.
 """
 
-import ctypes
 import os
 from dataclasses import dataclass
 from typing import Tuple
@@ -39,7 +38,7 @@ from typing import Tuple
 import torch
 
 from pushworld_tpu_torch.device import DeviceLike, resolve_device
-from pushworld_tpu_torch.kernels import _build, count_launch
+from pushworld_tpu_torch.kernels import _build, count_launch, launch_on
 from pushworld_tpu_torch.ops.hashset import mul32
 
 # Pair-table size knob, as in the JAX package (read once at import).
@@ -140,10 +139,8 @@ def _launch(fn_name: str, count_name: str, t: NoveltyTables, states, moved, vali
     if B == 0:
         return
     fn = getattr(_build.load("novelty"), fn_name)
-    with torch.cuda.device(states.device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        rc = fn(states.data_ptr(), moved.data_ptr(), valid.data_ptr(), t.seen_pos.data_ptr(),
-                t.pair_table.data_ptr(), *(x.data_ptr() for x in out), B, t.n, t.height, t.width, t.side, stream)
+    rc = launch_on(states.device, fn, states.data_ptr(), moved.data_ptr(), valid.data_ptr(), t.seen_pos.data_ptr(),
+                   t.pair_table.data_ptr(), *(x.data_ptr() for x in out), B, t.n, t.height, t.width, t.side)
     if rc != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
     count_launch(count_name)

@@ -29,7 +29,6 @@ reference's per-state PushingCostCache) and, on a CPU tensor,
 JAX package's ``_rgd_impl``).  The two are bit-equal.
 """
 
-import ctypes
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -39,7 +38,7 @@ import torch
 from pushworld_tpu_torch.core.compiled import CompiledPuzzle
 from pushworld_tpu_torch.core.puzzle import Puzzle
 from pushworld_tpu_torch.device import DeviceLike, resolve_device
-from pushworld_tpu_torch.kernels import _build, count_launch
+from pushworld_tpu_torch.kernels import _build, count_launch, launch_on
 from pushworld_tpu_torch.ops.graphs import host_vertex_mask
 from pushworld_tpu_torch.ops.graphs_cuda import distance_fields
 from pushworld_tpu_torch.ops.step import displacements
@@ -484,12 +483,9 @@ def _rgd_cuda(t: RGDTables, states: torch.Tensor, max_depth: int, valid: Optiona
     if B == 0:
         return total, deeper
     fn = _build.load("rgd").pw_rgd_heuristic
-    with torch.cuda.device(states.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(states.data_ptr(), *(x.data_ptr() for x in tensors), None if valid is None else valid.data_ptr(),
-                total.data_ptr(), deeper.data_ptr(),
-                B, t.n, t.n_real, t.max_goals, t.height, t.width, t.cmax, t.cmax_agent, max_depth,
-                ctypes.c_void_p(stream))
+    rc = launch_on(states.device, fn, states.data_ptr(), *(x.data_ptr() for x in tensors),
+                   None if valid is None else valid.data_ptr(), total.data_ptr(), deeper.data_ptr(),
+                   B, t.n, t.n_real, t.max_goals, t.height, t.width, t.cmax, t.cmax_agent, max_depth)
     if rc != 0:
         raise RuntimeError(f"pw_rgd_heuristic launch failed: CUDA error {rc}")
     count_launch("rgd.heuristic")

@@ -28,14 +28,13 @@ launch of ``kernels/expand.cu`` on a CUDA tensor and its plain version
 CPU tensor; the two are bit-equal.
 """
 
-import ctypes
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from pushworld_tpu_torch.core.compiled import CompiledPuzzle
-from pushworld_tpu_torch.kernels import _build, count_launch
+from pushworld_tpu_torch.kernels import _build, count_launch, launch_on
 
 DISPLACEMENTS = np.array([(-1, 0), (1, 0), (0, -1), (0, 1)], np.int32)
 
@@ -260,9 +259,7 @@ def _expand_cuda(cp: CompiledPuzzle, contacts: torch.Tensor, contacts_mask: torc
     ptr = [None if x is None else x.data_ptr() for x in (
         parents, contacts, contacts_mask, cp.static_block, cp.obj_mask, cp.goal_pos, cp.goal_mask, sel_valid,
         gate, children, moved, effective, goal)]
-    with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        rc = fn(*ptr, B, N, C, H, W, stream)
+    rc = launch_on(dev, fn, *ptr, B, N, C, H, W)
     if rc != 0:
         raise RuntimeError(f"pw_expand launch failed: CUDA error {rc}")
     count_launch("step.expand")

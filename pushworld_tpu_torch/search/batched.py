@@ -40,7 +40,7 @@ k while chunk k+1 runs (:class:`PendingStatus`).  Iteration for iteration it
 takes the JAX package's steps and stops after the same iterations.
 """
 
-import ctypes
+import functools
 import time
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional
@@ -51,7 +51,7 @@ import torch
 from pushworld_tpu_torch.core.compiled import CompiledPuzzle, compile_puzzle
 from pushworld_tpu_torch.core.puzzle import Puzzle
 from pushworld_tpu_torch.device import DeviceLike, resolve_device
-from pushworld_tpu_torch.kernels import _build, count_launch
+from pushworld_tpu_torch.kernels import _build, count_launch, launch_on
 from pushworld_tpu_torch.ops.hashset import (
     HashSet,
     fingerprint,
@@ -435,8 +435,7 @@ def append_children(s: SearchState, cfg: SearchConfig, gate, is_new, parent_hist
 
 
 def _check(name: str, x, dtype, shape, dev) -> None:
-    if x is not None and (x.dtype != dtype or tuple(x.shape) != tuple(shape) or x.device != dev
-                          or not x.is_contiguous()):
+    if x is not None and (x.dtype != dtype or x.shape != shape or x.device != dev or not x.is_contiguous()):
         raise ValueError(f"{name}: expected a contiguous {dtype} {tuple(shape)} tensor on {dev}")
 
 
@@ -454,10 +453,7 @@ def _launch(fn_name: str, count_name: str, dev: torch.device, *args) -> None:
     raises if the launch is refused.  No host read: a CUDA graph may
     capture it."""
     fn = getattr(_build.load("frontier"), fn_name)
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        rc = fn(*ptrs, stream)
+    rc = launch_on(dev, fn, *[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args])
     if rc != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
     count_launch(count_name)
@@ -477,10 +473,20 @@ def _select_cuda(s: SearchState, B: int, hist_limit: Optional[int]):
     parent_hist = torch.empty((B,), dtype=torch.int32, device=dev)
     sel_valid = torch.empty((B,), dtype=torch.bool, device=dev)
     gate = torch.empty((), dtype=torch.bool, device=dev)
+    # The tiles' candidates, where shared memory cannot hold them.
+    words = _select_scratch_words(F, B)
+    if words < 0:
+        raise ValueError(f"the select kernel does not take B = {B} of F = {F} slots")
+    scratch = torch.empty((words,), dtype=torch.int64, device=dev) if words else None
     _launch("pw_frontier_select", "frontier.select", dev, s.frontier_h, s.frontier_states, s.frontier_hist,
             s.solved if gated else None, s.hist_cursor if gated else None, hist_limit if gated else 0,
-            parents, parent_hist, sel_valid, gate, F, B, N)
+            parents, parent_hist, sel_valid, gate, scratch, F, B, N)
     return parents, parent_hist, sel_valid, gate
+
+
+@functools.lru_cache(maxsize=None)
+def _select_scratch_words(F: int, B: int) -> int:
+    return _build.load("frontier").pw_frontier_select_scratch_words(F, B)
 
 
 def _compact_cuda(s: SearchState, nb: int, gate) -> None:
@@ -490,15 +496,21 @@ def _compact_cuda(s: SearchState, nb: int, gate) -> None:
     for name, x in (("ring_cursor", s.ring_cursor), ("evictions", s.evictions)):
         _check(name, x, torch.int32, (), dev)
     _check("gate", gate, torch.bool, (), dev)
-    drop = torch.empty((F,), dtype=torch.bool, device=dev)
-    need = torch.empty((), dtype=torch.bool, device=dev)
+    # One allocation: the kernel's scratch (state copies at the start, 16-byte
+    # aligned; the sort's words, fingerprint and hist copies), then the drop
+    # mask and the need flag.
+    buf = torch.empty((F * (8 * N + 16 + 8 + 4 + 1) + 1,), dtype=torch.bool, device=dev)
+    states_copy = buf.data_ptr()
+    sort = states_copy + 8 * N * F
+    key_copy = sort + 16 * F
+    hist_copy = key_copy + 8 * F
+    at_drop = F * (8 * N + 28)
     _launch("pw_frontier_compact", "frontier.compact", dev, s.frontier_h, s.frontier_states, s.frontier_hist,
-            s.frontier_key, s.ring_cursor, s.evictions, drop, need, gate,
-            torch.empty((2 * F,), dtype=torch.int64, device=dev), torch.empty_like(s.frontier_states),
-            torch.empty_like(s.frontier_hist), torch.empty_like(s.frontier_key), F, N, nb, F - max(nb, F // 4))
+            s.frontier_key, s.ring_cursor, s.evictions, states_copy + at_drop, states_copy + at_drop + F, gate,
+            sort, states_copy, hist_copy, key_copy, F, N, nb, F - max(nb, F // 4))
     # The dropped entries leave the visited set; drop is written only where
     # need holds, and the delete kernel reads it only then.
-    probe_delete(s.visited, s.frontier_key, drop, need)
+    probe_delete(s.visited, s.frontier_key, buf[at_drop:at_drop + F], buf[at_drop + F])
 
 
 def _append_cuda(s: SearchState, cfg: SearchConfig, gate, is_new, parent_hist, actions, goal, nov, rgd, deeper,

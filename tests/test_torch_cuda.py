@@ -402,8 +402,8 @@ def _assert_states_equal(a, b, where):
                                     (1 << 15, "empty"), (1 << 16, "distinct"), (1 << 8, "full")])
 def test_frontier_select_kernel_bit_equal(dev, F, kind):
     """The gate and the (key, slot)-ordered selection of 256 (16 at F =
-    256) entries, bit-equal to the plain version; F = 2^16 reads its keys
-    from device memory; a closed gate selects and frees nothing."""
+    256) entries, bit-equal to the plain version; a closed gate selects and
+    frees nothing."""
     from pushworld_tpu_torch.kernels import LAUNCHES
     from pushworld_tpu_torch.search import batched
 
@@ -519,6 +519,117 @@ def test_compact_frontier_captures_into_a_cuda_graph(dev, case):
         assert int(sk.evictions) > 0
     if case in ("window", "closed"):
         _assert_states_equal(sk, before, case)
+
+
+# The select and the compaction run as one cluster of 8 CTAs, each owning a
+# tile of ceil(F / 8) slots: F = 2^10 and 24,581 (not a multiple of 8) give
+# ragged tiles, 2^16 the largest tiles held in shared memory, 2^18 tiles in
+# device scratch.
+CLUSTER_SIZES = [1 << 10, 1 << 15, 1 << 16, 24581, 1 << 18]
+KINDS = ["distinct", "tied", "sparse", "empty", "full"]
+
+
+def _bits_for(F):
+    return max(16, F.bit_length() + 1)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("F", CLUSTER_SIZES)
+def test_frontier_select_kernel_bit_equal_across_sizes(dev, F, kind):
+    """The select of 256 entries at every tile layout, gated (open, and
+    closed by a solve) and ungated (the sharded search's form), bit-equal to
+    the plain version in every output and in the keys it frees."""
+    from pushworld_tpu_torch.search import batched
+
+    B = 256
+    cfg = batched.SearchConfig(expand=B, history_capacity=1 << 16)
+    for solved in (False, True):
+        sk = _frontier_state(dev, F, kind, F % 1000 + len(kind), F // 2, bits=_bits_for(F), solved=solved)
+        sr = _clone_state(sk)
+        got = batched.select_and_gate(cfg, sk)
+        active = batched._active(cfg, sr)
+        want = (*batched.select_frontier_reference(sr, B, active), active)
+        torch.cuda.synchronize()
+        assert bool(got[3]) == bool(want[3]) == (not solved and kind != "empty"), (F, kind, solved)
+        assert torch.equal(got[2], want[2]) and torch.equal(sk.frontier_h, sr.frontier_h), (F, kind, solved)
+        if bool(want[3]):
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (F, kind)
+    sk = _frontier_state(dev, F, kind, 3, F // 2, bits=_bits_for(F))
+    sr = _clone_state(sk)
+    got, want = batched._select_frontier(sk, B), batched.select_frontier_reference(sr, B)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), (F, kind)
+    assert torch.equal(sk.frontier_h, sr.frontier_h), (F, kind)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("F", CLUSTER_SIZES)
+def test_frontier_compact_kernel_bit_equal_across_sizes(dev, F, kind):
+    """A forced compaction before 1,024 children at every tile layout, with
+    the gate open, closed and absent (the sharded search's form), bit-equal
+    to the plain version in every tensor of the state, the visited set's
+    deletes included."""
+    from pushworld_tpu_torch.search import batched
+
+    nb = 1024
+    for gate in (True, False, None):
+        sk = _frontier_state(dev, F, kind, F % 1000 + len(kind) + 1, F - nb + 1, bits=_bits_for(F))
+        sr, before = _clone_state(sk), _clone_state(sk)
+        g = None if gate is None else torch.tensor(gate, device=dev)
+        batched.compact_frontier(sk, nb, g)
+        batched.compact_frontier_reference(sr, nb, g)
+        torch.cuda.synchronize()
+        _assert_states_equal(sk, sr, (F, kind, gate))
+        if gate is False:
+            _assert_states_equal(sk, before, (F, kind, gate))
+        else:
+            assert int(sk.ring_cursor) <= F - nb, (F, kind, gate)
+        if kind == "full" and gate is not False:
+            assert int(sk.evictions) > 0, (F, kind, gate)
+
+
+@pytest.mark.parametrize("case", ["open", "solved", "exhausted", "ungated"])
+def test_select_captures_into_a_cuda_graph(dev, case):
+    """The select (a cluster launch) reads nothing back: it captures into a
+    CUDA graph, and a replay on the state it was captured from equals the
+    plain version, gate included."""
+    from pushworld_tpu_torch.search import batched
+
+    F, B = 1 << 15, 256
+    cfg = batched.SearchConfig(expand=B, history_capacity=1 << 16)
+    sk = _frontier_state(dev, F, "empty" if case == "exhausted" else "tied" if case == "ungated" else "distinct",
+                         len(case) + 11, F // 2, solved=case == "solved")
+    before, sr = _clone_state(sk), _clone_state(sk)
+
+    def select():
+        if case == "ungated":
+            return (*batched._select_frontier(sk, B), None)
+        return batched.select_and_gate(cfg, sk)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the warm-up, as PyTorch's capture wants
+        select()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = select()
+    sk.frontier_h.copy_(before.frontier_h)
+    graph.replay()
+    if case == "ungated":
+        want = (*batched.select_frontier_reference(sr, B), None)
+    else:
+        active = batched._active(cfg, sr)
+        want = (*batched.select_frontier_reference(sr, B, active), active)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], want[2]) and torch.equal(sk.frontier_h, sr.frontier_h), case
+    if case != "ungated":
+        assert bool(got[3]) == bool(want[3]) == (case == "open"), case
+    if case in ("open", "ungated"):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), case
+    else:
+        assert torch.equal(sk.frontier_h, before.frontier_h), case
 
 
 def test_rgd_kernel_valid_mask(dev):

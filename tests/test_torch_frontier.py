@@ -12,9 +12,12 @@ frontier-sharded search's ``nb`` and history ``margin``, and a closed gate
 
 - the plain versions, which the CPU runs;
 - the algorithms of ``kernels/frontier.cu``, written here as numpy loops
-  per CTA: the radix select with its (key, slot) tie-break and bitonic sort,
-  the LSD radix sort of the compaction with its per-warp stable ranks, and
-  the append's block-wide scan.
+  over its cluster of 8 CTAs: the select's per-tile radix selects of the
+  (key, slot) words, sorted by counting into the regions, and the
+  candidates' rows by binary lifting in the 8 regions; the compaction's LSD radix sort with per-warp stable ranks, offsets
+  across tiles and skipped passes; and the append's block-wide scan.  Tile
+  boundaries get their own cases: ragged tiles, ties that span two tiles,
+  fewer live keys than B, F = B, one live key.
 
 JAX's ``approx_min_k`` picks among tied keys in its own order (ROADMAP
 queue 3); where keys tie, the selection is held against JAX's exact top-k in
@@ -44,15 +47,19 @@ U32 = 0xFFFFFFFF
 # ------------------------------------------------------------ the frontier
 
 
-def _frontier(kind, seed, F=F, cursor=None):
+def _frontier(kind, seed, F=F, cursor=None, B=B):
     """A numpy frontier of ``kind``: "distinct" (tie-free keys, a quarter
     EMPTY), "tied" (every live key equal), "sparse" (fewer than B live),
-    "empty", "full" (every slot live: a compaction evicts)."""
+    "empty", "full" (every slot live: a compaction evicts), "one" (one live
+    key, beside the first tile boundary of frontier.cu's cluster),
+    "straddle" (3B equal lowest keys from B / 2 before that boundary: the
+    B lowest cut through ties that span two tiles)."""
     rng = np.random.default_rng(seed)
     nov = rng.integers(1, 4, size=F)
     rgd = rng.integers(0, 60, size=F)
     keys = ((nov << 28) | (rgd << 15) | rng.permutation(0x8000)[:F]).astype(np.int32)
     live = rng.random(F) < 0.75
+    edge = -(-F // KCLUSTER)
     if kind == "tied":
         keys[:] = (2 << 28) | (7 << 15) | 5
     elif kind == "sparse":
@@ -62,6 +69,12 @@ def _frontier(kind, seed, F=F, cursor=None):
         live[:] = False
     elif kind == "full":
         live[:] = True
+    elif kind == "one":
+        live[:] = False
+        live[min(edge, F - 1)] = True
+    elif kind == "straddle":
+        keys[max(0, edge - B // 2):edge + 3 * B] = 1 << 28
+        live[max(0, edge - B // 2):edge + 3 * B] = True
     keys = np.where(live, keys, EMPTY).astype(np.int32)
     lo = rng.integers(2, U32 - 1, size=F, dtype=np.uint64).astype(np.uint32)
     hi = rng.integers(2, U32 - 1, size=F, dtype=np.uint64).astype(np.uint32)
@@ -125,108 +138,202 @@ def _ord(h):
     return (np.asarray(h).astype(np.int64) & U32) ^ 0x80000000
 
 
+KCLUSTER, KTHREADS = 8, 1024  # frontier.cu's cluster of CTAs, threads a CTA
+PAD = np.uint64((1 << 64) - 1)
+
+
+def _words(h, lo, m):
+    """The (ord(key) << 32 | slot) words of the slots [lo, lo + m)."""
+    return (_ord(h[lo:lo + m]).astype(np.uint64) << np.uint64(32)) | np.arange(lo, lo + m, dtype=np.uint64)
+
+
+def block_lowest_np(words, take, rng):
+    """``frontier.cu``'s block_lowest: a radix select over the keys of the
+    64-bit words from the top byte (a histogram of the next 8 bits of the
+    words that match the prefix; the digit of the take-th lowest), each pass
+    then starting at the highest byte in which the words the last pass
+    counted differ (the bytes above join the prefix).  It stops once the
+    words that match are exactly those still wanted (every word <= prefix |
+    ~mask is taken), or once they share their key: then every lower key is
+    taken and, of that key, the first words in array (slot) order.  Returns
+    the words and n: the first n (those below the tied key) in the collect's
+    atomic order (any: shuffled here), the tied ones after them in order."""
+    words = np.asarray(words, dtype=np.uint64)
+    lim, tie, tie_take = PAD, None, 0
+    if take < len(words):
+        prefix = mask = np.uint64(0)
+        k, shift = take, 56
+        for _ in range(4):
+            match = words[(words & mask) == prefix]
+            hist = np.bincount(((match >> np.uint64(shift)) & np.uint64(255)).astype(np.int64), minlength=256)
+            run, d = 0, 0
+            while run + hist[d] < k:
+                run += hist[d]
+                d += 1
+            prefix |= np.uint64(d) << np.uint64(shift)
+            mask |= np.uint64(255) << np.uint64(shift)
+            k -= run
+            if hist[d] == k:
+                lim = prefix | ~mask
+                break
+            if shift == 56 and d == (EMPTY ^ 0x80000000) >> 24:  # no key above EMPTY
+                tie, tie_take = np.uint64(EMPTY ^ 0x80000000), k
+                lim = (tie << np.uint64(32)) - np.uint64(1)
+                break
+            w_and, w_or = np.bitwise_and.reduce(match), np.bitwise_or.reduce(match)
+            lower = (1 << shift) - 1
+            diff = int(w_and ^ w_or) & lower
+            nxt = (diff.bit_length() - 1) & ~7
+            same = np.uint64(lower & ~((1 << (nxt + 8)) - 1))
+            prefix |= w_and & same
+            mask |= same
+            if nxt < 32:
+                tie, tie_take = prefix >> np.uint64(32), k
+                lim = (tie << np.uint64(32)) - np.uint64(1)
+                break
+            shift = nxt
+        assert tie is not None or lim != PAD
+    below = words[words <= lim]
+    tied = words[np.flatnonzero((words >> np.uint64(32)) == tie)[:tie_take]] if tie is not None else words[:0]
+    assert len(below) + len(tied) == take
+    return np.concatenate([below[rng.permutation(len(below))], tied]), len(below)
+
+
+def _rank_by_count_np(words):
+    """Each word's place among ``words``: the count of those below it, taken
+    as the kernel takes it (parts threads a word, each counting a span)."""
+    n = len(words)
+    parts = 1 if n >= KTHREADS else KTHREADS // n
+    span = -(-n // parts)
+    rank = np.zeros(n, np.int64)
+    for q in range(parts):
+        part = words[q * span:(q + 1) * span]
+        rank += np.array([int((part < w).sum()) for w in words], np.int64)
+    return rank
+
+
+def _lift_below_np(region, words):
+    """For each of ``words``, the words below it in a sorted region, by
+    binary lifting from the highest power of two not above its length."""
+    top = 1
+    while 2 * top <= len(region):
+        top *= 2
+    pos, bit = np.zeros(len(words), np.int64), top
+    while bit:
+        t = pos + bit
+        pos = np.where((t <= len(region)) & (region[np.minimum(t, len(region)) - 1] < words), t, pos)
+        bit >>= 1
+    return pos
+
+
 def select_kernel_np(h, states, fhist, B, solved=None, hist_cursor=None, hist_limit=0):
-    """``frontier.cu``'s select kernel, one CTA of 32 warps: the gate, a
-    radix select of 4 passes of 8 bits, the collect (keys below T in any
-    order, the first k equal to T by warp ranges in slot order), a bitonic
-    sort.  Returns (parents, parent_hist, sel_valid, gate, new keys)."""
+    """``frontier.cu``'s select kernel, one cluster of 8 CTAs: the gate's
+    scalars; each CTA's min(B, m) lowest words of its tile (T = ceil(F / 8)
+    slots), those below a tied key placed by counting the words below each
+    and the tied ones in their order after them, into its region
+    (stride = min(B, T) words, padded with all-ones words); the gate from
+    the regions' first words, and each candidate's row as the words below
+    it in the 8 regions (binary lifting).  Returns (parents, parent_hist,
+    sel_valid, gate, new keys)."""
     F = h.shape[0]
-    u = _ord(h)
     h = h.copy()
-    gate = solved is None or (not solved and int(u.min() ^ 0x80000000) < EMPTY and hist_cursor < hist_limit)
-    if not gate:
+    if solved is not None and (solved or hist_cursor >= hist_limit):
         return None, None, np.zeros(B, bool), False, h
-    prefix = pmask = 0
-    k = B
-    for shift in (24, 16, 8, 0):
-        hist = np.bincount((u[(u & pmask) == prefix] >> shift) & 255, minlength=256)
-        run = 0
-        for d in range(256):
-            if run + hist[d] >= k:
-                break
-            run += hist[d]
-        prefix |= d << shift
-        pmask |= 255 << shift
-        k -= run
-    n_less = B - k
-    P = 1 << (B - 1).bit_length()
-    sel = np.full(P, (1 << 64) - 1, dtype=object)
-    less = np.flatnonzero(u < prefix)
-    order = np.random.default_rng(0).permutation(len(less))  # atomicAdd order: any
-    for r, i in enumerate(less[order]):
-        sel[r] = int(u[i]) << 32 | int(i)
-    chunk = -(-F // 32)
-    counts = [int((u[w * chunk:(w + 1) * chunk] == prefix).sum()) for w in range(32)]
-    for w in range(32):
-        rank = sum(counts[:w])
-        for i in range(w * chunk, min(F, (w + 1) * chunk)):
-            if rank >= k:
-                break
-            if u[i] == prefix:
-                sel[n_less + rank] = int(prefix) << 32 | i
-                rank += 1
-    size = 2
-    while size <= P:  # the bitonic network
-        j = size >> 1
-        while j > 0:
-            for i in range(P):
-                ixj = i ^ j
-                if ixj > i and (sel[i] > sel[ixj]) == ((i & size) == 0):
-                    sel[i], sel[ixj] = sel[ixj], sel[i]
-            j >>= 1
-        size <<= 1
-    slots = np.array([int(e) & U32 for e in sel[:B]])
-    keys = np.array([(int(e) >> 32) ^ 0x80000000 for e in sel[:B]])
-    valid = keys < EMPTY
-    h[slots[valid]] = EMPTY
-    return states[slots], fhist[slots], valid, True, h
+    rng = np.random.default_rng(0)
+    T = -(-F // KCLUSTER)
+    stride = min(B, T)
+    regions = np.full((KCLUSTER, stride), PAD, dtype=np.uint64)
+    for c in range(KCLUSTER):
+        lo = min(c * T, F)
+        m = min(T, F - lo)
+        low, n = block_lowest_np(_words(h, lo, m), min(B, m), rng)
+        if len(low):
+            rank = np.arange(len(low))
+            if n:
+                rank[:n] = _rank_by_count_np(low[:n])
+            assert sorted(rank.tolist()) == list(range(len(low)))
+            regions[c, rank] = low
+    first = regions[:, 0].min()
+    if solved is not None and not (int(first >> np.uint64(32)) ^ 0x80000000) < EMPTY:
+        return None, None, np.zeros(B, bool), False, h
+    cand = regions.reshape(-1)
+    cand = cand[cand != PAD]
+    row = sum(_lift_below_np(regions[q], cand) for q in range(KCLUSTER))
+    picked = row < B
+    assert sorted(row[picked].tolist()) == list(range(B))
+    slot_at = np.empty(B, np.int64)
+    valid = np.empty(B, bool)
+    slot_at[row[picked]] = (cand[picked] & np.uint64(U32)).astype(np.int64)
+    valid[row[picked]] = ((cand[picked] >> np.uint64(32)).astype(np.int64) ^ 0x80000000) < EMPTY
+    h[slot_at[valid]] = EMPTY
+    return states[slot_at], fhist[slot_at], valid, True, h
 
 
-def _first_slot(key):
+def _first_slot(key, bits=BITS):
     lo, hi = key & U32, (key >> 32) & U32
-    return (lo ^ ((hi * 0x9E3779B1) & U32)) & ((1 << BITS) - 1)
+    return (lo ^ ((hi * 0x9E3779B1) & U32)) & ((1 << bits) - 1)
 
 
-def compact_kernel_np(h, states, fhist, fkey, cursor, table, nb, gate=True):
-    """``frontier.cu``'s compact kernel: need, an LSD radix sort of the
-    (key, slot) words by key (4 passes of 8 bits; warp w owns positions
-    [w * chunk, (w + 1) * chunk) and writes each digit's elements in their
-    order after the lower warps' and digits'), the permutation from copies,
-    the drops with their delete probes, the cursor.  Returns the new arrays,
-    the cursor and the evicted count (None, None when it does not run)."""
+def compact_kernel_np(h, states, fhist, fkey, cursor, table, nb, gate=True, bits=BITS):
+    """``frontier.cu``'s compact kernel, one cluster of 8 CTAs: need; an LSD
+    radix sort of the (key, slot) words by key, 4 passes of 8 bits, where CTA
+    c owns the positions [c * T, c * T + T), warp w of a CTA the contiguous
+    range [w * chunk, (w + 1) * chunk) of its tile, ranked in order; a word
+    goes after its digit's words in the lower warps of its tile, and the
+    tile's group of a digit after every lower digit's words and after the
+    lower tiles' words of that digit; a pass whose digit is one for every
+    word skipped;
+    the permutation from copies, the drops with their delete probes, the
+    cursor.  Returns the new arrays, the cursor and the evicted count (None,
+    None when it does not run)."""
     F = h.shape[0]
     keep = F - max(nb, F // 4)
     if not (gate and cursor + nb > F):
         return None, None
-    words = [int(_ord(h[i])) << 32 | i for i in range(F)]
-    chunk = -(-F // 32)
+    T = -(-F // KCLUSTER)
+    tiles = [(min(c * T, F), min(T, F - min(c * T, F))) for c in range(KCLUSTER)]
+    arr = _words(h, 0, F)
     for p in range(4):
-        shift = 32 + 8 * p
-        digit = [(e >> shift) & 255 for e in words]
-        count = np.zeros((256, 32), np.int64)
-        for i, d in enumerate(digit):
-            count[d, i // chunk] += 1
-        off = (np.cumsum(count.reshape(-1)) - count.reshape(-1)).reshape(256, 32)
-        out = [None] * F
-        for i, e in enumerate(words):
-            d, w = digit[i], i // chunk
-            out[off[d, w]] = e
-            off[d, w] += 1
-        words = out
-    slots = np.array([e & U32 for e in words])
-    keys = np.array([(e >> 32) ^ 0x80000000 for e in words]).astype(np.int32)
+        shift = np.uint64(32 + 8 * p)
+        digit = ((arr >> shift) & np.uint64(255)).astype(np.int64)
+        tot, start = np.zeros((KCLUSTER, 256), np.int64), []
+        for c, (lo, m) in enumerate(tiles):
+            chunk = -(-m // 32)
+            count = np.zeros((256, 32), np.int64)
+            for w in range(32):
+                wlo = min(w * chunk, m)
+                count[:, w] = np.bincount(digit[lo + wlo:lo + min(wlo + chunk, m)], minlength=256)
+            start.append(np.cumsum(count, 1) - count)  # a digit's words in the lower warps
+            tot[c] = count.sum(1)
+        every = tot.sum(0)
+        if (every == F).any():
+            continue
+        first = np.cumsum(every) - every
+        out = np.empty_like(arr)
+        for c, (lo, m) in enumerate(tiles):
+            delta = first + tot[:c].sum(0)  # where the tile's words of a digit start
+            chunk = -(-m // 32)
+            for w in range(32):
+                wlo = min(w * chunk, m)
+                for i in range(lo + wlo, lo + min(wlo + chunk, m)):
+                    d = digit[i]
+                    out[start[c][d, w] + delta[d]] = arr[i]
+                    start[c][d, w] += 1
+        arr = out
+    slots = (arr & np.uint64(U32)).astype(np.int64)
+    keys = ((arr >> np.uint64(32)).astype(np.int64) ^ 0x80000000).astype(np.int32)
     n_live = int((keys < EMPTY).sum())
     drop = (keys < EMPTY) & (np.arange(F) >= keep)
     new_key = fkey[slots]
     table = table.copy()
     for p in np.flatnonzero(drop):
         key = int(new_key[p])
-        slot = _first_slot(key & ((1 << 64) - 1))
+        slot = _first_slot(key & ((1 << 64) - 1), bits)
         for _ in range(8):
             if table[slot] == key:
                 table[slot] = -1
                 break
-            slot = (slot + 1) & ((1 << BITS) - 1)
+            slot = (slot + 1) & ((1 << bits) - 1)
     arrays = dict(h=np.where(drop, EMPTY, keys).astype(np.int32), states=states[slots], hist=fhist[slots],
                   key=new_key, table=table)
     return arrays, (min(n_live, keep), int(drop.sum()))
@@ -323,6 +430,86 @@ def test_gated_select(case):
         assert np.array_equal(valid.numpy(), want[2]) and np.array_equal(parents.numpy(), want[0])
     else:
         assert not valid.any() and np.array_equal(ts.frontier_h.numpy(), fr["h"])
+
+
+# (F, B): F = B; F a multiple of the cluster and not; tiles shorter than B
+# (F < 8B) and longer than a CTA's 1,024 threads (F > 8,192).
+TILE_CASES = [(8, 8), (17, 5), (100, 16), (256, 256), (257, 16), (1000, 64), (1031, 256), (4099, 300),
+              (10001, 256)]
+TILE_KINDS = ["distinct", "tied", "sparse", "empty", "full", "one", "straddle"]
+
+
+def _plain_state(fr, bits):
+    """A port state of the frontier ``fr``, its live fingerprints in a
+    visited set of 2^bits slots (the plain versions' inputs)."""
+    from pushworld_tpu_torch.ops import hashset as th
+
+    t = torch.as_tensor
+    i32 = lambda v: torch.tensor(int(v), dtype=torch.int32)  # noqa: E731
+    vis = th.init_hashset(bits, device="cpu")
+    key = _packed(fr["lo"], fr["hi"])
+    th.probe_and_insert_reference(vis, key, t(fr["h"] < EMPTY))
+    return tb.SearchState(
+        frontier_states=t(fr["states"]).clone(), frontier_h=t(fr["h"]).clone(), frontier_hist=t(fr["hist"]).clone(),
+        frontier_key=key, ring_cursor=i32(fr["cursor"]), hist_parent=None, hist_action=None, hist_cursor=i32(0),
+        visited=vis, novelty=None, solved=torch.tensor(False), solved_hist=i32(0), iterations=i32(0),
+        expansions=i32(0), evictions=i32(0), needs_deeper=i32(0))
+
+
+@pytest.mark.parametrize("kind", TILE_KINDS)
+@pytest.mark.parametrize("F,b", TILE_CASES)
+def test_select_kernel_algorithm_at_tile_boundaries(F, b, kind):
+    """The select kernel's cluster algorithm (tiles of ceil(F / 8) slots,
+    per-tile candidates sorted into regions, rows by binary lifting) against JAX's exact
+    top-k in (key, slot) order and the plain version: the same rows, freed
+    keys and gate, wherever tiles split ties, at ragged tiles and F = B."""
+    fr = _frontier(kind, F + b, F=F, B=b)
+    idx = np.asarray(jnp.argsort(jnp.asarray(fr["h"]), stable=True))[:b]
+    want_valid = fr["h"][idx] < EMPTY
+    want_h = fr["h"].copy()
+    want_h[idx[want_valid]] = EMPTY
+    kp, khist, kvalid, gate, kh = select_kernel_np(fr["h"], fr["states"], fr["hist"], b)
+    assert gate and np.array_equal(kvalid, want_valid) and np.array_equal(kh, want_h), (F, b, kind)
+    assert np.array_equal(kp, fr["states"][idx]) and np.array_equal(khist, fr["hist"][idx]), (F, b, kind)
+    ts = _plain_state(fr, BITS)
+    got = tb.select_frontier_reference(ts, b)
+    assert np.array_equal(got[0].numpy(), kp) and np.array_equal(got[2].numpy(), kvalid), (F, b, kind)
+    assert np.array_equal(ts.frontier_h.numpy(), kh), (F, b, kind)
+    # Gated: open unless every key is EMPTY.
+    _, _, gvalid, ggate, gh = select_kernel_np(fr["h"], fr["states"], fr["hist"], b, False, 0, 1)
+    assert ggate == bool((fr["h"] < EMPTY).any()), (F, b, kind)
+    assert np.array_equal(gh, kh if ggate else fr["h"]) and np.array_equal(gvalid, kvalid & ggate), (F, b, kind)
+
+
+@pytest.mark.parametrize("kind", TILE_KINDS)
+@pytest.mark.parametrize("F", [9, 100, 257, 1031, 4099, 10001])
+def test_compact_kernel_algorithm_at_tile_boundaries(F, kind):
+    """The compaction kernel's cluster sort (tiles of ceil(F / 8) slots,
+    per-warp stable ranks, (digit, tile) offsets, skipped passes) and its
+    drops against JAX's stable argsort of the keys and the plain version,
+    with a cursor that forces it."""
+    nb = max(1, F // 8)
+    fr = _frontier(kind, F + 3, F=F, cursor=F - nb + 1, B=16)
+    bits = max(BITS, F.bit_length() + 1)
+    ts = _plain_state(fr, bits)
+    table = ts.visited.keys.numpy().copy()
+    arrays, (ring, n_evicted) = compact_kernel_np(fr["h"], fr["states"], fr["hist"], ts.frontier_key.numpy(),
+                                                  int(fr["cursor"]), table, nb, bits=bits)
+    order = np.asarray(jnp.argsort(jnp.asarray(fr["h"]), stable=True))
+    keep = F - max(nb, F // 4)
+    live = fr["h"][order] < EMPTY
+    assert np.array_equal(arrays["h"], np.where(live & (np.arange(F) >= keep), EMPTY, fr["h"][order])), (F, kind)
+    assert np.array_equal(arrays["states"], fr["states"][order]) and np.array_equal(arrays["hist"],
+                                                                                     fr["hist"][order]), (F, kind)
+    before = int(ts.evictions)
+    tb.compact_frontier_reference(ts, nb)
+    for mine, theirs in (("h", "frontier_h"), ("states", "frontier_states"), ("hist", "frontier_hist"),
+                         ("key", "frontier_key")):
+        assert np.array_equal(arrays[mine], getattr(ts, theirs).numpy()), (F, kind, mine)
+    assert np.array_equal(arrays["table"], ts.visited.keys.numpy()), (F, kind)
+    assert ring == int(ts.ring_cursor) and n_evicted == int(ts.evictions) - before, (F, kind)
+    if kind == "full":
+        assert n_evicted > 0
 
 
 # ------------------------------------------------- compaction and append
