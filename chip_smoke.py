@@ -6,7 +6,8 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 Phases, each printing one JSON line:
 
 1. ``build``: compiles every CUDA kernel of the port with nvcc (sm_90a), in
-   parallel, and beside them the empty kernel that measures a launch.
+   parallel, and beside them the empty kernel that measures a launch;
+   prints nvcc's and the driver's versions.
 2. ``wavefront``: on a 47 x 54 puzzle written from ``--seed`` (border walls,
    agent, one goal object, two obstacles), runs each object's all-pairs
    fields (one field per graph vertex, one shared mask stack) and the goal
@@ -42,7 +43,8 @@ Phases, each printing one JSON line:
    search with the least frontier (2,048 slots) caught at a compaction that
    evicts; a closed gate (a solved search), where ``_iterate`` must leave
    the state bit-unchanged (its device time and kernels per iteration are
-   printed).  Each kernel is timed beside its plain version, its bound and,
+   printed; the expansion's and the append's closed-gate device time
+   too).  Each kernel is timed beside its plain version, its bound and,
    for the select and the compaction, the one PyTorch call that computes
    the same function (``torch.topk``, a stable ``torch.sort``): its event
    time (``library_ms``, the host's enqueue included) and its kernels'
@@ -1224,6 +1226,7 @@ def phase_iteration_kernels(generated, dev, floor):
     nb = 4 * B
     h0 = s.frontier_h.clone()
     sel_k, sel_r = _clone_state(s), _clone_state(s)
+    shut = torch.zeros((), dtype=torch.bool, device=dev)  # a closed gate
 
     def reset_select(x):
         return lambda: x.frontier_h.copy_(h0)
@@ -1246,6 +1249,9 @@ def phase_iteration_kernels(generated, dev, floor):
             "expand_kernel", calls=20),
         plain_ms=cuda_time_ms(lambda: step.expand_and_test_reference(cp, t.contacts, t.contacts_mask, parents,
                                                                      sel_valid), reps=5),
+        closed_gate_device_ms=kernel_device_ms(profile_device(
+            lambda: step.expand_and_test(cp, t.contacts, t.contacts_mask, parents, sel_valid, shut), reps=20),
+            "expand_kernel", calls=20),
         library_ms=None,
         library_device_ms=None,
         **bound(B * (8 * N + 1) + 4 * N * N * t.cmax * 5 + nb * N + 4 * N * 10 + nb * (9 * N + 2)))
@@ -1287,6 +1293,8 @@ def phase_iteration_kernels(generated, dev, floor):
             lambda: (reset_append(app_k)(), batched.append_children(app_k, cfg, **args)), reps=20),
             "append_kernel", calls=20),
         plain_ms=_reset_timed(lambda: batched.append_children_reference(app_r, cfg, **args), reset_append(app_r), 5),
+        closed_gate_device_ms=kernel_device_ms(profile_device(
+            lambda: batched.append_children(app_k, cfg, **dict(args, gate=shut)), reps=20), "append_kernel", calls=20),
         library_ms=None,
         library_device_ms=None,
         **bound(nb * (1 + 1 + 4 + 4 + 1 + 8 * N + 8) + B * 5 + 8 * n_new + nb * (4 + 8 * N + 4 + 8 + 4) + 32))
@@ -2683,7 +2691,13 @@ def main() -> int:
     libs = _build.build(verbose=True)
     nvcc_s = time.monotonic() - t
     native_build.join()
+    nvcc = [ln for ln in subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True, timeout=60,
+                                        check=True).stdout.splitlines() if "release" in ln]
+    driver = subprocess.run(["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+                            capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     emit({"phase": "build", "seconds": time.monotonic() - t, "nvcc_seconds": nvcc_s,
+          "nvcc_version": nvcc[-1], "driver_version": driver, "torch": torch.__version__,
+          "torch_cuda": torch.version.cuda,
           "libraries": {k: os.path.relpath(v, ROOT) for k, v in libs.items()}})
 
     generated = Puzzle.from_text(generated_puzzle_text(args.seed))
@@ -2719,10 +2733,10 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_by_phase"] = {ph: c.get(k["name"], 0) for ph, c in by_phase.items()}
-    emit({"kernels": [{key: k[key] for key in (
+    emit({"kernels": [{key: k.get(key) for key in (
         "name", "route", "source", "replaces", "launches", "launches_by_phase", "max_abs_err",
         "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes_bound_ms", "library_ms",
-        "library_device_ms")}
+        "library_device_ms", "closed_gate_device_ms")}
         for k in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

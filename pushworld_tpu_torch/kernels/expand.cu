@@ -28,15 +28,34 @@
 // Lanes are in action-block order: lane = a * B + b.
 //
 // Bound.  A lane reads its parent (8N bytes), the contact lists of one
-// action (shared by the block, so mostly L1 hits) and N static-block bytes,
-// and writes 9N + 2 bytes: ~70 KB for the search's 1,024 lanes at N = 4.
-// The launch is the bound.
+// action (shared by the CTA) and N static-block bytes, and writes 9N + 2
+// bytes: ~53 KB for the search's 1,024 lanes at N = 4, under 0.02 us of
+// memory time.  The launch and the chain of dependent memory round trips
+// are the bound.
 //
-// Design.  One thread a lane (no lane waits on another).  The push relation
-// is N 32-bit masks in shared memory (push[i] = the objects i pushes, one
-// column a thread, so no bank conflicts); the closure is a worklist over
-// set bits: reached |= push[i] & ~reached for every newly reached i, at most
-// N rounds of one AND each instead of log2 N float matmuls.  N <= 32.
+// Design (PR 11; PR 9's kernel ran one thread a lane, 8 CTAs for 1,024
+// lanes, each thread walking N * N * C contact entries in device memory with
+// an early exit per pair: 5.6 of its 8.7 us).  One thread per (lane, object
+// i): a group of P threads a lane (P the power of two >= N, so a group lies
+// in one warp), kThreads / P lanes a CTA: 32 CTAs of 128 threads at N = 4
+// and 1,024 lanes.  The gate is read alone first, so a closed gate costs
+// one load.  Then every load that does not depend on another: the thread's
+// parent cell, sel_valid, the object's goal and mask, and the contact lists
+// of the CTA's actions, which the CTA stages in shared memory as one 32-bit
+// word (rx, ry) per entry, masked entries set to kNoOffset, a word no
+// offset between two cells can equal; then the static-block byte of the
+// thread's object at its cell (the only load that waits on another), one
+// barrier, and the push mask of object i by comparing the word of each pair
+// (i, j) with every contact word: N * C compares, no early exit.  The
+// group's N masks go through shared memory; each thread runs the closure
+// (a worklist over set bits: reached |= push[k] & ~reached for every newly
+// reached k, at most N rounds); the blocked, live and off-goal bits of the
+// group's objects are one ballot each.  Thread i writes its object's child
+// cell and moved byte (a warp's stores are contiguous), thread 0 of the
+// group the lane's flags.  Contact lists above kStageWords words (a CTA's
+// actions span at most 2 * N * N * C words when B >= 31: 96 at N = 4 and
+// C = 3) stay in device memory and are read through the same code (the L1
+// keeps them).  N <= 32.
 //
 // Gate.  With a gate flag that is 0 (the search iteration is a no-op),
 // every lane writes effective = goal = 0 and returns; children and moved
@@ -48,95 +67,148 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Phase marks for scripts/profile_kernel_phases.py (no-ops here).
+#ifndef PW_STOP
+#define PW_STOP(k, v)
+#endif
+
 namespace {
 
 constexpr int kMaxObjects = 32;
 constexpr int kThreads = 128;
+constexpr int kStageWords = 2048;  // the contact words a CTA stages in shared memory, at most
+constexpr uint32_t kNoOffset = 0x80008000u;  // (-32768, -32768): no two cells are that far apart
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 struct Expand {
-  const int* parents;          // (B, n, 2) int32 (x, y)
-  const int16_t* contacts;     // (4, n, n, C, 2) rel offsets (rx, ry) = pos_i - pos_j
-  const uint8_t* cmask;        // (4, n, n, C)
-  const uint8_t* static_block; // (4, n, H, W)
-  const uint8_t* obj_mask;     // (n,)
-  const int* goal_pos;         // (n, 2)
-  const uint8_t* goal_mask;    // (n,)
-  const uint8_t* sel_valid;    // (B,) or null: every parent valid
-  const uint8_t* gate;         // scalar or null: open
-  int* children;               // (4B, n, 2)
-  uint8_t* moved;              // (4B, n)
-  uint8_t* effective;          // (4B,)
-  uint8_t* goal;               // (4B,)
+  const int2* parents;          // (B, n) cells (x, y)
+  const uint32_t* contacts;     // (4, n, n, C) rel offsets, int16 (rx, ry) = pos_i - pos_j as one word
+  const uint8_t* cmask;         // (4, n, n, C)
+  const uint8_t* static_block;  // (4, n, H, W)
+  const uint8_t* obj_mask;      // (n,)
+  const int2* goal_pos;         // (n,)
+  const uint8_t* goal_mask;     // (n,)
+  const uint8_t* sel_valid;     // (B,) or null: every parent valid
+  const uint8_t* gate;          // scalar or null: open
+  int2* children;               // (4B, n)
+  uint8_t* moved;               // (4B, n)
+  uint8_t* effective;           // (4B,)
+  uint8_t* goal;                // (4B,)
   int B, n, C, H, W;
+  int shift;                    // log2 P: P threads a lane
 };
 
+// The (rx, ry) word of an offset, as the int16 pair of a contact entry.
+__device__ __forceinline__ uint32_t offset_word(int rx, int ry) {
+  return static_cast<uint32_t>(static_cast<uint16_t>(rx)) | static_cast<uint32_t>(static_cast<uint16_t>(ry)) << 16;
+}
+
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads) expand_kernel(Expand e) {
-  __shared__ unsigned push[kMaxObjects][kThreads];
-  const int t = threadIdx.x;
-  const int lane = blockIdx.x * kThreads + t;
-  if (lane >= 4 * e.B) return;
+  __shared__ uint32_t staged[kStageWords];  // the CTA's actions' contact words, when kStaged
+  __shared__ int2 cell[kThreads];
+  __shared__ unsigned push[kThreads];
+  const int t = threadIdx.x, lanes = kThreads >> e.shift, lane0 = blockIdx.x * lanes, nb = 4 * e.B;
+  // The gate alone first: a closed one writes the CTA's flags (one warp,
+  // contiguous bytes) and returns before any other load or index math.
   if (e.gate != nullptr && !*e.gate) {
-    e.effective[lane] = 0;
-    e.goal[lane] = 0;
+    if (t < lanes && lane0 + t < nb) {
+      e.effective[lane0 + t] = 0;
+      e.goal[lane0 + t] = 0;
+    }
     return;
   }
-  const int a = lane / e.B, b = lane % e.B, n = e.n;
-  const int* pos = e.parents + static_cast<size_t>(b) * n * 2;
+  const int P = 1 << e.shift, i = t & (P - 1), n = e.n;
+  const int lane = lane0 + (t >> e.shift);
+  const bool real = lane < nb, mine = real && i < n;
+  const int a = real ? lane / e.B : 3, b = lane - a * e.B;
+  const int a0 = lane0 / e.B;
+  const int per_action = n * n * e.C;
 
-  for (int i = 0; i < n; ++i) {
-    const int xi = pos[2 * i], yi = pos[2 * i + 1];
-    unsigned mask = 0u;
-    for (int j = 0; j < n; ++j) {
-      const int rx = xi - pos[2 * j], ry = yi - pos[2 * j + 1];
-      const size_t pair = (static_cast<size_t>(a) * n + i) * n + j;
-      const int16_t* c = e.contacts + pair * e.C * 2;
-      const uint8_t* cm = e.cmask + pair * e.C;
-      for (int k = 0; k < e.C; ++k) {
-        if (cm[k] && c[2 * k] == rx && c[2 * k + 1] == ry) {
-          mask |= 1u << j;
-          break;
-        }
-      }
-    }
-    push[i][t] = mask;
+  // Then every load that waits on nothing: the thread's parent cell (8
+  // bytes, neighbouring threads on neighbouring cells), sel_valid, the
+  // object's masks and goal, the CTA's contact words; then the static-block
+  // byte at the cell (the one load that waits on another).
+  const int2 pos = mine ? e.parents[static_cast<size_t>(b) * n + i] : make_int2(0, 0);
+  const bool sel = real && (e.sel_valid == nullptr || e.sel_valid[b]);
+  const bool live = mine && e.obj_mask[i];
+  const bool has_goal = mine && e.goal_mask[i];
+  const int2 target = mine ? e.goal_pos[i] : make_int2(0, 0);
+  const int words = kStaged ? ((min(lane0 + lanes, nb) - 1) / e.B - a0 + 1) * per_action : 0;
+  const size_t base = static_cast<size_t>(a0) * per_action;
+  uint32_t w0 = kNoOffset;
+  bool on0 = false;
+  if (t < words) {  // both loads at once, then the select
+    w0 = e.contacts[base + t];
+    on0 = e.cmask[base + t];
   }
+  const size_t plane = static_cast<size_t>(e.H) * e.W;
+  const bool blocked =
+      mine && e.static_block[(static_cast<size_t>(a) * n + i) * plane + static_cast<size_t>(pos.y) * e.W + pos.x];
+  cell[t] = pos;
+  if (t < words) staged[t] = on0 ? w0 : kNoOffset;
+  for (int k = t + kThreads; k < words; k += kThreads) {
+    const uint32_t w = e.contacts[base + k];
+    const bool on = e.cmask[base + k];
+    staged[k] = on ? w : kNoOffset;
+  }
+  __syncthreads();
+  PW_STOP(1, cell[t ^ 1].x + static_cast<int>(blocked));  // phase: loads, staging, barrier
+
+  // push[i]: the objects j that some contact of (a, i, j) pushes.
+  const int g0 = t & ~(P - 1);  // the group's first thread
+  unsigned mask = 0u;
+  if (mine) {
+    const uint32_t* row = kStaged ? staged + static_cast<size_t>((a - a0) * n + i) * n * e.C
+                                  : e.contacts + (static_cast<size_t>(a) * n + i) * n * e.C;
+    const uint8_t* mrow = e.cmask + (static_cast<size_t>(a) * n + i) * n * e.C;
+    for (int j = 0; j < n; ++j) {
+      const int2 q = cell[g0 + j];
+      const uint32_t rel = offset_word(pos.x - q.x, pos.y - q.y);
+      bool hit = false;
+      for (int c = 0; c < e.C; ++c) {
+        const uint32_t w = row[j * e.C + c];
+        hit |= w == rel && (kStaged || mrow[j * e.C + c]);
+      }
+      mask |= static_cast<unsigned>(hit) << j;
+    }
+  }
+  push[t] = mask;
+  __syncwarp();
+  PW_STOP(2, static_cast<int>(push[t ^ 1]));  // phase: push relation
 
   // The closure from the agent: a worklist of reached objects not yet expanded.
   unsigned reached = 1u, todo = 1u;
   while (todo) {
-    const int i = __ffs(todo) - 1;
+    const int k = __ffs(todo) - 1;
     todo &= todo - 1u;
-    const unsigned fresh = push[i][t] & ~reached;
+    const unsigned fresh = push[g0 + k] & ~reached;
     reached |= fresh;
     todo |= fresh;
   }
+  PW_STOP(3, static_cast<int>(reached));  // phase: closure
 
-  const size_t plane = static_cast<size_t>(e.H) * e.W;
-  const uint8_t* sb = e.static_block + static_cast<size_t>(a) * n * plane;
-  bool nothing = false;
-  unsigned live = 0u;
-  for (int i = 0; i < n; ++i) {
-    if (e.obj_mask[i]) live |= 1u << i;
-    if ((reached >> i) & 1u) {
-      const size_t cell = static_cast<size_t>(pos[2 * i + 1]) * e.W + pos[2 * i];
-      if (sb[i * plane + cell]) nothing = true;
-    }
-  }
-  const unsigned moved = nothing ? 0u : (reached & live);
+  // The group's bits, object k at bit k (a group starts at a multiple of P).
+  const int gl = g0 & 31;
+  const unsigned group = P == 32 ? kFull : ((1u << P) - 1u);
+  const unsigned blocked_bits = (__ballot_sync(kFull, blocked) >> gl) & group;
+  const unsigned live_bits = (__ballot_sync(kFull, live) >> gl) & group;
+  const unsigned moved = (blocked_bits & reached) ? 0u : (reached & live_bits);
+  const int m = (moved >> i) & 1u;
   const int dx = a == 0 ? -1 : (a == 1 ? 1 : 0);
   const int dy = a == 2 ? -1 : (a == 3 ? 1 : 0);
-  int* child = e.children + static_cast<size_t>(lane) * n * 2;
-  bool at_goal = true;
-  for (int i = 0; i < n; ++i) {
-    const int m = (moved >> i) & 1u;
-    const int x = pos[2 * i] + dx * m, y = pos[2 * i + 1] + dy * m;
-    child[2 * i] = x;
-    child[2 * i + 1] = y;
-    e.moved[static_cast<size_t>(lane) * n + i] = static_cast<uint8_t>(m);
-    if (e.goal_mask[i] && (x != e.goal_pos[2 * i] || y != e.goal_pos[2 * i + 1])) at_goal = false;
+  const int2 child = make_int2(pos.x + dx * m, pos.y + dy * m);
+  const bool off_goal = has_goal && (child.x != target.x || child.y != target.y);
+  const unsigned off_bits = (__ballot_sync(kFull, off_goal) >> gl) & group;
+  if (mine) {
+    const size_t at = static_cast<size_t>(lane) * n + i;
+    e.children[at] = child;
+    e.moved[at] = static_cast<uint8_t>(m);
   }
-  e.effective[lane] = moved != 0u && (e.sel_valid == nullptr || e.sel_valid[b]);
-  e.goal[lane] = at_goal;
+  if (real && i == 0) {
+    e.effective[lane] = moved != 0u && sel;
+    e.goal[lane] = off_bits == 0u;
+  }
 }
 
 }  // namespace
@@ -146,6 +218,7 @@ extern "C" int pw_expand_max_objects() { return kMaxObjects; }
 
 // Writes children (4B, n, 2) int32, moved (4B, n) bool, effective and goal
 // (4B,) bool from parents (B, n, 2).  sel_valid and gate may be null.
+// parents, goal_pos and children are 8-byte aligned, contacts 4-byte.
 extern "C" int pw_expand(const void* parents, const void* contacts, const void* contacts_mask,
                          const void* static_block, const void* obj_mask, const void* goal_pos,
                          const void* goal_mask, const void* sel_valid, const void* gate, void* children,
@@ -154,13 +227,25 @@ extern "C" int pw_expand(const void* parents, const void* contacts, const void* 
   if (B < 0 || n < 1 || n > kMaxObjects || C < 1 || H < 1 || W < 1 || B > (1 << 28))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  Expand e{static_cast<const int*>(parents),       static_cast<const int16_t*>(contacts),
+  int shift = 0;
+  while ((1 << shift) < n) ++shift;
+  const int lanes = kThreads >> shift;
+  // Consecutive lanes of one CTA touch at most this many action blocks.
+  const int blocks = (lanes - 1 + B - 1) / B + 1;
+  const int span = blocks < 4 ? blocks : 4;
+  const bool staged = static_cast<long long>(span) * n * n * C <= kStageWords;
+  Expand e{static_cast<const int2*>(parents),      static_cast<const uint32_t*>(contacts),
            static_cast<const uint8_t*>(contacts_mask), static_cast<const uint8_t*>(static_block),
-           static_cast<const uint8_t*>(obj_mask),  static_cast<const int*>(goal_pos),
+           static_cast<const uint8_t*>(obj_mask),  static_cast<const int2*>(goal_pos),
            static_cast<const uint8_t*>(goal_mask), static_cast<const uint8_t*>(sel_valid),
-           static_cast<const uint8_t*>(gate),      static_cast<int*>(children),
+           static_cast<const uint8_t*>(gate),      static_cast<int2*>(children),
            static_cast<uint8_t*>(moved),           static_cast<uint8_t*>(effective),
-           static_cast<uint8_t*>(goal),            B, n, C, H, W};
-  expand_kernel<<<(4 * B + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(e);
+           static_cast<uint8_t*>(goal),            B, n, C, H, W, shift};
+  const int grid = static_cast<int>((4ll * B + lanes - 1) / lanes);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (staged)
+    expand_kernel<true><<<grid, kThreads, 0, s>>>(e);
+  else
+    expand_kernel<false><<<grid, kThreads, 0, s>>>(e);
   return static_cast<int>(cudaGetLastError());
 }

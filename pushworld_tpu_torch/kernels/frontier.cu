@@ -78,20 +78,43 @@
 // visited_set.cu probe_delete launch, gated on the flag, tombstones the
 // dropped fingerprints), cursor = min(live, keep), evictions += dropped.
 //
-// pw_frontier_append (one CTA).  With the gate open: a block-wide exclusive
-// scan of is_new over the nb lanes gives each new child its history index
-// (cursor + rank); the (parent, action) records are written, the cursor
-// advances, clamped margin short of the capacity.  The priority key of a new
-// child is novelty << 28 | clamp(rgd, 0, 8190) << 15 | (~hist_idx & 0x7FFF),
-// EMPTY for the others; keys, states, history indices and fingerprints go to
-// the window at the ring cursor, which advances by nb.  The first goal among
+// pw_frontier_append.  With the gate open: the history index of each new
+// child is cursor + its rank among the new lanes in lane order; the
+// (parent, action) records are written, the cursor advances, clamped
+// margin short of the capacity.  The priority key of a new child is
+// novelty << 28 | clamp(rgd, 0, 8190) << 15 | (~hist_idx & 0x7FFF), EMPTY
+// for the others; keys, states, history indices and fingerprints go to the
+// window at the ring cursor, which advances by nb.  The first goal among
 // the new children in lane order solves the search (solved_hist kept once
 // solved); iterations += 1, expansions += the selected parents,
 // needs_deeper += the flagged new children.  Lanes are in action-block
 // order; a parent array of length B is read at lane % B, an rgd/deeper
 // array of length B (the lazy mode's per-parent values) at lane % B, and the
 // action of a lane is lane / B unless an actions array is given (the
-// sharded search's received children).
+// sharded search's received children).  Since PR 11 a cluster of 8 CTAs
+// (PR 9's was one CTA of 1,024 threads: a block-wide scan with three
+// barriers, every load after a store that might alias it, and a serial
+// tail of dependent reads in thread 0).  CTA c owns
+// the lanes [c * per, c * per + per), per = ceil(nb / 8), one a thread (in
+// rounds above 512).  The gate is read alone first, so a closed gate costs
+// one load and writes nothing.  Then every load that does not wait on
+// another (the cursors, the counters, the lane's inputs, the first vectors
+// of the state copy), through the read-only path.  The ranks: a ballot of
+// the new lanes a warp (rank = carry + the warp's offset + popc(ballot &
+// lanes below)), of the new goals and of the deeper flags; one CTA
+// barrier; warp 0 scans the words, finds the tile's first new goal and its
+// rank, and writes the tile's sums into every CTA's shared memory
+// (distributed shared memory); the cluster barrier, split: between its
+// arrive and its wait the states (16-byte vectors where the rows allow) and
+// the fingerprints go to the window, which need no rank.  Then each warp
+// has the lower tiles' carry, the totals and the first goal from the 8
+// sums; CTA 0 writes the counters once, from values on chip (nothing is
+// read back from device memory), and every lane its history record, index,
+// key and window slot.  Every CTA reads the cursors before the barrier and
+// CTA 0 writes them after it, which is what the cluster buys: independent
+// CTAs, each counting the new lanes below it, were tried in PR 11 and
+// cannot order those reads before that write.  No device counter and no
+// cooperative launch: it captures into a CUDA graph as any launch.
 //
 // Order of effects: JAX appends the history, then compacts, then writes
 // the window.  History and compaction touch disjoint arrays, so the search
@@ -118,6 +141,11 @@
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
+
+// Phase marks for scripts/profile_kernel_phases.py (no-ops here).
+#ifndef PW_STOP
+#define PW_STOP(k, v)
+#endif
 
 namespace {
 
@@ -826,80 +854,225 @@ struct Append {
   int* needs_deeper;
   int* hist_idx;              // (nb,) out
   int nb, B, n, F, hcap, margin, use_novelty, phist_len, rgd_len, n_sel;
+  int per;                    // lanes a CTA owns: CTA c owns [c * per, min(nb, c * per + per))
+  int rounds;                 // ceil(per / blockDim.x)
 };
 
-__global__ void __launch_bounds__(kThreads) append_kernel(Append a) {
-  __shared__ int sh[33];
-  __shared__ int first_sh, deeper_sh, sel_sh;
-  if (a.gate != nullptr && !*a.gate) return;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int cursor0 = *a.hist_cursor, ring0 = *a.ring_cursor;
-  const int per = (a.nb + kThreads - 1) / kThreads;
-  const int lo = tid * per < a.nb ? tid * per : a.nb;
-  const int hi = lo + per < a.nb ? lo + per : a.nb;
-  int mine = 0;
-  for (int l = lo; l < hi; ++l) mine += a.is_new[l] != 0;
-  if (tid == 0) {
-    first_sh = INT_MAX;
-    deeper_sh = 0;
-    sel_sh = 0;
-  }
-  int n_new;
-  int rank = block_exclusive_scan(mine, &n_new, sh);  // its barriers publish the zeros above
+constexpr int kAppendThreads = 512;  // threads a CTA at most (so that 128 registers a thread are allowed)
+constexpr int kCopyIlp = 4;          // vectors of the state copy a thread loads before storing one
 
-  int n_deeper = 0;
-  for (int l = lo; l < hi; ++l) {
-    const bool fresh = a.is_new[l] != 0;
-    const int idx = fresh ? cursor0 + rank : 0;
-    rank += fresh;
-    a.hist_idx[l] = idx;
-    if (fresh && idx < a.hcap) {  // as JAX, an index past the capacity is dropped
-      a.hist_parent[idx] = a.phist[l % a.phist_len];
-      a.hist_action[idx] = a.actions != nullptr ? a.actions[l] : l / a.B;
+// One lane's inputs (read-only in the kernel: through the read-only path).
+struct LaneIn {
+  bool fresh, goal, deeper;
+  int phist, action, nov, rgd;
+  long long key;
+};
+
+__device__ __forceinline__ LaneIn load_lane(const Append& a, int l) {
+  const int at_rgd = a.rgd_len == a.nb ? l : l % a.rgd_len;  // per lane, or per parent
+  LaneIn in;
+  in.fresh = __ldg(a.is_new + l) != 0;
+  in.goal = a.goal != nullptr && __ldg(a.goal + l) != 0;
+  in.deeper = a.deeper != nullptr && __ldg(a.deeper + at_rgd) != 0;
+  in.phist = __ldg(a.phist + (a.phist_len == a.nb ? l : l % a.phist_len));
+  in.action = a.actions != nullptr ? __ldg(a.actions + l) : l / a.B;
+  in.nov = a.use_novelty ? static_cast<int>(__ldg(a.nov + l)) : 1;
+  in.rgd = static_cast<int>(fminf(fmaxf(__ldg(a.rgd + at_rgd), 0.0f), 8190.0f));
+  in.key = __ldg(a.keys + l);
+  return in;
+}
+
+// What a CTA tells the cluster, written into every CTA's shared memory.
+struct TileSums {
+  int n_new, n_deeper, n_sel;
+  int goal_lane, goal_rank;  // the tile's first new goal (INT_MAX: none) and its rank among the tile's new lanes
+};
+
+// The cluster barrier in two halves, so that work that needs no other CTA
+// runs while the barrier completes: arrive (release: this thread's earlier
+// writes, distributed shared memory included, become visible to the
+// cluster), then wait (acquire).  Every thread of every CTA calls both.
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory"); }
+
+// The append: a cluster of kCluster CTAs, CTA c owning the lanes
+// [c * per, c * per + per) in rounds of blockDim.x, lane order within a CTA
+// (round, warp, lane).  kOne: one round, whose inputs stay in registers
+// across the barriers; V: the state copy's vector (int4 where rows and
+// buffers allow, else int2).
+template <bool kOne, class V>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kAppendThreads) append_kernel(Append a) {
+  extern __shared__ unsigned words[];  // 4 arrays of rounds * warps: new bits, goal bits, deeper counts, offsets
+  __shared__ int sel_w[32];
+  __shared__ TileSums sums[kCluster];
+  const int c = blockIdx.x, K = kCluster;  // the grid is one cluster
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, T = blockDim.x, W = T >> 5;
+  const int R = kOne ? 1 : a.rounds, NW = R * W;
+  unsigned* new_w = words;
+  unsigned* goal_w = words + NW;
+  unsigned* deeper_c = words + 2 * NW;
+  unsigned* word_off = words + 3 * NW;
+  const int lo = c * a.per, hi = min(a.nb, lo + a.per);
+
+  // The gate alone first: a closed one returns before any other load.
+  if (a.gate != nullptr && !*a.gate) return;  // every CTA alike, before any barrier
+  // Then every load that does not wait on another: the cursors, the
+  // writer's counters, round 0's lane inputs, the first vectors of the
+  // state copy, sel_valid.
+  const int cursor0 = *a.hist_cursor, ring0 = *a.ring_cursor;
+  const bool writer = c == 0 && tid == 0;
+  bool solved0 = true;
+  int it0 = 0, ex0 = 0, nd0 = 0;
+  if (writer) {
+    solved0 = a.goal == nullptr || *a.solved;
+    it0 = *a.iterations;
+    ex0 = *a.expansions;
+    nd0 = a.deeper != nullptr ? *a.needs_deeper : 0;
+  }
+  const int l0 = lo + tid;
+  const LaneIn in0 = l0 < hi ? load_lane(a, l0) : LaneIn{};
+  constexpr int kVec = sizeof(V) / 4;  // ints a vector
+  const int vrow = 2 * a.n / kVec, m = hi > lo ? hi - lo : 0, nvec = m * vrow;
+  const V* src = reinterpret_cast<const V*>(a.children) + static_cast<size_t>(lo) * vrow;
+  V* dst = reinterpret_cast<V*>(a.states);
+  V buf[kCopyIlp];
+#pragma unroll
+  for (int u = 0; u < kCopyIlp; ++u)
+    if (tid + u * T < nvec) buf[u] = __ldg(src + tid + u * T);
+  int my_sel = 0;
+  for (int r = c * T + tid; r < a.n_sel; r += K * T) my_sel += __ldg(a.sel_valid + r) != 0;
+  PW_STOP(1, cursor0 + ring0 + in0.rgd + my_sel);  // phase: loads
+
+  // The tile's words: a ballot of new lanes, of new goals, and the count of
+  // new lanes flagged deeper, per (round, warp).
+  for (int r = 0; r < R; ++r) {
+    const int l = lo + r * T + tid;
+    const LaneIn in = r == 0 ? in0 : (l < hi ? load_lane(a, l) : LaneIn{});
+    const bool fresh = l < hi && in.fresh;
+    const unsigned nw = __ballot_sync(kFull, fresh);
+    const unsigned gw = __ballot_sync(kFull, fresh && in.goal);
+    const unsigned dw = __ballot_sync(kFull, fresh && in.deeper);
+    if (lane == 0) {
+      new_w[r * W + warp] = nw;
+      goal_w[r * W + warp] = gw;
+      deeper_c[r * W + warp] = __popc(dw);
     }
-    int key = kEmpty;
-    if (fresh) {
-      const int nov = a.use_novelty ? static_cast<int>(a.nov[l]) : 1;
-      const int rgd = static_cast<int>(fminf(fmaxf(a.rgd[l % a.rgd_len], 0.0f), 8190.0f));
-      key = (nov << 28) | (rgd << 15) | (~idx & 0x7FFF);
-      if (a.goal != nullptr && a.goal[l]) atomicMin(&first_sh, l);
-      if (a.deeper != nullptr && a.deeper[l % a.rgd_len]) ++n_deeper;
+  }
+  my_sel = __reduce_add_sync(kFull, my_sel);
+  if (lane == 0) sel_w[warp] = my_sel;
+  __syncthreads();
+  PW_STOP(2, static_cast<int>(new_w[warp]));  // phase: ballots, barrier
+
+  // Warp 0: the words' offsets, the tile's sums and its first new goal,
+  // then the sums into every CTA of the cluster.
+  if (warp == 0) {
+    int carry = 0, n_deeper = 0, goal_word = -1;
+    for (int base = 0; base < NW; base += 32) {
+      const int j = base + lane;
+      const int cnt = j < NW ? __popc(new_w[j]) : 0;
+      int incl = cnt;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (j < NW) word_off[j] = carry + incl - cnt;
+      n_deeper += j < NW ? static_cast<int>(deeper_c[j]) : 0;
+      const unsigned any = __ballot_sync(kFull, j < NW && goal_w[j] != 0u);
+      if (goal_word < 0 && any) goal_word = base + __ffs(any) - 1;
+      carry += __shfl_sync(kFull, incl, 31);
+    }
+    __syncwarp();
+    TileSums t;
+    t.n_new = carry;
+    t.n_deeper = __reduce_add_sync(kFull, n_deeper);
+    t.n_sel = __reduce_add_sync(kFull, lane < W ? sel_w[lane] : 0);
+    t.goal_lane = INT_MAX;
+    t.goal_rank = 0;
+    if (goal_word >= 0) {
+      const int f = __ffs(goal_w[goal_word]) - 1;
+      t.goal_rank = static_cast<int>(word_off[goal_word]) + __popc(new_w[goal_word] & lanes_below(f));
+      t.goal_lane = lo + (goal_word / W) * T + (goal_word % W) * 32 + f;
+    }
+    if (lane < K) *cg::this_cluster().map_shared_rank(&sums[c], lane) = t;
+  }
+  __syncwarp();
+  cluster_arrive();  // the sums are out; the offsets visible in the CTA after the wait
+
+  // While the barrier completes: the states and fingerprints into the
+  // window (they need no rank; 16-byte vectors where rows allow).
+  for (int base = 0; base < nvec; base += kCopyIlp * T) {
+    if (base > 0) {
+#pragma unroll
+      for (int u = 0; u < kCopyIlp; ++u)
+        if (base + tid + u * T < nvec) buf[u] = __ldg(src + base + tid + u * T);
+    }
+#pragma unroll
+    for (int u = 0; u < kCopyIlp; ++u) {
+      const int e = base + tid + u * T;
+      if (e < nvec) {
+        const int row = e / vrow, p = ring0 + lo + row;
+        if (p < a.F) dst[static_cast<size_t>(p) * vrow + (e - row * vrow)] = buf[u];
+      }
+    }
+  }
+  for (int r = 0; r < R; ++r) {
+    const int l = lo + r * T + tid, p = ring0 + l;
+    if (l < hi && p < a.F) a.fkey[p] = r == 0 ? in0.key : __ldg(a.keys + l);
+  }
+  cluster_wait();  // every CTA's sums in every CTA
+  PW_STOP(3, sums[0].n_new);  // phase: tile sums, cluster barrier, state copy
+
+  // The carry of the lower tiles, the totals and the first goal, per warp.
+  const TileSums mine = lane < K ? sums[lane] : TileSums{0, 0, 0, INT_MAX, 0};
+  int incl = mine.n_new;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += y;
+  }
+  const int carry = __shfl_sync(kFull, incl - mine.n_new, c);
+
+  // The counters first (their stores drain beside the lanes'), once, from
+  // values held on chip: warp 0 of CTA 0.
+  if (c == 0 && warp == 0) {
+    const int n_new = __shfl_sync(kFull, incl, 31);
+    const int n_deeper = __reduce_add_sync(kFull, mine.n_deeper);
+    const int n_sel = __reduce_add_sync(kFull, mine.n_sel);
+    const unsigned goals = __ballot_sync(kFull, mine.goal_lane != INT_MAX);
+    const int first = goals ? __ffs(goals) - 1 : 0;
+    const int goal_idx = cursor0 + __shfl_sync(kFull, incl - mine.n_new + mine.goal_rank, first);
+    if (writer) {
+      const int cap = a.hcap - a.margin;
+      *a.hist_cursor = cursor0 + n_new < cap ? cursor0 + n_new : cap;
+      *a.ring_cursor = ring0 + a.nb;
+      if (!solved0) {
+        *a.solved_hist = goals ? goal_idx : 0;
+        if (goals) *a.solved = 1;
+      }
+      *a.iterations = it0 + 1;
+      *a.expansions = ex0 + n_sel;
+      if (a.deeper != nullptr) *a.needs_deeper = nd0 + n_deeper;
+    }
+  }
+
+  // Per lane: the history index and record, the key and the window.
+  for (int r = 0; r < R; ++r) {
+    const int l = lo + r * T + tid;
+    if (l >= hi) break;
+    const LaneIn in = r == 0 ? in0 : load_lane(a, l);
+    const int j = r * W + warp;
+    const int idx = in.fresh ? cursor0 + carry + static_cast<int>(word_off[j]) +
+                                   __popc(new_w[j] & lanes_below(lane))
+                             : 0;
+    a.hist_idx[l] = idx;
+    if (in.fresh && idx < a.hcap) {  // as JAX, an index past the capacity is dropped
+      a.hist_parent[idx] = in.phist;
+      a.hist_action[idx] = in.action;
     }
     const int p = ring0 + l;
     if (p < a.F) {
-      a.h[p] = key;
+      a.h[p] = in.fresh ? (in.nov << 28) | (in.rgd << 15) | (~idx & 0x7FFF) : kEmpty;
       a.fhist[p] = idx;
-      a.fkey[p] = a.keys[l];
     }
-  }
-  const int row = 2 * a.n;
-  for (int i = tid; i < a.nb * row; i += kThreads) {
-    const int p = ring0 + i / row;
-    if (p < a.F) a.states[static_cast<size_t>(ring0) * row + i] = a.children[i];
-  }
-  int n_sel = 0;
-  for (int r = tid; r < a.n_sel; r += kThreads) n_sel += a.sel_valid[r] != 0;
-  for (int o = 16; o > 0; o >>= 1) {
-    n_deeper += __shfl_down_sync(0xFFFFFFFFu, n_deeper, o);
-    n_sel += __shfl_down_sync(0xFFFFFFFFu, n_sel, o);
-  }
-  if (lane == 0) {
-    atomicAdd(&deeper_sh, n_deeper);
-    atomicAdd(&sel_sh, n_sel);
-  }
-  __syncthreads();
-  if (tid == 0) {
-    const int cap = a.hcap - a.margin;
-    *a.hist_cursor = cursor0 + n_new < cap ? cursor0 + n_new : cap;
-    *a.ring_cursor = ring0 + a.nb;
-    if (a.goal != nullptr && !*a.solved) {
-      const bool any = first_sh != INT_MAX;
-      *a.solved_hist = any ? a.hist_idx[first_sh] : 0;
-      if (any) *a.solved = 1;
-    }
-    *a.iterations += 1;
-    *a.expansions += sel_sh;
-    if (a.deeper != nullptr) *a.needs_deeper += deeper_sh;
   }
 }
 
@@ -928,6 +1101,34 @@ cudaError_t allow_dynamic_smem(const void* fn, size_t static_bytes) {
 
 constexpr size_t kSelectStatic = sizeof(LowestShared) + 1024;  // with room to spare
 constexpr size_t kCompactStatic = sizeof(SortShared) + 1024;
+constexpr size_t kAppendStatic = sizeof(TileSums) * kCluster + 32 * sizeof(int) + 1024;
+// The append's launch: one cluster of kCluster CTAs of T threads, each
+// owning per lanes in rounds of T (a CTA past the last lane owns none).
+struct AppendShape {
+  int T, per, rounds;
+  size_t smem;
+};
+
+AppendShape append_shape(int nb) {
+  AppendShape s;
+  s.per = (nb + kCluster - 1) / kCluster;
+  s.T = (s.per + 31) / 32 * 32;
+  if (s.T > kAppendThreads) s.T = kAppendThreads;
+  s.rounds = (s.per + s.T - 1) / s.T;
+  s.smem = static_cast<size_t>(4) * s.rounds * (s.T / 32) * sizeof(unsigned);
+  return s;
+}
+
+template <bool kOne, class V>
+cudaError_t launch_append(const Append& a, const AppendShape& shape, cudaStream_t stream) {
+  if (shape.smem > 48 * 1024) {
+    const cudaError_t err = allow_dynamic_smem<4 + 2 * kOne + (sizeof(V) == 16)>(
+        reinterpret_cast<const void*>(append_kernel<kOne, V>), kAppendStatic);
+    if (err != cudaSuccess) return err;
+  }
+  append_kernel<kOne, V><<<kCluster, shape.T, shape.smem, stream>>>(a);
+  return cudaSuccess;
+}
 
 }  // namespace
 
@@ -1007,7 +1208,7 @@ extern "C" int pw_frontier_compact(void* h, void* states, void* fhist, void* fke
 }
 
 // Appends nb scored children (see the header); goal and deeper may be null,
-// actions null means lane / B.
+// actions null means lane / B.  children and states are 8-byte aligned.
 extern "C" int pw_frontier_append(const void* gate, const void* is_new, const void* phist, const void* actions,
                                   const void* goal, const void* nov, const void* rgd, const void* deeper,
                                   const void* sel_valid, const void* children, const void* keys, void* h,
@@ -1017,8 +1218,11 @@ extern "C" int pw_frontier_append(const void* gate, const void* is_new, const vo
                                   int B, int n, int F, int hcap, int margin, int use_novelty, int phist_len,
                                   int rgd_len, int n_sel, void* stream) {
   if (nb < 1 || B < 1 || n < 1 || F < 1 || hcap < 1 || phist_len < 1 || rgd_len < 1 || n_sel < 0 ||
-      nb % phist_len != 0 || nb % rgd_len != 0 || nb > (1 << 26) / n)
+      nb % phist_len != 0 || nb % rgd_len != 0 || nb > (1 << 26) / n ||
+      (reinterpret_cast<uintptr_t>(children) | reinterpret_cast<uintptr_t>(states)) % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const AppendShape shape = append_shape(nb);
+  if (shape.smem > kMaxSmem - kAppendStatic) return static_cast<int>(cudaErrorInvalidValue);
   Append a{static_cast<const uint8_t*>(gate),      static_cast<const uint8_t*>(is_new),
            static_cast<const int*>(phist),         static_cast<const int*>(actions),
            static_cast<const uint8_t*>(goal),      static_cast<const float*>(nov),
@@ -1032,7 +1236,14 @@ extern "C" int pw_frontier_append(const void* gate, const void* is_new, const vo
            static_cast<int*>(solved_hist),         static_cast<int*>(iterations),
            static_cast<int*>(expansions),          static_cast<int*>(needs_deeper),
            static_cast<int*>(hist_idx),            nb, B, n, F, hcap, margin, use_novelty, phist_len, rgd_len,
-           n_sel};
-  append_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+           n_sel, shape.per, shape.rounds};
+  const bool wide = n % 2 == 0 && (reinterpret_cast<uintptr_t>(children) | reinterpret_cast<uintptr_t>(states)) % 16 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (shape.rounds == 1)
+    err = wide ? launch_append<true, int4>(a, shape, s) : launch_append<true, int2>(a, shape, s);
+  else
+    err = wide ? launch_append<false, int4>(a, shape, s) : launch_append<false, int2>(a, shape, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -248,7 +248,10 @@ def _expand_cuda(cp: CompiledPuzzle, contacts: torch.Tensor, contacts_mask: torc
         if x is not None and (x.dtype != dtype or tuple(x.shape) != shape or x.device != dev
                               or not x.is_contiguous()):
             raise ValueError(f"{name}: expected a contiguous {dtype} {shape} tensor on {dev}")
-    parents = parents.contiguous()
+    # The kernel reads a cell (x, y) as one 8-byte word and a contact entry
+    # (rx, ry) as one 4-byte word.
+    parents, contacts, goal_pos = (x if x.data_ptr() % align == 0 else x.clone() for x, align in (
+        (parents.contiguous(), 8), (contacts, 4), (cp.goal_pos, 8)))
     children = torch.empty((4 * B, N, 2), dtype=torch.int32, device=dev)
     moved = torch.empty((4 * B, N), dtype=torch.bool, device=dev)
     effective = torch.empty((4 * B,), dtype=torch.bool, device=dev)
@@ -257,7 +260,7 @@ def _expand_cuda(cp: CompiledPuzzle, contacts: torch.Tensor, contacts_mask: torc
         return children, moved, effective, goal
     fn = _build.load("expand").pw_expand
     ptr = [None if x is None else x.data_ptr() for x in (
-        parents, contacts, contacts_mask, cp.static_block, cp.obj_mask, cp.goal_pos, cp.goal_mask, sel_valid,
+        parents, contacts, contacts_mask, cp.static_block, cp.obj_mask, goal_pos, cp.goal_mask, sel_valid,
         gate, children, moved, effective, goal)]
     rc = launch_on(dev, fn, *ptr, B, N, C, H, W)
     if rc != 0:

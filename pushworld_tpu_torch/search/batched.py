@@ -537,6 +537,8 @@ def _append_cuda(s: SearchState, cfg: SearchConfig, gate, is_new, parent_hist, a
     hist_idx = torch.empty((nb,), dtype=torch.int32, device=dev)
     if nb == 0:
         return hist_idx
+    if children.data_ptr() % 8:  # the kernel copies a row as 8- or 16-byte vectors
+        children = children.clone()
     _launch("pw_frontier_append", "frontier.append", dev, gate, is_new, parent_hist, actions, goal, nov, rgd,
             deeper, sel_valid, children, keys, s.frontier_h, s.frontier_states, s.frontier_hist, s.frontier_key,
             s.ring_cursor, s.hist_parent, s.hist_action, s.hist_cursor, s.solved, s.solved_hist, s.iterations,

@@ -282,12 +282,12 @@ def test_novelty_kernels_bit_equal(dev, pair_bits):
 # ------------------------------------- the search iteration's other kernels
 
 
-def _expand_inputs(p, dev, count, seed, n_pad=None):
+def _expand_inputs(p, dev, count, seed, n_pad=None, cmax_pad=0):
     from pushworld_tpu_torch.core.compiled import compile_puzzle
     from pushworld_tpu_torch.ops import step
 
     cp = compile_puzzle(p, n_pad=n_pad)
-    contacts, mask = step.build_contact_lists(cp)
+    contacts, mask = step.build_contact_lists(cp, cmax_pad=cmax_pad)
     parents, _ = _walks(p, count, seed)
     padded = np.tile(np.asarray(cp.init_state, np.int32)[None], (count, 1, 1))
     padded[:, : parents.shape[1]] = parents
@@ -519,6 +519,157 @@ def test_compact_frontier_captures_into_a_cuda_graph(dev, case):
         assert int(sk.evictions) > 0
     if case in ("window", "closed"):
         _assert_states_equal(sk, before, case)
+
+
+@pytest.mark.parametrize("name,count,n_pad,cmax_pad", [
+    ("heur/three_tools", 256, 32, 8), ("spill_grid", 64, 32, 6), ("multi_goal", 13, None, 5),
+    ("heur/two_tools", 37, None, 0), ("heur/three_tools", 3, 7, 0), ("lshape", 1, None, 0)])
+def test_expand_kernel_bit_equal_at_long_lists_and_ragged_lanes(dev, name, count, n_pad, cmax_pad):
+    """Contact lists of more than 3 entries (at 32 objects past the staging
+    budget, read from device memory), and lane counts that leave the last
+    CTA part empty or put several action blocks in one CTA."""
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+
+    p = Puzzle.from_file(os.path.join(PUZZLES, name + ".pwp"))
+    _expand_kernel_equals_plain(*_expand_inputs(p, dev, count, len(name), n_pad=n_pad, cmax_pad=cmax_pad))
+
+
+@pytest.mark.parametrize("open_gate", [True, False])
+def test_expand_captures_into_a_cuda_graph(dev, open_gate):
+    """expand_and_test reads nothing back: it captures into a CUDA graph; a
+    replay equals the plain version with the gate open, and with it closed
+    writes effective = goal = False and leaves children and moved as they
+    were."""
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.ops import step
+
+    g = Puzzle.from_text(_smoke().generated_puzzle_text(0))
+    cp, contacts, mask, parents, sel_valid = _expand_inputs(g, dev, 256, 5)
+    gate = torch.tensor(open_gate, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the warm-up, as PyTorch's capture wants
+        step.expand_and_test(cp, contacts, mask, parents, sel_valid, gate)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step.expand_and_test(cp, contacts, mask, parents, sel_valid, gate)
+    for x in out:
+        x.fill_(True if x.dtype == torch.bool else -7)
+    graph.replay()
+    want = step.expand_and_test_reference(cp, contacts, mask, parents, sel_valid)
+    torch.cuda.synchronize()
+    if open_gate:
+        for got, w in zip(out, want):
+            assert torch.equal(got, w)
+    else:
+        assert (out[0] == -7).all() and out[1].all() and not out[2].any() and not out[3].any()
+
+
+# name: (lanes, the search's B, what), as tests/test_torch_frontier.py's
+# APPEND_SHAPES: the sharded call of four ranks, ragged tiles, per-parent
+# rgd, a goal in a later tile, a solved search, history indices crossing
+# capacity - margin, several rounds a thread, the fewest lanes.
+APPEND_SHAPES = {
+    "sharded_four_ranks": (4096, 256, "sharded"), "ragged_tiles": (1000, 250, "eager"),
+    "lazy_per_parent": (1036, 259, "lazy"), "goal_in_a_later_tile": (1024, 256, "late_goal"),
+    "already_solved": (1024, 256, "solved"), "history_crosses_its_limit": (1024, 256, "hcap"),
+    "rounds": (20000, 5000, "eager"), "four_lanes": (4, 1, "eager"),
+}
+
+
+def _append_case(dev, case, gate):
+    """(kernel state, plain state, the state before, config, append
+    arguments, margin) of an APPEND_SHAPES case on 2^15 slots."""
+    from pushworld_tpu_torch.search import batched
+
+    nb, B, what = APPEND_SHAPES[case]
+    F, N, Hcap = 1 << 15, 4, 1 << 16
+    sharded = what == "sharded"
+    margin = 8 * B * 4 if sharded else 8
+    rng = np.random.default_rng(len(case))
+    is_new = rng.random(nb) < 0.6
+    goal = rng.random(nb) < 0.01
+    if what == "late_goal":  # the only goal in the second tile, new children in the first
+        per = -(-nb // 8)
+        goal[:] = False
+        is_new[:3] = True
+        goal[per + 7] = is_new[per + 7] = True
+    if what == "hcap":  # 10 new children, the last 5 past capacity - margin
+        is_new[:] = False
+        is_new[np.linspace(0, nb - 1, 10).astype(int)] = True
+    sk = _frontier_state(dev, F, "distinct", len(case), 40, N=N, solved=what == "solved",
+                         hist_cursor=Hcap - margin - 5 if what == "hcap" else 17)
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    per_parent = what == "lazy"
+    args = dict(
+        gate=gate, is_new=t(is_new),
+        parent_hist=t(rng.integers(0, 1000, nb if sharded else B).astype(np.int32)),
+        actions=t(rng.integers(0, 4, nb).astype(np.int32)) if sharded else None,
+        goal=None if sharded else t(goal), nov=t(rng.integers(1, 4, nb).astype(np.float32)),
+        rgd=t(np.where(rng.random(B if per_parent else nb) < 0.1, 1e9,
+                       rng.integers(0, 9000, B if per_parent else nb)).astype(np.float32)),
+        deeper=None if sharded else t(rng.random(B if per_parent else nb) < 0.2),
+        sel_valid=t(rng.random(B) < 0.9), children=t(rng.integers(0, 50, (nb, N, 2)).astype(np.int32)),
+        keys=t(rng.integers(1, 1 << 62, nb)))
+    cfg = batched.SearchConfig(expand=B, history_capacity=Hcap, use_novelty=what != "lazy")
+    return sk, _clone_state(sk), _clone_state(sk), cfg, args, margin
+
+
+@pytest.mark.parametrize("case", sorted(APPEND_SHAPES))
+def test_append_kernel_bit_equal_across_shapes(dev, case):
+    """The append's cluster of 8 CTAs bit-equal to
+    the plain version in every tensor of the state and in hist_idx, at lane
+    counts from 4 to 20,000."""
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.search import batched
+
+    sk, sr, _, cfg, args, margin = _append_case(dev, case, None)
+    before = LAUNCHES["frontier.append"]
+    got = batched.append_children(sk, cfg, margin=margin, **args)
+    want = batched.append_children_reference(sr, cfg, margin=margin, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), case
+    _assert_states_equal(sk, sr, case)
+    if case == "goal_in_a_later_tile":
+        assert bool(sk.solved) and int(sk.solved_hist) == int(want[APPEND_SHAPES[case][0] // 8 + 7])
+    assert LAUNCHES["frontier.append"] == before + 1
+
+
+@pytest.mark.parametrize("case", ["sharded_four_ranks", "goal_in_a_later_tile", "closed"])
+def test_append_captures_into_a_cuda_graph(dev, case):
+    """append_children reads nothing back: it captures into a CUDA graph,
+    and a replay on the state it was captured from equals the plain
+    version; with the gate closed the replay leaves the whole state as it
+    was."""
+    from pushworld_tpu_torch.search import batched
+
+    gate = torch.tensor(case != "closed", device=dev)
+    sk, sr, before, cfg, args, margin = _append_case(dev, "goal_in_a_later_tile" if case == "closed" else case, gate)
+
+    def restore():
+        for k, v in vars(before).items():
+            if isinstance(v, torch.Tensor):
+                getattr(sk, k).copy_(v)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the warm-up, as PyTorch's capture wants
+        batched.append_children(sk, cfg, margin=margin, **args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = batched.append_children(sk, cfg, margin=margin, **args)
+    restore()
+    graph.replay()
+    if case == "closed":
+        torch.cuda.synchronize()
+        _assert_states_equal(sk, before, case)
+        return
+    want = batched.append_children_reference(sr, cfg, margin=margin, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _assert_states_equal(sk, sr, case)
 
 
 # The select and the compaction run as one cluster of 8 CTAs, each owning a

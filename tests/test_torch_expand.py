@@ -6,11 +6,15 @@ Two things are held against ``pushworld_tpu.ops.step.expand_children`` and
 ``_iterate``), on the same numpy-seeded parents, on every fixture:
 
 - the plain version, which the CPU runs;
-- the algorithm of ``kernels/expand.cu``, written here as a numpy loop per
-  (action, parent) lane: the push relation as N bit masks, its closure from
-  the agent by a worklist of set bits (where the plain version squares
-  float matrices), the all-or-nothing rule, the child, its moved bits,
-  ``effective`` and the goal test.
+- the algorithm of ``kernels/expand.cu``, written here as numpy loops over
+  its CTAs, lanes and (lane, object) threads: the contact lists staged as
+  32-bit offset words (or read from device memory above the staging
+  budget), the push mask of each object by compares of whole words, its
+  closure from the agent by a worklist of set bits (where the plain version
+  squares float matrices), the all-or-nothing rule, the child, its moved
+  bits, ``effective`` and the goal test.  Cases: every fixture, 32 objects,
+  contact lists longer than 3 entries (at 32 objects, past the staging
+  budget), and lane counts that are no multiple of a CTA's lanes.
 
 The kernel itself is held against the plain version on the card
 (tests/test_torch_cuda.py, chip_smoke.py).  Every value is an integer:
@@ -56,16 +60,17 @@ def _reachable(puzzle, count, seed):
     return np.asarray(out, np.int32)
 
 
-def _inputs(name, n_pad=None, count=24):
+def _inputs(name, n_pad=None, count=24, cmax_pad=0):
     """(port puzzle, JAX compiled puzzle, port compiled puzzle on the CPU,
-    contact lists, parents padded to the compiled width, sel_valid)."""
+    contact lists (at least ``cmax_pad`` entries a pair), parents padded to
+    the compiled width, sel_valid)."""
     path = os.path.join(PUZZLES, name + ".pwp")
     p, jp = Puzzle.from_file(path), JPuzzle.from_file(path)
     cp, jcp = compile_puzzle(p, n_pad=n_pad), j_compile(jp, n_pad=n_pad)
     real = _reachable(p, count, seed=len(name))
     parents = np.tile(np.asarray(cp.init_state, np.int32)[None], (count, 1, 1))
     parents[:, : real.shape[1]] = real
-    contacts, mask = tstep.build_contact_lists(cp)
+    contacts, mask = tstep.build_contact_lists(cp, cmax_pad=cmax_pad)
     sel_valid = np.random.default_rng(len(name) + 1).random(count) < 0.8
     return p, jcp, cp.to("cpu"), contacts, mask, parents, sel_valid
 
@@ -81,39 +86,70 @@ def _jax_expansion(jcp, contacts, mask, parents, sel_valid):
     return tuple(np.asarray(x) for x in (children, moved, effective, goal))
 
 
+NO_OFFSET = 0x80008000  # kernels/expand.cu kNoOffset
+THREADS, STAGE_WORDS = 128, 2048  # kernels/expand.cu kThreads, kStageWords
+
+
+def _offset_word(rx, ry):
+    """An offset (rx, ry) as the kernel's 32-bit word: the int16 pair."""
+    return (int(rx) & 0xFFFF) | (int(ry) & 0xFFFF) << 16
+
+
 def expand_kernel_np(parents, contacts, mask, static_block, obj_mask, goal_pos, goal_mask, sel_valid):
-    """``kernels/expand.cu`` one lane at a time (lane = a * B + b)."""
+    """``kernels/expand.cu`` CTA by CTA: P threads a lane (P the power of two
+    >= n), 128 / P lanes a CTA (lane = a * B + b); the CTA's contact lists as
+    staged 32-bit words (masked entries kNoOffset; above the staging budget
+    the same words from device memory); per thread (lane, i) the push mask
+    of object i by compares of whole words, no early exit; per lane the
+    closure by a worklist over set bits and the group's ballots (blocked,
+    live, off-goal bits)."""
     B, n = parents.shape[:2]
-    children = np.empty((4 * B, n, 2), np.int32)
-    moved = np.zeros((4 * B, n), bool)
-    effective = np.zeros(4 * B, bool)
-    goal = np.zeros(4 * B, bool)
-    for lane in range(4 * B):
-        a, b = divmod(lane, B)
-        pos = parents[b]
-        push = [0] * n
-        for i in range(n):
-            for j in range(n):
-                rel = pos[i] - pos[j]
-                hit = mask[a, i, j] & (contacts[a, i, j, :, 0] == rel[0]) & (contacts[a, i, j, :, 1] == rel[1])
-                if hit.any():
-                    push[i] |= 1 << j
-        reached = todo = 1
-        while todo:
-            i = (todo & -todo).bit_length() - 1
-            todo &= todo - 1
-            fresh = push[i] & ~reached
-            reached |= fresh
-            todo |= fresh
-        nothing = any(static_block[a, i, pos[i, 1], pos[i, 0]] for i in range(n) if reached >> i & 1)
-        live = sum(1 << i for i in range(n) if obj_mask[i])
-        bits = 0 if nothing else reached & live
-        for i in range(n):
-            m = bits >> i & 1
-            children[lane, i] = pos[i] + DISP[a] * m
-            moved[lane, i] = bool(m)
-        effective[lane] = bits != 0 and bool(sel_valid[b])
-        goal[lane] = all(not goal_mask[i] or (children[lane, i] == goal_pos[i]).all() for i in range(n))
+    C = contacts.shape[3]
+    nb = 4 * B
+    P = 1 << (n - 1).bit_length()
+    lanes = THREADS // P
+    span = min(4, -(-(lanes - 1) // B) + 1)
+    staged_path = span * n * n * C <= STAGE_WORDS
+    words = (contacts[..., 0].astype(np.int64) & 0xFFFF) | (contacts[..., 1].astype(np.int64) & 0xFFFF) << 16
+    words = np.where(mask, words, NO_OFFSET).reshape(-1)  # (4 * n * n * C,)
+    per_action = n * n * C
+    children = np.empty((nb, n, 2), np.int32)
+    moved = np.zeros((nb, n), bool)
+    effective = np.zeros(nb, bool)
+    goal = np.zeros(nb, bool)
+    for lane0 in range(0, nb, lanes):
+        a0, a1 = lane0 // B, (min(lane0 + lanes, nb) - 1) // B
+        assert a1 - a0 + 1 <= span
+        table, first = (words[a0 * per_action:(a1 + 1) * per_action], a0) if staged_path else (words, 0)
+        for lane in range(lane0, min(lane0 + lanes, nb)):
+            a, b = divmod(lane, B)
+            cells = parents[b]
+            push = []
+            for i in range(n):  # the thread (lane, i)
+                row = table[((a - first) * n + i) * n * C:((a - first) * n + i + 1) * n * C]
+                m = 0
+                for j in range(n):
+                    rel = _offset_word(*(cells[i] - cells[j]))
+                    m |= int((row[j * C:(j + 1) * C] == rel).any()) << j
+                push.append(m)
+            reached = todo = 1
+            while todo:
+                k = (todo & -todo).bit_length() - 1
+                todo &= todo - 1
+                fresh = push[k] & ~reached
+                reached |= fresh
+                todo |= fresh
+            blocked = sum(int(static_block[a, i, cells[i, 1], cells[i, 0]]) << i for i in range(n))
+            live = sum(int(obj_mask[i]) << i for i in range(n))
+            bits = 0 if blocked & reached else reached & live
+            off_goal = 0
+            for i in range(n):
+                m = bits >> i & 1
+                children[lane, i] = cells[i] + DISP[a] * m
+                moved[lane, i] = bool(m)
+                off_goal |= int(goal_mask[i] and not (children[lane, i] == goal_pos[i]).all()) << i
+            effective[lane] = bits != 0 and bool(sel_valid[b])
+            goal[lane] = off_goal == 0
     return children, moved, effective, goal
 
 
@@ -180,3 +216,38 @@ def test_many_movables_chain_matches_jax():
     _assert_equal(got, want, "many movables")
     _assert_equal(tstep.expand_and_test(cp, torch.as_tensor(contacts), torch.as_tensor(mask),
                                         torch.as_tensor(parents), torch.as_tensor(sel_valid)), want, "many movables")
+
+
+@pytest.mark.parametrize("name,n_pad,cmax_pad", [("heur/three_tools", None, 8), ("multi_goal", None, 5),
+                                                 ("heur/three_tools", 32, 8), ("spill_grid", 32, 6)])
+def test_long_contact_lists_match_jax(name, n_pad, cmax_pad):
+    """Contact lists of more than 3 entries a pair (the padding masked), at
+    the fixture's width and at 32 objects, where the staged words exceed the
+    kernel's budget and are read from device memory."""
+    _, jcp, cp, contacts, mask, parents, sel_valid = _inputs(name, n_pad=n_pad, count=6, cmax_pad=cmax_pad)
+    assert contacts.shape[3] == cmax_pad
+    n = cp.n
+    if n_pad == 32:
+        assert 2 * n * n * cmax_pad > STAGE_WORDS  # the kernel's device-memory path
+    want = _jax_expansion(jcp, contacts, mask, parents, sel_valid)
+    _assert_equal(expand_kernel_np(parents, contacts, mask, cp.static_block.numpy(), cp.obj_mask.numpy(),
+                                   cp.goal_pos.numpy(), cp.goal_mask.numpy(), sel_valid), want, name)
+    _assert_equal(tstep.expand_and_test(cp, torch.as_tensor(contacts), torch.as_tensor(mask),
+                                        torch.as_tensor(parents), torch.as_tensor(sel_valid)), want, name)
+
+
+@pytest.mark.parametrize("name,count,n_pad", [("heur/three_tools", 1, None), ("multi_goal", 5, None),
+                                              ("heur/two_tools", 13, None), ("spill_grid", 37, None),
+                                              ("heur/three_tools", 3, 7)])
+def test_lanes_not_a_multiple_of_the_cta_match_jax(name, count, n_pad):
+    """4B lanes that do not fill the last CTA, and CTAs whose lanes span
+    two or more action blocks (B below a CTA's lanes); n_pad 7: 8 threads a
+    lane, one of them idle."""
+    _, jcp, cp, contacts, mask, parents, sel_valid = _inputs(name, n_pad=n_pad, count=count)
+    P = 1 << (cp.n - 1).bit_length()
+    assert (4 * count) % (THREADS // P) or count < THREADS // P
+    want = _jax_expansion(jcp, contacts, mask, parents, sel_valid)
+    _assert_equal(expand_kernel_np(parents, contacts, mask, cp.static_block.numpy(), cp.obj_mask.numpy(),
+                                   cp.goal_pos.numpy(), cp.goal_mask.numpy(), sel_valid), want, name)
+    _assert_equal(tstep.expand_and_test(cp, torch.as_tensor(contacts), torch.as_tensor(mask),
+                                        torch.as_tensor(parents), torch.as_tensor(sel_valid)), want, name)

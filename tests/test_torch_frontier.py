@@ -15,7 +15,8 @@ frontier-sharded search's ``nb`` and history ``margin``, and a closed gate
   over its cluster of 8 CTAs: the select's per-tile radix selects of the
   (key, slot) words, sorted by counting into the regions, and the
   candidates' rows by binary lifting in the 8 regions; the compaction's LSD radix sort with per-warp stable ranks, offsets
-  across tiles and skipped passes; and the append's block-wide scan.  Tile
+  across tiles and skipped passes; and the append's tiles over a cluster
+  (ballot ranks a warp, carries and the first goal across tiles).  Tile
   boundaries get their own cases: ragged tiles, ties that span two tiles,
   fewer live keys than B, F = B, one live key.
 
@@ -91,10 +92,10 @@ def _visited(fr):
     return vis
 
 
-def _history(seed, cursor):
+def _history(seed, cursor, hcap=HCAP):
     rng = np.random.default_rng(seed + 100)
-    return dict(parent=rng.integers(-1, HCAP, size=HCAP).astype(np.int32),
-                action=rng.integers(-1, 4, size=HCAP).astype(np.int32), cursor=np.int32(cursor))
+    return dict(parent=rng.integers(-1, hcap, size=hcap).astype(np.int32),
+                action=rng.integers(-1, 4, size=hcap).astype(np.int32), cursor=np.int32(cursor))
 
 
 def _jax_state(fr, hist, vis, solved=False, solved_hist=0):
@@ -339,45 +340,92 @@ def compact_kernel_np(h, states, fhist, fkey, cursor, table, nb, gate=True, bits
     return arrays, (min(n_live, keep), int(drop.sum()))
 
 
+APPEND_THREADS = 512  # frontier.cu kAppendThreads
+INT_MAX = 2 ** 31 - 1
+
+
+def append_shape(nb):
+    """frontier.cu append_shape: (threads T, lanes a CTA, rounds) of the
+    cluster's KCLUSTER CTAs."""
+    per = -(-nb // KCLUSTER)
+    T = min(APPEND_THREADS, -(-per // 32) * 32)
+    return T, per, -(-per // T)
+
+
+def _popc(x):
+    return bin(x).count("1")
+
+
 def append_kernel_np(cursor, ring, nb, Bexp, is_new, phist, actions, goal, nov, rgd, deeper, sel_valid,
-                     use_novelty, hcap, margin, solved, solved_hist):
-    """``frontier.cu``'s append kernel: 1,024 threads, thread t owning lanes
-    [t * per, (t + 1) * per), a block-wide exclusive scan of is_new, then per
-    lane the history record, the key and the window slot; the first goal by
-    atomicMin; the counters.  Returns the writes it makes."""
-    per = -(-nb // 1024)
-    counts = [int(is_new[t * per:(t + 1) * per].sum()) for t in range(1024)]
-    starts = np.cumsum(counts) - counts
+                     use_novelty, hcap, margin, solved, solved_hist, F=None):
+    """``frontier.cu``'s append kernel: a cluster of 8 CTAs, CTA c owning the
+    lanes [c * per, c * per + per) one a thread in rounds of T; per (round,
+    warp) a ballot of the new lanes, of the new goals and the count of new
+    deeper lanes; warp 0's offsets of the words, the tile's sums and its
+    first new goal (word, lane, rank); the sums of every tile in every CTA
+    (distributed shared memory); a lane's rank = the lower tiles' carry +
+    its word's offset + the new lanes below it in the word; the first goal
+    = the first tile's goal, at cursor + that tile's carry + its rank.
+    Returns the writes it makes (window slots p >= F are not written)."""
+    T, per, rounds = append_shape(nb)
+    K, W = KCLUSTER, T // 32
+    fresh = np.asarray(is_new, bool)
+    tiles = []
+    for c in range(K):
+        lo, hi = c * per, min(nb, c * per + per)
+        new_w, goal_w, deeper_c = [], [], []
+        for r in range(rounds):
+            for w in range(W):
+                nw = gw = dc = 0
+                for ln in range(32):
+                    l = lo + r * T + w * 32 + ln
+                    if l < hi and fresh[l]:
+                        nw |= 1 << ln
+                        if goal is not None and goal[l]:
+                            gw |= 1 << ln
+                        if deeper is not None and deeper[l % len(rgd)]:
+                            dc += 1
+                new_w.append(nw)
+                goal_w.append(gw)
+                deeper_c.append(dc)
+        counts = [_popc(x) for x in new_w]
+        word_off = list(np.cumsum(counts) - counts)
+        n_sel = sum(int(sel_valid[r]) for t in range(T) for r in range(c * T + t, len(sel_valid), K * T))
+        goal_lane, goal_rank = INT_MAX, 0
+        first = next((j for j, x in enumerate(goal_w) if x), None)
+        if first is not None:
+            f = (goal_w[first] & -goal_w[first]).bit_length() - 1
+            goal_rank = int(word_off[first]) + _popc(new_w[first] & ((1 << f) - 1))
+            goal_lane = lo + (first // W) * T + (first % W) * 32 + f
+        tiles.append(dict(lo=lo, hi=hi, new_w=new_w, word_off=word_off, n_new=sum(counts), n_deeper=sum(deeper_c),
+                          n_sel=n_sel, goal_lane=goal_lane, goal_rank=goal_rank))
+    carries = np.cumsum([t["n_new"] for t in tiles]) - [t["n_new"] for t in tiles]
     hist_idx = np.zeros(nb, np.int32)
     records, window = {}, {}
-    first, n_deeper = None, 0
-    for t in range(1024):
-        rank = int(starts[t])
-        for lane in range(t * per, min(nb, (t + 1) * per)):
-            fresh = bool(is_new[lane])
-            idx = cursor + rank if fresh else 0
-            rank += fresh
-            hist_idx[lane] = idx
-            if fresh and idx < hcap:
-                records[idx] = (int(phist[lane % len(phist)]), int(actions[lane]) if actions is not None
-                                else lane // Bexp)
+    for c, t in enumerate(tiles):
+        for l in range(t["lo"], t["hi"]):
+            r, tid = divmod(l - t["lo"], T)
+            j, ln = r * W + tid // 32, tid % 32
+            idx = int(cursor + carries[c] + t["word_off"][j] + _popc(t["new_w"][j] & ((1 << ln) - 1))) if fresh[l] \
+                else 0
+            hist_idx[l] = idx
+            if fresh[l] and idx < hcap:
+                records[idx] = (int(phist[l % len(phist)]), int(actions[l]) if actions is not None else l // Bexp)
             key = EMPTY
-            if fresh:
-                nv = int(nov[lane]) if use_novelty else 1
-                r = int(min(max(float(rgd[lane % len(rgd)]), 0.0), 8190.0))
-                key = (nv << 28) | (r << 15) | (~idx & 0x7FFF)
-                if goal is not None and goal[lane]:
-                    first = lane if first is None else min(first, lane)
-                if deeper is not None and deeper[lane % len(rgd)]:
-                    n_deeper += 1
-            window[ring + lane] = (key, idx, lane)
-    n_new = int(is_new.sum())
+            if fresh[l]:
+                nv = int(nov[l]) if use_novelty else 1
+                rv = int(min(max(float(rgd[l % len(rgd)]), 0.0), 8190.0))
+                key = (nv << 28) | (rv << 15) | (~idx & 0x7FFF)
+            if F is None or ring + l < F:
+                window[ring + l] = (key, idx, l)
+    n_new = sum(t["n_new"] for t in tiles)
     out = dict(hist_idx=hist_idx, records=records, window=window, hist_cursor=min(cursor + n_new, hcap - margin),
-               ring_cursor=ring + nb, expansions=int(sel_valid.sum()), n_deeper=n_deeper,
-               solved=solved, solved_hist=solved_hist)
+               ring_cursor=ring + nb, expansions=sum(t["n_sel"] for t in tiles),
+               n_deeper=sum(t["n_deeper"] for t in tiles), solved=solved, solved_hist=solved_hist)
     if goal is not None and not solved:
-        out["solved_hist"] = int(hist_idx[first]) if first is not None else 0
-        out["solved"] = first is not None
+        won = next((c for c, t in enumerate(tiles) if t["goal_lane"] != INT_MAX), None)
+        out["solved_hist"] = int(cursor + carries[won] + tiles[won]["goal_rank"]) if won is not None else 0
+        out["solved"] = won is not None
     return out
 
 
@@ -641,6 +689,106 @@ def test_compact_and_append_match_jax(case, solved):
     for mine, theirs in (("h", "frontier_h"), ("states", "frontier_states"), ("hist", "frontier_hist"),
                          ("key", "frontier_key"), ("parent", "hist_parent"), ("action", "hist_action")):
         assert np.array_equal(arrays.get(mine, hist.get(mine)), want[theirs]), (case, mine)
+    assert app["ring_cursor"] == int(want["ring_cursor"]) and app["hist_cursor"] == int(want["hist_cursor"])
+    assert app["expansions"] == want["expansions"]
+    if not sharded:
+        assert app["n_deeper"] == int(want["n_deeper"])
+        assert app["solved"] == bool(want["solved"]) and app["solved_hist"] == int(want["solved_hist"])
+
+
+# name: (lanes nb, the search's B, what): the sharded search's call (4 ranks
+# x 4B lanes, actions and per-lane parents given, no goal and no deeper);
+# tiles that are no multiple of a warp; the lazy mode's per-parent rgd and
+# deeper; a goal in a later tile than the first new child; a solved search;
+# history indices that cross capacity - margin; rounds
+# (1,024 threads a CTA, several lanes a thread); the fewest lanes.
+APPEND_SHAPES = {
+    "sharded_four_ranks": (4096, 256, "sharded"),
+    "ragged_tiles": (1000, 250, "eager"),
+    "lazy_per_parent": (1036, 259, "lazy"),
+    "goal_in_a_later_tile": (1024, 256, "late_goal"),
+    "already_solved": (1024, 256, "solved"),
+    "history_crosses_its_limit": (1024, 256, "hcap"),
+    "rounds": (20000, 5000, "eager"),
+    "four_lanes": (4, 1, "eager"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(APPEND_SHAPES))
+def test_append_kernel_algorithm_across_shapes(case):
+    """The append kernel's cluster algorithm and the plain version against
+    JAX's history append, goal, keys, window and counters (no compaction:
+    the window fits), at lane counts and tiles beyond the search's 1,024."""
+    nb, Bexp, what = APPEND_SHAPES[case]
+    seed = len(case)
+    T, per, rounds = append_shape(nb)
+    Fw = max(256, nb + 64)
+    fr = _frontier("distinct", seed, F=Fw, cursor=40)
+    ch = _children(seed, nb)
+    hcap = 1 << 15
+    sharded = what == "sharded"
+    margin = 8 * Bexp * 4 if sharded else 8
+    if what == "late_goal":  # new children in the first tile, the only goal in the second
+        ch["goal"][:] = False
+        ch["is_new"][:3] = True
+        ch["goal"][per + 7] = ch["is_new"][per + 7] = True
+        assert per + 7 < nb
+    if what == "hcap":  # 10 new children in several tiles, the last 5 past capacity - margin
+        ch["is_new"][:] = False
+        ch["is_new"][np.linspace(0, nb - 1, 10).astype(int)] = True
+    cursor = hcap - margin - 5 if what == "hcap" else 17
+    hist = _history(seed, cursor, hcap)
+    cfg = tb.SearchConfig(expand=Bexp, history_capacity=hcap, use_novelty=seed % 2 == 1)
+    rng = np.random.default_rng(seed)
+    sel_valid = rng.random(Bexp) < 0.9
+    parent_hist = rng.integers(0, 100, size=nb if sharded else Bexp).astype(np.int32)
+    actions = rng.integers(0, 4, size=nb).astype(np.int32) if sharded else None
+    phist4 = parent_hist if sharded else np.tile(parent_hist, nb // Bexp)
+    act4 = actions if sharded else np.repeat(np.arange(nb // Bexp, dtype=np.int32), Bexp)
+    rgd, deeper = ch["rgd"], ch["deeper"]
+    if what == "lazy":
+        rgd, deeper = rgd[:Bexp], deeper[:Bexp]
+    solved = what == "solved"
+    js = _jax_state(fr, hist, _visited(fr), solved=solved, solved_hist=9 if solved else 0)
+    want = _jax_tail(js, cfg, ch, phist4, act4, sel_valid, nb, margin, np.tile(rgd, nb // len(rgd)),
+                     np.tile(deeper, nb // len(deeper)), not sharded)
+    if what == "hcap":
+        assert want["hist_idx"].max() >= hcap - margin == int(want["hist_cursor"])
+    if what == "late_goal":
+        assert bool(want["solved"]) and int(want["solved_hist"]) == int(want["hist_idx"][per + 7])
+
+    # The plain version.
+    ts = _port_state(fr, hist, _visited(fr), solved=solved, solved_hist=9 if solved else 0)
+    before = {k: int(getattr(ts, k)) for k in ("iterations", "expansions", "needs_deeper")}
+    t = torch.as_tensor
+    hist_idx = tb.append_children(
+        ts, cfg, None, t(ch["is_new"]), t(parent_hist), None if actions is None else t(actions),
+        None if sharded else t(ch["goal"]), t(ch["nov"]), t(rgd), None if sharded else t(deeper), t(sel_valid),
+        t(ch["states"]), _packed(ch["lo"], ch["hi"]), margin=margin)
+    assert np.array_equal(hist_idx.numpy(), want["hist_idx"]), case
+    for f in ("frontier_h", "frontier_states", "frontier_hist", "frontier_key", "hist_parent", "hist_action"):
+        assert np.array_equal(getattr(ts, f).numpy(), want[f]), (case, f)
+    assert int(ts.ring_cursor) == int(want["ring_cursor"]) and int(ts.hist_cursor) == int(want["hist_cursor"])
+    assert int(ts.iterations) - before["iterations"] == 1
+    assert int(ts.expansions) - before["expansions"] == want["expansions"]
+    assert int(ts.needs_deeper) - before["needs_deeper"] == (0 if sharded else int(want["n_deeper"]))
+    if not sharded:
+        assert bool(ts.solved) == bool(want["solved"]) and int(ts.solved_hist) == int(want["solved_hist"])
+
+    # The kernel's algorithm.
+    app = append_kernel_np(int(hist["cursor"]), int(fr["cursor"]), nb, Bexp, ch["is_new"], parent_hist, actions,
+                           None if sharded else ch["goal"], ch["nov"], rgd, None if sharded else deeper,
+                           sel_valid, cfg.use_novelty, hcap, margin, solved, 9 if solved else 0, F=Fw)
+    assert np.array_equal(app["hist_idx"], want["hist_idx"]), case
+    parent, action = hist["parent"].copy(), hist["action"].copy()
+    for idx, (p, a) in app["records"].items():
+        parent[idx], action[idx] = p, a
+    assert np.array_equal(parent, want["hist_parent"]) and np.array_equal(action, want["hist_action"]), case
+    h, fh, states = fr["h"].copy(), fr["hist"].copy(), fr["states"].copy()
+    for pos, (key, idx, lane) in app["window"].items():
+        h[pos], fh[pos], states[pos] = key, idx, ch["states"][lane]
+    assert np.array_equal(h, want["frontier_h"]) and np.array_equal(fh, want["frontier_hist"]), case
+    assert np.array_equal(states, want["frontier_states"]), case
     assert app["ring_cursor"] == int(want["ring_cursor"]) and app["hist_cursor"] == int(want["hist_cursor"])
     assert app["expansions"] == want["expansions"]
     if not sharded:
