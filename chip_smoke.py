@@ -27,12 +27,16 @@ Phases, each printing one JSON line:
    bit-equal (totals and needs-deeper flags), on 1,024 children of real
    search states and on their 256 parents, at the production capacities:
    the 47 x 54 puzzle at depth 0, three_tools and the generator's first
-   depth-3 candidate at depth 3, and the four-tool chain at depth 4; the
-   novelty kernels (score, then update) on four such batches of the 47 x 54 search, from its own pair_bits 24
+   depth-3 candidate at depth 3, and the four-tool chain at depth 4, and
+   on each search's next iteration as ``_iterate`` takes it (the children
+   under their ``is_new`` mask, the selected parents under ``sel_valid``);
+   the novelty kernels (score, then update) on four such batches of the 47 x 54 search, from its own pair_bits 24
    tables: scores, seen_pos and the pair table bit-equal after every
-   batch.  Each is timed (events and profiler) beside its plain version
-   and its bound (the bytes this run's states need; the launch floor where
-   larger).  Then ``iteration_kernels``: the rest of the search iteration's
+   batch, and a closed gate (every lane invalid) that scores 3 and leaves
+   both tables unchanged.  Each is timed (events and profiler) beside its
+   plain version and its bound (the bytes this run's states need; the
+   launch floor where larger), RGD also under the iteration's own masks,
+   and each kernel at a closed gate.  Then ``iteration_kernels``: the rest of the search iteration's
    kernels against their plain versions, error 0, on real searches at the
    production capacities (the 47 x 54 puzzle at depth 0 and three_tools at
    depth 3 after up to 8 iterations): the gate and the selection, the
@@ -104,8 +108,8 @@ Phases, each printing one JSON line:
 9. ``fleet``: ``plan_puzzles_fleet`` on the 29 puzzles with the device worker
    alone in claim mode (again with ``PW_DEVICE_SYNC_EVERY`` at 1 and 4: the
    same results, status reads that do not rise with the setting; and two
-   lanes of the 16 x 16 puzzle to a 3 s budget at 1, 2 and 4: reads that
-   fall, and the budget's overshoot), with the defaults (shadow mode, one
+   lanes of the 16 x 16 puzzle at 1, 2 and 4: to a full history, reads that
+   fall, and to a 3 s budget, the budget's overshoot), with the defaults (shadow mode, one
    native worker per core) and with the device off; then a run in which every core holds a
    native worker on the 16 x 16 puzzle while the device worker shadows the
    fixtures, and the solve of the 47 x 54 puzzle timed alone and beside as
@@ -149,7 +153,10 @@ the wrapper: for the small kernels the host's enqueue time) every kernel has
 ``device_ms``, its own time from ``torch.profiler``; an empty kernel, built
 from a source in this script, is launched and timed the same two ways as the
 floor of any launch, and it is the bound (``bound_by: "launch"``) of a kernel
-whose bytes take less.  The card line (nvidia-smi) comes first; the kernels line comes just before
+whose bytes take less.  ``device_ms`` is a kernel's traced time over the
+calls made; the line ``traced_launches`` gives each reading's calls beside
+the launches its trace holds (``short``: the readings whose trace missed
+some, which read low).  The card line (nvidia-smi) comes first; the kernels line comes just before
 the last line, the result.
 Any failure raises and the script exits non-zero.  It exits non-zero without
 a result when there is no CUDA device or no port package beside it.
@@ -160,6 +167,7 @@ import glob
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -252,6 +260,19 @@ MANY_MOVABLES_TEXT = """
  . M5  . M6  . M7  . M8  .  .
  .  .  .  .  .  .  .  .  .  .
 """.lstrip("\n")
+
+def many_objects_text(n_objects: int) -> str:
+    """A 12 x 12 puzzle of ``n_objects`` movables (at most 32): the agent, a
+    goal object two pushes from its goal, and single-cell obstacles on every
+    other cell of the lower rows.  The tests hold the RGD and novelty
+    kernels at their cap of 32 objects a state with it."""
+    grid = [["." for _ in range(12)] for _ in range(12)]
+    grid[0][0], grid[1][1], grid[1][4] = "A", "M0", "G0"
+    cells = [(x, y) for y in range(3, 12, 2) for x in range(0, 12, 2)]
+    for k, (x, y) in enumerate(cells[: n_objects - 2]):
+        grid[y][x] = f"M{k + 1}"
+    return "\n".join(" ".join(f"{c:>3}" for c in row) for row in grid) + "\n"
+
 
 # A 14 x 8 puzzle (with its border walls) of six movables whose goal needs
 # a chain of four tools: the agent pushes M4 across its wall, M4 pushes M3,
@@ -372,10 +393,19 @@ def profile_device(fn, reps: int = 1, attempts: int = 3) -> dict:
 
 def kernel_device_ms(prof: dict, *names: str, calls: int) -> float:
     """Device milliseconds per call of the kernels whose names contain one of
-    ``names``, from a :func:`profile_device` result over ``calls`` calls."""
-    hit = [v for k, v in prof["by_kernel"].items() if any(n in k for n in names)]
+    ``names``, from a :func:`profile_device` result over ``calls`` calls.
+    Each such kernel's launch count in the trace goes into
+    :data:`TRACED_LAUNCHES` beside ``calls``, so a trace that missed
+    launches (and so reads low) shows in the script's output."""
+    hit = {k: v for k, v in prof["by_kernel"].items() if any(n in k for n in names)}
     check(len(hit) >= len(names), f"profiler saw no kernel named {names}: {sorted(prof['by_kernel'])}")
-    return sum(us for _, us in hit) / 1e3 / calls
+    TRACED_LAUNCHES.append({"calls": calls, "traced": {_kernel_name(k): count for k, (count, _) in hit.items()}})
+    return sum(us for _, us in hit.values()) / 1e3 / calls
+
+
+# Every kernel_device_ms reading: the calls made and each kernel's launches
+# in the trace, emitted as one line at the end of the run.
+TRACED_LAUNCHES: list = []
 
 
 def library_device_ms(fn, reps: int = 50) -> float:
@@ -384,6 +414,13 @@ def library_device_ms(fn, reps: int = 50) -> float:
     kernel's ``device_ms``, where ``library_ms`` (events) also counts the
     host's enqueue."""
     return profile_device(fn, reps=reps)["busy_us"] / 1e3 / reps
+
+
+def _kernel_name(key: str) -> str:
+    """A hand kernel's name, template arguments included, from a profiler
+    key (the key's start where it names none)."""
+    m = re.search(r"(\w*kernel\w*(?:<[^(]*>)?)\(", key)
+    return m.group(1) if m else key[:80]
 
 
 def _top_kernels(prof: dict, n: int):
@@ -816,10 +853,12 @@ def phase_rgd_novelty(generated, seed, dev, floor):
     children of real search states, and their 256 parents (the lazy mode's
     batch), on the 47 x 54 puzzle at depth 0, on three_tools and the
     generator's depth-3 candidate at depth 3 and on the four-tool chain at
-    depth 4; the novelty kernels at
-    pair_bits 24 on 4 batches of the 47 x 54 search, from its own tables.
-    Times (events and profiler), plain ms and bounds; returns three
-    kernels-line entries."""
+    depth 4, and one iteration of each search as ``_iterate`` takes it (the
+    children under their ``is_new`` mask, the selected parents under
+    ``sel_valid``); the novelty kernel at pair_bits 24 on 4 batches of the
+    47 x 54 search, from its own tables.  Times (events and profiler: all
+    lanes valid, the iteration's own mask, and a closed gate, every lane
+    invalid), plain ms and bounds; returns three kernels-line entries."""
     import dataclasses
 
     import numpy as np
@@ -838,6 +877,10 @@ def phase_rgd_novelty(generated, seed, dev, floor):
             ms, by = floor["device_ms"], "launch"
         return {"bound_ms": ms, "bound_by": by, "bytes_bound_ms": b_ms}
 
+    def rgd_device_ms(t, states, depth, valid=None):
+        return kernel_device_ms(profile_device(lambda: rgd.rgd_heuristic_with_flags(t, states, depth, valid),
+                                               reps=20), "rgd_kernel", calls=20)
+
     three = Puzzle.from_file(os.path.join(ROOT, "tests", "puzzles", "heur", "three_tools.pwp"))
     deep, candidate = depth3_candidate(seed)
     lanes = {}
@@ -848,15 +891,16 @@ def phase_rgd_novelty(generated, seed, dev, floor):
         pl, s, batches = _search_batches(puzzle, depth, dev, batches=4 if depth == 0 else 1)
         searches[what] = (pl, s, batches)
         t = pl.tables
+        _, it, parents = _iteration_inputs(pl, _open_state(pl))
+        masked = [(it["children"], it["is_new"]), (parents, it["sel_valid"])]
         err = 0.0
-        for par, children, _ in batches:
-            for states in (children, par):
-                total, flags = rgd.rgd_heuristic_with_flags(t, states, depth)
-                want, want_flags = rgd.rgd_heuristic_with_flags_reference(t, states, depth)
-                torch.cuda.synchronize()
-                err = max(err, abs_err(total, want))
-                check(torch.equal(total, want) and torch.equal(flags, want_flags),
-                      f"rgd ({what}): kernel != plain version")
+        for states, valid in [(x, None) for par, children, _ in batches for x in (children, par)] + masked:
+            total, flags = rgd.rgd_heuristic_with_flags(t, states, depth, valid)
+            want, want_flags = rgd.rgd_heuristic_with_flags_reference(t, states, depth, valid)
+            torch.cuda.synchronize()
+            err = max(err, abs_err(total, want), abs_err(flags, want_flags))
+            check(torch.equal(total, want) and torch.equal(flags, want_flags),
+                  f"rgd ({what}): kernel != plain version")
         children = batches[0][1]
         deepest = max(0, min(depth, t.n_real - 2))
         reached = torch.full((children.shape[0],), deepest, dtype=torch.int32, device=dev)
@@ -864,12 +908,17 @@ def phase_rgd_novelty(generated, seed, dev, floor):
             finite = rgd.rgd_heuristic_with_flags_reference(t, children, d)[0] < 1e8
             reached = torch.where(finite, d, reached)
         n_bytes, n_ops = _rgd_work(t, children.shape[0], reached.cpu().numpy())
+        none = torch.zeros((children.shape[0],), dtype=torch.bool, device=dev)
         lanes[what] = dict(
             depth=depth, batch=children.shape[0], max_abs_err=err, finite=int(finite.sum()),
             reached_depth={d: int((reached == d).sum()) for d in range(depth + 1)},
             ms=cuda_time_ms(lambda: rgd.rgd_heuristic_with_flags(t, children, depth), reps=50),
-            device_ms=kernel_device_ms(profile_device(lambda: rgd.rgd_heuristic_with_flags(t, children, depth),
-                                                      reps=20), "rgd_kernel", calls=20),
+            device_ms=rgd_device_ms(t, children, depth),
+            iteration_mask={"gate": bool(it["gate"]), "new_children": int(it["is_new"].sum()),
+                            "device_ms": rgd_device_ms(t, it["children"], depth, it["is_new"]),
+                            "lazy_parents": int(it["sel_valid"].sum()),
+                            "lazy_device_ms": rgd_device_ms(t, parents, depth, it["sel_valid"])},
+            closed_gate_device_ms=rgd_device_ms(t, children, depth, none),
             plain_ms=cuda_time_ms(lambda: rgd.rgd_heuristic_with_flags_reference(t, children, depth), reps=3),
             bytes=n_bytes, operations=n_ops, **bound(n_bytes, n_ops))
 
@@ -895,19 +944,30 @@ def phase_rgd_novelty(generated, seed, dev, floor):
             scores[v] = scores.get(v, 0) + 1
         sb, ab = _novelty_bytes(children, moved, valid, want, kern)
         score_bytes, absorb_bytes = max(score_bytes, sb), max(absorb_bytes, ab)
+    # A closed gate (every lane invalid): the fill, and the tables untouched.
     _, children, moved = batches[0]
+    none = torch.zeros((children.shape[0],), dtype=torch.bool, device=dev)
+    before = (kern.seen_pos.clone(), kern.pair_table.clone())
+    got, _ = novelty.novelty_score_and_update(kern, children, moved, none)
+    torch.cuda.synchronize()
+    check(bool((got == 3.0).all()) and torch.equal(kern.seen_pos, before[0])
+          and torch.equal(kern.pair_table.view(torch.int16), before[1].view(torch.int16)),
+          "novelty: a closed gate changed the tables or scored a lane")
     valid = moved.any(-1)
+    # Device time by kernel from the public call, all lanes valid and at a
+    # closed gate; each kernel's event time from its launch alone, on the
+    # tables as the search leaves them.
+    prof = {gate: profile_device(lambda v=v: novelty.novelty_score_and_update(kern, children, moved, v), reps=20)
+            for gate, v in (("open", valid), ("closed", none))}
     args = novelty._checked(kern, children, moved, valid)
     out = torch.empty((children.shape[0],), dtype=torch.float32, device=dev)
+    record = torch.empty((*moved.shape, 2), dtype=torch.int32, device=dev)
     nov = {}
-    for name, fn_name, extra in (("novelty.score", "pw_novelty_score", (out,)),
-                                 ("novelty.absorb", "pw_novelty_absorb", ())):
-        def launch(fn_name=fn_name, name=name, extra=extra):
-            novelty._launch(fn_name, name, kern, *args, *extra)
-
+    for name, launch in novelty._launches(kern, *args, out, record).items():
+        kernel = name.replace(".", "_") + "_kernel"
         nov[name] = {"ms": cuda_time_ms(launch, reps=50),
-                     "device_ms": kernel_device_ms(profile_device(launch, reps=20),
-                                                   name.replace(".", "_") + "_kernel", calls=20)}
+                     "device_ms": kernel_device_ms(prof["open"], kernel, calls=20),
+                     "closed_gate_device_ms": kernel_device_ms(prof["closed"], kernel, calls=20)}
     plain_ms = cuda_time_ms(lambda: novelty.novelty_score_and_update_reference(ref, children, moved, valid), reps=5)
     emit({"phase": "rgd_novelty", "rgd": lanes,
           "novelty": {"pair_bits": 24, "batches": len(batches), "batch": children.shape[0], "scores": scores,
@@ -918,8 +978,9 @@ def phase_rgd_novelty(generated, seed, dev, floor):
     return [
         dict(common, name="rgd.heuristic", source="pushworld_tpu_torch/kernels/rgd.cu",
              replaces="pushworld_tpu/ops/rgd.py:526", lanes=lanes,
-             **{k: main[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                     "bytes_bound_ms")}),
+             max_abs_err=max(lane["max_abs_err"] for lane in lanes.values()),
+             **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes_bound_ms",
+                                     "closed_gate_device_ms")}),
         dict(common, name="novelty.score", source="pushworld_tpu_torch/kernels/novelty.cu",
              replaces="pushworld_tpu/ops/novelty.py:106", max_abs_err=nov_err, plain_ms=plain_ms,
              **nov["novelty.score"], **bound(score_bytes, 0)),
@@ -1027,6 +1088,22 @@ def _reset_timed(fn, reset, reps: int) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
+def _open_state(pl, iters=8):
+    """The planner's search state after up to ``iters`` iterations from the
+    start, its gate still open after them (a copy of the state before the
+    iteration that would close it)."""
+    from pushworld_tpu_torch.search import batched
+
+    s = pl.init_state()
+    for _ in range(iters):
+        nxt = _clone_state(s)
+        batched._iterate(pl.cp_dev, pl.tables, pl.config, nxt)
+        if not bool(batched._active(pl.config, nxt)):
+            break
+        s = nxt
+    return s
+
+
 def _iteration_inputs(pl, s):
     """One iteration's steps on a copy of ``s`` with the kernels, as
     ``_iterate`` takes them: the selection, the expansion, the dedup and the
@@ -1109,13 +1186,7 @@ def phase_iteration_kernels(generated, dev, floor):
         pl = batched.BatchedPlanner(puzzle, max_depth=depth, device=dev, **PRODUCTION_CAPACITIES)
         cfg, t, cp = pl.config, pl.tables, pl.cp_dev
         B, F = cfg.expand, pl.frontier_capacity
-        s = pl.init_state()
-        for _ in range(8):  # up to 8 iterations, and the gate still open after them
-            nxt = _clone_state(s)
-            batched._iterate(cp, t, cfg, nxt)
-            if not bool(batched._active(cfg, nxt)):
-                break
-            s = nxt
+        s = _open_state(pl)
         row = {"depth": depth, "iterations": int(s.iterations), "live": int((s.frontier_h < batched.EMPTY).sum()), "ring_cursor": int(s.ring_cursor)}
         # select: the gate and the selection.
         k, r = _clone_state(s), _clone_state(s)
@@ -1163,13 +1234,7 @@ def phase_iteration_kernels(generated, dev, floor):
     # slots), on the 47 x 54 search after up to 8 iterations.
     pl = batched.BatchedPlanner(generated, max_depth=0, device=dev,
                                 **dict(PRODUCTION_CAPACITIES, frontier_capacity=1 << 16))
-    s = pl.init_state()
-    for _ in range(8):
-        nxt = _clone_state(s)
-        batched._iterate(pl.cp_dev, pl.tables, pl.config, nxt)
-        if not bool(batched._active(pl.config, nxt)):
-            break
-        s = nxt
+    s = _open_state(pl)
     k, r = _clone_state(s), _clone_state(s)
     got = batched.select_and_gate(pl.config, k)
     active = batched._active(pl.config, r)
@@ -1215,7 +1280,13 @@ def phase_iteration_kernels(generated, dev, floor):
                  goals=int(goal.sum()))
     gated["select_and_expand_max_abs_err"] = _state_error(closed, snap)
     prof = profile_device(lambda: batched._iterate(cp, t, cfg, closed), reps=20)
-    gated.update(device_ms_per_iter=prof["busy_us"] / 1e3 / 20, kernels_per_iter=prof["n_kernels"] / 20)
+    by_kernel = {}  # name: [launches an iteration, device ms an iteration]
+    for k, (count, us) in prof["by_kernel"].items():
+        launches_ms = by_kernel.setdefault(_kernel_name(k), [0.0, 0.0])
+        launches_ms[0] += count / 20
+        launches_ms[1] += us / 1e3 / 20
+    gated.update(device_ms_per_iter=prof["busy_us"] / 1e3 / 20, kernels_per_iter=prof["n_kernels"] / 20,
+                 device_ms_by_kernel=by_kernel)
     check(gated["iterate_max_abs_err"] == 0 and gated["select_and_expand_max_abs_err"] == 0
           and not gated["gate"] and gated["selected"] == gated["effective"] == gated["goals"] == 0,
           f"iteration_kernels: a closed gate is no no-op: {gated}")
@@ -2111,10 +2182,15 @@ def phase_fleet(puzzles, generated, hard, solve_classes, dev):
     launches = row["launches"]
 
     # (a') PW_DEVICE_SYNC_EVERY at 1 and 4 beside (a)'s default 2: the same
-    # results, and status reads that do not rise with the setting; then two
-    # lanes of the 16 x 16 puzzle, which run chunk after chunk to a 3 s
-    # budget (budget_capacities): reads that fall, and the budget's overshoot.
+    # results, and status reads that do not rise with the setting.  Then two
+    # lanes of the 16 x 16 puzzle at 1, 2 and 4: run until their history
+    # (2^20) fills, a fixed number of chunks, the status reads must fall
+    # strictly; run chunk after chunk to a 3 s budget (budget_capacities),
+    # the budget's overshoot.  How many chunks fit in the budget varies more
+    # than 2x from one run to the next at one setting, so the budget's reads
+    # are reported, not compared.
     reads, overshoot = {2: row["device_phases"]["chunk_dispatches"]}, {}
+    fixed_kwargs = dict(fleet_kwargs, history_capacity=1 << 20)
     budget_kwargs = dict(fleet_kwargs, history_capacity=1 << BUDGET_HISTORY_BITS, visited_bits=BUDGET_HISTORY_BITS)
     old_every = os.environ.get("PW_DEVICE_SYNC_EVERY")
     try:
@@ -2130,9 +2206,16 @@ def phase_fleet(puzzles, generated, hard, solve_classes, dev):
                     check(results[n].plan == r_results[n].plan, f"fleet (a'), sync every {every}: {n}: plan differs")
             reads[every] = r_row["device_phases"]["chunk_dispatches"]
         check(reads[1] >= reads[2] >= reads[4], f"fleet (a'): status reads rose with the setting: {reads}")
-        hard_reads = {}
+        full_reads, hard_reads = {}, {}
         for every in (1, 2, 4):
             os.environ["PW_DEVICE_SYNC_EVERY"] = str(every)
+            fleet._reset_device_stats()
+            lanes = list(fleet._device_multiplex([("hard/0", hard), ("hard/1", hard)], time_limit=60.0,
+                                                 device=dev, **fixed_kwargs))
+            check(sorted(n for n, _ in lanes) == ["hard/0", "hard/1"], "fleet (a'): lost lanes")
+            check(all(r.failure_reason == "time limit" and r.planning_time < 60.0 for _, r in lanes),
+                  f"fleet (a'), sync every {every}: the full history did not end both lanes: {lanes}")
+            full_reads[every] = fleet._device_stats["chunk_dispatches"]
             fleet._reset_device_stats()
             lanes = list(fleet._device_multiplex([("hard/0", hard), ("hard/1", hard)], time_limit=3.0,
                                                  device=dev, **budget_kwargs))
@@ -2142,15 +2225,16 @@ def phase_fleet(puzzles, generated, hard, solve_classes, dev):
             # A full history also reads "time limit", but before the budget's end.
             check(len(overshoot[every]) == 2 and min(overshoot[every]) >= 0,
                   f"fleet (a'), sync every {every}: the 3 s budget did not end both lanes: {overshoot[every]}")
-        check(hard_reads[1] > hard_reads[2] > hard_reads[4], f"fleet (a'): status reads did not fall: {hard_reads}")
+        check(full_reads[1] > full_reads[2] > full_reads[4],
+              f"fleet (a'): status reads did not fall: {full_reads}")
     finally:
         for key, old in (("PW_DEVICE_SYNC_EVERY", old_every), ("PW_DEVICE_DEEP", old)):
             if old is None:
                 os.environ.pop(key, None)
             else:
                 os.environ[key] = old
-    out["sync_every"] = {"status_reads_fixtures": reads, "status_reads_two_hard_lanes_3s": hard_reads,
-                         "budget_overshoot_s_3s": overshoot}
+    out["sync_every"] = {"status_reads_fixtures": reads, "status_reads_two_hard_lanes_2e20_history": full_reads,
+                         "status_reads_two_hard_lanes_3s": hard_reads, "budget_overshoot_s_3s": overshoot}
 
     # (b) the defaults: shadow mode, one native worker per core.
     row, classes, _ = run("defaults", named, time_limit=60)
@@ -2733,6 +2817,8 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_by_phase"] = {ph: c.get(k["name"], 0) for ph, c in by_phase.items()}
+    emit({"phase": "traced_launches", "readings": TRACED_LAUNCHES,
+          "short": [r for r in TRACED_LAUNCHES if min(r["traced"].values()) < r["calls"]]})
     emit({"kernels": [{key: k.get(key) for key in (
         "name", "route", "source", "replaces", "launches", "launches_by_phase", "max_abs_err",
         "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes_bound_ms", "library_ms",

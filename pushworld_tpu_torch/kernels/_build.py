@@ -54,8 +54,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "pw_frontier_append": [_vp] * 25 + [_i] * 10 + [_vp],
     },
     "novelty": {
-        "pw_novelty_score": [_vp] * 6 + [_i] * 5 + [_vp],
-        "pw_novelty_absorb": [_vp] * 5 + [_i] * 5 + [_vp],
+        "pw_novelty_score_records": [_vp] * 7 + [_i] * 5 + [_vp],
+        "pw_novelty_absorb_records": [_vp] * 4 + [_i] * 5 + [_vp],
         "pw_novelty_max_objects": [],
     },
 }

@@ -33,7 +33,7 @@ are updated IN PLACE.
 
 import os
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -101,15 +101,21 @@ def novelty_score_and_update(
     """Returns ((B,) float32 novelty in {1, 2, 3}, the updated tables).
 
     On a CUDA tensor this is two launches of ``kernels/novelty.cu`` on the
-    current stream, the score and then the update (direct gathers and
-    scatters, no GEMM); on a CPU tensor it runs
+    current stream (direct gathers and scatters, no GEMM): the scores, which
+    also leave each valid state's atoms in a record, then the update from
+    the records, so every state is scored against the tables as of the
+    call's start.  On a CPU tensor it runs
     :func:`novelty_score_and_update_reference`.  The two are bit-equal."""
     if states.device.type == "cpu":
         return novelty_score_and_update_reference(t, states, moved, valid)
     states, moved, valid = _checked(t, states, moved, valid)
-    novelty = torch.empty((states.shape[0],), dtype=torch.float32, device=states.device)
-    _launch("pw_novelty_score", "novelty.score", t, states, moved, valid, novelty)
-    _launch("pw_novelty_absorb", "novelty.absorb", t, states, moved, valid)
+    B, dev = states.shape[0], states.device
+    novelty = torch.empty((B,), dtype=torch.float32, device=dev)
+    record = torch.empty((B, t.n, 2), dtype=torch.int32, device=dev)  # (cell, bucket | moved bit) an atom
+    if B == 0:
+        return novelty, t
+    for launch in _launches(t, states, moved, valid, novelty, record).values():
+        launch()
     return novelty, t
 
 
@@ -128,21 +134,38 @@ def _checked(t: NoveltyTables, states: torch.Tensor, moved: torch.Tensor, valid:
             raise ValueError(f"NoveltyTables.{name}: expected a contiguous {dtype} {shape} tensor on {states.device}")
     if moved.device != states.device or valid.device != states.device:
         raise ValueError("states, moved and valid must be on one device")
-    return states.contiguous(), moved.contiguous(), valid.contiguous()
+    states = states.contiguous()
+    if states.data_ptr() % 8:  # the kernel loads a position as one 8-byte word
+        states = states.clone()
+    return states, moved.contiguous(), valid.contiguous()
 
 
-def _launch(fn_name: str, count_name: str, t: NoveltyTables, states, moved, valid, *out) -> None:
-    """``fn_name(states, moved, valid, seen_pos, pair_table, *out, B, N, H, W,
-    S, stream)`` of ``kernels/novelty.cu`` on the current stream; raises if
-    the launch is refused.  No host read: a CUDA graph may capture it."""
-    B = states.shape[0]
-    if B == 0:
-        return
-    fn = getattr(_build.load("novelty"), fn_name)
-    rc = launch_on(states.device, fn, states.data_ptr(), moved.data_ptr(), valid.data_ptr(), t.seen_pos.data_ptr(),
-                   t.pair_table.data_ptr(), *(x.data_ptr() for x in out), B, t.n, t.height, t.width, t.side)
+def _launches(t: NoveltyTables, states: torch.Tensor, moved: torch.Tensor, valid: torch.Tensor,
+              novelty: torch.Tensor, record: torch.Tensor) -> Dict[str, Callable[[], None]]:
+    """The two launches of :func:`novelty_score_and_update` on inputs from
+    :func:`_checked`, by launch-count name, in the order the call makes them:
+    the scores (into ``novelty``, leaving each valid state's atoms in
+    ``record``), then the update of the tables from ``record``."""
+    lib, dev = _build.load("novelty"), states.device
+    dims = (states.shape[0], t.n, t.height, t.width, t.side)
+    tables = (t.seen_pos.data_ptr(), t.pair_table.data_ptr())
+    return {
+        "novelty.score": lambda: _launch(
+            lib.pw_novelty_score_records, "novelty.score", dev, states.data_ptr(), moved.data_ptr(),
+            valid.data_ptr(), *tables, novelty.data_ptr(), record.data_ptr(), *dims),
+        "novelty.absorb": lambda: _launch(
+            lib.pw_novelty_absorb_records, "novelty.absorb", dev, valid.data_ptr(), record.data_ptr(), *tables,
+            *dims),
+    }
+
+
+def _launch(fn, count_name: str, device: torch.device, *args) -> None:
+    """``fn(*args, stream)`` of ``kernels/novelty.cu`` on the current stream;
+    raises if the launch is refused.  No host read: a CUDA graph may capture
+    it."""
+    rc = launch_on(device, fn, *args)
     if rc != 0:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{count_name} launch failed: CUDA error {rc}")
     count_launch(count_name)
 
 

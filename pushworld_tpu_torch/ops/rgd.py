@@ -23,8 +23,9 @@ with a finite value, trying depths 0..max_depth.  Table lookups are integer
 gathers (the JAX package's one-hot f32 GEMM lookups were a TPU form).
 
 :func:`rgd_heuristic_with_flags` is ONE launch of ``kernels/rgd.cu`` on a
-CUDA tensor (a CTA a state, the recursion's memo in shared memory, as the
-reference's per-state PushingCostCache) and, on a CPU tensor,
+CUDA tensor (a warp a state where the deepest depth is 0; deeper, a CTA a
+state with the recursion's memo in shared memory, as the reference's
+per-state PushingCostCache) and, on a CPU tensor,
 :func:`rgd_heuristic_with_flags_reference`, the tensorized recursion (the
 JAX package's ``_rgd_impl``).  The two are bit-equal.
 """
@@ -100,12 +101,19 @@ def _movement_graphs_python(puzzle: Puzzle, cp: CompiledPuzzle) -> np.ndarray:
     return E
 
 
+# The most movables the native fixpoint takes (native/planner.cc
+# pw_build_graphs); larger puzzles take the Python worklist, as in the JAX
+# package.
+NATIVE_GRAPHS_MAX_MOVABLES = 31
+
+
 def _movement_graphs_host(puzzle: Puzzle, cp: CompiledPuzzle) -> np.ndarray:
     """E (4, N, H, W) bool via the native fixpoint when the native library
-    can be built, else from the Python worklist (the two give the same E)."""
+    can be built and takes the puzzle, else from the Python worklist (the two
+    give the same E)."""
     from pushworld_tpu_torch.native import bridge
 
-    if not bridge.is_available():
+    if puzzle.num_movables > NATIVE_GRAPHS_MAX_MOVABLES or not bridge.is_available():
         return _movement_graphs_python(puzzle, cp)
     n = puzzle.num_movables
     E = np.zeros((4, cp.n, cp.height, cp.width), bool)
@@ -474,6 +482,8 @@ def _rgd_cuda(t: RGDTables, states: torch.Tensor, max_depth: int, valid: Optiona
             raise ValueError(f"RGDTables.{name}: expected shape {shapes[name]}, got {tuple(x.shape)}")
         tensors.append(x)
     states = states.contiguous()
+    if states.data_ptr() % 8:  # the kernel loads a position as one 8-byte word
+        states = states.clone()
     B = states.shape[0]
     if valid is not None and (valid.shape != (B,) or valid.dtype != torch.bool or valid.device != states.device):
         raise ValueError(f"valid: expected a ({B},) bool tensor on {states.device}")

@@ -12,11 +12,15 @@ state from the same start).  Prints one JSON line: the table-build time; for
 each way the host-clock time per iteration (under the profiler), the
 device-busy share (summed kernel time over the wall time), kernels per
 iteration and how many of the iterations were active (their gate open); the graph's iterations, nodes and capture and instantiate
-seconds; and the kernels with the most device time in the eager loop.
+seconds; the kernels with the most device time in the eager loop and in
+the replays; and the
+same eager loop with the gate closed (the search marked solved: every
+kernel a no-op), its device ms per iteration in all and by kernel.
 Needs a CUDA device.
 """
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -89,20 +93,29 @@ def main(argv=None) -> int:
                "hand_kernel_launches": dict(LAUNCHES)}
         return row, avgs
 
-    def eager():
-        for _ in range(args.iters):
-            _iterate(planner.cp_dev, planner.tables, cfg, eager_s)
+    def eager_with(state):
+        def run():
+            for _ in range(args.iters):
+                _iterate(planner.cp_dev, planner.tables, cfg, state)
+        return run
+
+    eager = eager_with(eager_s)
 
     counted = int(eager_s.iterations)
     eager_row, avgs = profiled(eager, args.iters)
     eager_row["active_iters"] = int(eager_s.iterations) - counted  # the others had their gate closed
     replays = -(-args.iters // g.iters)
     counted = int(graphed_s.iterations)
-    graphed_row, _ = profiled(
+    graphed_row, graphed_avgs = profiled(
         lambda: run_chunk(planner.cp_dev, planner.tables, cfg, graphed_s, args.iters), replays * g.iters)
     graphed_row["active_iters"] = int(graphed_s.iterations) - counted
     rows = [e for e in avgs if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     top = sorted(rows, key=dev_us, reverse=True)[: args.top]
+    # A closed gate: iterations of a solved search (every kernel a no-op).
+    closed_s = dataclasses.replace(eager_s, solved=torch.ones((), dtype=torch.bool, device=dev))
+    closed_row, closed_avgs = profiled(eager_with(closed_s), args.iters)
+    closed_row["device_ms_by_kernel"] = {e.key[:120]: dev_us(e) / 1e3 / args.iters for e in closed_avgs
+                                         if e.device_type == DeviceType.CUDA and dev_us(e) > 0}
     print(json.dumps({
         "puzzle": args.puzzle, "depth": depth, "device": torch.cuda.get_device_name(0),
         "table_build_s": build_s, "of_which_host_movement_graphs_s": graphs_s,
@@ -110,6 +123,11 @@ def main(argv=None) -> int:
         "graphed": dict(graphed_row, graph_iters=g.iters, nodes=g.nodes, capture_s=g.capture_s,
                         instantiate_s=g.instantiate_s),
         "top_kernels_device_ms_per_iter": {e.key[:120]: dev_us(e) / 1e3 / args.iters for e in top},
+        "graphed_top_kernels_device_ms_per_iter": {
+            e.key[:120]: dev_us(e) / 1e3 / graphed_row["iters"]
+            for e in sorted((e for e in graphed_avgs if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                            key=dev_us, reverse=True)[: args.top]},
+        "closed_gate": closed_row,
         "expansions": {"eager": int(eager_s.expansions), "graphed": int(graphed_s.expansions)},
     }))
     return 0

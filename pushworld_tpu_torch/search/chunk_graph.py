@@ -52,13 +52,13 @@ from pushworld_tpu_torch.search.batched import SearchConfig, SearchState, _itera
 
 # Iterations in one graph, by RGD depth (depths above 3 use 3's), and the
 # length of a chunk on the card where the caller leaves it to the depth.
-# At production capacities an active iteration is 0.067-0.078 ms of device
-# time at every depth and a closed one 0.011 ms, 1/6-1/7 of it
-# (scripts/profile_search.py and chip_smoke.py on an H100, PERF.md §5).  A
-# replay in flight after a search's end wastes up to G - 1 closed
-# iterations, and the chunk length rises only where a closed iteration
-# costs at most 1/8 of an active one (PERF.md §6), so a graph holds one or
-# two iterations.
+# At production capacities an active iteration is 0.037-0.041 ms of device
+# time at depths 0-3 and a closed one 0.0107-0.0115 ms, about 1/3.5 of it
+# (scripts/profile_search.py on an H100, PERF.md §5).  A replay in flight
+# after a search's end wastes up to G - 1 closed iterations, and the chunk
+# length rises only where a closed iteration costs at most 1/8 of an active
+# one (PERF.md §6): nine launches cannot, since 1/8 of an active iteration
+# is under six launch floors.  So a graph holds one or two iterations.
 GRAPH_ITERS: Dict[int, int] = {0: 2, 1: 1, 2: 1, 3: 1}
 
 

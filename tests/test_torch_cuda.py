@@ -203,7 +203,7 @@ RGD_FIXTURES = sorted(os.path.relpath(f, PUZZLES)[:-4]
 
 @pytest.mark.parametrize("name", RGD_FIXTURES)
 def test_rgd_kernel_bit_equal_on_fixtures(dev, name):
-    """Totals and flags at depths 0..3, bit-equal to the plain version on the
+    """Totals and flags at depths 0..4, bit-equal to the plain version on the
     card: parents (the lazy mode's batch) with masked lanes (empty frontier
     slots hold zeros), and their children (the eager mode's)."""
     from pushworld_tpu_torch.core.compiled import compile_puzzle
@@ -215,15 +215,16 @@ def test_rgd_kernel_bit_equal_on_fixtures(dev, name):
     parents = np.concatenate([parents, np.zeros((8,) + parents.shape[1:], np.int32)])
     t = rgd.build_rgd_tables(p, compile_puzzle(p), device=dev)
     for states in (parents, children):
-        _rgd_kernel_equals_plain(t, torch.as_tensor(states, device=dev), (0, 1, 2, 3))
+        _rgd_kernel_equals_plain(t, torch.as_tensor(states, device=dev), (0, 1, 2, 3, 4))
     t0 = rgd.build_rgd_tables(p, compile_puzzle(p), max_depth=0, device=dev)
     _rgd_kernel_equals_plain(t0, torch.as_tensor(children, device=dev), (0,))
 
 
 def test_rgd_kernel_bit_equal_on_47x54_and_deep_chains(dev):
-    """1,024 children at depth 0 on the 47 x 54 puzzle; depths 3-5 on a
-    goal that needs four tools (the kernel's loop over T(., 2) tables); ten
-    movables on unreachable states (every INF path), depth 4."""
+    """1,024 children at depth 0 on the 47 x 54 puzzle, and 256 at depths
+    0-4 with the deeper tables; depths 3-5 on a goal that needs four tools
+    (the kernel's loop over T(., 2) tables); ten movables on unreachable
+    states (every INF path), depth 4."""
     from pushworld_tpu_torch.core.compiled import compile_puzzle
     from pushworld_tpu_torch.core.puzzle import Puzzle
     from pushworld_tpu_torch.ops import rgd
@@ -233,6 +234,8 @@ def test_rgd_kernel_bit_equal_on_47x54_and_deep_chains(dev):
     _, children = _walks(g, 256, seed=0)
     t = rgd.build_rgd_tables(g, compile_puzzle(g), max_depth=0, device=dev)
     _rgd_kernel_equals_plain(t, torch.as_tensor(children, device=dev), (0,))
+    t = rgd.build_rgd_tables(g, compile_puzzle(g), device=dev)
+    _rgd_kernel_equals_plain(t, torch.as_tensor(children[:256], device=dev), (0, 1, 2, 3, 4))
     four = Puzzle.from_text(smoke.FOUR_TOOLS_TEXT)
     parents, children = _walks(four, 16, seed=5)
     t = rgd.build_rgd_tables(four, compile_puzzle(four), device=dev)
@@ -277,6 +280,129 @@ def test_novelty_kernels_bit_equal(dev, pair_bits):
         assert (LAUNCHES["novelty.score"], LAUNCHES["novelty.absorb"]) == (before[0] + 4, before[1] + 4)
         if (n, H, pair_bits) == (4, 3, 24):
             assert scores == {1.0, 2.0, 3.0}
+
+
+@pytest.mark.parametrize("depth", [0, 3])
+def test_rgd_and_novelty_kernels_at_a_closed_gate_write_only_the_fill(dev, depth):
+    """Every lane invalid (a closed gate's is_new): RGD writes total INF and
+    flag False on every lane whatever its rows held, novelty scores 3 and
+    leaves both tables bit-unchanged; so does an iteration of a solved
+    search, through _iterate."""
+    import dataclasses
+
+    from pushworld_tpu_torch.ops import novelty, rgd
+    from pushworld_tpu_torch.search import batched
+
+    pl = _planner_on("heur/three_tools", dev, depth, expand=256, frontier_capacity=1 << 12, visited_bits=16,
+                     history_capacity=1 << 14, pair_bits=24)
+    s = pl.init_state()
+    for _ in range(4):
+        batched._iterate(pl.cp_dev, pl.tables, pl.config, s)
+    parents, _, sel_valid, gate = batched.select_and_gate(pl.config, s)
+    children = batched.expand_and_test(pl.cp_dev, pl.tables.contacts, pl.tables.contacts_mask, parents, sel_valid,
+                                       gate)[0]
+    none = torch.zeros((children.shape[0],), dtype=torch.bool, device=dev)
+    total, deeper = rgd.rgd_heuristic_with_flags(pl.tables, children, depth, none)
+    moved = torch.ones(children.shape[:2], dtype=torch.bool, device=dev)
+    before = (s.novelty.seen_pos.clone(), s.novelty.pair_table.clone())
+    nov, _ = novelty.novelty_score_and_update(s.novelty, children, moved, none)
+    torch.cuda.synchronize()
+    assert bool((total == rgd.INF).all()) and not bool(deeper.any())
+    assert bool((nov == 3.0).all())
+    assert torch.equal(s.novelty.seen_pos, before[0])
+    assert torch.equal(s.novelty.pair_table.view(torch.int16), before[1].view(torch.int16))
+    solved = dataclasses.replace(s, solved=torch.ones((), dtype=torch.bool, device=dev))
+    batched._iterate(pl.cp_dev, pl.tables, pl.config, solved)
+    torch.cuda.synchronize()
+    assert torch.equal(solved.novelty.seen_pos, before[0])
+    assert torch.equal(solved.novelty.pair_table.view(torch.int16), before[1].view(torch.int16))
+
+
+@pytest.mark.parametrize("depth", [0, 2, 3])
+def test_rgd_kernel_on_the_lazy_batch(dev, depth):
+    """The lazy mode's batch: the 256 selected parents of a real search at
+    the production capacities, under their sel_valid mask, bit-equal to the
+    plain version."""
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.ops import rgd
+    from pushworld_tpu_torch.search import batched
+    from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES
+
+    p = Puzzle.from_text(_smoke().generated_puzzle_text(0)) if depth == 0 else _fixture("heur/three_tools")
+    pl = batched.BatchedPlanner(p, max_depth=depth, lazy=True, device=dev, **PRODUCTION_CAPACITIES)
+    s = pl.init_state()
+    for _ in range(3):  # up to 3 iterations, the gate still open after them
+        nxt = _clone_state(s)
+        batched._iterate(pl.cp_dev, pl.tables, pl.config, nxt)
+        if not bool(batched._active(pl.config, nxt)):
+            break
+        s = nxt
+    parents, _, sel_valid, _ = batched.select_and_gate(pl.config, s)
+    assert parents.shape[0] == 256, parents.shape
+    assert int(sel_valid.sum()) > 0
+    got = rgd.rgd_heuristic_with_flags(pl.tables, parents, depth, sel_valid)
+    want = rgd.rgd_heuristic_with_flags_reference(pl.tables, parents, depth, sel_valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_rgd_and_novelty_kernels_at_32_objects(dev):
+    """States of 32 objects (the kernels' cap: one lane an object, 32-bit
+    skip sets, a 64 KB push table): RGD at depths 0..2 and novelty over a
+    sequence of batches, bit-equal to the plain versions."""
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.ops import novelty, rgd
+
+    p = Puzzle.from_text(_smoke().many_objects_text(32))
+    assert p.num_movables == 32
+    _, children = _walks(p, 16, seed=32)
+    t = rgd.build_rgd_tables(p, compile_puzzle(p), device=dev)
+    _rgd_kernel_equals_plain(t, torch.as_tensor(children, device=dev), (0, 1, 2))
+    rng = np.random.default_rng(32)
+    kern = novelty.init_novelty(32, p.height, p.width, pair_bits=12, device=dev)
+    ref = novelty.init_novelty(32, p.height, p.width, pair_bits=12, device=dev)
+    for _ in range(3):
+        B = 512
+        states = torch.as_tensor(np.stack([rng.integers(0, p.width, (B, 32)), rng.integers(0, p.height, (B, 32))],
+                                          -1).astype(np.int32), device=dev)
+        moved = torch.as_tensor(rng.random((B, 32)) < 0.2, device=dev)
+        valid = torch.as_tensor(rng.random(B) < 0.9, device=dev)
+        got, _ = novelty.novelty_score_and_update(kern, states, moved, valid)
+        want, _ = novelty.novelty_score_and_update_reference(ref, states, moved, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(kern.seen_pos, ref.seen_pos)
+        assert torch.equal(kern.pair_table.view(torch.int16), ref.pair_table.view(torch.int16))
+
+
+@pytest.mark.parametrize("case", ["positions", "pairs"])
+def test_novelty_kernel_scores_every_state_against_the_batch_start(dev, case):
+    """1,024 copies of one state in a batch, all valid: each copy's update
+    would change every other copy's score, and the copies lie in all 128 CTAs
+    of each of the two launches: the update launch, ordered after the score
+    launch on the stream, must not reach any score.  Every copy must score as
+    the plain version does (1 on unseen cells, 2 on seen cells with unseen
+    pairs), and the tables must equal its tables."""
+    from pushworld_tpu_torch.ops import novelty
+
+    n, H, W = 3, 4, 5
+    B = 1024
+    s = torch.tensor([[0, 0], [2, 1], [3, 3]], dtype=torch.int32, device=dev)
+    states = s.expand(B, n, 2).contiguous()
+    moved = torch.tensor([False, True, True], device=dev).expand(B, n).contiguous()
+    valid = torch.ones(B, dtype=torch.bool, device=dev)
+    kern = novelty.init_novelty(n, H, W, pair_bits=8, device=dev)
+    ref = novelty.init_novelty(n, H, W, pair_bits=8, device=dev)
+    if case == "pairs":
+        for t in (kern, ref):
+            t.seen_pos[1, 1 * W + 2] = t.seen_pos[2, 3 * W + 3] = True
+    got, _ = novelty.novelty_score_and_update(kern, states, moved, valid)
+    want, _ = novelty.novelty_score_and_update_reference(ref, states, moved, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and bool((want == (1.0 if case == "positions" else 2.0)).all())
+    assert torch.equal(kern.seen_pos, ref.seen_pos)
+    assert torch.equal(kern.pair_table.view(torch.int16), ref.pair_table.view(torch.int16))
 
 
 # ------------------------------------- the search iteration's other kernels

@@ -132,11 +132,16 @@ def test_interop_tables_round_trip():
 
 # ------------------------------------------- the kernel's algorithm, per state
 #
-# ``kernels/rgd.cu`` computes each state on its own, memoizing the recursion
-# in shared memory.  ``_rgd_loop_form`` is that algorithm written as a numpy
-# loop over one state (the same lazily filled A0 and M rows, the same
-# tables, nothing computed for depths above n_real - 2 or for pushers the
-# valid-pusher mask drops), held exactly against the JAX function.  The
+# ``kernels/rgd.cu`` computes each state on its own.  ``_rgd_loop_form`` is
+# its algorithm written as a numpy loop over one state, held exactly against
+# the JAX function: first the depth-0 pass of every goal (one (goal, move)
+# pair a lane: feasibility, distance to goal, the agent's cost), which alone
+# gives the result when no goal is infinite at depth 0 and able to move (or
+# the deepest depth is 0); else, beside it, what a deeper depth reads first
+# (every pusher's own first moves and A0 row), then the goals in order from
+# their depth-0 values, with rows of M filled one (pushee, move, pusher)
+# triple at a time, a running min over its contacts, nothing computed for
+# depths above n_real - 2 or for pushers the valid-pusher mask drops.  The
 # card tests hold the kernel itself against its plain version.
 
 F32_INF, F32_FINITE = np.float32(1e9), np.float32(1e8)
@@ -164,45 +169,81 @@ def _rgd_loop_form(t, s, max_depth):
         d = int(Dflat[int(doff[r]) + iu * int(dstride[r]) + iv])
         return np.float32(d) if d != 65535 else F32_INF
 
-    A0, M = {}, {}
+    def agent_cost(q, a):  # the agent pushes q: 1 + min over its contacts
+        iA = int(vidx[0, cell(*s[0])])
+        cv = t["cvidx_a"][a, q, cell(*s[q])]
+        return np.float32(1) + min([dist(0, iA, int(v)) for v in cv] + [F32_INF])
 
-    def a0(q, a):  # depth 0: the agent pushes q (row filled on first use)
-        if (q, a) not in A0:
-            iA = int(vidx[0, cell(*s[0])])
-            cv = t["cvidx_a"][a, q, cell(*s[q])]
-            A0[q, a] = np.float32(1) + min([dist(0, iA, int(v)) for v in cv] + [F32_INF])
-        return A0[q, a]
+    def goal_cost(last, finite_dg):  # the fewest-tools rule once the last depth is known
+        found = last < F32_FINITE
+        cost = last if found else (F32_INF if max_depth > nr - 2 else last)
+        return min(cost, F32_INF), max_depth < nr - 2 and finite_dg and cost >= F32_FINITE
 
-    def push(q, a, r):  # M[q][a][r][0..3]: pusher r realizes q's move a
-        if (q, a, r) not in M:
-            m = [F32_INF] * 4
-            for c in range(t["cmax"]):
-                if not t["contacts_mask"][a, r, q, c]:
-                    continue
-                cx, cy = s[q] + t["contacts"][a, r, q, c]
-                if not edge(a, r, cx, cy):
-                    continue
-                iv = int(vidx[r, cell(cx, cy)])
-                for a2, (dx, dy) in enumerate(MOVES):
-                    if not edge(a2, r, *s[r]):
+    # The depth-0 pass: each (goal, move) pair, then the min over the moves.
+    A0, pass0 = {}, []
+    for k in range(t["max_goals"]):
+        o = k + 1
+        eok = [edge(a, o, *s[o]) for a in range(4)]
+        gd = [t["DG"][o, min(max(s[o][1] + dy, 0), H - 1), min(max(s[o][0] + dx, 0), W - 1)]
+              for dx, dy in MOVES]
+        for a in range(4):
+            A0[o, a] = agent_cost(o, a)
+        pd = min(gd[a] + A0[o, a] if eok[a] else F32_INF for a in range(4))
+        row = bool(t["goal_mask"][o]) and tuple(s[o]) != tuple(t["goal_pos"][o])
+        pass0.append((row, pd, eok, gd, any(e and g < F32_FINITE for e, g in zip(eok, gd)), any(eok)))
+    deep = dmax >= 1 and any(row and pd >= F32_FINITE and moves for row, pd, _, _, _, moves in pass0)
+    if not deep:
+        total, deeper = np.float32(0), False
+        for row, pd, _, _, finite_dg, moves in pass0:
+            cost = np.float32(0)
+            if row:
+                cost, flag = goal_cost(pd if dmax >= 0 and (dmax == 0 or moves) else F32_INF, finite_dg)
+                deeper |= flag
+            total = total + cost
+        return total, deeper
+
+    # Deeper: the pushers' own first moves and A0 rows (read first), then
+    # the tables.
+    IU = {}
+    for r in range(nr):
+        for a2, (dx, dy) in enumerate(MOVES):
+            IU[r, a2] = int(vidx[r, cell(s[r][0] + dx, s[r][1] + dy)]) if edge(a2, r, *s[r]) else None
+    for q in range(t["max_goals"] + 1, nr):
+        for a in range(4):
+            A0[q, a] = agent_cost(q, a)
+    M = {}
+
+    def fill_m(rows):  # rows of M not filled yet: a (q, a, r) triple at a time, a running min over its contacts
+        for q in sorted(set(rows) - {q for q, _, _ in M}):
+            for a in range(4):
+                for r in range(1, nr):
+                    if r == q:
                         continue
-                    iu = int(vidx[r, cell(s[r][0] + dx, s[r][1] + dy)])
-                    same = cx == s[r][0] and cy == s[r][1] and a2 == a
-                    m[a2] = min(m[a2], np.float32(0) if same else dist(r, iu, iv) + np.float32(1))
-            M[q, a, r] = m
-        return M[q, a, r]
+                    M[q, a, r] = [F32_INF] * 4
+                    for c in range(t["cmax"]):
+                        if not t["contacts_mask"][a, r, q, c]:
+                            continue
+                        cx, cy = s[q] + t["contacts"][a, r, q, c]
+                        if not edge(a, r, cx, cy):
+                            continue
+                        iv = int(vidx[r, cell(cx, cy)])
+                        same = cx == s[r][0] and cy == s[r][1]
+                        for a2 in range(4):
+                            if IU[r, a2] is not None:
+                                base = np.float32(0) if same and a2 == a else dist(r, IU[r, a2], iv) + np.float32(1)
+                                M[q, a, r][a2] = min(M[q, a, r][a2], base)
 
     def best(q, a, excl, inner):  # min over pushers outside excl of M + inner
         out = F32_INF
         for r in range(1, nr):
             if r not in excl:
                 for a2 in range(4):
-                    out = min(out, push(q, a, r)[a2] + inner(r, a2))
+                    out = min(out, M[q, a, r][a2] + inner(r, a2))
         return out
 
     def table(S, d):  # T(S, d) as a function of (pusher, move); entries outside S only
         if d == 0:
-            return a0
+            return lambda r, a2: A0[r, a2]
         vals = {}
         for q in range(1, nr):
             if q not in S:
@@ -212,28 +253,34 @@ def _rgd_loop_form(t, s, max_depth):
         return lambda r, a2: vals[r, a2]
 
     total, deeper = np.float32(0), False
-    for k in range(t["max_goals"]):
+    for k, (row, pd, eok, gd, finite_dg, moves) in enumerate(pass0):
         o = k + 1
         cost = np.float32(0)
-        at_goal = tuple(s[o]) == tuple(t["goal_pos"][o])
-        if t["goal_mask"][o] and not at_goal:
-            eok = [edge(a, o, *s[o]) for a in range(4)]
-            gd = [t["DG"][o, min(max(s[o][1] + dy, 0), H - 1), min(max(s[o][0] + dx, 0), W - 1)]
-                  for dx, dy in MOVES]
-            finite_dg = any(e and g < F32_FINITE for e, g in zip(eok, gd))
-            last, found = F32_INF, False
-            for D in range(dmax + 1):  # fewest tools: stop at the first finite depth
-                inner = table({o}, D - 1) if D >= 1 else None
-                pc = [a0(o, a) if D == 0 else best(o, a, {o}, inner) if eok[a] else None for a in range(4)]
-                last = min(gd[a] + pc[a] if eok[a] else F32_INF for a in range(4))
-                found = last < F32_FINITE
-                if found:
+        if row:
+            last = pd
+            for D in range(1, dmax + 1):  # fewest tools: stop at the first finite depth
+                if last < F32_FINITE:
                     break
-            cost = last if found else (F32_INF if max_depth > nr - 2 else last)
-            deeper |= max_depth < nr - 2 and finite_dg and cost >= F32_FINITE
-            cost = min(cost, F32_INF)
+                last = F32_INF
+                if moves:
+                    fill_m([o] if D == 1 else [o, *range(1, nr)])
+                    inner = table({o}, D - 1)
+                    last = min(gd[a] + best(o, a, {o}, inner) if eok[a] else F32_INF for a in range(4))
+            cost, flag = goal_cost(last, finite_dg)
+            deeper |= flag
         total = total + cost
     return total, deeper
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its puzzle texts)."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(root, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    return chip_smoke
 
 
 def _loop_form_against_jax(jt, states, depths):
@@ -260,14 +307,9 @@ def test_kernel_loop_form_deep_chain_matches_plain_version_and_host_oracle():
     version (held to JAX at depths 0..3 above) and the host oracle; on
     unreachable states of ten movables (every INF path), the plain version.
     (JAX's trace at these depths takes minutes to compile.)"""
-    import importlib.util
-
     from pushworld_tpu.search.heuristics_host import RecursiveGraphDistance
 
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(root, "chip_smoke.py"))
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
+    chip_smoke = _chip_smoke()
 
     def against_plain(puzzle, states, depths):
         tt = tr.build_rgd_tables(puzzle, compile_puzzle(puzzle), device="cpu")
@@ -290,6 +332,23 @@ def test_kernel_loop_form_deep_chain_matches_plain_version_and_host_oracle():
     W, H = m.width, m.height
     states = np.stack([rng.integers(0, W, (6, m.num_movables)), rng.integers(0, H, (6, m.num_movables))], -1)
     list(against_plain(m, states.astype(np.int32), (0, 4)))
+
+
+@pytest.mark.parametrize("n_objects", [8, 32])
+def test_kernel_loop_form_at_many_objects_matches_plain_version(n_objects):
+    """The kernel's per-state algorithm on states of up to 32 objects (its
+    cap: one lane an object, 32-bit skip sets), at depths 0 and 1, equal to
+    the plain version, which is held to JAX above."""
+    p = Puzzle.from_text(_chip_smoke().many_objects_text(n_objects))
+    assert p.num_movables == n_objects
+    tt = tr.build_rgd_tables(p, compile_puzzle(p), device="cpu")
+    t = {f: getattr(tt, f).numpy() for f in TABLE_FIELDS} | {f: getattr(tt, f) for f in STATIC_FIELDS}
+    states = _reachable(p, 6, seed=n_objects)
+    for depth in (0, 1):
+        want = tr.rgd_heuristic_with_flags_reference(tt, torch.as_tensor(states), depth)
+        got = [_rgd_loop_form(t, s.astype(np.int64), depth) for s in states]
+        assert np.array_equal(np.asarray([g[0] for g in got], np.float32), want[0].numpy()), depth
+        assert np.array_equal(np.asarray([g[1] for g in got]), want[1].numpy()), depth
 
 
 def test_wrappers_on_cpu_run_the_plain_version():
