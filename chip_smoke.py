@@ -19,7 +19,12 @@ Phases, each printing one JSON line:
 3. ``visited_set``: a 2**21-slot table, batches of 1024 keys forced to share
    home slots, insert and delete rounds on the kernel and on the plain
    version: no torn or lost keys, and the same membership and ``is_new``
-   wherever no two lanes of one round ever shared a home slot.  The fused
+   wherever no two lanes of one round ever shared a home slot.  The insert
+   and the delete kernels are timed beside their plain versions at table
+   loads of 0, 0.5 and 0.75 (filled by the plain version, a tenth of the
+   filled keys deleted again, so that tombstones lie on the probe paths):
+   batches of 1,024 fresh keys to insert, of 1,024 keys in the table to
+   delete, each load's error against the plain version printed.  The fused
    fingerprint + dedup + insert kernel gets batches of states with duplicate
    children, invalid lanes and keys already in the table, under the same
    rule, and is timed beside the three-step composition it replaces.
@@ -45,7 +50,9 @@ Phases, each printing one JSON line:
    end) and the append, every tensor of the state compared; the select on
    the 47 x 54 search at twice the production frontier (2^16 slots); the 47 x 54
    search with the least frontier (2,048 slots) caught at a compaction that
-   evicts; a closed gate (a solved search), where ``_iterate`` must leave
+   evicts (the compaction deletes its drops from the visited set itself:
+   its table is compared with the plain compaction's bit for bit, the keys
+   deleted printed); a closed gate (a solved search), where ``_iterate`` must leave
    the state bit-unchanged (its device time and kernels per iteration are
    printed; the expansion's and the append's closed-gate device time
    too).  Each kernel is timed beside its plain version, its bound and,
@@ -59,7 +66,9 @@ Phases, each printing one JSON line:
    production capacities of ``plan_puzzles`` for every fixture under
    tests/puzzles and tests/puzzles/heur and for the 47 x 54 puzzle.  Every
    plan must pass the oracle; the unsolvable fixtures must report
-   "no solution"; every kernel must have been launched (a search's chunks
+   "no solution"; every kernel of the main path must have been launched
+   (the standalone visited-set delete is not one since the compaction
+   deletes its own drops: phase ``visited_set`` drives it; a search's chunks
    are replays of its captured CUDA graph; each replay adds the kernel
    launches its capture recorded).  Then ``chunk``: at the production
    capacities, graphed chunks and the eager ``_iterate`` loop from the same
@@ -297,10 +306,13 @@ FOUR_TOOLS_TEXT = """
 KERNEL_NAMES = ("wavefront", "visited_set.probe_and_insert", "visited_set.probe_delete",
                 "visited_set.fingerprint_dedup_insert", "rgd.heuristic", "novelty.score", "novelty.absorb",
                 "step.expand", "frontier.select", "frontier.compact", "frontier.append")
+# The main path launches every kernel but the standalone delete: the
+# compaction tombstones the fingerprints it drops inside its own kernel.
+OFF_MAIN_PATH = {"visited_set.probe_delete": "inside frontier.compact (compact_kernel's delete_key)"}
+MAIN_PATH_KERNELS = tuple(k for k in KERNEL_NAMES if k not in OFF_MAIN_PATH)
 # The kernels of a search iteration (one launch each an iteration).
 ITERATION_KERNELS = ("frontier.select", "step.expand", "visited_set.fingerprint_dedup_insert", "novelty.score",
-                     "novelty.absorb", "rgd.heuristic", "frontier.compact", "visited_set.probe_delete",
-                     "frontier.append")
+                     "novelty.absorb", "rgd.heuristic", "frontier.compact", "frontier.append")
 
 
 def check_results(named, results, what: str):
@@ -656,11 +668,83 @@ def _fused_checks_and_times(dev, rng, bits, B):
     return out
 
 
+PROBE_LOADS = (0.0, 0.5, 0.75)
+
+
+def _probe_times_at_load(dev, rng, bits, B, load):
+    """The insert and the delete kernels and their plain versions on a table
+    of 2^bits slots filled to ``load`` by the plain version, a tenth of the
+    filled keys deleted again: each kernel against its plain version on one
+    batch (``is_new`` on the lanes whose windows no other lane meets, the
+    table outside the windows of the others), then timed (events and
+    profiler) on batches of B fresh keys to insert and, after them, of the
+    same keys (now in the table) to delete."""
+    import numpy as np
+    import torch
+
+    from pushworld_tpu_torch.ops import hashset as hs_mod
+
+    size, mask = 1 << bits, (1 << bits) - 1
+    base = hs_mod.init_hashset(bits, device=dev)
+    filled = torch.as_tensor(rng.integers(1, (1 << 63) - 1, size=int(load * size), dtype=np.int64), device=dev)
+    hs_mod.probe_and_insert_reference(base, filled, torch.ones_like(filled, dtype=torch.bool))
+    hs_mod.probe_delete_reference(base, filled, torch.as_tensor(rng.random(len(filled)) < 0.1, device=dev))
+    words = base.keys
+    row = {"load": load, "keys": int(((words != 0) & (words != -1)).sum()), "tombstones": int((words == -1).sum())}
+
+    n_kern, n_plain = 51, 6  # warm-up call + reps
+    batches = torch.as_tensor(rng.integers(1, (1 << 63) - 1, size=(n_kern + 1, B), dtype=np.int64), device=dev)
+    check(len(torch.unique(torch.cat([batches.flatten(), filled]))) == batches.numel() + len(filled),
+          "timing keys repeat")
+    valid = torch.ones(B, dtype=torch.bool, device=dev)
+
+    # One batch, kernel against plain version.
+    keys = batches[n_kern]
+    window = (hs_mod._first_slot(keys, bits)[:, None] + torch.arange(hs_mod.N_PROBES, device=dev)) & mask
+    cover = torch.zeros(size, dtype=torch.int32, device=dev)
+    cover.index_add_(0, window.flatten(), torch.ones(window.numel(), dtype=torch.int32, device=dev))
+    alone = (cover[window] == 1).all(1)
+    calm = torch.ones(size, dtype=torch.bool, device=dev)
+    calm[window[~alone].flatten()] = False
+    k_set = hs_mod.HashSet(keys=words.clone(), capacity_bits=bits)
+    r_set = hs_mod.HashSet(keys=words.clone(), capacity_bits=bits)
+    n_k, _ = hs_mod.probe_and_insert(k_set, keys, valid)
+    n_r, _ = hs_mod.probe_and_insert_reference(r_set, keys, valid)
+    row["insert_max_abs_err"] = abs_err(n_k[alone], n_r[alone])
+    differ = int((k_set.keys != r_set.keys)[calm].sum())
+    gone = valid & (torch.arange(B, device=dev) % 2 == 0)
+    hs_mod.probe_delete(k_set, keys, gone)
+    hs_mod.probe_delete_reference(r_set, keys, gone)
+    row["table_slots_differing"] = differ + int((k_set.keys != r_set.keys)[calm].sum())
+    row.update(lanes_compared=int(alone.sum()), new_lanes=int(n_k.sum()))
+
+    def over_batches(fn, table):
+        it = itertools.cycle(range(n_kern))  # a second trace (profile_device) meets keys again
+        return lambda: fn(table, batches[next(it)], valid)
+
+    t1, t2, t3 = (hs_mod.HashSet(keys=words.clone(), capacity_bits=bits) for _ in range(3))
+    row["insert_ms"] = cuda_time_ms(over_batches(hs_mod.probe_and_insert, t1), reps=n_kern - 1)
+    row["insert_plain_ms"] = cuda_time_ms(over_batches(hs_mod.probe_and_insert_reference, t2), reps=n_plain - 1)
+    row["delete_ms"] = cuda_time_ms(over_batches(hs_mod.probe_delete, t1), reps=n_kern - 1)
+    row["delete_plain_ms"] = cuda_time_ms(over_batches(hs_mod.probe_delete_reference, t2), reps=n_plain - 1)
+    row["insert_device_ms"] = kernel_device_ms(
+        profile_device(over_batches(hs_mod.probe_and_insert, t3), reps=n_kern), "probe_and_insert_kernel",
+        calls=n_kern)
+    row["delete_device_ms"] = kernel_device_ms(
+        profile_device(over_batches(hs_mod.probe_delete, t3), reps=n_kern), "probe_delete_kernel", calls=n_kern)
+    for t in (t1, t2, t3):
+        check(not torch.isin(batches[:n_kern].flatten(), t.keys).any(), "timed deletes left keys behind")
+    emit({"phase": "visited_set_load", **row})
+    return row
+
+
 def phase_visited_set(dev, floor):
     """Insert/delete and fused kernels vs their plain versions; returns three
-    kernels-line entries.  ``floor``: :func:`measure_launch_floor`'s result.  The insert's error is the largest ``is_new`` difference (0 or 1)
-    on the compared lanes; the delete's is the number of keys by which the
-    compared memberships differ after a round."""
+    kernels-line entries (times at load 0).  ``floor``:
+    :func:`measure_launch_floor`'s result.  The insert's error is the largest
+    ``is_new`` difference (0 or 1) on the compared lanes; the delete's is the
+    number of keys by which the compared memberships differ after a round,
+    or of table slots that differ at a load."""
     import numpy as np
     import torch
 
@@ -729,37 +813,25 @@ def phase_visited_set(dev, floor):
 
     # Timing at the main path's batch, 4 * expand = 1024 keys, as the main
     # path runs it: every insert launch gets fresh keys and claims a slot for
-    # each, and every delete launch removes keys that are in the table.
-    n_kern, n_plain = 51, 6  # warm-up call + reps
-    batches = rng.integers(1, (1 << 63) - 1, size=(n_kern, B), dtype=np.int64)
-    check(len(np.unique(batches)) == batches.size, "timing keys repeat")
-    batches = torch.as_tensor(batches, device=dev)
-    valid = torch.ones(B, dtype=torch.bool, device=dev)
-
-    def over_batches(fn, table):
-        it = itertools.cycle(range(len(batches)))  # a second trace (profile_device) meets keys again
-        return lambda: fn(table, batches[next(it)], valid)
-
-    t1 = hs_mod.init_hashset(bits, device=dev)
-    t2 = hs_mod.init_hashset(bits, device=dev)
-    ins_ms = cuda_time_ms(over_batches(hs_mod.probe_and_insert, t1), reps=n_kern - 1)
-    ins_plain = cuda_time_ms(over_batches(hs_mod.probe_and_insert_reference, t2), reps=n_plain - 1)
-    del_ms = cuda_time_ms(over_batches(hs_mod.probe_delete, t1), reps=n_kern - 1)
-    del_plain = cuda_time_ms(over_batches(hs_mod.probe_delete_reference, t2), reps=n_plain - 1)
-    t3 = hs_mod.init_hashset(bits, device=dev)
-    ins_dev = kernel_device_ms(profile_device(over_batches(hs_mod.probe_and_insert, t3), reps=n_kern),
-                               "probe_and_insert_kernel", calls=n_kern)
-    del_dev = kernel_device_ms(profile_device(over_batches(hs_mod.probe_delete, t3), reps=n_kern),
-                               "probe_delete_kernel", calls=n_kern)
-    for t in (t1, t2, t3):
-        check(not ((t.keys != 0) & (t.keys != -1)).any(), "timed deletes left keys behind")
+    # each, and every delete launch removes keys that are in the table.  At
+    # each load the table is filled first (by the plain version) and a tenth
+    # of the filled keys deleted again, so tombstones lie on the probe paths.
+    by_load = {load: _probe_times_at_load(dev, rng, bits, B, load) for load in PROBE_LOADS}
+    at0 = by_load[0.0]
+    ins_ms, ins_dev, ins_plain = at0["insert_ms"], at0["insert_device_ms"], at0["insert_plain_ms"]
+    del_ms, del_dev, del_plain = at0["delete_ms"], at0["delete_device_ms"], at0["delete_plain_ms"]
+    for load, row in by_load.items():
+        check(row["insert_max_abs_err"] == 0 and row["table_slots_differing"] == 0,
+              f"visited_set: the kernels differ from the plain versions at load {load}: {row}")
+        ins_err = max(ins_err, row["insert_max_abs_err"])
+        del_err = max(del_err, row["table_slots_differing"])
     fused = _fused_checks_and_times(dev, rng, bits, B)
     emit({"phase": "visited_set", "table_slots": 1 << bits, "batch": B,
           "race_free_lanes_compared": checked, "raced_lanes": raced,
           "insert_max_abs_err": ins_err, "delete_max_abs_err": del_err,
           "insert_ms": ins_ms, "insert_device_ms": ins_dev, "insert_plain_ms": ins_plain,
           "delete_ms": del_ms, "delete_device_ms": del_dev, "delete_plain_ms": del_plain,
-          "fused": fused})
+          "by_load": {str(k): v for k, v in by_load.items()}, "fused": fused})
     common = {"route": "cuda", "source": "pushworld_tpu_torch/kernels/visited_set.cu",
               "library_ms": None, "library_device_ms": None}
 
@@ -1129,7 +1201,9 @@ def _iteration_inputs(pl, s):
 def _compact_append_error(pl, s, args) -> dict:
     """The compaction and then the append on two copies of ``s``, kernels
     against plain versions: the largest error over the state after each
-    (and hist_idx), and the evictions the compaction made."""
+    (and hist_idx), the visited table's error after the compaction (the
+    kernel deletes its drops itself, the plain version through
+    probe_delete), the evictions and the fingerprints it deleted."""
     import torch
 
     from pushworld_tpu_torch.search import batched
@@ -1141,13 +1215,15 @@ def _compact_append_error(pl, s, args) -> dict:
     batched.compact_frontier_reference(r, nb, args["gate"])
     torch.cuda.synchronize()
     compact_err = _state_error(k, r)
+    table_err = abs_err(k.visited.keys, r.visited.keys)
+    deleted = int(((s.visited.keys != -1) & (k.visited.keys == -1)).sum())
     compacted = int(k.ring_cursor) != int(s.ring_cursor)  # a compaction leaves it at min(live, keep) < F - nb
     got = batched.append_children(k, pl.config, **args)
     want = batched.append_children_reference(r, pl.config, **args)
     torch.cuda.synchronize()
-    return {"compact_max_abs_err": compact_err,
+    return {"compact_max_abs_err": compact_err, "visited_table_max_abs_err": table_err,
             "append_max_abs_err": max(_state_error(k, r), _max_abs_err([(got, want)])),
-            "evicted": int(k.evictions) - before, "compacted": compacted}
+            "evicted": int(k.evictions) - before, "keys_deleted": deleted, "compacted": compacted}
 
 
 def phase_iteration_kernels(generated, dev, floor):
@@ -1262,8 +1338,23 @@ def phase_iteration_kernels(generated, dev, floor):
     check(evicting is not None, "iteration_kernels: no evicting compaction in 64 iterations")
     w, args, _ = _iteration_inputs(pl, s)
     evicting.update(_compact_append_error(pl, w, args))
-    check(evicting["compact_max_abs_err"] == evicting["append_max_abs_err"] == 0 and evicting["evicted"] > 0,
+    check(evicting["compact_max_abs_err"] == evicting["append_max_abs_err"] == 0 and evicting["evicted"] > 0
+          and evicting["visited_table_max_abs_err"] == 0 and evicting["keys_deleted"] > 0,
           f"iteration_kernels: the evicting compaction: {evicting}")
+    # Its device time, the deletes included (one launch), each call on the
+    # state before it.
+    ek = _clone_state(w)
+    saved_e = {f: getattr(w, f).clone() for f in ("frontier_h", "frontier_states", "frontier_hist", "frontier_key",
+                                                  "ring_cursor", "evictions")}
+
+    def reset_evicting():
+        for f, v in saved_e.items():
+            getattr(ek, f).copy_(v)
+        ek.visited.keys.copy_(w.visited.keys)
+
+    evicting["device_ms"] = kernel_device_ms(profile_device(
+        lambda: (reset_evicting(), batched.compact_frontier(ek, nb, args["gate"])), reps=10),
+        "compact_kernel", calls=10)
 
     # A closed gate: every kernel of _iterate on a solved search.
     pl, s = timing["pl"], timing["s"]
@@ -1285,8 +1376,15 @@ def phase_iteration_kernels(generated, dev, floor):
         launches_ms = by_kernel.setdefault(_kernel_name(k), [0.0, 0.0])
         launches_ms[0] += count / 20
         launches_ms[1] += us / 1e3 / 20
+    from pushworld_tpu_torch.kernels import LAUNCHES
+
+    before = dict(LAUNCHES)
+    batched._iterate(cp, t, cfg, closed)
+    hand = {k: n - before.get(k, 0) for k, n in LAUNCHES.items() if n != before.get(k, 0)}
+    check(hand == {k: 1 for k in ITERATION_KERNELS},
+          f"iteration_kernels: a closed-gate iteration is not the {len(ITERATION_KERNELS)} launches: {hand}")
     gated.update(device_ms_per_iter=prof["busy_us"] / 1e3 / 20, kernels_per_iter=prof["n_kernels"] / 20,
-                 device_ms_by_kernel=by_kernel)
+                 hand_kernel_launches_per_iter=sum(hand.values()), device_ms_by_kernel=by_kernel)
     check(gated["iterate_max_abs_err"] == 0 and gated["select_and_expand_max_abs_err"] == 0
           and not gated["gate"] and gated["selected"] == gated["effective"] == gated["goals"] == 0,
           f"iteration_kernels: a closed gate is no no-op: {gated}")
@@ -1417,13 +1515,26 @@ def phase_solve(puzzles, generated, dev):
             check(r.failure_reason is None and p.is_valid_plan(r.plan), f"{name}: {r}")
     launches = dict(LAUNCHES)
     total = time.monotonic() - t0
-    for k in KERNEL_NAMES:
+    for k in MAIN_PATH_KERNELS:
         check(launches.get(k, 0) > 0, f"kernel {k} was not launched on the main path")
+    for k in OFF_MAIN_PATH:
+        check(launches.get(k, 0) == 0, f"kernel {k} was launched on the main path")
     gen = rows[-1]
+    # A search's start (after the main path's counts were read): the kernels
+    # of init_state on the 47 x 54 puzzle, and of the root's fingerprint,
+    # the plain int64 fold, by object count.
+    from pushworld_tpu_torch.ops.hashset import fingerprint
+    from pushworld_tpu_torch.search.batched import BatchedPlanner
+
+    pl = BatchedPlanner(generated, max_depth=0, device=dev, **PRODUCTION_CAPACITIES)
+    start = {"objects": pl.cp_dev.n, "init_state_kernels": profile_device(pl.init_state)["n_kernels"],
+             "root_fingerprint_kernels": {
+                 n: profile_device(lambda n=n: fingerprint(torch.zeros((1, n, 2), dtype=torch.int32, device=dev),
+                                                           generated.width))["n_kernels"] for n in (4, 19)}}
     emit({"phase": "solve", "puzzles": len(rows), "total_s": total,
           "solved": sum(r["result"] == "solved" for r in rows),
           "no_solution": sum(r["result"] == "no solution" for r in rows),
-          "generated": gen, "launches": launches, "per_puzzle": rows})
+          "generated": gen, "launches": launches, "search_start": start, "per_puzzle": rows})
     return launches, {r["puzzle"]: r["result"] for r in rows}, plans
 
 
@@ -2028,7 +2139,7 @@ def phase_portfolio(puzzles, generated, hard, dev):
     check(launches2.get("visited_set.fingerprint_dedup_insert", 0) > 0,
           "portfolio, no head start: the device member did not engage")
     both = {k: launches.get(k, 0) + launches2.get(k, 0) for k in KERNEL_NAMES}
-    for k in KERNEL_NAMES:
+    for k in MAIN_PATH_KERNELS:
         check(both[k] > 0, f"kernel {k} was not launched on the portfolio's path")
     emit({"phase": "portfolio", "puzzles": len(named), "wall_s": wall,
           "solved": sum(c == "solved" for c in classes.values()),
@@ -2174,7 +2285,7 @@ def phase_fleet(puzzles, generated, hard, solve_classes, dev):
             os.environ["PW_DEVICE_DEEP"] = old
     check(row["fleet_by_solver"].get("device", 0) > 0, "fleet (a): the device solved nothing")
     check(row["device_phases"]["lanes"] > 0, "fleet (a): no device lane")
-    for k in KERNEL_NAMES:
+    for k in MAIN_PATH_KERNELS:
         check(row["launches"].get(k, 0) > 0, f"fleet (a): kernel {k} was not launched")
     row["device_results"] = {n: [classes[n], results[n].planning_time] for n, _ in named
                              if results[n].solver == "device"}
@@ -2454,7 +2565,7 @@ def phase_parallel(puzzles, generated, solve_plans, dev):
     lap("b")
     frontier = {k: sum(part_launches[p][k] for p in ("a_card", "a_rate_and_profile", "a_card_cpu", "b"))
                 for k in KERNEL_NAMES}
-    for k in KERNEL_NAMES:
+    for k in MAIN_PATH_KERNELS:
         check(frontier[k] > 0, f"kernel {k} was not launched by the frontier-sharded runs")
 
     # (c) solve_group on every puzzle at production capacities, one group
@@ -2731,7 +2842,7 @@ def phase_tools(seed, dev):
         shutil.rmtree(work, ignore_errors=True)
 
     launches = dict(LAUNCHES)
-    for k in KERNEL_NAMES:
+    for k in MAIN_PATH_KERNELS:
         check(launches.get(k, 0) > 0, f"kernel {k} was not launched on the toolkit's path")
     out.update(launches=launches, launches_by_part=part_launches, total_s=time.monotonic() - t0, seconds=seconds)
     emit(out)
@@ -2815,14 +2926,15 @@ def main() -> int:
     # the portfolio's two passes, the fleet's device-only run, the parallel
     # layer and the toolkit, each counted from 0.
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = launches.get(k["name"], 0)
         k["launches_by_phase"] = {ph: c.get(k["name"], 0) for ph, c in by_phase.items()}
+        k["main_path_form"] = OFF_MAIN_PATH.get(k["name"])
     emit({"phase": "traced_launches", "readings": TRACED_LAUNCHES,
           "short": [r for r in TRACED_LAUNCHES if min(r["traced"].values()) < r["calls"]]})
     emit({"kernels": [{key: k.get(key) for key in (
         "name", "route", "source", "replaces", "launches", "launches_by_phase", "max_abs_err",
         "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes_bound_ms", "library_ms",
-        "library_device_ms", "closed_gate_device_ms")}
+        "library_device_ms", "closed_gate_device_ms", "main_path_form")}
         for k in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

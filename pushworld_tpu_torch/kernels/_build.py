@@ -3,8 +3,9 @@
 Each ``.cu`` source in this directory has a plain C interface and is compiled
 by ``nvcc`` alone (no PyTorch headers, so a build takes seconds) into a
 shared library under ``.torch_ext_build/`` at the repository root, named by
-the hash of its source and of the nvcc flags, so an edited kernel or a
-changed flag is rebuilt.  Missing libraries are
+the hash of its source, of the headers beside it (``*.cuh``, which the
+sources include) and of the nvcc flags, so an edited kernel, an edited
+header or a changed flag is rebuilt.  Missing libraries are
 built in parallel, one ``nvcc`` per source, all started together.
 
 Nothing here runs at import: the CPU tests import every module of the port
@@ -50,7 +51,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "frontier": {
         "pw_frontier_select": [_vp] * 5 + [_i] + [_vp] * 5 + [_i] * 3 + [_vp],
         "pw_frontier_select_scratch_words": [_i, _i],
-        "pw_frontier_compact": [_vp] * 13 + [_i] * 4 + [_vp],
+        "pw_frontier_compact": [_vp] * 7 + [_u] + [_vp] * 5 + [_i] * 4 + [_vp],
         "pw_frontier_append": [_vp] * 25 + [_i] * 10 + [_vp],
     },
     "novelty": {
@@ -77,6 +78,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256((KERNEL_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(KERNEL_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
     digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"

@@ -59,7 +59,8 @@
 //
 // pw_frontier_compact.  need = gate and cursor + nb > F, read on the device
 // by every CTA before the first cluster barrier (CTA 0 writes the cursor only
-// after the last); without need every CTA returns at once.  Else, as the
+// after the last); without need every CTA returns at once, after one read of
+// the gate and the cursor.  Else, as the
 // lax.cond branch: a stable sort of the F keys, an LSD radix sort of the
 // words by key, 4 passes of 8 bits.  In a pass each CTA counts its tile's
 // digits by (digit, warp), warp w owning a contiguous range that it ranks in
@@ -74,9 +75,13 @@
 // nothing and is skipped.  Each CTA copies the states, hist and fingerprints
 // of its own slots to scratch before the passes and, after them, permutes its
 // own positions from the copies; live slots at or beyond keep are dropped
-// (EMPTY; a drop mask and the need flag go to the caller, whose
-// visited_set.cu probe_delete launch, gated on the flag, tombstones the
-// dropped fingerprints), cursor = min(live, keep), evictions += dropped.
+// (EMPTY), and the thread that writes a dropped position tombstones its
+// fingerprint in the visited set itself, with visited_probe.cuh's delete
+// (the window of 8 slots in one wave, then one CAS), so the iteration needs
+// no delete launch, drop mask or need flag; cursor = min(live, keep),
+// evictions += dropped.  The drops are distinct positions: two lanes race
+// on one slot only where probe exhaustion let one key into the frontier
+// twice, exactly as two lanes of a delete launch would.
 //
 // pw_frontier_append.  With the gate open: the history index of each new
 // child is cursor + its rank among the new lanes in lane order; the
@@ -130,7 +135,9 @@
 // them) and one cluster barrier, the compaction by its sort
 // passes (5 CTA barriers and 2 cluster barriers each) and by moving the
 // states through 8 SMs (the copies and the permutation, with 8 loads in
-// flight a thread), the append by the launch.
+// flight a thread) and, when it evicts, by its deletes (a window and a CAS
+// a dropped entry, in the CTAs that own the positions at or beyond keep);
+// the append by the launch.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (see _build.py);
 // plain C interface, loaded with ctypes.
@@ -139,6 +146,8 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "visited_probe.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -598,8 +607,7 @@ struct Compact {
   long long* fkey;            // (F,) packed fingerprints
   int* ring_cursor;           // scalar
   int* evictions;             // scalar
-  uint8_t* drop;              // (F,) out, written when need
-  uint8_t* need;              // scalar out
+  u64* table;                 // the visited set (mask + 1,) packed words: dropped fingerprints are tombstoned
   const uint8_t* gate;        // scalar or null: open
   u64* sort;                  // (2F,) scratch: the words when a tile does not fit in shared memory
   int* states_copy;           // (F, n, 2) scratch
@@ -607,6 +615,7 @@ struct Compact {
   long long* key_copy;        // (F,) scratch
   int F, n, nb, keep;
   int T;                      // slots a tile, ceil(F / kCluster)
+  unsigned mask;              // the visited set's slots - 1
 };
 
 constexpr int kOffRow = 257;  // off[warp * kOffRow + digit]: a warp's digits in distinct banks
@@ -651,7 +660,6 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1) 
   const int me = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool need = (c.gate == nullptr || *c.gate) && *c.ring_cursor + c.nb > c.F;
-  if (me == 0 && tid == 0) *c.need = need;
   if (!need) return;
   const int lo = min(me * c.T, c.F);
   const int m = min(c.T, c.F - lo);
@@ -810,7 +818,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1) 
         c.h[p] = dropped ? kEmpty : key;
         c.fhist[p] = hv[u];
         c.fkey[p] = kv[u];
-        c.drop[p] = dropped;
+        // The dropped entry leaves the visited set: it can be generated again.
+        if (dropped) pw_probe::delete_key(c.table, static_cast<u64>(kv[u]), c.mask);
       }
     }
   }
@@ -1177,23 +1186,24 @@ extern "C" int pw_frontier_select(void* h, const void* states, const void* fhist
   return static_cast<int>(cudaGetLastError());
 }
 
-// Compacts the ring when gate (null: open) and cursor + nb > F; writes need
-// and, when it holds, the drop mask.  Scratch: sort (2F,) u64 (the words,
-// when a tile does not fit in shared memory: F above ~96K), states_copy
-// (F, n, 2) int32 (16-byte aligned where n is even), hist_copy (F,) int32,
-// key_copy (F,) int64.
+// Compacts the ring when gate (null: open) and cursor + nb > F, and
+// tombstones the dropped entries' fingerprints in the visited set table
+// (mask + 1 packed words, mask = 2^bits - 1).  Scratch: sort (2F,) u64 (the
+// words, when a tile does not fit in shared memory: F above ~96K),
+// states_copy (F, n, 2) int32 (16-byte aligned where n is even), hist_copy
+// (F,) int32, key_copy (F,) int64.
 extern "C" int pw_frontier_compact(void* h, void* states, void* fhist, void* fkey, void* ring_cursor,
-                                   void* evictions, void* drop, void* need, const void* gate, void* sort,
+                                   void* evictions, void* table, unsigned mask, const void* gate, void* sort,
                                    void* states_copy, void* hist_copy, void* key_copy, int F, int n, int nb,
                                    int keep, void* stream) {
-  if (F < 1 || n < 1 || nb < 0 || keep < 0 || keep > F || F > (1 << 26) / n)
+  if (F < 1 || n < 1 || nb < 0 || keep < 0 || keep > F || F > (1 << 26) / n || (mask & (mask + 1u)) != 0u)
     return static_cast<int>(cudaErrorInvalidValue);
   const int T = (F + kCluster - 1) / kCluster;
   Compact c{static_cast<int*>(h),          static_cast<int*>(states),     static_cast<int*>(fhist),
             static_cast<long long*>(fkey), static_cast<int*>(ring_cursor), static_cast<int*>(evictions),
-            static_cast<uint8_t*>(drop),   static_cast<uint8_t*>(need),   static_cast<const uint8_t*>(gate),
+            static_cast<u64*>(table),      static_cast<const uint8_t*>(gate),
             static_cast<u64*>(sort),       static_cast<int*>(states_copy), static_cast<int*>(hist_copy),
-            static_cast<long long*>(key_copy), F, n, nb, keep, T};
+            static_cast<long long*>(key_copy), F, n, nb, keep, T, mask};
   const size_t smem = static_cast<size_t>(T) * 16;
   const bool in_smem = smem <= kMaxSmem - kCompactStatic;
   const cudaError_t err =

@@ -10,18 +10,27 @@
 // (hi << 32 | lo; 0 = empty, all ones = tombstone) and a lane claims an
 // empty or tombstoned slot with a 64-bit atomicCAS, so keys never tear.
 //
-// Probing (insert_key, shared by both insert kernels so they cannot drift):
-// up to N_PROBES consecutive slots from slot = (lo ^ (hi * 0x9E3779B1)) &
-// mask, as the JAX code does: a slot holding the key means "found"; the
-// first free slot (empty or tombstone) is claimed; a lost CAS moves on as
-// the JAX round loser does.  Lanes still unplaced after the probes are
-// reported new.
+// Probing: visited_probe.cuh, shared with frontier.cu's compaction, which
+// tombstones the fingerprints it drops itself (so on the search's main path
+// the standalone delete is not launched: it serves the public
+// probe_delete, the plain compaction's callers and the card tests).  The
+// N_PROBES slots of a key's sequence are read in one wave, then scanned in
+// probe order: found, or the first free slot claimed with a CAS (insert);
+// the first copy of the key tombstoned (delete).
 //
-// Bound: bytes.  A lane moves a few dozen bytes (the fused kernel 8N + 1 in,
-// 9 out, one table word read and one written) at random 8-byte addresses;
-// there is no arithmetic to speak of.  At the batch the search gives (4 *
-// expand = 1,024 lanes) the cost of any of these kernels is its launch, so
-// nothing inside one can be made faster: what can be saved is launches.
+// The insert and the delete kernels: a group of 8 threads a key, thread j
+// reading slot j of the window (a warp's load is 4 windows of 64 contiguous
+// bytes), a ballot for the first thread that decides.  The key and its
+// valid flag are loaded together, then the window, then the CAS: three
+// round trips in all.  The delete reads its gate (null: open) alone first,
+// so a closed gate costs one load.
+//
+// Bound: bytes.  A lane must move a few dozen bytes (the fused kernel 8N + 1
+// in, 9 out; on a sparse table one word read and one written) at random
+// 8-byte addresses; there is no arithmetic to speak of.  At the batch the
+// search gives (4 * expand = 1,024 lanes) the bound of any of these kernels
+// is its launch; what a kernel adds to it is its chain of dependent round
+// trips, which the window read cuts to three (flag and key, window, CAS).
 //
 // Design of the fused kernel.  An iteration used to reach the table through
 // about a hundred small launches: an eager fingerprint fold (a dozen
@@ -36,7 +45,8 @@
 //      after a CTA barrier lane i is the batch's first occurrence iff
 //      owner == i.  The lowest index wins whatever the order of the claims,
 //      so the result is deterministic;
-//   3. insert_key for the first occurrences, is_new written out.
+//   3. find_or_claim_by_slot (visited_probe.cuh) for the first occurrences,
+//      is_new written out.
 // With a gate flag that is 0 (the search iteration is a no-op), the kernel
 // writes is_new = 0 and returns: keys are not written.
 // The dedup table lives in shared memory (2,048 slots, 24 KB, at n = 1,024;
@@ -49,66 +59,58 @@
 // plain C interface, loaded with ctypes.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include "visited_probe.cuh"
+
+// Phase marks for scripts/profile_kernel_phases.py (no-ops here).
+#ifndef PW_STOP
+#define PW_STOP(k, v)
+#endif
 
 namespace {
 
-typedef unsigned long long u64;
+using pw_probe::first_slot;
+using pw_probe::kEmpty;
+using pw_probe::kProbes;
+using pw_probe::u64;
 
-constexpr int kProbes = 8;
-constexpr u64 kEmpty = 0ull;
-constexpr u64 kTomb = ~0ull;
 constexpr int kThreads = 256;
 constexpr int kFusedThreads = 1024;
 constexpr int kNoOwner = 0x7FFFFFFF;
 constexpr int kMaxSharedSlots = 16384;  // 12 bytes each: 192 KB
 
-__device__ __forceinline__ unsigned int first_slot(u64 key, unsigned int mask) {
-  const unsigned int lo = static_cast<unsigned int>(key);
-  const unsigned int hi = static_cast<unsigned int>(key >> 32);
-  return (lo ^ (hi * 0x9E3779B1u)) & mask;
-}
-
-// Probes the table for key and claims a free slot if it is absent.  Returns
-// true iff the key was found.
-__device__ __forceinline__ bool insert_key(u64* __restrict__ table, u64 key, unsigned int mask) {
-  unsigned int slot = first_slot(key, mask);
-  for (int r = 0; r < kProbes; ++r) {
-    // L2 read: other lanes of this launch may have claimed the slot.
-    const u64 cur = __ldcg(table + slot);
-    if (cur == key) return true;
-    if (cur == kEmpty || cur == kTomb) {
-      const u64 old = atomicCAS(table + slot, cur, key);
-      if (old == cur) return false;  // claimed
-      if (old == key) return true;
-    }
-    slot = (slot + 1u) & mask;
-  }
-  return false;
-}
-
+// Eight threads a key (kProbes lanes: a group of visited_probe.cuh): thread
+// t probes key t / 8.  The groups of a warp run in step (full-warp ballots),
+// so no thread returns before the probe, and the grid is whole warps.
 __global__ void probe_and_insert_kernel(u64* __restrict__ table, const u64* __restrict__ keys,
                                         const uint8_t* __restrict__ valid,
                                         uint8_t* __restrict__ is_new, int n, unsigned int mask) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  is_new[i] = valid[i] && !insert_key(table, keys[i], mask);
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) / kProbes;
+  const bool in = i < n;
+  const bool v = in && valid[i];
+  const u64 key = in ? keys[i] : kEmpty;
+  PW_STOP(1, static_cast<int>(key) + v);  // phase: valid and key
+  const u64 cur = pw_probe::group_word(table, key, v, mask);
+  PW_STOP(2, static_cast<int>(cur));  // phase: window
+  const bool found = pw_probe::group_find_or_claim(table, key, v, mask, cur);
+  if (in && (threadIdx.x & 7u) == 0u) is_new[i] = v && !found;
 }
 
+// The gate (null: open) is read alone first: a closed gate costs one load.
 __global__ void probe_delete_kernel(u64* __restrict__ table, const u64* __restrict__ keys,
                                     const uint8_t* __restrict__ valid, const uint8_t* __restrict__ gate, int n,
                                     unsigned int mask) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || (gate != nullptr && !*gate) || !valid[i]) return;
-  const u64 key = keys[i];
-  unsigned int slot = first_slot(key, mask);
-  for (int r = 0; r < kProbes; ++r) {
-    if (__ldcg(table + slot) == key) {
-      atomicCAS(table + slot, key, kTomb);
-      return;
-    }
-    slot = (slot + 1u) & mask;
-  }
+  if (gate != nullptr && !*gate) return;  // the whole grid alike
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) / kProbes;
+  const bool in = i < n;
+  const bool v = in && valid[i];
+  const u64 key = in ? keys[i] : kEmpty;
+  PW_STOP(1, static_cast<int>(key) + v);  // phase: valid and key
+  const u64 cur = pw_probe::group_word(table, key, v, mask);
+  PW_STOP(2, static_cast<int>(cur));  // phase: window
+  pw_probe::group_delete(table, key, v, mask, cur);
 }
 
 // One step of a 32-bit fingerprint lane.
@@ -181,7 +183,7 @@ fingerprint_dedup_insert_kernel(u64* __restrict__ table, const int* __restrict__
       const volatile int* vowner = owner;
       unsigned int s = first_slot(key, dmask);
       for (int t = 0; t < slots && vkey[s] != key; ++t) s = (s + 1u) & dmask;
-      fresh = vowner[s] == i && !insert_key(table, key, mask);
+      fresh = vowner[s] == i && !pw_probe::find_or_claim_by_slot(table, key, mask);
     }
     is_new[i] = fresh;
   }
@@ -191,7 +193,8 @@ fingerprint_dedup_insert_kernel(u64* __restrict__ table, const int* __restrict__
 
 extern "C" int pw_probe_and_insert(void* table, const void* keys, const void* valid,
                                    void* is_new, int n, unsigned int mask, void* stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
+  if (n < 0 || n > INT_MAX / kProbes) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n * kProbes + kThreads - 1) / kThreads;
   probe_and_insert_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<u64*>(table), static_cast<const u64*>(keys),
       static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(is_new), n, mask);
@@ -202,7 +205,8 @@ extern "C" int pw_probe_and_insert(void* table, const void* keys, const void* va
 // deleted.
 extern "C" int pw_probe_delete(void* table, const void* keys, const void* valid, const void* gate, int n,
                                unsigned int mask, void* stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
+  if (n < 0 || n > INT_MAX / kProbes) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n * kProbes + kThreads - 1) / kThreads;
   probe_delete_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<u64*>(table), static_cast<const u64*>(keys),
       static_cast<const uint8_t*>(valid), static_cast<const uint8_t*>(gate), n, mask);

@@ -21,6 +21,14 @@ dedup in the CTA's shared memory, then the probes).  :func:`fingerprint`,
 :func:`dedup_batch` and :func:`probe_and_insert` are its three steps as
 functions of their own, and their composition is its plain version.
 
+Where each kernel runs on the card: the fused kernel once an iteration;
+the insert kernel for a search's root (``search.batched.init_search_state``);
+the evictions' deletes inside the frontier's compaction kernel
+(``kernels/frontier.cu``), which tombstones the fingerprints it drops with
+the same probe (``kernels/visited_probe.cuh``), so the search launches no
+delete kernel.  The delete kernel serves :func:`probe_delete` itself, the
+plain compaction's callers and the card tests.
+
 ``probe_and_insert``, ``probe_delete`` and ``fingerprint_dedup_insert``
 update the table IN PLACE (the JAX functions return a new table).
 
@@ -209,8 +217,11 @@ def probe_and_insert(
         inserted unless its probes were exhausted).  Within-batch duplicates
         must be removed beforehand (:func:`dedup_batch`).
 
-    On a CUDA tensor this launches ``visited_set.cu``'s insert kernel; on a
-    CPU tensor it runs :func:`probe_and_insert_reference`.
+    On a CUDA tensor this launches ``visited_set.cu``'s insert kernel (8
+    threads a key: key and flag, then the window of ``N_PROBES`` slots in
+    one wave, a slot a thread, then one CAS); on a CPU tensor it runs
+    :func:`probe_and_insert_reference`.  The search launches it for its root
+    only.
     """
     if hs.keys.device.type == "cpu":
         return probe_and_insert_reference(hs, keys, valid)
@@ -225,13 +236,15 @@ def probe_and_insert(
 def probe_delete(hs: HashSet, keys: torch.Tensor, valid: torch.Tensor, gate=None) -> HashSet:
     """Removes keys from the table (tombstoning their slots), in place.
 
-    Used to un-visit states evicted from the bounded search frontier so they
-    can be re-generated later.  Missing keys are ignored.  ``gate`` (a bool
+    Un-visits states evicted from the bounded search frontier so they can
+    be re-generated later.  Missing keys are ignored.  ``gate`` (a bool
     scalar on the device, or None for open): where it is False nothing is
-    deleted and ``valid`` is not read (the search's compaction writes its
-    drop mask only when it compacts).  On a CUDA tensor this launches
-    ``visited_set.cu``'s delete kernel; on a CPU tensor it runs
-    :func:`probe_delete_reference`."""
+    deleted and ``valid`` is not read.  On a CUDA tensor this launches
+    ``visited_set.cu``'s delete kernel (the gate read alone first); on a
+    CPU tensor it runs :func:`probe_delete_reference`.  The search's
+    compaction on the card deletes its drops inside its own kernel with the
+    same probe; the plain compaction
+    (``search.batched.compact_frontier_reference``) calls this function."""
     if hs.keys.device.type == "cpu":
         return probe_delete_reference(hs, keys, valid if gate is None else valid & gate)
     _check(hs, keys, valid)

@@ -1,7 +1,7 @@
 """Where the search iteration's hand kernels spend their time on the card.
 
-``python -m pushworld_tpu_torch.scripts.profile_kernel_phases PUZZLE.pwp [--kernels expand,append,rgd,novelty]
-[--depth D] [--kernels-dir DIR] [--tag NAME]``
+``python -m pushworld_tpu_torch.scripts.profile_kernel_phases PUZZLE.pwp
+[--kernels expand,append,rgd,novelty,insert,delete] [--depth D] [--kernels-dir DIR] [--tag NAME]``
 
 The card's machine has no ``ncu``, so a kernel is split into phases by
 timing copies of its source that return at successive points.  A source
@@ -10,9 +10,10 @@ normal build); a build with ``-DPW_STOP_AT=k`` returns at point k, after a
 store that keeps ``value`` (and the work behind it) from being optimised
 away.  Sources without marks (each of the four as it stood before its
 Hopper redesign) get the marks of ``LEGACY_STOPS`` inserted at the lines
-named there.  ``--kernels-dir`` takes the sources from another tree (a
-checkout of the parent); the expansion's, the append's and RGD's C
-interfaces must be this tree's, and the novelty source may export either
+named there; a source with neither is timed whole.  ``--kernels-dir``
+takes the sources from another tree (a checkout of the parent; its headers
+are found there); the expansion's, the append's, RGD's and the visited
+set's C interfaces must be this tree's, and the novelty source may export either
 this tree's two launches (``pw_novelty_score_records``,
 ``pw_novelty_absorb_records``) or the earlier pair (``pw_novelty_score``,
 ``pw_novelty_absorb``).  All the threads of a cluster stop at the same
@@ -26,20 +27,28 @@ parents, the novelty kernels and RGD the children with the iteration's own
 ``is_new`` mask as ``valid`` (novelty from the tables as they were before
 that iteration's update: the cells it sets are zeroed again before each
 call), and the append the
-whole iteration's outputs (its state restored before each call).  Every copy
+whole iteration's outputs (its state restored before each call).  The
+visited set's two probes (``insert``, ``delete``: valid flag and key, then
+the window, then the CAS) are timed at each of ``PROBE_LOADS`` (0, 0.5 and
+0.75): a 2^21-slot table filled to that share by the plain version, a tenth of the filled keys
+deleted again (tombstones on the probe paths); the insert on batches of
+1,024 fresh keys (each variant from a copy of that table), the delete on
+batches of 1,024 keys that the plain version inserted first.  Every copy
 is built in parallel (one ``nvcc`` each), loaded in place of the package's
 library and timed under ``torch.profiler`` (the device time of the kernels
 whose names hold the kernel's profiler name, ``--reps`` calls, by kernel).
 A closed gate is timed on the whole kernels: the gate closed for the
-expansion and the append, an all-false ``valid`` for RGD and novelty.
-``--no-stops`` builds and times the whole kernels only.  Prints one JSON
-line: per kernel, the device ms at each stop, of the whole kernel and of a
-closed gate, and ptxas's register, spill and shared-memory lines.
+expansion, the append and the delete, an all-false ``valid`` for RGD,
+novelty and the insert.  ``--no-stops`` builds and times the whole kernels
+only.  Prints one JSON line: per kernel (and load), the device ms at each
+stop, of the whole kernel and of a closed gate, and ptxas's register,
+spill and shared-memory lines.
 Needs a CUDA device.
 """
 
 import argparse
 import ctypes
+import itertools
 import json
 import re
 import subprocess
@@ -52,7 +61,11 @@ KERNELS = {
     "append": ("frontier.cu", "frontier", "append_kernel"),
     "rgd": ("rgd.cu", "rgd", "rgd_kernel"),
     "novelty": ("novelty.cu", "novelty", "novelty_"),
+    "insert": ("visited_set.cu", "visited_set", "probe_and_insert_kernel"),
+    "delete": ("visited_set.cu", "visited_set", "probe_delete_kernel"),
 }
+PROBE_KERNELS = ("insert", "delete")
+PROBE_LOADS = (0.0, 0.5, 0.75)
 # A stop of a source without marks: (label, the exact text after which the
 # mark goes, the value the mark keeps).  The first occurrence of the text.
 LEGACY_STOPS = {
@@ -116,8 +129,9 @@ NOVELTY_SIGNATURES = {
 
 def _stops(kernel: str, text: str):
     """(text with marks, [(k, label)]) of a source."""
-    marked = [(int(k), label.strip()) for k, label in MARK.findall(text)]
-    if marked:
+    # A source's kernels may share a mark (visited_set.cu's two probes).
+    marked = list(dict((int(k), label.strip()) for k, label in MARK.findall(text)).items())
+    if marked or kernel not in LEGACY_STOPS:
         return text, marked
     stops = []
     for k, (label, anchor, value) in enumerate(LEGACY_STOPS[kernel], start=1):
@@ -149,7 +163,7 @@ def _build_variants(kernels, kernels_dir: Path, tag: str, stops=True):
         for k, label in [(0, "whole kernel"), *(marks if stops else [])]:
             lib = out_dir / f"lib{kernel}-{tag}-{k}.so"
             flags = [f"-DPW_STOP_AT={k}"] if k else []
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(src)]
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, f"-I{kernels_dir}", "-o", str(lib), str(src)]
             procs[kernel].append((k, label, lib, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     return procs
@@ -222,6 +236,56 @@ def _inputs(puzzle, depth: int, dev):
     args = dict(gate=gate, is_new=is_new, parent_hist=parent_hist, actions=None, goal=goal, nov=nov, rgd=rgd,
                 deeper=deeper, sel_valid=sel_valid, children=children, keys=keys)
     return pl, w, args, parents, tables, moved
+
+
+def _probe_tables(dev, loads, reps: int, bits: int = 21, B: int = 1024, seed: int = 0):
+    """{load: (table, the same table holding every batch, batches)}: a table
+    of 2^bits slots filled to ``load`` by the plain version, a tenth of the
+    filled keys deleted again, and ``reps + 1`` batches of B fresh keys."""
+    import numpy as np
+    import torch
+
+    from pushworld_tpu_torch.ops import hashset as hs
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for load in loads:
+        base = hs.init_hashset(bits, device=dev)
+        filled = torch.as_tensor(rng.integers(1, (1 << 63) - 1, size=int(load * (1 << bits)), dtype=np.int64),
+                                 device=dev)
+        hs.probe_and_insert_reference(base, filled, torch.ones_like(filled, dtype=torch.bool))
+        hs.probe_delete_reference(base, filled, torch.as_tensor(rng.random(len(filled)) < 0.1, device=dev))
+        batches = torch.as_tensor(rng.integers(1, (1 << 63) - 1, size=(reps + 1, B), dtype=np.int64), device=dev)
+        present = hs.HashSet(keys=base.keys.clone(), capacity_bits=bits)
+        for keys in batches:
+            hs.probe_and_insert_reference(present, keys, torch.ones(B, dtype=torch.bool, device=dev))
+        out[load] = (base, present, batches)
+    return out
+
+
+def _probe_call(kernel: str, tables):
+    """A call of the insert or the delete wrapper on a copy of the load's
+    table, a batch a call (cycling): open, or closed (no valid key for the
+    insert, a closed gate for the delete)."""
+    import torch
+
+    from pushworld_tpu_torch.ops import hashset as hs
+
+    base, present, batches = tables
+    src = base if kernel == "insert" else present
+    table = hs.HashSet(keys=src.keys.clone(), capacity_bits=src.capacity_bits)
+    dev = batches.device
+    ones = torch.ones(batches.shape[1], dtype=torch.bool, device=dev)
+    closed = torch.zeros((), dtype=torch.bool, device=dev)
+    it = itertools.cycle(range(len(batches)))
+
+    def call(open_):
+        keys = batches[next(it)]
+        if kernel == "insert":
+            hs.probe_and_insert(table, keys, ones if open_ else ones & closed)
+        else:
+            hs.probe_delete(table, keys, ones, None if open_ else closed)
+    return call
 
 
 def _novelty_call(t, changed, children, moved, valid, out, record):
@@ -322,9 +386,10 @@ def main(argv=None) -> int:
     out = {"puzzle": args.puzzle, "tag": args.tag, "kernels_dir": str(kernels_dir), "depth": args.depth,
            "device": torch.cuda.get_device_name(0), "new_children": int(app["is_new"].sum()),
            "live_parents": int(app["sel_valid"].sum()), "lanes": int(app["is_new"].shape[0])}
+    probe = _probe_tables(dev, PROBE_LOADS, args.reps) if set(kernels) & set(PROBE_KERNELS) else {}
     for kernel, variants in procs.items():
         _, library, prof_name = KERNELS[kernel]
-        rows, ptxas = [], []
+        by_load, ptxas = {}, []
         for k, label, lib_path, proc in variants:
             log, _ = proc.communicate()
             if proc.returncode != 0:
@@ -341,11 +406,16 @@ def main(argv=None) -> int:
             saved = _build._LOADED.get(library)
             _build._LOADED[library] = lib
             try:
-                by_kernel = _device_ms(lambda: calls[kernel](True), prof_name, args.reps)
-                row = {"stop": k, "label": label, "device_ms": sum(by_kernel.values()), "by_kernel": by_kernel}
+                # The probes: each load from a fresh copy of its table.
+                for load in PROBE_LOADS if kernel in PROBE_KERNELS else [None]:
+                    call = _probe_call(kernel, probe[load]) if load is not None else calls[kernel]
+                    by_kernel = _device_ms(lambda: call(True), prof_name, args.reps)
+                    row = {"stop": k, "label": label, "device_ms": sum(by_kernel.values()), "by_kernel": by_kernel}
+                    if k == 0:
+                        row["closed_gate_device_ms"] = sum(
+                            _device_ms(lambda: call(False), prof_name, args.reps).values())
+                    by_load.setdefault(load, []).append(row)
                 if k == 0:
-                    row["closed_gate_device_ms"] = sum(
-                        _device_ms(lambda: calls[kernel](False), prof_name, args.reps).values())
                     ptxas = [ln.strip() for ln in log.splitlines()
                              if prof_name in ln or "registers" in ln or "spill" in ln]
             finally:
@@ -353,8 +423,11 @@ def main(argv=None) -> int:
                     _build._LOADED.pop(library, None)
                 else:
                     _build._LOADED[library] = saved
-            rows.append(row)
-        out[kernel] = {"source": KERNELS[kernel][0], "stops": rows, "ptxas": ptxas}
+        out[kernel] = {"source": KERNELS[kernel][0], "ptxas": ptxas}
+        if kernel in PROBE_KERNELS:
+            out[kernel]["by_load"] = {str(load): rows for load, rows in by_load.items()}
+        else:
+            out[kernel]["stops"] = by_load[None]
     out["seconds"] = time.monotonic() - t0
     print(json.dumps(out))
     return 0

@@ -15,14 +15,26 @@ iteration and how many of the iterations were active (their gate open); the grap
 seconds; the kernels with the most device time in the eager loop and in
 the replays; and the
 same eager loop with the gate closed (the search marked solved: every
-kernel a no-op), its device ms per iteration in all and by kernel.
-Needs a CUDA device.
+kernel a no-op), its device ms per iteration in all and by kernel and its
+hand-kernel launches per iteration (the eight of ``ITERATION_KERNELS``,
+and any other); and a compaction that evicts: the puzzle's search with a
+frontier of 8 x expand slots (``--evict-frontier``), caught before the
+iteration whose compaction drops live entries, ``compact_frontier`` on that
+iteration's state timed by kernel (every kernel it launches, the visited
+set's deletes included), each call on the state as it was.
+Needs a CUDA device.  The script uses only the package's public calls, so
+it also times another tree's package: run it with that tree's root on
+``PYTHONPATH``.
 """
 
 import argparse
 import dataclasses
 import json
 import time
+
+# A search iteration's hand-kernel launches on the card, one each.
+ITERATION_KERNELS = ("frontier.select", "step.expand", "visited_set.fingerprint_dedup_insert", "novelty.score",
+                     "novelty.absorb", "rgd.heuristic", "frontier.compact", "frontier.append")
 
 
 def main(argv=None) -> int:
@@ -34,6 +46,8 @@ def main(argv=None) -> int:
                     help="RGD pushing depth (default: the puzzle's required_depth)")
     ap.add_argument("--graph-iters", type=int, default=None,
                     help="iterations in one CUDA graph (default: chunk_graph.GRAPH_ITERS at the depth)")
+    ap.add_argument("--evict-frontier", type=int, default=None,
+                    help="frontier slots of the evicting compaction's search (default: 8 x expand)")
     args = ap.parse_args(argv)
 
     import torch
@@ -116,6 +130,12 @@ def main(argv=None) -> int:
     closed_row, closed_avgs = profiled(eager_with(closed_s), args.iters)
     closed_row["device_ms_by_kernel"] = {e.key[:120]: dev_us(e) / 1e3 / args.iters for e in closed_avgs
                                          if e.device_type == DeviceType.CUDA and dev_us(e) > 0}
+    per_iter = {k: n / args.iters for k, n in closed_row["hand_kernel_launches"].items()}
+    closed_row["hand_kernel_launches_per_iter"] = {
+        "iteration_kernels": {k: per_iter.get(k, 0) for k in ITERATION_KERNELS},
+        "others": {k: n for k, n in per_iter.items() if k not in ITERATION_KERNELS},
+        "total": sum(per_iter.values())}
+    evicting = _evicting_compaction(puzzle, depth, dev, args.evict_frontier, dev_us)
     print(json.dumps({
         "puzzle": args.puzzle, "depth": depth, "device": torch.cuda.get_device_name(0),
         "table_build_s": build_s, "of_which_host_movement_graphs_s": graphs_s,
@@ -128,9 +148,68 @@ def main(argv=None) -> int:
             for e in sorted((e for e in graphed_avgs if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                             key=dev_us, reverse=True)[: args.top]},
         "closed_gate": closed_row,
+        "evicting_compaction": evicting,
         "expansions": {"eager": int(eager_s.expansions), "graphed": int(graphed_s.expansions)},
     }))
     return 0
+
+
+def _evicting_compaction(puzzle, depth, dev, frontier, dev_us, reps=20) -> dict:
+    """The search with ``frontier`` slots (default 8 x expand) run until the
+    next compaction drops live entries; that iteration's compaction timed
+    (device ms by kernel, over ``reps`` calls, each on the state before it:
+    the frontier, the counters and the visited set restored)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pushworld_tpu_torch.ops.hashset import fingerprint_dedup_insert
+    from pushworld_tpu_torch.ops.step import expand_and_test
+    from pushworld_tpu_torch.search import batched
+    from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES
+
+    caps = dict(PRODUCTION_CAPACITIES)
+    caps["frontier_capacity"] = frontier or 8 * caps["expand"]
+    pl = batched.BatchedPlanner(puzzle, max_depth=depth, device=dev, **caps)
+    cfg, t, cp = pl.config, pl.tables, pl.cp_dev
+    s = pl.init_state()
+    F, nb = pl.frontier_capacity, 4 * cfg.expand
+    for it in range(4096):
+        live = int((s.frontier_h < batched.EMPTY).sum())
+        if int(s.ring_cursor) + nb > F and live - cfg.expand > F - max(nb, F // 4):
+            break
+        batched._iterate(cp, t, cfg, s)
+    else:
+        return {"frontier": F, "found": False}
+    # The iteration's steps up to its compaction (select, expand, insert).
+    parents, _, sel_valid, gate = batched.select_and_gate(cfg, s)
+    children, _, effective, _ = expand_and_test(cp, t.contacts, t.contacts_mask, parents, sel_valid, gate)
+    fingerprint_dedup_insert(s.visited, children, cp.width, effective, gate)
+    saved = {f: getattr(s, f).clone() for f in ("frontier_h", "frontier_states", "frontier_hist", "frontier_key",
+                                                "ring_cursor", "evictions")}
+    table = s.visited.keys.clone()
+
+    def reset():
+        for f, v in saved.items():
+            getattr(s, f).copy_(v)
+        s.visited.keys.copy_(table)
+
+    def compact():
+        reset()
+        batched.compact_frontier(s, nb, gate)
+
+    compact()
+    torch.cuda.synchronize()
+    row = {"frontier": F, "found": True, "iteration": it, "live": live, "evicted": int(s.evictions - saved["evictions"]),
+           "keys_deleted": int(((table != -1) & (s.visited.keys == -1)).sum())}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            compact()
+        torch.cuda.synchronize()
+    hand = {e.key[:120]: dev_us(e) / 1e3 / reps for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0 and ("compact" in e.key or "probe" in e.key)}
+    row.update(device_ms_by_kernel=hand, device_ms=sum(hand.values()))
+    return row
 
 
 if __name__ == "__main__":

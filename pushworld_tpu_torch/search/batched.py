@@ -373,9 +373,10 @@ def compact_frontier(s: SearchState, nb: int, gate=None) -> None:
     (a bool scalar on the device, or None for open) closes it.
 
     On a CUDA tensor one launch of ``frontier.cu``'s compact kernel, which
-    reads ``need`` on the device and returns at once without it, and one of
-    ``visited_set.cu``'s delete kernel, gated on ``need``, for the dropped
-    entries; on a CPU tensor :func:`compact_frontier_reference`."""
+    reads ``need`` on the device and returns at once without it, and deletes
+    the dropped entries from the visited set itself (``visited_probe.cuh``'s
+    delete, the probe of ``visited_set.cu``'s kernels); on a CPU tensor
+    :func:`compact_frontier_reference`, which calls :func:`probe_delete`."""
     if not s.frontier_h.is_cuda:
         return compact_frontier_reference(s, nb, gate)
     _compact_cuda(s, nb, gate)
@@ -496,21 +497,20 @@ def _compact_cuda(s: SearchState, nb: int, gate) -> None:
     for name, x in (("ring_cursor", s.ring_cursor), ("evictions", s.evictions)):
         _check(name, x, torch.int32, (), dev)
     _check("gate", gate, torch.bool, (), dev)
+    table = s.visited.keys
+    if (table.dtype != torch.int64 or table.device != dev or not table.is_contiguous()
+            or table.numel() != 1 << s.visited.capacity_bits or s.visited.capacity_bits > 31):
+        raise ValueError(f"visited: expected a contiguous int64 table of 2**capacity_bits slots on {dev}")
     # One allocation: the kernel's scratch (state copies at the start, 16-byte
-    # aligned; the sort's words, fingerprint and hist copies), then the drop
-    # mask and the need flag.
-    buf = torch.empty((F * (8 * N + 16 + 8 + 4 + 1) + 1,), dtype=torch.bool, device=dev)
+    # aligned; the sort's words, fingerprint and hist copies).
+    buf = torch.empty((F * (8 * N + 16 + 8 + 4),), dtype=torch.bool, device=dev)
     states_copy = buf.data_ptr()
     sort = states_copy + 8 * N * F
     key_copy = sort + 16 * F
     hist_copy = key_copy + 8 * F
-    at_drop = F * (8 * N + 28)
     _launch("pw_frontier_compact", "frontier.compact", dev, s.frontier_h, s.frontier_states, s.frontier_hist,
-            s.frontier_key, s.ring_cursor, s.evictions, states_copy + at_drop, states_copy + at_drop + F, gate,
+            s.frontier_key, s.ring_cursor, s.evictions, table, (1 << s.visited.capacity_bits) - 1, gate,
             sort, states_copy, hist_copy, key_copy, F, N, nb, F - max(nb, F // 4))
-    # The dropped entries leave the visited set; drop is written only where
-    # need holds, and the delete kernel reads it only then.
-    probe_delete(s.visited, s.frontier_key, buf[at_drop:at_drop + F], buf[at_drop + F])
 
 
 def _append_cuda(s: SearchState, cfg: SearchConfig, gate, is_new, parent_hist, actions, goal, nov, rgd, deeper,
@@ -551,10 +551,11 @@ def _iterate(cp: CompiledPuzzle, t: RGDTables, cfg: SearchConfig, s: SearchState
     """One gated search iteration, in place on ``s``; reads nothing back to
     the host.  When the gate is closed it is an exact no-op.
 
-    On the card it is seven hand kernels, each of which reads the gate (or a
-    mask it closed) on the device: select, expand, fingerprint + dedup +
-    insert, the novelty score and update, the RGD heuristic, the ring's
-    compaction and the append."""
+    On the card it is eight hand-kernel launches, each of which reads the
+    gate (or a mask it closed) on the device: select, expand, fingerprint +
+    dedup + insert, the novelty score and update (two launches), the RGD
+    heuristic, the ring's compaction (which tombstones the fingerprints it
+    drops in the visited set itself) and the append."""
     # 1. the gate, and the B best frontier entries (their slots are freed).
     parents, parent_hist, sel_valid, gate = select_and_gate(cfg, s)
 

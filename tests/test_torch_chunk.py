@@ -76,11 +76,14 @@ def test_iterate_reads_nothing_back(name, depth, lazy, iters, monkeypatch):
     pl = _planner(name, depth, lazy)
     s = pl.init_state()
     mode = NoHostReads()
-    # The visited set's two kernels and the ring's compaction are single
-    # launches on the card; their plain versions (held against the kernels in
+    # The fused insert and the ring's compaction are single launches on the
+    # card, and the compaction deletes its drops from the visited set inside
+    # its own kernel; their plain versions (held against the kernels in
     # tests/test_torch_cuda.py and chip_smoke.py) stand in for them here,
-    # outside the check.  (The compaction's plain version takes its branch on
-    # the host, as JAX's lax.cond does: it sorts only when it compacts.)
+    # outside the check.  The plain compaction calls probe_delete, whose
+    # plain version stands in too.  (The compaction's plain version takes its
+    # branch on the host, as JAX's lax.cond does: it sorts only when it
+    # compacts.)
     for fn in ("fingerprint_dedup_insert", "probe_delete", "compact_frontier"):
         plain = getattr(tb, fn)
 

@@ -134,29 +134,61 @@ def test_fused_fingerprint_dedup_insert_matches_plain_version(dev, n, n_obj):
     assert not n_k.any() and torch.equal(kern.keys, table)
 
 
-def test_visited_set_kernels_match_plain_version(dev):
+@pytest.mark.parametrize("load", [0.0, 0.5, 0.75])
+def test_visited_set_kernels_match_plain_version(dev, load):
+    """The insert and the delete kernels against their plain versions on a
+    table of 2^16 slots filled to ``load`` by the plain version, a tenth of
+    it deleted again (tombstones on the probe paths).  On an empty table
+    every lane is compared; on a loaded one the lanes whose windows no other
+    lane of the batch meets, and the table outside the windows of the
+    others (where two lanes race, either may claim a slot first)."""
     from pushworld_tpu_torch.ops import hashset as hs
 
     rng = np.random.default_rng(0)
+    bits = 16
+    size, mask = 1 << bits, (1 << bits) - 1
+    base = hs.init_hashset(bits, device=dev)
+    filled = torch.as_tensor(rng.integers(1, 1 << 62, int(load * size)), device=dev)
+    hs.probe_and_insert_reference(base, filled, torch.ones_like(filled, dtype=torch.bool))
+    hs.probe_delete_reference(base, filled, torch.as_tensor(rng.random(len(filled)) < 0.1, device=dev))
+    if load:
+        assert (base.keys == -1).any()
     states = torch.as_tensor(rng.integers(0, 50, size=(4096, 6, 2)).astype(np.int32), device=dev)
     keys = hs.fingerprint(states, 54)
     valid = hs.dedup_batch(keys, torch.ones(4096, dtype=torch.bool, device=dev))
-    kern, ref = hs.init_hashset(16, device=dev), hs.init_hashset(16, device=dev)
+    home = hs._first_slot(keys, bits)
+    window = (home[:, None] + torch.arange(hs.N_PROBES, device=dev)) & mask  # (4096, 8)
+    cover = torch.zeros(size, dtype=torch.int32, device=dev)
+    cover.index_add_(0, window[valid].flatten(), torch.ones_like(window[valid].flatten(), dtype=torch.int32))
+    alone = valid & (cover[window] == 1).all(1)
+    raced = torch.zeros(size, dtype=torch.bool, device=dev)
+    raced[window[valid & ~alone].flatten()] = True
+    kern = hs.HashSet(keys=base.keys.clone(), capacity_bits=bits)
+    ref = hs.HashSet(keys=base.keys.clone(), capacity_bits=bits)
+
     n_k, _ = hs.probe_and_insert(kern, keys, valid)
     n_r, _ = hs.probe_and_insert_reference(ref, keys, valid)
     torch.cuda.synchronize()
-    assert torch.equal(n_k, n_r)  # no probe exhaustion at this load: is_new = valid
-    live = kern.keys[kern.keys != 0]
-    assert torch.equal(torch.sort(live).values, torch.sort(keys[valid]).values)  # no torn keys
+    assert torch.equal(n_k[alone], n_r[alone]) and torch.equal(kern.keys[~raced], ref.keys[~raced]), load
+    assert alone.sum() > 1000
+    live = kern.keys[(kern.keys != 0) & (kern.keys != -1)]
+    assert torch.isin(live, torch.cat([filled, keys[valid]])).all()  # no torn keys
+    if not load:  # no probe exhaustion at this load: is_new = valid, every key stored once
+        assert torch.equal(n_k, n_r) and torch.equal(n_k, valid)
+        assert torch.equal(torch.sort(live).values, torch.sort(keys[valid]).values)
     dele = valid & (torch.arange(4096, device=dev) % 3 == 0)
     hs.probe_delete(kern, keys, dele)
+    hs.probe_delete_reference(ref, keys, dele)
+    torch.cuda.synchronize()
+    assert torch.equal(kern.keys[~raced], ref.keys[~raced]), load
     assert not torch.isin(keys[dele], kern.keys).any()
     again, _ = hs.probe_and_insert(kern, keys, valid)
     # Deleted keys are new again.  (A live key behind a tombstone is also
     # reported new and stored twice: the JAX semantics.)
     assert again[dele].all()
-    live = kern.keys[(kern.keys != 0) & (kern.keys != -1)]
-    assert set(live.tolist()) == set(keys[valid].tolist())
+    if not load:
+        live = kern.keys[(kern.keys != 0) & (kern.keys != -1)]
+        assert set(live.tolist()) == set(keys[valid].tolist())
 
 
 def _smoke():
@@ -866,6 +898,38 @@ def test_frontier_compact_kernel_bit_equal_across_sizes(dev, F, kind):
             assert int(sk.evictions) > 0, (F, kind, gate)
 
 
+@pytest.mark.parametrize("F,bits", [(1 << 15, 16), (1 << 15, 21), (2048, 12), (24581, 16)])
+def test_evicting_compaction_deletes_bit_equal(dev, F, bits):
+    """An evicting compaction's own deletes: the visited table after the
+    kernel equals the table after the plain compaction bit for bit, on a
+    table that also holds other keys and tombstones, where some dropped
+    fingerprints are absent from the visited set (deleted earlier) and one
+    key stands in the frontier twice."""
+    from pushworld_tpu_torch.ops import hashset as hs
+    from pushworld_tpu_torch.search import batched
+
+    nb = 1024
+    sk = _frontier_state(dev, F, "full", F + bits, F - nb + 1, bits=bits)
+    rng = np.random.default_rng(F + bits)
+    table = sk.visited
+    others = torch.as_tensor(rng.integers(1, 1 << 62, (1 << bits) // 4), device=dev)
+    hs.probe_and_insert_reference(table, others, torch.ones_like(others, dtype=torch.bool))
+    hs.probe_delete_reference(table, others, torch.as_tensor(rng.random(len(others)) < 0.2, device=dev))
+    order = torch.argsort(sk.frontier_h, stable=True)
+    keep = F - max(nb, F // 4)
+    dropped = order[keep:]
+    sk.frontier_key[dropped[1]] = sk.frontier_key[dropped[0]]  # stored once, dropped twice
+    absent = dropped[2::5]
+    hs.probe_delete_reference(table, sk.frontier_key[absent], torch.ones_like(absent, dtype=torch.bool))
+    sr, before = _clone_state(sk), _clone_state(sk)
+    batched.compact_frontier(sk, nb, torch.tensor(True, device=dev))
+    batched.compact_frontier_reference(sr, nb, torch.tensor(True, device=dev))
+    torch.cuda.synchronize()
+    _assert_states_equal(sk, sr, (F, bits))
+    deleted = int(((before.visited.keys != -1) & (sk.visited.keys == -1)).sum())
+    assert int(sk.evictions) == len(dropped) and 0 < deleted < len(dropped), (F, bits, deleted)
+
+
 @pytest.mark.parametrize("case", ["open", "solved", "exhausted", "ungated"])
 def test_select_captures_into_a_cuda_graph(dev, case):
     """The select (a cluster launch) reads nothing back: it captures into a
@@ -1241,9 +1305,10 @@ def test_graphed_run_chunk_equals_eager_and_cpu(dev, name, depth, lazy):
         assert int(s_g.evictions) > 0
 
 
+# An iteration's eight hand-kernel launches (the compaction deletes its drops
+# from the visited set itself: no probe_delete launch).
 ITERATION_KERNELS = ("frontier.select", "step.expand", "visited_set.fingerprint_dedup_insert", "novelty.score",
-                     "novelty.absorb", "rgd.heuristic", "frontier.compact", "visited_set.probe_delete",
-                     "frontier.append")
+                     "novelty.absorb", "rgd.heuristic", "frontier.compact", "frontier.append")
 
 
 def test_graph_replays_add_the_captured_launches(dev):
@@ -1254,7 +1319,7 @@ def test_graph_replays_add_the_captured_launches(dev):
     s = pl.init_state()
     g = chunk_graph.attach(pl.cp_dev, pl.tables, pl.config, s)
     fused = "visited_set.fingerprint_dedup_insert"
-    assert g.launches[fused] == g.iters and g.launches["visited_set.probe_delete"] == g.iters
+    assert g.launches[fused] == g.iters and "visited_set.probe_delete" not in g.launches
     assert g.launches == {k: g.iters for k in ITERATION_KERNELS}  # one launch each an iteration, nothing else
     before = dict(LAUNCHES)
     batched.run_chunk(pl.cp_dev, pl.tables, pl.config, s, 3 * g.iters)

@@ -39,6 +39,7 @@ import pushworld_tpu.search.batched as jb
 from pushworld_tpu.ops import hashset as jh
 from pushworld_tpu_torch.ops.hashset import HashSet, pack_key
 from pushworld_tpu_torch.search import batched as tb
+from test_torch_hashset import first_slot_np, key_at_home, window_delete_np
 
 EMPTY = tb.EMPTY
 B, N, F, BITS, HCAP = 16, 3, 256, 10, 1 << 12
@@ -270,11 +271,6 @@ def select_kernel_np(h, states, fhist, B, solved=None, hist_cursor=None, hist_li
     return states[slot_at], fhist[slot_at], valid, True, h
 
 
-def _first_slot(key, bits=BITS):
-    lo, hi = key & U32, (key >> 32) & U32
-    return (lo ^ ((hi * 0x9E3779B1) & U32)) & ((1 << bits) - 1)
-
-
 def compact_kernel_np(h, states, fhist, fkey, cursor, table, nb, gate=True, bits=BITS):
     """``frontier.cu``'s compact kernel, one cluster of 8 CTAs: need; an LSD
     radix sort of the (key, slot) words by key, 4 passes of 8 bits, where CTA
@@ -284,9 +280,11 @@ def compact_kernel_np(h, states, fhist, fkey, cursor, table, nb, gate=True, bits
     tile's group of a digit after every lower digit's words and after the
     lower tiles' words of that digit; a pass whose digit is one for every
     word skipped;
-    the permutation from copies, the drops with their delete probes, the
-    cursor.  Returns the new arrays, the cursor and the evicted count (None,
-    None when it does not run)."""
+    the permutation from copies, the drops with their deletes (the thread
+    that writes a dropped position deletes its fingerprint from the visited
+    set with visited_probe.cuh's window probe), the cursor.  Returns the new
+    arrays, the cursor and the evicted count (None, None when it does not
+    run)."""
     F = h.shape[0]
     keep = F - max(nb, F // 4)
     if not (gate and cursor + nb > F):
@@ -327,14 +325,7 @@ def compact_kernel_np(h, states, fhist, fkey, cursor, table, nb, gate=True, bits
     drop = (keys < EMPTY) & (np.arange(F) >= keep)
     new_key = fkey[slots]
     table = table.copy()
-    for p in np.flatnonzero(drop):
-        key = int(new_key[p])
-        slot = _first_slot(key & ((1 << 64) - 1), bits)
-        for _ in range(8):
-            if table[slot] == key:
-                table[slot] = -1
-                break
-            slot = (slot + 1) & ((1 << bits) - 1)
+    window_delete_np(table, new_key[drop], np.ones(int(drop.sum()), bool), bits)
     arrays = dict(h=np.where(drop, EMPTY, keys).astype(np.int32), states=states[slots], hist=fhist[slots],
                   key=new_key, table=table)
     return arrays, (min(n_live, keep), int(drop.sum()))
@@ -558,6 +549,64 @@ def test_compact_kernel_algorithm_at_tile_boundaries(F, kind):
     assert ring == int(ts.ring_cursor) and n_evicted == int(ts.evictions) - before, (F, kind)
     if kind == "full":
         assert n_evicted > 0
+
+
+@pytest.mark.parametrize("visited", ["absent", "behind_tombstone", "twice_in_the_frontier"])
+@pytest.mark.parametrize("F", [100, 1031, 4099])
+def test_compact_kernel_deletes_match_jax(F, visited):
+    """The compaction kernel's own deletes (its loop form) against JAX's
+    probe_delete of the dropped entries and the plain compaction: the whole
+    visited table equal, where dropped fingerprints are absent from the
+    visited set, where they sit one slot behind a tombstone of their home,
+    and where one key stands in the frontier twice (stored twice in the
+    table: both lanes meet on its first copy, the second survives)."""
+    nb = max(1, F // 8)
+    fr = _frontier("full", F + 5, F=F, cursor=F - nb + 1, B=16)
+    bits = max(BITS, F.bit_length() + 1)
+    rng = np.random.default_rng(F + len(visited))
+    order = np.asarray(jnp.argsort(jnp.asarray(fr["h"]), stable=True))
+    keep = F - max(nb, F // 4)
+    dropped = order[keep:]  # every slot is live: positions keep .. F - 1 are dropped
+    if visited == "twice_in_the_frontier":
+        fr["lo"][dropped[1]], fr["hi"][dropped[1]] = fr["lo"][dropped[0]], fr["hi"][dropped[0]]
+    keys = _packed(fr["lo"], fr["hi"]).numpy()
+    picked = dropped[::3]
+
+    def jax_keys(k):
+        k = np.asarray(k, np.int64)
+        return jnp.asarray((k & U32).astype(np.uint32)), jnp.asarray(((k >> 32) & U32).astype(np.uint32))
+
+    vis = jh.init_hashset(bits)
+    decoys = [key_at_home(rng, first_slot_np(int(keys[s]), bits), bits) for s in picked]
+    if visited != "absent":  # each picked key's home holds a decoy inserted first
+        _, vis = jh.probe_and_insert(vis, *jax_keys(decoys), jnp.ones(len(decoys), bool))
+    stored = np.unique(keys) if visited != "absent" else np.setdiff1d(keys, keys[picked])
+    _, vis = jh.probe_and_insert(vis, *jax_keys(stored), jnp.ones(len(stored), bool))
+    if visited != "absent":
+        vis = jh.probe_delete(vis, *jax_keys(decoys), jnp.ones(len(decoys), bool))
+    if visited == "twice_in_the_frontier":  # inserted again behind the tombstone: stored twice
+        _, vis = jh.probe_and_insert(vis, *jax_keys(keys[dropped[:1]]), jnp.ones(1, bool))
+    table = _packed(vis.key_lo, vis.key_hi).numpy()
+    want = jh.probe_delete(vis, *jax_keys(keys[dropped]), jnp.ones(len(dropped), bool))
+    want = _packed(want.key_lo, want.key_hi).numpy()
+
+    arrays, (_, n_evicted) = compact_kernel_np(fr["h"], fr["states"], fr["hist"], keys, int(fr["cursor"]), table,
+                                               nb, bits=bits)
+    ts = _plain_state(fr, bits)
+    ts.visited.keys.copy_(torch.as_tensor(table))
+    tb.compact_frontier_reference(ts, nb)
+    assert n_evicted == len(dropped)
+    assert np.array_equal(arrays["table"], want) and np.array_equal(ts.visited.keys.numpy(), want), (F, visited)
+    homes = [first_slot_np(int(keys[s]), bits) for s in picked]
+    if visited == "absent":
+        assert not np.isin(keys[picked], table).any() and np.array_equal(want != table, np.isin(table, keys[dropped]))
+    elif visited == "behind_tombstone":
+        assert all(want[h] == -1 and table[h] == -1 for h in homes)  # the tombstone ahead of each
+        assert not np.isin(keys[dropped], want).any()
+    else:
+        first = int(keys[dropped[0]])
+        assert (table == first).sum() == 2 and (want == first).sum() == 1
+        assert table[homes[0]] == first and want[homes[0]] == -1  # the first copy went
 
 
 # ------------------------------------------------- compaction and append
