@@ -27,7 +27,11 @@ Phases, each printing one JSON line:
    delete, each load's error against the plain version printed.  The fused
    fingerprint + dedup + insert kernel gets batches of states with duplicate
    children, invalid lanes and keys already in the table, under the same
-   rule, and is timed beside the three-step composition it replaces.
+   rule, and is timed beside the three-step composition it replaces.  The
+   fingerprint kernel alone (a search's root, the frontier-sharded
+   routing) must give the plain int64 fold's keys on 1,024 states at 4, 19
+   and 100 objects (random cells, and real searches' children at 4 and
+   19); it is timed at 1,024 states and at one.
    Then ``rgd_novelty``: the RGD kernel against its plain version,
    bit-equal (totals and needs-deeper flags), on 1,024 children of real
    search states and on their 256 parents, at the production capacities:
@@ -83,7 +87,25 @@ Phases, each printing one JSON line:
    16 x 16 puzzle are printed; the profiler's rows of a graphed iteration
    must hold no sort and no matrix product.  Two small
    fixtures are also solved on the CPU and must give the same plan and
-   expansions.
+   expansions.  Between ``solve`` and ``chunk``, ``many_objects``: states of
+   33, 64 and 100 objects, which take the wide paths of the expansion, RGD
+   and novelty.  On a real search's batch of each (``many_objects_text``)
+   the three, and the fingerprint, must equal their plain versions, and RGD
+   at depths 1-2 (3 at 33) on walks of the four-tool chain widened by
+   obstacles, whose goal needs depth 4 (its deep tables in shared memory at
+   33, in device scratch above, there also on 1,024 states, more than the
+   scratch path's persistent grid has CTAs); each lane prints its path,
+   device time, plain time and bound, and the same lanes run at 32 objects
+   on the one-word paths beside them.  The expansion's two paths, equal on
+   searches of 4 to 32 objects, are timed side by side.  Then, with the
+   launch counts at 0, ``solve_puzzle(mode="N+RGD")`` on the card at the
+   production capacities for the three puzzles: valid plans, and, at 64,
+   plan, iterations and expansions equal to the CPU's; the 64-movable one
+   through ``plan_puzzles(portfolio=True)`` and, with the 33- and an
+   8-movable one, the fleet with its native workers (the native planner
+   takes at most 31 movables, so the two wide ones must go to the device
+   worker); the greedy policy's successor values on 1,024 states, card =
+   CPU.
 5. ``graphs``: the device graph ops.  ``build_reachability`` on the card
    must equal the native fixpoint's ``E`` and its own CPU run on ten ``heur``
    fixtures and on the 47 x 54 puzzle (iteration counts and seconds are
@@ -157,7 +179,8 @@ Phases, each printing one JSON line:
    ``Puzzle.render``.
 
 The launch counts are set to 0 before each of the phases 4 (and its
-``chunk``), 5, 6, 8, 9, 10 and 11 (and each fleet run) and read after it.  Beside ``ms`` (CUDA events around
+``many_objects`` solves and ``chunk``), 5, 6, 8, 9, 10 and 11 (and each
+fleet run) and read after it.  Beside ``ms`` (CUDA events around
 the wrapper: for the small kernels the host's enqueue time) every kernel has
 ``device_ms``, its own time from ``torch.profiler``; an empty kernel, built
 from a source in this script, is launched and timed the same two ways as the
@@ -271,13 +294,18 @@ MANY_MOVABLES_TEXT = """
 """.lstrip("\n")
 
 def many_objects_text(n_objects: int) -> str:
-    """A 12 x 12 puzzle of ``n_objects`` movables (at most 32): the agent, a
-    goal object two pushes from its goal, and single-cell obstacles on every
-    other cell of the lower rows.  The tests hold the RGD and novelty
-    kernels at their cap of 32 objects a state with it."""
-    grid = [["." for _ in range(12)] for _ in range(12)]
+    """A square puzzle of ``n_objects`` movables: the agent, a goal object
+    three pushes from its goal, and single-cell obstacles on every other cell
+    of the lower rows.  The grid is 12 x 12 up to 32 movables (30 obstacle
+    cells) and grows by two cells a side until the obstacles fit (20 x 20 at
+    64, 22 x 22 at 100).  The tests hold the kernels' one-word paths at 32
+    objects and their wide paths above with it."""
+    size = 12
+    while ((size - 2) // 2) * ((size + 1) // 2) < n_objects - 2:
+        size += 2
+    grid = [["." for _ in range(size)] for _ in range(size)]
     grid[0][0], grid[1][1], grid[1][4] = "A", "M0", "G0"
-    cells = [(x, y) for y in range(3, 12, 2) for x in range(0, 12, 2)]
+    cells = [(x, y) for y in range(3, size, 2) for x in range(0, size, 2)]
     for k, (x, y) in enumerate(cells[: n_objects - 2]):
         grid[y][x] = f"M{k + 1}"
     return "\n".join(" ".join(f"{c:>3}" for c in row) for row in grid) + "\n"
@@ -303,9 +331,35 @@ FOUR_TOOLS_TEXT = """
  .  .  AW    .  .  .
 """.lstrip("\n")
 
+
+
+def four_tools_with_obstacles_text(n_objects: int) -> str:
+    """FOUR_TOOLS_TEXT widened to the right by single-cell obstacles (every
+    other cell of every other row, beyond the agent's wall) up to
+    ``n_objects`` movables: its initial state still needs pushing depth 4,
+    so RGD at depths 1-3 runs the kernel's deep tables over every movable
+    on it and on the states a short walk reaches."""
+    rows = FOUR_TOOLS_TEXT.splitlines()
+    extra = n_objects - 6
+    per_row = -(-extra // ((len(rows) + 1) // 2))
+    k = 5
+    out = []
+    for y, row in enumerate(rows):
+        cells = []
+        for e in range(2 * per_row):
+            if y % 2 == 0 and e % 2 == 1 and k < n_objects - 1:
+                cells.append(f"M{k}")
+                k += 1
+            else:
+                cells.append(".")
+        out.append(row + " " + " ".join(f"{c:>3}" for c in cells))
+    return "\n".join(out) + "\n"
+
+
 KERNEL_NAMES = ("wavefront", "visited_set.probe_and_insert", "visited_set.probe_delete",
-                "visited_set.fingerprint_dedup_insert", "rgd.heuristic", "novelty.score", "novelty.absorb",
-                "step.expand", "frontier.select", "frontier.compact", "frontier.append")
+                "visited_set.fingerprint_dedup_insert", "visited_set.fingerprint", "rgd.heuristic",
+                "novelty.score", "novelty.absorb", "step.expand", "frontier.select", "frontier.compact",
+                "frontier.append")
 # The main path launches every kernel but the standalone delete: the
 # compaction tombstones the fingerprints it drops inside its own kernel.
 OFF_MAIN_PATH = {"visited_set.probe_delete": "inside frontier.compact (compact_kernel's delete_key)"}
@@ -370,14 +424,16 @@ def start_launch_floor_build():
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
 
 
-def profile_device(fn, reps: int = 1, attempts: int = 3) -> dict:
+def profile_device(fn, reps: int = 1, attempts: int = 6) -> dict:
     """``fn`` called ``reps`` times under torch.profiler, as
     ``scripts/profile_search.py`` counts: wall seconds (host clock, ending in
     a synchronise), the device's busy microseconds, the number of device
     kernels (copies and memsets included) and [count, microseconds] by
     kernel name.  A trace that holds no device time (CUPTI now and then
     delivers none for a window) is taken again, up to ``attempts`` traces in
-    all, so ``fn`` must bear being called again."""
+    all, so ``fn`` must bear being called again.  ``retrace`` takes the
+    trace anew (:func:`kernel_device_ms` calls it where a trace missed a
+    kernel's every launch)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -385,7 +441,9 @@ def profile_device(fn, reps: int = 1, attempts: int = 3) -> dict:
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    for _ in range(attempts):
+    for attempt in range(attempts):
+        if attempt:
+            time.sleep(0.5 * attempt)  # a trace without device time tends to follow another
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
@@ -400,7 +458,8 @@ def profile_device(fn, reps: int = 1, attempts: int = 3) -> dict:
     check(len(rows) > 0, f"torch.profiler recorded no device time in {attempts} traces")
     return {"wall_s": wall_s, "busy_us": sum(dev_us(e) for e in rows),
             "n_kernels": sum(e.count for e in rows),
-            "by_kernel": {e.key: [e.count, dev_us(e)] for e in rows}}
+            "by_kernel": {e.key: [e.count, dev_us(e)] for e in rows},
+            "retrace": lambda: profile_device(fn, reps, attempts)}
 
 
 def kernel_device_ms(prof: dict, *names: str, calls: int) -> float:
@@ -408,8 +467,16 @@ def kernel_device_ms(prof: dict, *names: str, calls: int) -> float:
     ``names``, from a :func:`profile_device` result over ``calls`` calls.
     Each such kernel's launch count in the trace goes into
     :data:`TRACED_LAUNCHES` beside ``calls``, so a trace that missed
-    launches (and so reads low) shows in the script's output."""
-    hit = {k: v for k, v in prof["by_kernel"].items() if any(n in k for n in names)}
+    launches (and so reads low) shows in the script's output.  A trace that
+    holds none of a kernel's launches is taken again (``prof`` is updated in
+    place), up to 3 times."""
+    for retry in range(4):
+        hit = {k: v for k, v in prof["by_kernel"].items() if any(n in k for n in names)}
+        if len(hit) >= len(names) or retry == 3:
+            break
+        print(json.dumps({"profiler": f"a trace missed every launch of {names}; tracing again"}), file=sys.stderr,
+              flush=True)
+        prof.update(prof["retrace"]())
     check(len(hit) >= len(names), f"profiler saw no kernel named {names}: {sorted(prof['by_kernel'])}")
     TRACED_LAUNCHES.append({"calls": calls, "traced": {_kernel_name(k): count for k, (count, _) in hit.items()}})
     return sum(us for _, us in hit.values()) / 1e3 / calls
@@ -468,6 +535,33 @@ def measure_launch_floor(proc, lib_path) -> dict:
     out = {"event_ms": event_ms, "device_ms": kernel_device_ms(prof, "pw_empty_kernel", calls=200)}
     emit({"phase": "launch_floor", **out})
     return out
+
+
+def work_bound(n_bytes, n_ops, floor) -> dict:
+    """The least time for ``n_bytes`` moved and ``n_ops`` float32 operations:
+    the larger of the bytes over the memory rate and the operations over the
+    float32 rate, or the empty kernel's device time (``floor``) where that
+    is larger still: no kernel ends sooner than a launch."""
+    b_ms, o_ms = n_bytes / H100_BYTES_PER_S * 1e3, n_ops / H100_F32_OPS_PER_S * 1e3
+    ms, by = (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+    if floor["device_ms"] > ms:
+        ms, by = floor["device_ms"], "launch"
+    return {"bound_ms": ms, "bound_by": by, "bytes_bound_ms": b_ms}
+
+
+def walk_states(puzzle, count, seed):
+    """``count`` states of a random walk from ``puzzle``'s initial state, one
+    to five moves apart: (count, N, 2) int32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    s = puzzle.initial_state
+    out = [s]
+    for _ in range(count - 1):
+        for a in rng.integers(0, 4, size=rng.integers(1, 6)).tolist():
+            s = puzzle.get_next_state(s, a)
+        out.append(s)
+    return np.asarray(out, np.int32)
 
 
 def phase_wavefront(puzzle, dev):
@@ -738,9 +832,58 @@ def _probe_times_at_load(dev, rng, bits, B, load):
     return row
 
 
-def phase_visited_set(dev, floor):
-    """Insert/delete and fused kernels vs their plain versions; returns three
-    kernels-line entries (times at load 0).  ``floor``:
+def _fingerprint_checks_and_times(dev, rng, generated, floor):
+    """The fingerprint kernel against the plain int64 fold on 1,024 states
+    at N = 4, 19 and 100: random cells (negative and out-of-grid ones too)
+    at each N, and the children of real searches at 4 (the 47 x 54 puzzle)
+    and 19 (many_objects_text(19)); every key must be equal.  Times at 1,024
+    states (the frontier-sharded search's routing of 4 * 256 children) and
+    at 1 (a search's root), N = 4, beside the plain fold and the bound:
+    8N bytes read and 8 written a state, or the launch floor."""
+    import numpy as np
+    import torch
+
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.ops import hashset as hs_mod
+
+    searches = {4: generated, 19: Puzzle.from_text(many_objects_text(19))}
+    compared = differing = 0
+    by_n = {}
+    for n_obj in (4, 19, 100):
+        batches = [(torch.as_tensor(rng.integers(-2, 60, (1024, n_obj, 2)).astype(np.int32), device=dev), 54)]
+        if n_obj in searches:
+            _, _, found = _search_batches(searches[n_obj], 0, dev, batches=1, iters=2)
+            batches.append((found[0][1], searches[n_obj].width))
+        for states, width in batches:
+            got = hs_mod.fingerprint(states, width)
+            want = hs_mod.fingerprint_reference(states, width)
+            torch.cuda.synchronize()
+            compared += got.numel()
+            differing += int((got != want).sum())
+        x = batches[0][0]
+        if n_obj == 4:
+            x4 = x
+        by_n[n_obj] = {"device_ms": kernel_device_ms(profile_device(lambda: hs_mod.fingerprint(x, 54), reps=50),
+                                                     "fingerprint_kernel", calls=50),
+                       **work_bound(x.shape[0] * (8 * n_obj + 8), 0, floor)}
+    check(differing == 0, f"fingerprint: {differing} of {compared} keys differ from the fold")
+    root = x4[:1]
+    out = {"keys_compared": compared, "keys_differing": differing, "by_n": by_n,
+           "ms": cuda_time_ms(lambda: hs_mod.fingerprint(x4, 54), reps=50),
+           "plain_ms": cuda_time_ms(lambda: hs_mod.fingerprint_reference(x4, 54), reps=10),
+           "root": {"ms": cuda_time_ms(lambda: hs_mod.fingerprint(root, 54), reps=50),
+                    "device_ms": kernel_device_ms(profile_device(lambda: hs_mod.fingerprint(root, 54), reps=50),
+                                                  "fingerprint_kernel", calls=50),
+                    "plain_ms": cuda_time_ms(lambda: hs_mod.fingerprint_reference(root, 54), reps=10),
+                    "plain_kernels": profile_device(lambda: hs_mod.fingerprint_reference(root, 54))["n_kernels"],
+                    **work_bound(16 * 4 + 8, 0, floor)}}
+    out["device_ms"] = by_n[4]["device_ms"]
+    return out
+
+
+def phase_visited_set(dev, floor, generated):
+    """Insert/delete, fused and fingerprint kernels vs their plain versions;
+    returns four kernels-line entries (times at load 0).  ``floor``:
     :func:`measure_launch_floor`'s result.  The insert's error is the largest
     ``is_new`` difference (0 or 1) on the compared lanes; the delete's is the
     number of keys by which the compared memberships differ after a round,
@@ -826,12 +969,14 @@ def phase_visited_set(dev, floor):
         ins_err = max(ins_err, row["insert_max_abs_err"])
         del_err = max(del_err, row["table_slots_differing"])
     fused = _fused_checks_and_times(dev, rng, bits, B)
+    fp = _fingerprint_checks_and_times(dev, rng, generated, floor)
     emit({"phase": "visited_set", "table_slots": 1 << bits, "batch": B,
           "race_free_lanes_compared": checked, "raced_lanes": raced,
           "insert_max_abs_err": ins_err, "delete_max_abs_err": del_err,
           "insert_ms": ins_ms, "insert_device_ms": ins_dev, "insert_plain_ms": ins_plain,
           "delete_ms": del_ms, "delete_device_ms": del_dev, "delete_plain_ms": del_plain,
-          "by_load": {str(k): v for k, v in by_load.items()}, "fused": fused})
+          "by_load": {str(k): v for k, v in by_load.items()}, "fused": fused, "fingerprint": fp,
+          "launch_floor_device_ms": floor["device_ms"]})
     common = {"route": "cuda", "source": "pushworld_tpu_torch/kernels/visited_set.cu",
               "library_ms": None, "library_device_ms": None}
 
@@ -860,6 +1005,9 @@ def phase_visited_set(dev, floor):
              ms=fused["n_obj_4"]["ms"], device_ms=fused["n_obj_4"]["device_ms"],
              plain_ms=fused["n_obj_4"]["plain_ms"], max_abs_err=fused["max_abs_err"],
              **bound(8 * 4 + 26)),
+        dict(common, name="visited_set.fingerprint", replaces="pushworld_tpu/ops/hashset.py:54",
+             ms=fp["ms"], device_ms=fp["device_ms"], plain_ms=fp["plain_ms"],
+             max_abs_err=float(fp["keys_differing"]), **bound(8 * 4 + 8)),
     ]
 
 
@@ -940,14 +1088,7 @@ def phase_rgd_novelty(generated, seed, dev, floor):
     from pushworld_tpu_torch.ops import novelty, rgd
 
     def bound(n_bytes, n_ops):
-        """The larger of the bytes over the memory rate and the operations
-        over the float32 rate, or the empty kernel's device time where that
-        is larger still: no kernel ends sooner than a launch."""
-        b_ms, o_ms = n_bytes / H100_BYTES_PER_S * 1e3, n_ops / H100_F32_OPS_PER_S * 1e3
-        ms, by = (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
-        if floor["device_ms"] > ms:
-            ms, by = floor["device_ms"], "launch"
-        return {"bound_ms": ms, "bound_by": by, "bytes_bound_ms": b_ms}
+        return work_bound(n_bytes, n_ops, floor)
 
     def rgd_device_ms(t, states, depth, valid=None):
         return kernel_device_ms(profile_device(lambda: rgd.rgd_heuristic_with_flags(t, states, depth, valid),
@@ -1521,21 +1662,298 @@ def phase_solve(puzzles, generated, dev):
         check(launches.get(k, 0) == 0, f"kernel {k} was launched on the main path")
     gen = rows[-1]
     # A search's start (after the main path's counts were read): the kernels
-    # of init_state on the 47 x 54 puzzle, and of the root's fingerprint,
-    # the plain int64 fold, by object count.
-    from pushworld_tpu_torch.ops.hashset import fingerprint
+    # of init_state on the 47 x 54 puzzle (its root's key from the
+    # fingerprint kernel, one launch), and of the root's fingerprint by
+    # object count, the kernel's beside the plain int64 fold's.
+    from pushworld_tpu_torch.ops.hashset import fingerprint, fingerprint_reference
     from pushworld_tpu_torch.search.batched import BatchedPlanner
 
     pl = BatchedPlanner(generated, max_depth=0, device=dev, **PRODUCTION_CAPACITIES)
+    before = LAUNCHES["visited_set.fingerprint"]
+    pl.init_state()
+    check(LAUNCHES["visited_set.fingerprint"] == before + 1, "init_state did not launch the fingerprint kernel")
+
+    def root_kernels(fn, n):
+        return profile_device(lambda: fn(torch.zeros((1, n, 2), dtype=torch.int32, device=dev),
+                                         generated.width))["n_kernels"]
+
     start = {"objects": pl.cp_dev.n, "init_state_kernels": profile_device(pl.init_state)["n_kernels"],
-             "root_fingerprint_kernels": {
-                 n: profile_device(lambda n=n: fingerprint(torch.zeros((1, n, 2), dtype=torch.int32, device=dev),
-                                                           generated.width))["n_kernels"] for n in (4, 19)}}
+             "root_fingerprint_kernels": {n: root_kernels(fingerprint, n) for n in (4, 19, 100)},
+             "root_fingerprint_plain_kernels": {n: root_kernels(fingerprint_reference, n) for n in (4, 19)}}
     emit({"phase": "solve", "puzzles": len(rows), "total_s": total,
           "solved": sum(r["result"] == "solved" for r in rows),
           "no_solution": sum(r["result"] == "no solution" for r in rows),
           "generated": gen, "launches": launches, "search_start": start, "per_puzzle": rows})
     return launches, {r["puzzle"]: r["result"] for r in rows}, plans
+
+
+WIDE_OBJECTS = (33, 64, 100)
+
+
+def _wide_kernel_lanes(n, dev, floor, rng):
+    """The kernels at ``n`` objects (the wide paths above 32, the one-word
+    paths at 32) against their plain versions, error 0: the expansion, the
+    novelty score and update (the search's own pair bits 24 tables) and the
+    fingerprint on a real search's batch (256 parents of many_objects_text(n)
+    after two iterations at the production capacities, their 1,024
+    children); RGD on those children at depth 0 and on walk states of the
+    four-tool chain widened to n movables, whose goal needs depth 4, so most
+    states run the deep tables: 64 at depths 1 and 2, 16 at depth 3 (at 33),
+    1,024 at depth 1 (at 64 and 100, the scratch path with more states than
+    CTAs).  Device time, plain time, bound and path of each."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.ops import hashset, novelty, rgd, step
+
+    wide = "_wide" if n > step.EXPAND_MAX_OBJECTS else ""
+    names = {"expand": f"expand{wide}_kernel", "rgd": f"rgd{wide}_kernel",
+             "novelty.score": f"novelty_score{wide}_kernel", "novelty.absorb": f"novelty_absorb{wide}_kernel"}
+    p = Puzzle.from_text(many_objects_text(n))
+    pl, s, batches = _search_batches(p, 0, dev, batches=2, iters=2)
+    par, children, moved = batches[0]
+    cp, t = pl.cp_dev, pl.tables
+    B, C = par.shape[0], t.contacts.shape[3]
+    out = {}
+
+    # The expansion of the search's parents, a tenth of them not selected.
+    sel = torch.as_tensor(rng.random(B) < 0.9, device=dev)
+    args = (cp, t.contacts, t.contacts_mask, par, sel)
+    got, want = step.expand_and_test(*args), step.expand_and_test_reference(*args)
+    torch.cuda.synchronize()
+    err = max(abs_err(g, w) for g, w in zip(got, want))
+    check(err == 0, f"step.expand at {n} objects: kernel != plain version")
+    n_bytes = B * (8 * n + 1) + 4 * n * n * C * 5 + 4 * B * n + 4 * B * (9 * n + 2)
+    out["step.expand"] = dict(
+        path=step.expand_path(n), batch=4 * B, max_abs_err=err,
+        ms=cuda_time_ms(lambda: step.expand_and_test(*args), reps=20),
+        device_ms=kernel_device_ms(profile_device(lambda: step.expand_and_test(*args), reps=20),
+                                   names["expand"], calls=20),
+        plain_ms=cuda_time_ms(lambda: step.expand_and_test_reference(*args), reps=3),
+        **work_bound(n_bytes, 0, floor))
+
+    # The fingerprint of the children.
+    keys = hashset.fingerprint(children, p.width)
+    differing = int((keys != hashset.fingerprint_reference(children, p.width)).sum())
+    check(differing == 0, f"visited_set.fingerprint at {n} objects: {differing} keys differ")
+    out["visited_set.fingerprint"] = dict(
+        batch=children.shape[0], max_abs_err=float(differing),
+        device_ms=kernel_device_ms(profile_device(lambda: hashset.fingerprint(children, p.width), reps=20),
+                                   "fingerprint_kernel", calls=20),
+        **work_bound(children.shape[0] * (8 * n + 8), 0, floor))
+
+    # Novelty, from the search's own tables, on both batches in turn.
+    kern, ref = (dataclasses.replace(s.novelty, seen_pos=s.novelty.seen_pos.clone(),
+                                     pair_table=s.novelty.pair_table.clone()) for _ in range(2))
+    err, sizes, scores = 0.0, (0, 0), {}
+    for _, kids, mv in batches:
+        valid = mv.any(-1) & torch.as_tensor(rng.random(kids.shape[0]) < 0.9, device=dev)
+        got, _ = novelty.novelty_score_and_update(kern, kids, mv, valid)
+        want, _ = novelty.novelty_score_and_update_reference(ref, kids, mv, valid)
+        torch.cuda.synchronize()
+        err = max(err, abs_err(got, want), abs_err(kern.seen_pos, ref.seen_pos),
+                  abs_err(kern.pair_table.view(torch.int16), ref.pair_table.view(torch.int16)))
+        check(err == 0, f"novelty at {n} objects: kernels != plain version")
+        sizes = tuple(max(a, b) for a, b in zip(sizes, _novelty_bytes(kids, mv, valid, want, kern)))
+        for v in want.tolist():
+            scores[v] = scores.get(v, 0) + 1
+    valid = moved.any(-1)
+    prof = profile_device(lambda: novelty.novelty_score_and_update(kern, children, moved, valid), reps=20)
+    plain = cuda_time_ms(lambda: novelty.novelty_score_and_update_reference(ref, children, moved, valid), reps=3)
+    for name, n_bytes in (("novelty.score", sizes[0]), ("novelty.absorb", sizes[1])):
+        out[name] = dict(path=novelty.novelty_path(n), batch=children.shape[0], max_abs_err=err, scores=scores,
+                         device_ms=kernel_device_ms(prof, names[name], calls=20), plain_ms_score_and_absorb=plain,
+                         **work_bound(n_bytes, 0, floor))
+
+    # RGD: the search's children at depth 0; the widened four-tool chain
+    # deeper: 64 walk states at depths 1 and 2, 16 at depth 3 (at 33) and,
+    # where the memo lives
+    # in the device scratch (64 and 100 objects), 1,024 at depth 1, so that
+    # each CTA of the scratch path's persistent grid (2 an SM) walks several
+    # states.  The plain version runs once a lane and depth (cached), timed:
+    # at depth 3 (seconds a call, whatever the batch) that call's time is its
+    # time; shallower, a second call's.
+    tools = Puzzle.from_text(four_tools_with_obstacles_text(n))
+    t_tools = rgd.build_rgd_tables(tools, compile_puzzle(tools), device=dev)
+    walks = torch.as_tensor(walk_states(tools, 1024, seed=n), device=dev)
+    specs = [("search_children", t, children, 0), ("four_tools_walks", t_tools, walks[:64], 1),
+             ("four_tools_walks", t_tools, walks[:64], 2)]
+    if n == 33:
+        specs.append(("four_tools_walks_16", t_tools, walks[:16], 3))
+    if n >= 64:
+        specs.append(("four_tools_walks_1024", t_tools, walks, 1))
+    plain, plain_ms = {}, {}
+
+    def reference(what, tt, states, d):
+        if (what, d) not in plain:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            plain[(what, d)] = rgd.rgd_heuristic_with_flags_reference(tt, states, d)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms[(what, d)] = start.elapsed_time(end)
+        return plain[(what, d)]
+
+    lanes = {}
+    for what, tt, states, depth in specs:
+        total, flags = rgd.rgd_heuristic_with_flags(tt, states, depth)
+        want_total, want_flags = reference(what, tt, states, depth)
+        torch.cuda.synchronize()
+        err = max(abs_err(total, want_total), abs_err(flags, want_flags))
+        check(err == 0, f"rgd at {n} objects ({what}, {states.shape[0]} states, depth {depth}): "
+                        "kernel != plain version")
+        # Each state's deepest depth taken: its first finite one, else the last.
+        reached = torch.full((states.shape[0],), depth, dtype=torch.int32, device=dev)
+        for d in reversed(range(depth)):
+            reached = torch.where(reference(what, tt, states, d)[0] < 1e8, d, reached)
+        n_bytes, n_ops = _rgd_work(tt, states.shape[0], reached.cpu().numpy())
+        if depth < 3:  # the time of a second call
+            del plain[(what, depth)]
+            reference(what, tt, states, depth)
+        lanes[f"{what}_depth_{depth}"] = dict(
+            path=rgd.rgd_path(tt, states.shape[0], depth, dev), batch=states.shape[0], max_abs_err=err,
+            finite=int((want_total < 1e8).sum()), deep_states=int((reached >= 1).sum()),
+            device_ms=kernel_device_ms(profile_device(lambda: rgd.rgd_heuristic_with_flags(tt, states, depth),
+                                                      reps=20), names["rgd"], calls=20),
+            plain_ms=plain_ms[(what, depth)], **work_bound(n_bytes, n_ops, floor))
+    out["rgd.heuristic"] = dict(lanes=lanes, max_abs_err=max(v["max_abs_err"] for v in lanes.values()),
+                                **{k: lanes["search_children_depth_0"][k] for k in (
+                                    "path", "device_ms", "plain_ms", "bound_ms", "bound_by")})
+    return out
+
+
+def _expand_paths(generated, dev):
+    """The expansion's two paths on states that both take: 256 parents of a
+    real search (``_search_batches``, two iterations) of the 47 x 54 puzzle
+    (N = 4) and of many_objects_text(n), n = 8 to 32.  The paths' outputs
+    must be equal; device ms of each (one-word, wide, one-word, wide), which
+    place the wrapper's switch between them."""
+    import torch
+
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.ops import step
+
+    out = {}
+    for n, p in [(4, generated)] + [(n, Puzzle.from_text(many_objects_text(n))) for n in (8, 12, 16, 19, 24, 32)]:
+        pl, _, batches = _search_batches(p, 0, dev, batches=1, iters=2)
+        par = batches[0][0]
+        sel = torch.ones((par.shape[0],), dtype=torch.bool, device=dev)
+        args = (pl.cp_dev, pl.tables.contacts, pl.tables.contacts_mask, par, sel, None)
+        one, wide = step._expand_cuda(*args, wide=False), step._expand_cuda(*args, wide=True)
+        torch.cuda.synchronize()
+        err = max(abs_err(a, b) for a, b in zip(one, wide))
+        check(err == 0, f"step.expand at {n} objects: the wide path != the one-word path")
+        ms = {"one-word": [], "wide": []}
+        for _ in range(2):
+            for path, w, name in (("one-word", False, "expand_kernel"), ("wide", True, "expand_wide_kernel")):
+                prof = profile_device(lambda w=w: step._expand_cuda(*args, wide=w), reps=20)
+                ms[path].append(kernel_device_ms(prof, name, calls=20))
+        out[n] = {"batch": 4 * par.shape[0], "max_abs_err": err, "device_ms": ms}
+    return out
+
+
+def phase_many_objects(dev, floor, generated):
+    """States of more than 32 objects, which take the wide paths of the
+    expansion, RGD and novelty: the kernels at N = 33, 64 and 100, and at
+    32 on their one-word paths beside them (``_wide_kernel_lanes``); the
+    expansion's two paths at N = 4, 19 and 32 (``_expand_paths``); then,
+    with the launch counts at 0, ``solve_puzzle(mode="N+RGD")`` on the card
+    at the production capacities on the three puzzles, whose plans must pass
+    the oracle (counts read after); the 64-movable solve on the CPU, whose
+    plan, iterations and expansions the card's must equal; the 64-movable
+    puzzle through ``plan_puzzles(portfolio=True)`` (no head start) and,
+    with the 33- and an 8-movable one, the fleet with its native workers in
+    claim mode; the greedy policy's (B, 4) successor values on 1,024 walk
+    states of the 33-movable puzzle, card = CPU.  Returns the kernels' lanes
+    by name and N, and the launches."""
+    import numpy as np
+    import torch
+
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.envs.policies import successor_values
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.ops.rgd import build_rgd_tables
+    from pushworld_tpu_torch.search import fleet
+    from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES as CAP
+    from pushworld_tpu_torch.search.planner import plan_puzzles, solve_puzzle
+
+    rng = np.random.default_rng(14)
+    t0 = time.monotonic()
+    by_kernel = {}
+    for n in (32,) + WIDE_OBJECTS:
+        for name, lane in _wide_kernel_lanes(n, dev, floor, rng).items():
+            by_kernel.setdefault(name, {})[n] = lane
+    expand_paths = _expand_paths(generated, dev)
+    kernels_s = time.monotonic() - t0
+
+    puzzles = {n: Puzzle.from_text(many_objects_text(n)) for n in WIDE_OBJECTS}
+    LAUNCHES.clear()
+    card = {}
+    for n, p in puzzles.items():
+        t = time.monotonic()
+        r = solve_puzzle(p, mode="N+RGD", time_limit=120, device=dev, **CAP)
+        torch.cuda.synchronize()
+        check(r.failure_reason is None and p.is_valid_plan(r.plan), f"{n} movables on the card: {r}")
+        card[n] = (r, time.monotonic() - t)
+    launches = dict(LAUNCHES)
+    for k in MAIN_PATH_KERNELS:
+        check(launches.get(k, 0) > 0, f"kernel {k} was not launched on the many-objects path")
+    solves = {n: {"plan": r.plan, "iterations": r.iterations, "expansions": r.expansions, "wall_s": wall}
+              for n, (r, wall) in card.items()}
+    t = time.monotonic()
+    c = solve_puzzle(puzzles[64], mode="N+RGD", time_limit=120, device="cpu", **CAP)
+    r = card[64][0]
+    check((r.plan, r.iterations, r.expansions) == (c.plan, c.iterations, c.expansions),
+          f"64 movables: card {r} != CPU {c}")
+    solves[64]["cpu_wall_s"] = time.monotonic() - t
+
+    named = [("many_objects_64", puzzles[64])]
+    old = os.environ.get("PW_PORTFOLIO_HEADSTART")
+    os.environ["PW_PORTFOLIO_HEADSTART"] = "0"
+    try:
+        res = plan_puzzles(named, portfolio=True, time_limit=60, device=dev, **CAP)
+    finally:
+        if old is None:
+            del os.environ["PW_PORTFOLIO_HEADSTART"]
+        else:
+            os.environ["PW_PORTFOLIO_HEADSTART"] = old
+    check_results(named, res, "many objects, portfolio")
+    check(res["many_objects_64"].failure_reason is None, f"many objects, portfolio: {res}")
+    # The fleet as users run it (its default native workers) in claim mode:
+    # the native planner takes at most 31 movables, so the 64- and the
+    # 33-movable puzzles go to the device worker alone; the 8-movable one to
+    # whichever takes it first.
+    wide_named = named + [("many_objects_33", puzzles[33])]
+    trio = wide_named + [("many_objects_8", Puzzle.from_text(many_objects_text(8)))]
+    fl = fleet.plan_puzzles_fleet(trio, device=dev, time_limit=60, device_mode="claim", device_claim_delay=0,
+                                  **CAP)
+    check(not fleet._device_stats["device_failed"], "many objects, fleet: the device worker failed")
+    check_results(trio, fl, "many objects, fleet")
+    check(all(fl[name].failure_reason is None for name, _ in trio), f"many objects, fleet: {fl}")
+    check(all(fl[name].solver == "device" for name, _ in wide_named), f"many objects, fleet: {fl}")
+
+    p = puzzles[33]
+    positions = walk_states(p, 1024, seed=33)
+    values = {}
+    for d in (dev, "cpu"):
+        cp = compile_puzzle(p).to(d)
+        values[d] = successor_values(cp, build_rgd_tables(p, compile_puzzle(p), max_depth=0, device=d),
+                                     torch.as_tensor(positions, device=d)).cpu()
+    check(values[dev].shape == (1024, 4) and torch.equal(values[dev], values["cpu"]),
+          "greedy policy at 33 movables: card != CPU")
+    emit({"phase": "many_objects", "objects": list(WIDE_OBJECTS), "kernels": by_kernel, "kernels_s": kernels_s,
+          "expand_paths": expand_paths,
+          "solves": solves, "launches": launches,
+          "portfolio_64": [res["many_objects_64"].solver, res["many_objects_64"].planning_time],
+          "fleet_64": [fl["many_objects_64"].solver, fl["many_objects_64"].planning_time],
+          "greedy_values_33": {"shape": list(values[dev].shape), "finite": int((values[dev] < 1e8).sum())},
+          "seconds": time.monotonic() - t0})
+    return by_kernel, launches
 
 
 def _same_search(a, b, what: str) -> None:
@@ -2899,7 +3317,7 @@ def main() -> int:
     check((generated.height, generated.width) == (47, 54), "generated puzzle is not 47x54")
     floor = measure_launch_floor(*floor_build)
     kernels = [phase_wavefront(generated, dev)]
-    kernels += phase_visited_set(dev, floor)
+    kernels += phase_visited_set(dev, floor, generated)
     kernels += phase_rgd_novelty(generated, args.seed, dev, floor)
     kernels += phase_iteration_kernels(generated, dev, floor)
 
@@ -2909,13 +3327,15 @@ def main() -> int:
                for f in files]
     check(len(puzzles) == 28, f"expected 28 fixtures, found {len(puzzles)}")
     launches, solve_classes, solve_plans = phase_solve(puzzles, generated, dev)
+    wide, wide_launches = phase_many_objects(dev, floor, generated)
     hard = Puzzle.from_text(HARD_PUZZLE_TEXT)
     chunk_launches = phase_chunk(generated, hard, args.seed, dev)
     phase_cpu_agreement(puzzles, dev)
     graphs_launches = phase_graphs(puzzles, generated, dev)
     envs_launches = phase_envs(puzzles, generated, dev)
     phase_native(puzzles, generated, dev)
-    by_phase = {"solve": launches, "chunk": chunk_launches, "graphs": graphs_launches, "envs": envs_launches,
+    by_phase = {"solve": launches, "many_objects": wide_launches, "chunk": chunk_launches,
+                "graphs": graphs_launches, "envs": envs_launches,
                 "portfolio": phase_portfolio(puzzles, generated, hard, dev),
                 "fleet": phase_fleet(puzzles, generated, hard, solve_classes, dev),
                 "parallel": phase_parallel(puzzles, generated, solve_plans, dev),
@@ -2926,6 +3346,9 @@ def main() -> int:
     # the portfolio's two passes, the fleet's device-only run, the parallel
     # layer and the toolkit, each counted from 0.
     for k in kernels:
+        if k["name"] in wide:  # the lanes at 32 (one-word path), 33, 64 and 100 objects
+            k["wide"] = wide[k["name"]]
+            k["max_abs_err"] = max([k["max_abs_err"]] + [lane["max_abs_err"] for lane in wide[k["name"]].values()])
         k["launches"] = launches.get(k["name"], 0)
         k["launches_by_phase"] = {ph: c.get(k["name"], 0) for ph, c in by_phase.items()}
         k["main_path_form"] = OFF_MAIN_PATH.get(k["name"])
@@ -2934,7 +3357,7 @@ def main() -> int:
     emit({"kernels": [{key: k.get(key) for key in (
         "name", "route", "source", "replaces", "launches", "launches_by_phase", "max_abs_err",
         "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes_bound_ms", "library_ms",
-        "library_device_ms", "closed_gate_device_ms", "main_path_form")}
+        "library_device_ms", "closed_gate_device_ms", "main_path_form", "wide")}
         for k in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -39,13 +39,17 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "pw_probe_delete": [_vp, _vp, _vp, _vp, _i, _u, _vp],
         "pw_dedup_shared_slots": [],
         "pw_fingerprint_dedup_insert": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _u, _u, _i, _vp],
+        "pw_fingerprint": [_vp, _vp, _i, _i, _u, _vp],
     },
     "rgd": {
         "pw_rgd_heuristic": [_vp] * 15 + [_i] * 9 + [_vp],
+        "pw_rgd_heuristic_wide": [_vp] * 15 + [_i] * 9 + [_vp, _vp],
+        "pw_rgd_wide_scratch_floats": [_i] * 6,
         "pw_rgd_max_objects": [],
     },
     "expand": {
         "pw_expand": [_vp] * 13 + [_i] * 5 + [_vp],
+        "pw_expand_wide": [_vp] * 13 + [_i] * 5 + [_vp],
         "pw_expand_max_objects": [],
     },
     "frontier": {
@@ -57,9 +61,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "novelty": {
         "pw_novelty_score_records": [_vp] * 7 + [_i] * 5 + [_vp],
         "pw_novelty_absorb_records": [_vp] * 4 + [_i] * 5 + [_vp],
+        "pw_novelty_score_records_wide": [_vp] * 7 + [_i] * 5 + [_vp],
+        "pw_novelty_absorb_records_wide": [_vp] * 4 + [_i] * 5 + [_vp],
         "pw_novelty_max_objects": [],
     },
 }
+
+# Return types other than int.
+RESTYPES = {"pw_rgd_wide_scratch_floats": _ll}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # Several threads launch kernels; a library is built and loaded once.
@@ -124,6 +133,6 @@ def load(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(build([name])[name]))
                 for fn, argtypes in SIGNATURES[name].items():
                     getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
+                    getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
                 _LOADED[name] = lib
     return lib

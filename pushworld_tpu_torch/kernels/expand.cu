@@ -55,7 +55,24 @@
 // group the lane's flags.  Contact lists above kStageWords words (a CTA's
 // actions span at most 2 * N * N * C words when B >= 31: 96 at N = 4 and
 // C = 3) stay in device memory and are read through the same code (the L1
-// keeps them).  N <= 32.
+// keeps them).  This is the one-word path, N <= 32 (kMaxObjects).
+//
+// Wide path (expand_wide_kernel, N > 32, any N).  A pusher's pushees no
+// longer fit a word and a lane's objects no longer fit a warp, so a lane
+// takes a CTA of kWideThreads threads, thread t holding objects t, t +
+// kWideThreads, ...  The closure is a breadth-first walk over bit sets of
+// ceil(N / 32) words in shared memory (reached, this round's frontier, the
+// next one): in each round every thread tests each of its objects j not yet
+// reached against every pusher k of the frontier (the C contact words of
+// (a, k, j), read from device memory, against pos_k - pos_j) and ORs j into
+// the next frontier; one barrier with an OR ends the round, and a round
+// that adds nothing ends the walk.  It reaches the same fixpoint as the
+// worklist and as the plain version's squaring: every object a path of
+// pushes from the agent reaches.  Only the push relation's entries from
+// frontier pushers are compared (each pusher once): N * reached * C
+// compares a lane, not N^2 C.  The blocked, moved and off-goal tests are
+// CTA-wide ORs (__syncthreads_or).  Bound as above, the launch and the
+// rounds' barriers; 4B CTAs.
 //
 // Gate.  With a gate flag that is 0 (the search iteration is a no-op),
 // every lane writes effective = goal = 0 and returns; children and moved
@@ -211,9 +228,95 @@ __global__ void __launch_bounds__(kThreads) expand_kernel(Expand e) {
   }
 }
 
+constexpr int kWideThreads = 128;
+
+// One lane a CTA, any n (see the header): the closure by rounds over
+// ceil(n / 32)-word bit sets in dynamic shared memory (reached, frontier,
+// next).
+__global__ void __launch_bounds__(kWideThreads) expand_wide_kernel(Expand e) {
+  extern __shared__ unsigned sets[];
+  const int lane = blockIdx.x, t = threadIdx.x, n = e.n;
+  if (e.gate != nullptr && !*e.gate) {
+    if (t == 0) {
+      e.effective[lane] = 0;
+      e.goal[lane] = 0;
+    }
+    return;
+  }
+  const int a = lane / e.B, b = lane - a * e.B;
+  const int words = (n + 31) >> 5;
+  unsigned* reached = sets;
+  unsigned* front = sets + words;
+  unsigned* next = sets + 2 * words;
+  const int2* cells = e.parents + static_cast<size_t>(b) * n;
+  for (int w = t; w < words; w += kWideThreads) {
+    reached[w] = front[w] = w == 0 ? 1u : 0u;  // the agent
+    next[w] = 0u;
+  }
+  __syncthreads();
+  for (;;) {
+    for (int j = t; j < n; j += kWideThreads) {
+      if (reached[j >> 5] >> (j & 31) & 1u) continue;
+      const int2 pj = cells[j];
+      bool hit = false;
+      for (int w = 0; w < words && !hit; ++w) {
+        for (unsigned f = front[w]; f != 0u && !hit; f &= f - 1u) {
+          const int k = (w << 5) + __ffs(f) - 1;
+          const int2 pk = cells[k];
+          const uint32_t rel = offset_word(pk.x - pj.x, pk.y - pj.y);
+          const size_t row = ((static_cast<size_t>(a) * n + k) * n + j) * e.C;
+          for (int c = 0; c < e.C; ++c) hit |= e.contacts[row + c] == rel && e.cmask[row + c];
+        }
+      }
+      if (hit) atomicOr(next + (j >> 5), 1u << (j & 31));
+    }
+    __syncthreads();
+    bool grew = false;
+    for (int w = t; w < words; w += kWideThreads) {
+      const unsigned f = next[w];
+      front[w] = f;
+      reached[w] |= f;
+      next[w] = 0u;
+      grew |= f != 0u;
+    }
+    if (!__syncthreads_or(grew)) break;
+  }
+
+  // All or nothing: some reached object (the agent included) blocked.
+  const size_t plane = static_cast<size_t>(e.H) * e.W;
+  bool blocked = false;
+  for (int i = t; i < n; i += kWideThreads) {
+    if (!(reached[i >> 5] >> (i & 31) & 1u)) continue;
+    const int2 pos = cells[i];
+    blocked |= e.static_block[(static_cast<size_t>(a) * n + i) * plane + static_cast<size_t>(pos.y) * e.W + pos.x] != 0;
+  }
+  const bool nothing = __syncthreads_or(blocked) != 0;
+  const int dx = a == 0 ? -1 : (a == 1 ? 1 : 0);
+  const int dy = a == 2 ? -1 : (a == 3 ? 1 : 0);
+  bool any_moved = false, off_goal = false;
+  for (int i = t; i < n; i += kWideThreads) {
+    const int2 pos = cells[i];
+    const int m = !nothing && (reached[i >> 5] >> (i & 31) & 1u) && e.obj_mask[i];
+    const int2 child = make_int2(pos.x + dx * m, pos.y + dy * m);
+    const int2 target = e.goal_pos[i];
+    const size_t at = static_cast<size_t>(lane) * n + i;
+    e.children[at] = child;
+    e.moved[at] = static_cast<uint8_t>(m);
+    any_moved |= m != 0;
+    off_goal |= e.goal_mask[i] && (child.x != target.x || child.y != target.y);
+  }
+  const bool moved = __syncthreads_or(any_moved) != 0;
+  const bool off = __syncthreads_or(off_goal) != 0;
+  if (t == 0) {
+    e.effective[lane] = moved && (e.sel_valid == nullptr || e.sel_valid[b]);
+    e.goal[lane] = !off;
+  }
+}
+
 }  // namespace
 
-// The largest number of objects (the states' second dimension) the kernel takes.
+// The largest number of objects (the states' second dimension) the one-word
+// path (pw_expand) takes; pw_expand_wide takes any number.
 extern "C" int pw_expand_max_objects() { return kMaxObjects; }
 
 // Writes children (4B, n, 2) int32, moved (4B, n) bool, effective and goal
@@ -247,5 +350,32 @@ extern "C" int pw_expand(const void* parents, const void* contacts, const void* 
     expand_kernel<true><<<grid, kThreads, 0, s>>>(e);
   else
     expand_kernel<false><<<grid, kThreads, 0, s>>>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pw_expand's wide path, for any n (the wrapper takes it above
+// pw_expand_max_objects()): the same arguments and outputs.
+extern "C" int pw_expand_wide(const void* parents, const void* contacts, const void* contacts_mask,
+                              const void* static_block, const void* obj_mask, const void* goal_pos,
+                              const void* goal_mask, const void* sel_valid, const void* gate, void* children,
+                              void* moved, void* effective, void* goal, int B, int n, int C, int H, int W,
+                              void* stream) {
+  if (B < 0 || n < 1 || C < 1 || H < 1 || W < 1 || B > (1 << 28) || n > (1 << 20))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  Expand e{static_cast<const int2*>(parents),      static_cast<const uint32_t*>(contacts),
+           static_cast<const uint8_t*>(contacts_mask), static_cast<const uint8_t*>(static_block),
+           static_cast<const uint8_t*>(obj_mask),  static_cast<const int2*>(goal_pos),
+           static_cast<const uint8_t*>(goal_mask), static_cast<const uint8_t*>(sel_valid),
+           static_cast<const uint8_t*>(gate),      static_cast<int2*>(children),
+           static_cast<uint8_t*>(moved),           static_cast<uint8_t*>(effective),
+           static_cast<uint8_t*>(goal),            B, n, C, H, W, 0};
+  const size_t smem = 3 * static_cast<size_t>((n + 31) / 32) * sizeof(unsigned);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(expand_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  expand_wide_kernel<<<4 * B, kWideThreads, smem, static_cast<cudaStream_t>(stream)>>>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,8 +42,20 @@
 // It also leaves each valid state's atoms in a record (cell; bucket and
 // moved bit), so the update reads its valid flag and its record in one wave
 // and goes straight to its writes.  The table keeps its bf16 layout (0x3F80
-// = 1.0), read and written as raw 16-bit words.  n <= 32 (one lane an
-// object).
+// = 1.0), read and written as raw 16-bit words.  This is the one-word path,
+// n <= 32 (kMaxObjects: one lane an object).
+//
+// Wide path (n > 32, any n): the same warp a state, lane j holding atoms j,
+// j + 32, ... in ceil(n / 32) rounds.  The score writes the state's record
+// first; after a __syncwarp (which orders the lanes' memory accesses) every
+// lane reads back from the record the atoms that other lanes hold, 32 at a
+// time, and tests T[bucket_j, bucket_i] for each of its atoms j against
+// every moved atom i, the loads of 8 atoms issued before any is tested.
+// The update walks the same pairs from the record.  The decisions are the
+// one-word path's, so the result is the GEMM form's, collisions included.
+// A state now reads up to n^2 table cells: the chain of dependent loads
+// grows with the rounds, and the launch stays the bound only while n^2 is
+// small.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (see _build.py);
 // plain C interface, loaded with ctypes.
@@ -163,9 +175,99 @@ bool bad_args(int B, int n, int H, int W, int side) {
   return B < 0 || n < 1 || n > kMaxObjects || H < 1 || W < 1 || side < 1 || (side & (side - 1)) != 0;
 }
 
+// ------------------------------------------------------------ wide path
+
+// The score of state b by its warp, any n: lane j takes atoms j, j + 32, ...
+__global__ void __launch_bounds__(kStates * 32) novelty_score_wide_kernel(Nov v) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kStates + (threadIdx.x >> 5);
+  if (b >= v.B) return;
+  if (!v.valid[b]) {
+    if (lane == 0) v.out[b] = 3.0f;
+    return;
+  }
+  const int HW = v.H * v.W, n = v.n;
+  const size_t row = static_cast<size_t>(b) * n;
+  bool unseen = false;
+  for (int j = lane; j < n; j += 32) {
+    const int2 p = __ldg(reinterpret_cast<const int2*>(v.states) + row + j);
+    const int raw = p.y * v.W + p.x;
+    const int cell = raw < 0 ? 0 : (raw > HW - 1 ? HW - 1 : raw);
+    const unsigned bucket = atom_hash(static_cast<unsigned>(j), static_cast<unsigned>(cell),
+                                      static_cast<unsigned>(v.side - 1));
+    const bool moved = __ldg(v.moved + row + j) != 0;
+    unseen |= moved && v.seen_pos[static_cast<size_t>(j) * HW + cell] == 0;
+    v.record[row + j] = make_int2(cell, static_cast<int>(bucket | (moved ? kMovedBit : 0u)));
+  }
+  if (__any_sync(kFull, unseen)) {
+    if (lane == 0) v.out[b] = 1.0f;
+    return;
+  }
+  __syncwarp();  // every lane's record entries are visible to the others
+  bool pair_unseen = false;
+  for (int j0 = 0; j0 < n; j0 += 32) {
+    const int j = j0 + lane;
+    const bool mine = j < n;
+    const unsigned bj = mine ? static_cast<unsigned>(v.record[row + j].y) & ~kMovedBit : 0u;
+    for (int i0 = 0; i0 < n; i0 += 32) {
+      const unsigned ri = i0 + lane < n ? static_cast<unsigned>(v.record[row + i0 + lane].y) : 0u;
+      for (int u0 = 0; u0 < 32 && i0 + u0 < n; u0 += 8) {
+        uint16_t cell[8];
+        bool need[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const unsigned r = __shfl_sync(kFull, ri, u0 + u);
+          const unsigned l = r & ~kMovedBit;
+          need[u] = i0 + u0 + u < n && mine && (r & kMovedBit) != 0u && bj != l;
+          cell[u] = need[u] ? v.table[static_cast<size_t>(bj) * v.side + l] : kOne;
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) pair_unseen |= need[u] && (cell[u] & 0x7FFF) == 0;
+      }
+    }
+  }
+  const bool nov2 = __any_sync(kFull, pair_unseen);
+  if (lane == 0) v.out[b] = nov2 ? 2.0f : 3.0f;
+}
+
+// The update of state b from its record by its warp, any n: seen_pos of each
+// moved atom, and T[k, l] = T[l, k] = 1 for k a moved atom's bucket and l
+// any atom's (lane j holds atoms j, j + 32, ...).
+__global__ void __launch_bounds__(kStates * 32) novelty_absorb_wide_kernel(Nov v) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kStates + (threadIdx.x >> 5);
+  if (b >= v.B || !v.valid[b]) return;
+  const int n = v.n;
+  const size_t row = static_cast<size_t>(b) * n;
+  for (int j0 = 0; j0 < n; j0 += 32) {
+    const int j = j0 + lane;
+    const bool mine = j < n;
+    const int2 rj = mine ? v.record[row + j] : make_int2(0, 0);
+    const unsigned bj = static_cast<unsigned>(rj.y) & ~kMovedBit;
+    if (mine && (static_cast<unsigned>(rj.y) & kMovedBit) != 0u)
+      v.seen_pos[static_cast<size_t>(j) * v.H * v.W + rj.x] = 1;
+    for (int i0 = 0; i0 < n; i0 += 32) {
+      const unsigned ri = i0 + lane < n ? static_cast<unsigned>(v.record[row + i0 + lane].y) : 0u;
+      for (int u = 0; u < 32 && i0 + u < n; ++u) {
+        const unsigned r = __shfl_sync(kFull, ri, u);
+        const unsigned k = r & ~kMovedBit;
+        if ((r & kMovedBit) != 0u && mine) {
+          v.table[static_cast<size_t>(k) * v.side + bj] = kOne;
+          v.table[static_cast<size_t>(bj) * v.side + k] = kOne;
+        }
+      }
+    }
+  }
+}
+
+bool bad_wide_args(int B, int n, int H, int W, int side) {
+  return B < 0 || n < 1 || H < 1 || W < 1 || side < 1 || (side & (side - 1)) != 0;
+}
+
 }  // namespace
 
-// The largest number of objects (the states' second dimension) the kernels take.
+// The largest number of objects (the states' second dimension) the one-word
+// path takes; the _wide entries take any number.
 extern "C" int pw_novelty_max_objects() { return kMaxObjects; }
 
 // out (B,) float32 novelty; reads the tables only, and writes the record
@@ -196,5 +298,34 @@ extern "C" int pw_novelty_absorb_records(const void* valid, const void* record, 
               static_cast<uint16_t*>(table), nullptr, static_cast<int2*>(const_cast<void*>(record)), B, n, H, W,
               side};
   novelty_absorb_kernel<<<(B + kStates - 1) / kStates, kStates * 32, 0, static_cast<cudaStream_t>(stream)>>>(v);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide path of pw_novelty_score_records, for any n: the same arguments.
+extern "C" int pw_novelty_score_records_wide(const void* states, const void* moved, const void* valid,
+                                             const void* seen_pos, const void* table, void* out, void* record,
+                                             int B, int n, int H, int W, int side, void* stream) {
+  if (bad_wide_args(B, n, H, W, side) || reinterpret_cast<uintptr_t>(states) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(record) % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  const Nov v{static_cast<const int*>(states), static_cast<const uint8_t*>(moved),
+              static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(const_cast<void*>(seen_pos)),
+              static_cast<uint16_t*>(const_cast<void*>(table)), static_cast<float*>(out),
+              static_cast<int2*>(record), B, n, H, W, side};
+  novelty_score_wide_kernel<<<(B + kStates - 1) / kStates, kStates * 32, 0, static_cast<cudaStream_t>(stream)>>>(v);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide path of pw_novelty_absorb_records, for any n: the same arguments.
+extern "C" int pw_novelty_absorb_records_wide(const void* valid, const void* record, void* seen_pos, void* table,
+                                              int B, int n, int H, int W, int side, void* stream) {
+  if (bad_wide_args(B, n, H, W, side) || reinterpret_cast<uintptr_t>(record) % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  const Nov v{nullptr, nullptr, static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(seen_pos),
+              static_cast<uint16_t*>(table), nullptr, static_cast<int2*>(const_cast<void*>(record)), B, n, H, W,
+              side};
+  novelty_absorb_wide_kernel<<<(B + kStates - 1) / kStates, kStates * 32, 0, static_cast<cudaStream_t>(stream)>>>(v);
   return static_cast<int>(cudaGetLastError());
 }

@@ -72,9 +72,34 @@
 // lanes' values, and at a closed gate their states are never written.  The
 // plain version applies the same fill.
 //
-// Limits: n <= kMaxObjects (skip sets are 32-bit masks, one lane an object;
-// M is 64 KB at 32 objects), any max_depth (depths above 3 run the loop of
-// T(., 2) tables).
+// The one-word path: n <= kMaxObjects (skip sets are 32-bit masks, one
+// lane an object; M is 64 KB at 32 objects), any max_depth (depths above 3
+// run the loop of T(., 2) tables).
+//
+// Wide path (n > kMaxObjects, any n): rgd_wide_kernel_d0 and
+// rgd_wide_kernel_deep, the same algorithm, the same additions in the same
+// order, so the same bits.  What the one-word path keeps in a lane or a
+// word it keeps elsewhere:
+//   - positions: a lane no longer holds every object, so the depth-0 pass
+//     and the prefetch load the positions they need from device memory;
+//   - skip sets: no 32-bit masks.  The sets a CTA walks share one uniform
+//     part (the goal and the chain of pushers above the current table),
+//     held as a flag an object in EX and changed by thread 0 between
+//     barriers; a thread's own pushee and pusher are passed beside it.  The
+//     depth-first walk of table_deep keeps its next pusher of each level in
+//     STK (dmax + 1 ints), likewise;
+//   - which rows of M are filled: the goal's own row at depth 1, every row
+//     from depth 2 (a row filled twice gets the same values);
+//   - the tables: M is 64 n nr bytes (70 KB at 33 objects, 262 KB at 64,
+//     640 KB at 100) and TX 16 nr^2 (from depth 3).  Where the whole
+//     layout fits the card's opt-in shared memory (227 KB on an H100: up to
+//     59 objects of one goal, 53 from depth 3) it is there, a CTA a state;
+//     else every array of the layout goes to a device scratch of one layout
+//     a CTA, and a persistent grid of 2 CTAs an SM (264 on an H100) walks
+//     the states, so the scratch is sized by the CTAs in flight, not by the
+//     batch: 810 KB a CTA, 214 MB in all, at 100 objects from depth 3 (648
+//     KB and 171 MB at depth 2).  __syncthreads orders a CTA's global
+//     accesses as it orders its shared ones.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (see _build.py);
 // plain C interface, loaded with ctypes.
@@ -171,13 +196,22 @@ struct Goal0 {
 // shuffles.  With `eok_out`, `gd_out` and `a0_out` non-null, the pair's
 // feasibility, distance to goal and agent cost are stored there (index p;
 // the agent cost at o * 4 + a).
+// The wide path (kWide, state b) loads the two positions from device memory.
+template <bool kWide = false>
 __device__ __forceinline__ Goal0 depth0_pair(const Rgd& t, int p, int2 pos, int* eok_out, float* gd_out,
-                                             float* a0_out) {
+                                             float* a0_out, int b = 0) {
   const int HW = t.H * t.W;
   const bool active = p < 4 * t.max_goals;
   const int o = active ? (p >> 2) + 1 : 0, a = p & 3;
-  const int qx = __shfl_sync(kFull, pos.x, o), qy = __shfl_sync(kFull, pos.y, o);
-  const int ax = __shfl_sync(kFull, pos.x, 0), ay = __shfl_sync(kFull, pos.y, 0);
+  int qx, qy, ax, ay;
+  if constexpr (kWide) {
+    const int2* row = reinterpret_cast<const int2*>(t.states) + static_cast<size_t>(b) * t.n;
+    const int2 q = __ldg(row + o), ag = __ldg(row);
+    qx = q.x, qy = q.y, ax = ag.x, ay = ag.y;
+  } else {
+    qx = __shfl_sync(kFull, pos.x, o), qy = __shfl_sync(kFull, pos.y, o);
+    ax = __shfl_sync(kFull, pos.x, 0), ay = __shfl_sync(kFull, pos.y, 0);
+  }
   Goal0 g{kInf, false, false, false};
   float val = kInf;
   bool eok = false;
@@ -560,10 +594,313 @@ __global__ void __launch_bounds__(kThreads) rgd_kernel_deep(Rgd t) {
   }
 }
 
+// ------------------------------------------------------------ wide path
+
+// The deep kernel's arrays on the wide path: the one-word layout, then EX
+// (n ints: the uniform part of the skip set) and STK (dmax + 1 ints: the
+// walk's next pusher at each level).
+struct WideShared : Shared {
+  int *EX, *STK;
+};
+
+__host__ __device__ inline int wide_words(int n, int n_real, int goals, int max_depth) {
+  return layout(n, n_real, goals, max_depth).words + n + deepest(max_depth, n_real) + 1;
+}
+
+// min over pushers r in [1, nr) outside EX, e1 and e2, and their moves a2,
+// of M[q][a][r][a2] + inner[r][a2] (best_push with the skip set EX u {e1, e2}).
+__device__ __forceinline__ float best_push_wide(const WideShared& s, int q, int a, int e1, int e2,
+                                                const float* inner) {
+  const float* row = s.M + (q * 4 + a) * s.nr * 4;
+  float best = kInf;
+  for (int r = 1; r < s.nr; ++r) {
+    if (s.EX[r] || r == e1 || r == e2) continue;
+#pragma unroll
+    for (int a2 = 0; a2 < 4; ++a2) best = fminf(best, row[r * 4 + a2] + inner[r * 4 + a2]);
+  }
+  return best;
+}
+
+// Fills the rows of M of pushee o, or (all) of every pusher and o, unless
+// every row is filled already.  Called by the whole CTA.
+__device__ void ensure_m_wide(const Rgd& t, const WideShared& s, int o, bool all, bool* all_done) {
+  if (*all_done) return;
+  const int nr = s.nr;
+  for (int i = threadIdx.x; i < t.n * 4 * nr; i += blockDim.x) {
+    const int q = i / (4 * nr), a = (i / nr) & 3, r = i % nr;
+    const bool row = q == o || (all && q >= 1 && q < nr);
+    if (row && r >= 1 && r != q) push_row(t, s, q, a, r, s.M + ((q * 4 + a) * nr + r) * 4);
+  }
+  __syncthreads();
+  *all_done = all;
+}
+
+// T(EX, 1) into level 1, entries of pushers outside EX.
+__device__ void table1_wide(const WideShared& s) {
+  float* out = s.level(1);
+  for (int i = threadIdx.x; i < s.nr * 4; i += blockDim.x) {
+    const int q = i >> 2;
+    if (q >= 1 && !s.EX[q]) out[i] = best_push_wide(s, q, i & 3, q, -1, s.A0);
+  }
+  __syncthreads();
+}
+
+// T(EX, 2) into level 2: every T(EX u {q}, 1) at once into TX[q], then the min.
+__device__ void table2_wide(const WideShared& s) {
+  const int nr = s.nr;
+  for (int i = threadIdx.x; i < nr * nr * 4; i += blockDim.x) {
+    const int q = i / (nr * 4), r = (i >> 2) % nr;
+    if (q >= 1 && r >= 1 && q != r && !s.EX[q] && !s.EX[r]) s.TX[i] = best_push_wide(s, r, i & 3, q, r, s.A0);
+  }
+  __syncthreads();
+  float* out = s.level(2);
+  for (int i = threadIdx.x; i < nr * 4; i += blockDim.x) {
+    const int q = i >> 2;
+    if (q >= 1 && !s.EX[q]) out[i] = best_push_wide(s, q, i & 3, q, -1, s.TX + q * nr * 4);
+  }
+  __syncthreads();
+}
+
+// T(EX, d0) into level d0 for d0 >= 3: table_deep's walk, the chain of
+// pushers in EX and the next pusher of each level in STK.  Every thread
+// walks the same path; thread 0 changes EX and STK between barriers.  EX
+// is as on entry at the return.
+__device__ void table_deep_wide(const WideShared& s, int d0) {
+  const int nr = s.nr, tid = threadIdx.x;
+  if (tid == 0) s.STK[d0] = 1;
+  __syncthreads();
+  int d = d0;
+  for (;;) {
+    int q = s.STK[d];
+    while (q < nr && s.EX[q]) ++q;
+    __syncthreads();  // every thread has read STK and EX
+    if (q >= nr) {  // level d is complete: fold it into its parent's entry
+      if (d == d0) return;
+      ++d;
+      const int pq = s.STK[d];
+      if (tid < 4) s.level(d)[pq * 4 + tid] = best_push_wide(s, pq, tid, -1, -1, s.level(d - 1));
+      __syncthreads();
+      if (tid == 0) {
+        s.EX[pq] = 0;
+        s.STK[d] = pq + 1;
+      }
+      __syncthreads();
+      continue;
+    }
+    if (tid == 0) s.EX[q] = 1;
+    if (d == 3) {
+      __syncthreads();
+      table2_wide(s);
+      if (tid < 4) s.level(3)[q * 4 + tid] = best_push_wide(s, q, tid, -1, -1, s.level(2));
+      __syncthreads();
+      if (tid == 0) {
+        s.EX[q] = 0;
+        s.STK[3] = q + 1;
+      }
+    } else {
+      if (tid == 0) {
+        s.STK[d] = q;
+        s.STK[d - 1] = 1;
+      }
+      --d;
+    }
+    __syncthreads();
+  }
+}
+
+// The deepest depth is 0 (or below), any n: a warp a state, 8 states a CTA.
+__global__ void __launch_bounds__(kStatesD0 * 32) rgd_wide_kernel_d0(Rgd t) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kStatesD0 + (threadIdx.x >> 5);
+  if (b >= t.B || dropped(t, b, lane == 0)) return;
+  const int dmax = deepest(t.max_depth, t.n_real);
+  float total = 0.0f;
+  bool deeper = false;
+  for (int p0 = 0; p0 < 4 * t.max_goals; p0 += 32) {  // 8 goals a pass
+    const Goal0 g = depth0_pair<true>(t, p0 + lane, make_int2(0, 0), nullptr, nullptr, nullptr, b);
+    const float cost = g.row ? goal_cost(t, dmax >= 0 ? g.pd : kInf, g.finite_dg, &deeper) : 0.0f;
+    for (int k = 0; k < 8 && p0 / 4 + k < t.max_goals; ++k) total = total + __shfl_sync(kFull, cost, 4 * k);
+  }
+  deeper = __any_sync(kFull, deeper);
+  if (lane == 0) {
+    t.total[b] = total;
+    t.deeper[b] = deeper;
+  }
+}
+
+// Depth 1 or more, any n: a CTA a state, its arrays in shared memory
+// (scratch null) or in its slice of the device scratch, the grid walking
+// the states.
+__global__ void __launch_bounds__(kThreads) rgd_wide_kernel_deep(Rgd t, float* scratch) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int need_deep;
+  const Layout l = layout(t.n, t.n_real, t.max_goals, t.max_depth);
+  float* base = scratch != nullptr
+                    ? scratch + static_cast<size_t>(blockIdx.x) * wide_words(t.n, t.n_real, t.max_goals, t.max_depth)
+                    : smem;
+  WideShared s;
+  s.A0 = base + l.A0;
+  s.M = base + l.M;
+  s.TX = base + l.TX;
+  s.L = base + l.L;
+  s.GD = base + l.GD;
+  s.PC = base + l.PC;
+  s.PD = base + l.PD;
+  s.EOK = reinterpret_cast<int*>(base + l.EOK);
+  s.Q = reinterpret_cast<int*>(base + l.Q);
+  s.IU = reinterpret_cast<int*>(base + l.IU);
+  s.DOFF = reinterpret_cast<int*>(base + l.DOFF);
+  s.DSTR = reinterpret_cast<int*>(base + l.DSTR);
+  s.EX = reinterpret_cast<int*>(base + l.words);
+  s.STK = s.EX + t.n;
+  s.nr = t.n_real;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int HW = t.H * t.W;
+  const int dmax = deepest(t.max_depth, t.n_real);
+  const int nr = s.nr;
+  for (int b = blockIdx.x; b < t.B; b += gridDim.x) {
+    if (dropped(t, b, tid == 0)) continue;  // alike in every thread
+    const int2* pos = reinterpret_cast<const int2*>(t.states) + static_cast<size_t>(b) * t.n;
+    for (int i = tid; i < t.n; i += kThreads) {
+      const int2 p = __ldg(pos + i);
+      s.Q[2 * i] = p.x;
+      s.Q[2 * i + 1] = p.y;
+      s.EX[i] = 0;
+    }
+    if (warp == 0) {
+      // The depth-0 pass; a state whose goals need no deeper depth is done.
+      float total = 0.0f;
+      bool deeper = false, deep = false;
+      for (int p0 = 0; p0 < 4 * t.max_goals; p0 += 32) {
+        const Goal0 g = depth0_pair<true>(t, p0 + lane, make_int2(0, 0), s.EOK, s.GD, s.A0, b);
+        const bool lead = (lane & 3) == 0 && p0 + lane < 4 * t.max_goals;
+        const float cost = g.row ? goal_cost(t, g.any_move ? g.pd : kInf, g.finite_dg, &deeper) : 0.0f;
+        if (lead) s.PD[(p0 + lane) >> 2] = g.row ? g.pd : -1.0f;
+        deep |= __any_sync(kFull, lead && g.row && g.pd >= kFinite && g.any_move);
+        for (int k = 0; k < 8 && p0 / 4 + k < t.max_goals; ++k) total = total + __shfl_sync(kFull, cost, 4 * k);
+      }
+      deeper = __any_sync(kFull, deeper);
+      if (lane == 0) {
+        need_deep = deep;
+        if (!deep) {
+          t.total[b] = total;
+          t.deeper[b] = deeper;
+        }
+      }
+    } else {
+      // Meanwhile, what a deeper depth reads first, as the one-word path.
+      const int n_iu = nr * 4, n_a0 = 4 * (nr - 1 - t.max_goals > 0 ? nr - 1 - t.max_goals : 0);
+      const int2 ag = __ldg(pos);
+      const int iA = __ldg(t.vidx + clampi(ag.y * t.W + ag.x, 0, HW - 1));
+      for (int job = tid - 32; job < n_iu + n_a0 + nr; job += kThreads - 32) {
+        if (job < n_iu) {
+          const int obj = job >> 2, a2 = job & 3;
+          const int2 p = __ldg(pos + obj);
+          const int next = __ldg(t.vidx + static_cast<size_t>(obj) * HW +
+                                 clampi((p.y + move_dy(a2)) * t.W + p.x + move_dx(a2), 0, HW - 1));
+          s.IU[job] = edge(t, a2, obj, p.x, p.y) ? next : kNoNext;
+        } else if (job < n_iu + n_a0) {
+          const int obj = t.max_goals + 1 + ((job - n_iu) >> 2);
+          const int2 p = __ldg(pos + obj);
+          s.A0[obj * 4 + (job & 3)] =
+              agent_cost(t, iA, __ldg(t.doff), __ldg(t.dstride), obj, job & 3, clampi(p.y * t.W + p.x, 0, HW - 1));
+        } else {
+          s.DOFF[job - n_iu - n_a0] = __ldg(t.doff + job - n_iu - n_a0);
+          s.DSTR[job - n_iu - n_a0] = __ldg(t.dstride + job - n_iu - n_a0);
+        }
+      }
+    }
+    __syncthreads();
+    if (need_deep) {
+      // Deeper: every goal in order, from the depth-0 values, as the plain
+      // version's fewest-tools loop.
+      bool all_m = false;
+      float total = 0.0f;
+      bool deeper = false;
+      for (int k = 0; k < t.max_goals; ++k) {
+        const int o = k + 1;
+        float cost = 0.0f;
+        if (s.PD[k] >= 0.0f) {  // a goal object not at its goal
+          const int* eok = s.EOK + k * 4;
+          const float* gd = s.GD + k * 4;
+          bool finite_dg = false, any_move = false;
+          for (int a = 0; a < 4; ++a) {
+            finite_dg |= eok[a] && gd[a] < kFinite;
+            any_move |= eok[a] != 0;
+          }
+          float last = s.PD[k];
+          bool found = last < kFinite;
+          if (tid == 0) s.EX[o] = 1;  // the goal's skip set {o}
+          __syncthreads();
+          for (int D = 1; D <= dmax && !found; ++D) {
+            float pd = kInf;
+            if (any_move) {
+              ensure_m_wide(t, s, o, D >= 2, &all_m);
+              const float* inner = s.A0;
+              if (D == 2) {
+                table1_wide(s);
+                inner = s.level(1);
+              } else if (D == 3) {
+                table2_wide(s);
+                inner = s.level(2);
+              } else if (D >= 4) {
+                table_deep_wide(s, D - 1);
+                inner = s.level(D - 1);
+              }
+              if (tid < 4 && eok[tid]) s.PC[tid] = best_push_wide(s, o, tid, -1, -1, inner);
+              __syncthreads();
+              for (int a = 0; a < 4; ++a) pd = fminf(pd, eok[a] ? gd[a] + s.PC[a] : kInf);
+              __syncthreads();  // PC is rewritten at the next depth
+            }
+            last = pd;
+            found = pd < kFinite;
+          }
+          if (tid == 0) s.EX[o] = 0;
+          __syncthreads();
+          cost = goal_cost(t, last, finite_dg, &deeper);
+        }
+        total = total + cost;
+      }
+      if (tid == 0) {
+        t.total[b] = total;
+        t.deeper[b] = deeper;
+      }
+    }
+    __syncthreads();  // the next state reuses the arrays and need_deep
+  }
+}
+
+// The wide deep kernel's persistent grid in scratch mode: 2 CTAs an SM.
+int wide_scratch_ctas(int B, int device) {
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess || sms < 1) sms = 132;
+  return B < 2 * sms ? B : 2 * sms;
+}
+
+// Whether the wide deep kernel's layout of `words` floats fits the opt-in
+// shared memory of `device`.
+bool wide_fits_shared(long long words, int device) {
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess) return false;
+  return words * 4 + 64 <= optin;  // 64: the static need_deep, with room
+}
+
 }  // namespace
 
-// The largest number of objects (the states' second dimension) the kernel takes.
+// The largest number of objects (the states' second dimension) the one-word
+// path (pw_rgd_heuristic) takes; pw_rgd_heuristic_wide takes any number.
 extern "C" int pw_rgd_max_objects() { return kMaxObjects; }
+
+// The floats of device scratch that pw_rgd_heuristic_wide needs for a batch
+// of B states on `device`: 0 where it runs on shared memory alone (the
+// deepest depth is 0, or the layout fits the opt-in shared memory).
+extern "C" long long pw_rgd_wide_scratch_floats(int B, int n, int n_real, int max_goals, int max_depth,
+                                                int device) {
+  if (B <= 0 || deepest(max_depth, n_real) < 1) return 0;
+  const long long words = wide_words(n, n_real, max_goals, max_depth);
+  if (wide_fits_shared(words, device)) return 0;
+  return words * wide_scratch_ctas(B, device);
+}
 
 extern "C" int pw_rgd_heuristic(const void* states, const void* E, const void* Dflat, const void* vidx,
                                 const void* doff, const void* dstride, const void* DG, const void* contacts,
@@ -593,5 +930,49 @@ extern "C" int pw_rgd_heuristic(const void* states, const void* E, const void* D
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   rgd_kernel_deep<<<B, kThreads, smem, st>>>(t);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pw_rgd_heuristic's wide path, for any n (the wrapper takes it above
+// pw_rgd_max_objects()): the same arguments, and `scratch`, null or
+// pw_rgd_wide_scratch_floats() floats of device memory (16-byte aligned).
+extern "C" int pw_rgd_heuristic_wide(const void* states, const void* E, const void* Dflat, const void* vidx,
+                                     const void* doff, const void* dstride, const void* DG, const void* contacts,
+                                     const void* contacts_mask, const void* cvidx_a, const void* goal_pos,
+                                     const void* goal_mask, const void* valid, void* total, void* deeper, int B,
+                                     int n, int n_real, int max_goals, int H, int W, int C, int Ca, int max_depth,
+                                     void* scratch, void* stream) {
+  if (B <= 0 || n < 1 || n_real < 1 || n_real > n || max_goals < 0 || max_goals >= n || max_depth < 0 || C < 1 ||
+      Ca < 1 || reinterpret_cast<uintptr_t>(states) % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Rgd t{static_cast<const int*>(states), static_cast<const uint8_t*>(E), static_cast<const int*>(Dflat),
+        static_cast<const int*>(vidx), static_cast<const int*>(doff), static_cast<const int*>(dstride),
+        static_cast<const float*>(DG), static_cast<const int16_t*>(contacts),
+        static_cast<const uint8_t*>(contacts_mask), static_cast<const int16_t*>(cvidx_a),
+        static_cast<const int*>(goal_pos), static_cast<const uint8_t*>(goal_mask),
+        static_cast<const uint8_t*>(valid), static_cast<float*>(total),
+        static_cast<uint8_t*>(deeper), B, n, n_real, max_goals, H, W, C, Ca, max_depth};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (deepest(max_depth, n_real) < 1) {
+    rgd_wide_kernel_d0<<<(B + kStatesD0 - 1) / kStatesD0, kStatesD0 * 32, 0, st>>>(t);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long words = wide_words(n, n_real, max_goals, max_depth);
+  if (wide_fits_shared(words, device)) {
+    const size_t smem = static_cast<size_t>(words) * 4;
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(rgd_wide_kernel_deep, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    rgd_wide_kernel_deep<<<B, kThreads, smem, st>>>(t, nullptr);
+  } else {
+    if (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    rgd_wide_kernel_deep<<<wide_scratch_ctas(B, device), kThreads, 0, st>>>(t, static_cast<float*>(scratch));
+  }
   return static_cast<int>(cudaGetLastError());
 }

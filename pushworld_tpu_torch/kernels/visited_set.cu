@@ -1,5 +1,6 @@
-// Visited set over a packed 64-bit table: probe/insert, probe/delete, and
-// the search iteration's fused fingerprint + batch dedup + probe/insert.
+// Visited set over a packed 64-bit table: probe/insert, probe/delete, the
+// search iteration's fused fingerprint + batch dedup + probe/insert, and the
+// fingerprint alone.
 //
 // Replaces the JAX package's XLA code in pushworld_tpu/ops/hashset.py
 // (fingerprint, lines 54-80; dedup_batch, lines 83-102; probe_and_insert,
@@ -54,6 +55,12 @@
 // scratch table in device memory and the same code runs on it.  One CTA is
 // enough: the work is a few microseconds, and a single CTA needs no grid
 // barrier between the claims and the owner reads.
+//
+// The fingerprint alone (fingerprint_kernel): one thread a state, the fused
+// kernel's fold, no table.  It serves a search's root and the
+// frontier-sharded search's routing of children to their owners.  Bound:
+// 8N bytes read and 8 written a state, far below a launch at the batches
+// those callers give (1 to 4,096 states).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (see _build.py);
 // plain C interface, loaded with ctypes.
@@ -189,7 +196,22 @@ fingerprint_dedup_insert_kernel(u64* __restrict__ table, const int* __restrict__
   }
 }
 
+// states (n, n_obj, 2) int32 -> keys (n,), one thread a state.
+__global__ void fingerprint_kernel(const int* __restrict__ states, u64* __restrict__ keys, int n, int n_obj,
+                                   unsigned int width) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) keys[i] = fingerprint(states + static_cast<size_t>(i) * n_obj * 2, n_obj, width);
+}
+
 }  // namespace
+
+extern "C" int pw_fingerprint(const void* states, void* keys, int n, int n_obj, unsigned int width, void* stream) {
+  if (n < 0 || n_obj < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  fingerprint_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(states), static_cast<u64*>(keys), n, n_obj, width);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int pw_probe_and_insert(void* table, const void* keys, const void* valid,
                                    void* is_new, int n, unsigned int mask, void* stream) {

@@ -95,6 +95,11 @@ def _load():
         return _lib
 
 
+# The most movables the native planner takes (its pushed sets are 32-bit
+# masks with the agent's bit: planner.cc refuses more, error -4).
+NATIVE_MAX_MOVABLES = 31
+
+
 def is_available() -> bool:
     return _load() is not None
 

@@ -22,7 +22,9 @@ dedup in the CTA's shared memory, then the probes).  :func:`fingerprint`,
 functions of their own, and their composition is its plain version.
 
 Where each kernel runs on the card: the fused kernel once an iteration;
-the insert kernel for a search's root (``search.batched.init_search_state``);
+the fingerprint and the insert kernel for a search's root
+(``search.batched.init_search_state``); the fingerprint for the
+frontier-sharded search's routing (``parallel.frontier_sharded``);
 the evictions' deletes inside the frontier's compaction kernel
 (``kernels/frontier.cu``), which tombstones the fingerprints it drops with
 the same probe (``kernels/visited_probe.cuh``), so the search launches no
@@ -87,11 +89,9 @@ def split_key(key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return key & _M32, (key >> 32) & _M32
 
 
-def fingerprint(states: torch.Tensor, width: int) -> torch.Tensor:
-    """64-bit fingerprints of packed states, bit-identical to the JAX
-    package's (lo, hi) pair.
+def fingerprint_reference(states: torch.Tensor, width: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fingerprint`.
 
-    states: (..., N, 2) int32 -> packed int64 keys of shape (...,).
     An FxHash-style fold over per-object packed positions in two 32-bit lanes
     with different multipliers, computed in int64 with ``& 0xFFFFFFFF``.  The
     all-zero key (empty) and the all-ones key (tombstone) are remapped.
@@ -110,6 +110,37 @@ def fingerprint(states: torch.Tensor, width: int) -> torch.Tensor:
     lo = torch.where((lo == 0) & (hi == 0), torch.ones_like(lo), lo)
     lo = torch.where((lo == _M32) & (hi == _M32), torch.full_like(lo, 0xFFFFFFFE), lo)
     return pack_key(lo, hi)
+
+
+def fingerprint(states: torch.Tensor, width: int) -> torch.Tensor:
+    """64-bit fingerprints of packed states, bit-identical to the JAX
+    package's (lo, hi) pair.
+
+    states: (..., N, 2) int32 -> packed int64 keys of shape (...,).
+
+    On a CUDA tensor this is one launch of ``visited_set.cu``'s fingerprint
+    kernel (one thread a state); on a CPU tensor it runs
+    :func:`fingerprint_reference`.  The two are bit-equal.  The search
+    launches it for its root and the frontier-sharded search for the
+    routing of its children."""
+    if states.device.type == "cpu":
+        return fingerprint_reference(states, width)
+    if states.dim() < 2 or states.shape[-1] != 2 or states.dtype != torch.int32:
+        raise ValueError(f"states: expected (..., N, 2) int32, got {tuple(states.shape)} {states.dtype}")
+    if not 0 < width < 1 << 31:
+        raise ValueError(f"width must be positive and below 2**31, got {width}")
+    lead, n_obj = states.shape[:-2], states.shape[-2]
+    flat = states.reshape(-1, n_obj, 2).contiguous()
+    keys = torch.empty((flat.shape[0],), dtype=torch.int64, device=states.device)
+    if flat.shape[0]:
+        from pushworld_tpu_torch.kernels import _build
+
+        rc = launch_on(states.device, _build.load("visited_set").pw_fingerprint, flat.data_ptr(), keys.data_ptr(),
+                       flat.shape[0], n_obj, width)
+        if rc != 0:
+            raise RuntimeError(f"pw_fingerprint launch failed: CUDA error {rc}")
+        count_launch("visited_set.fingerprint")
+    return keys.reshape(lead)
 
 
 def dedup_batch(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -261,7 +292,7 @@ def fingerprint_dedup_insert_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`fingerprint_dedup_insert`: the three
     steps one after the other."""
-    keys = fingerprint(states, width)
+    keys = fingerprint_reference(states, width)
     is_new, _ = probe_and_insert_reference(hs, keys, dedup_batch(keys, valid))
     return keys, is_new
 

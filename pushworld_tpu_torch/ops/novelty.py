@@ -14,15 +14,18 @@ structures absorb every evaluated state.
   ``b`` is unseen iff some ``(k, l)`` with ``X[b, k] & Y[b, l]`` has
   ``T[k, l] = 0``, counted as ``sum(Y) - Y @ T`` minus the own column.  The
   two products are plain GEMMs on bf16 0/1 operands; every value they give is
-  a small count (the query side at most N <= 20, exact in bf16) or only
+  a small count (the query side at most N, exact in bf16 up to 256) or only
   tested for being positive (the update side).
 
 That GEMM form is :func:`novelty_score_and_update_reference`, run on CPU
 tensors.  On CUDA tensors :func:`novelty_score_and_update` launches
 ``kernels/novelty.cu`` instead: a state has at most N atoms, so it reads
 and writes at most N^2 cells of the table by direct gathers and scatters
-(no (B, S) indicator rows, no GEMM over the S x S table).  The two are
-bit-equal.
+(no (B, S) indicator rows, no GEMM over the S x S table): its one-word path
+for states of at most :data:`NOVELTY_MAX_OBJECTS` objects, its wide path for
+more (:func:`novelty_path`).  The two are bit-equal wherever the GEMM's
+counts are exact in bf16 (at most 256 distinct buckets a state, so every
+state of up to 256 objects).
 
 Hash collisions only perturb search order (see the JAX module's docstring);
 the scores here are bit-identical to the JAX function's, collisions
@@ -33,7 +36,7 @@ are updated IN PLACE.
 
 import os
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -87,9 +90,16 @@ def _atom_hash(i: torch.Tensor, p: torch.Tensor, side: int) -> torch.Tensor:
     return h & (side - 1)
 
 
-# The largest N (objects a state) the kernels take: one lane of a warp an
-# object (kernels/novelty.cu kMaxObjects).
+# The largest N (objects a state) of the kernels' one-word path: one lane of
+# a warp an object (kernels/novelty.cu kMaxObjects); wider states take the
+# wide path, a lane several objects.
 NOVELTY_MAX_OBJECTS = 32
+
+
+def novelty_path(n: int) -> str:
+    """The path of ``kernels/novelty.cu`` that states of ``n`` objects take:
+    "one-word" or "wide"."""
+    return "one-word" if n <= NOVELTY_MAX_OBJECTS else "wide"
 
 
 def novelty_score_and_update(
@@ -126,8 +136,6 @@ def _checked(t: NoveltyTables, states: torch.Tensor, moved: torch.Tensor, valid:
         raise ValueError(f"states: expected (B, {N}, 2) int32, got {tuple(states.shape)} {states.dtype}")
     if moved.shape != (B, N) or valid.shape != (B,) or moved.dtype != torch.bool or valid.dtype != torch.bool:
         raise ValueError("moved must be (B, N) bool and valid (B,) bool")
-    if N > NOVELTY_MAX_OBJECTS:
-        raise ValueError(f"the novelty kernels take at most {NOVELTY_MAX_OBJECTS} objects a state, got {N}")
     for name, x, dtype, shape in (("seen_pos", t.seen_pos, torch.bool, (N, t.height * t.width)),
                                   ("pair_table", t.pair_table, torch.bfloat16, (t.side, t.side))):
         if x.dtype != dtype or x.shape != shape or x.device != states.device or not x.is_contiguous():
@@ -141,20 +149,27 @@ def _checked(t: NoveltyTables, states: torch.Tensor, moved: torch.Tensor, valid:
 
 
 def _launches(t: NoveltyTables, states: torch.Tensor, moved: torch.Tensor, valid: torch.Tensor,
-              novelty: torch.Tensor, record: torch.Tensor) -> Dict[str, Callable[[], None]]:
+              novelty: torch.Tensor, record: torch.Tensor,
+              wide: Optional[bool] = None) -> Dict[str, Callable[[], None]]:
     """The two launches of :func:`novelty_score_and_update` on inputs from
     :func:`_checked`, by launch-count name, in the order the call makes them:
     the scores (into ``novelty``, leaving each valid state's atoms in
-    ``record``), then the update of the tables from ``record``."""
+    ``record``), then the update of the tables from ``record``.  ``wide``:
+    the path, by :func:`novelty_path` where None (the wide path takes any
+    N, so the tests run it on narrow states too)."""
     lib, dev = _build.load("novelty"), states.device
     dims = (states.shape[0], t.n, t.height, t.width, t.side)
     tables = (t.seen_pos.data_ptr(), t.pair_table.data_ptr())
+    if wide is None:
+        wide = novelty_path(t.n) == "wide"
+    suffix = "_wide" if wide else ""
+    score, absorb = (getattr(lib, f"pw_novelty_{f}_records{suffix}") for f in ("score", "absorb"))
     return {
         "novelty.score": lambda: _launch(
-            lib.pw_novelty_score_records, "novelty.score", dev, states.data_ptr(), moved.data_ptr(),
+            score, "novelty.score", dev, states.data_ptr(), moved.data_ptr(),
             valid.data_ptr(), *tables, novelty.data_ptr(), record.data_ptr(), *dims),
         "novelty.absorb": lambda: _launch(
-            lib.pw_novelty_absorb_records, "novelty.absorb", dev, valid.data_ptr(), record.data_ptr(), *tables,
+            absorb, "novelty.absorb", dev, valid.data_ptr(), record.data_ptr(), *tables,
             *dims),
     }
 

@@ -27,7 +27,10 @@ CUDA tensor (a warp a state where the deepest depth is 0; deeper, a CTA a
 state with the recursion's memo in shared memory, as the reference's
 per-state PushingCostCache) and, on a CPU tensor,
 :func:`rgd_heuristic_with_flags_reference`, the tensorized recursion (the
-JAX package's ``_rgd_impl``).  The two are bit-equal.
+JAX package's ``_rgd_impl``).  The two are bit-equal.  The kernel's
+one-word path takes states of at most :data:`RGD_MAX_OBJECTS` objects, its
+wide path more; where the wide path's memo outgrows shared memory it lives
+in a device scratch allocated here (:func:`rgd_path`).
 """
 
 from dataclasses import dataclass
@@ -417,8 +420,7 @@ def rgd_heuristic_with_flags(
     the fill (total :data:`INF`, flag False) and are not evaluated by the
     kernel, so their rows may hold anything.
 
-    On a CUDA tensor this is one launch of ``kernels/rgd.cu`` (states of at
-    most :data:`RGD_MAX_OBJECTS` objects; more raise ValueError); on a CPU
+    On a CUDA tensor this is one launch of ``kernels/rgd.cu``; on a CPU
     tensor it runs :func:`rgd_heuristic_with_flags_reference`.  The two are
     bit-equal."""
     if states.device.type == "cpu":
@@ -447,11 +449,27 @@ def rgd_heuristic(
     return rgd_heuristic_with_flags(t, states, max_depth, valid)[0]
 
 
-# The largest N (objects a state) the kernel takes: its skip sets are 32-bit
-# masks and its shared memory holds an (N, 4, N, 4) push table (kernels/rgd.cu
-# kMaxObjects).  Every fixture, the generator's puzzles and the benchmark's
-# have far fewer.
+# The largest N (objects a state) of the kernel's one-word path: its skip
+# sets are 32-bit masks and its shared memory holds an (N, 4, N, 4) push
+# table (kernels/rgd.cu kMaxObjects).  Every fixture, the generator's puzzles
+# and the benchmark's have fewer; wider states take the wide path.
 RGD_MAX_OBJECTS = 32
+
+
+def _wide_scratch_floats(t: RGDTables, B: int, max_depth: int, device: torch.device) -> int:
+    return _build.load("rgd").pw_rgd_wide_scratch_floats(B, t.n, t.n_real, t.max_goals, max_depth, device.index)
+
+
+def rgd_path(t: RGDTables, B: int, max_depth: int, device) -> str:
+    """The path of ``kernels/rgd.cu`` that a batch of ``B`` states takes on
+    ``device``: "one-word"; "wide" where the deepest depth is 0; else "wide,
+    shared memory" or "wide, scratch" (the memo in device memory)."""
+    if t.n <= RGD_MAX_OBJECTS:
+        return "one-word"
+    if min(max_depth, t.n_real - 2) < 1:
+        return "wide"
+    device = torch.device(device)
+    return "wide, scratch" if _wide_scratch_floats(t, B, max_depth, device) else "wide, shared memory"
 
 _TABLE_TYPES = (("E", torch.bool), ("Dflat", torch.int32), ("vidx", torch.int32), ("doff", torch.int32),
                 ("dstride", torch.int32), ("DG", torch.float32), ("contacts", torch.int16),
@@ -459,13 +477,15 @@ _TABLE_TYPES = (("E", torch.bool), ("Dflat", torch.int32), ("vidx", torch.int32)
                 ("goal_mask", torch.bool))
 
 
-def _rgd_cuda(t: RGDTables, states: torch.Tensor, max_depth: int, valid: Optional[torch.Tensor]):
+def _rgd_cuda(t: RGDTables, states: torch.Tensor, max_depth: int, valid: Optional[torch.Tensor],
+              wide: Optional[bool] = None):
     """One launch of ``kernels/rgd.cu``: outputs from ``torch.empty``, no host
-    read, the launch on the current stream, so a CUDA graph may capture it."""
+    read, the launch on the current stream, so a CUDA graph may capture it.
+    ``wide``: the path, the one-word path up to :data:`RGD_MAX_OBJECTS`
+    objects where None (the wide path takes any N, so the tests run it on
+    narrow states too)."""
     if states.dim() != 3 or states.shape[1:] != (t.n, 2) or states.dtype != torch.int32:
         raise ValueError(f"states: expected (B, {t.n}, 2) int32, got {tuple(states.shape)} {states.dtype}")
-    if t.n > RGD_MAX_OBJECTS:
-        raise ValueError(f"the RGD kernel takes at most {RGD_MAX_OBJECTS} objects a state, got {t.n}")
     if max_depth < 0 or t.max_goals >= t.n:
         raise ValueError(f"max_depth {max_depth} < 0 or max_goals {t.max_goals} >= n {t.n}")
     if min(max_depth, t.n_real - 2) >= 1 and t.vidx.shape[0] < t.n_real:
@@ -492,10 +512,19 @@ def _rgd_cuda(t: RGDTables, states: torch.Tensor, max_depth: int, valid: Optiona
     deeper = torch.empty((B,), dtype=torch.bool, device=states.device)
     if B == 0:
         return total, deeper
-    fn = _build.load("rgd").pw_rgd_heuristic
-    rc = launch_on(states.device, fn, states.data_ptr(), *(x.data_ptr() for x in tensors),
-                   None if valid is None else valid.data_ptr(), total.data_ptr(), deeper.data_ptr(),
-                   B, t.n, t.n_real, t.max_goals, t.height, t.width, t.cmax, t.cmax_agent, max_depth)
+    lib = _build.load("rgd")
+    args = [states.data_ptr(), *(x.data_ptr() for x in tensors), None if valid is None else valid.data_ptr(),
+            total.data_ptr(), deeper.data_ptr(), B, t.n, t.n_real, t.max_goals, t.height, t.width, t.cmax,
+            t.cmax_agent, max_depth]
+    if wide is None:
+        wide = t.n > RGD_MAX_OBJECTS
+    if not wide:
+        rc = launch_on(states.device, lib.pw_rgd_heuristic, *args)
+    else:
+        floats = _wide_scratch_floats(t, B, max_depth, states.device)
+        scratch = torch.empty((floats,), dtype=torch.float32, device=states.device) if floats else None
+        rc = launch_on(states.device, lib.pw_rgd_heuristic_wide, *args,
+                       None if scratch is None else scratch.data_ptr())
     if rc != 0:
         raise RuntimeError(f"pw_rgd_heuristic launch failed: CUDA error {rc}")
     count_launch("rgd.heuristic")

@@ -25,7 +25,9 @@ The search's expansion (:func:`expand_children`, and :func:`expand_and_test`
 with the moved masks, the ``effective`` flags and the goal test) is one
 launch of ``kernels/expand.cu`` on a CUDA tensor and its plain version
 (:func:`expand_children_reference`, :func:`expand_and_test_reference`) on a
-CPU tensor; the two are bit-equal.
+CPU tensor; the two are bit-equal.  The kernel has two paths: the one-word
+path for states of at most :data:`EXPAND_MAX_OBJECTS` objects and the wide
+path for more (:func:`expand_path`).
 """
 
 from typing import Optional, Tuple
@@ -175,8 +177,7 @@ def expand_children(
     ``[a=0 children..., a=1 children..., ...]`` — (4B, N, 2) int32.
 
     On a CUDA tensor this is one launch of ``kernels/expand.cu`` (the flags
-    it also writes are dropped; at most :data:`EXPAND_MAX_OBJECTS` objects,
-    more raise ValueError); on a CPU tensor it runs
+    it also writes are dropped); on a CPU tensor it runs
     :func:`expand_children_reference`."""
     if parents.device.type == "cpu":
         return expand_children_reference(cp, contacts, contacts_mask, parents)
@@ -219,22 +220,29 @@ def expand_and_test(
     return _expand_cuda(cp, contacts, contacts_mask, parents, sel_valid, gate)
 
 
-# The largest N (objects a state) the expansion kernel takes: a pusher's
-# pushees are a 32-bit mask (kernels/expand.cu kMaxObjects).
+# The largest N (objects a state) of the expansion kernel's one-word path,
+# where a pusher's pushees are a 32-bit mask and a lane's objects lie in one
+# warp (kernels/expand.cu kMaxObjects); wider states take its wide path.
 EXPAND_MAX_OBJECTS = 32
 
 
+def expand_path(n: int) -> str:
+    """The path of ``kernels/expand.cu`` that states of ``n`` objects take:
+    "one-word" or "wide"."""
+    return "one-word" if n <= EXPAND_MAX_OBJECTS else "wide"
+
+
 def _expand_cuda(cp: CompiledPuzzle, contacts: torch.Tensor, contacts_mask: torch.Tensor,
-                 parents: torch.Tensor, sel_valid: Optional[torch.Tensor], gate: Optional[torch.Tensor]):
+                 parents: torch.Tensor, sel_valid: Optional[torch.Tensor], gate: Optional[torch.Tensor],
+                 wide: Optional[bool] = None):
     """One launch of ``kernels/expand.cu``: outputs from ``torch.empty``, no
     host read, the launch on the current stream, so a CUDA graph may
-    capture it."""
+    capture it.  ``wide``: the path, by :func:`expand_path` where None (the
+    wide path takes any N, so the tests run it on narrow states too)."""
     dev = parents.device
     if parents.dim() != 3 or parents.shape[1:] != (cp.n, 2) or parents.dtype != torch.int32:
         raise ValueError(f"parents: expected (B, {cp.n}, 2) int32, got {tuple(parents.shape)} {parents.dtype}")
     B, N = parents.shape[:2]
-    if N > EXPAND_MAX_OBJECTS:
-        raise ValueError(f"the expansion kernel takes at most {EXPAND_MAX_OBJECTS} objects a state, got {N}")
     if contacts.dtype == torch.int32:
         contacts = contacts.to(torch.int16)  # offsets are bounded by delta << 2**15
     C = contacts.shape[3]
@@ -258,7 +266,10 @@ def _expand_cuda(cp: CompiledPuzzle, contacts: torch.Tensor, contacts_mask: torc
     goal = torch.empty((4 * B,), dtype=torch.bool, device=dev)
     if B == 0:
         return children, moved, effective, goal
-    fn = _build.load("expand").pw_expand
+    lib = _build.load("expand")
+    if wide is None:
+        wide = expand_path(N) == "wide"
+    fn = lib.pw_expand_wide if wide else lib.pw_expand
     ptr = [None if x is None else x.data_ptr() for x in (
         parents, contacts, contacts_mask, cp.static_block, cp.obj_mask, goal_pos, cp.goal_mask, sel_valid,
         gate, children, moved, effective, goal)]

@@ -52,7 +52,7 @@ from pushworld_tpu_torch.ops.novelty import (
 )
 from pushworld_tpu_torch.ops.rgd import RGDTables, build_rgd_tables, rgd_heuristic
 from pushworld_tpu_torch.ops.step import expand_and_test, is_goal_state
-from pushworld_tpu_torch.parallel.mesh import make_mesh, mesh_device
+from pushworld_tpu_torch.parallel.mesh import all_gather_flat, make_mesh, mesh_device
 from pushworld_tpu_torch.search.batched import (
     EMPTY,
     SearchConfig,
@@ -197,7 +197,7 @@ def _init_shard_state(sh: _Shard, frontier_capacity: int, visited_bits: int) -> 
 def _gather(sh: _Shard, x: torch.Tensor) -> np.ndarray:
     """Every rank's ``x`` (same shape on all), stacked on a new leading axis."""
     out = torch.empty((sh.D * x.numel(),), dtype=x.dtype, device=sh.dev)
-    dist.all_gather_into_tensor(out, x.to(sh.dev).reshape(-1), group=sh.group)
+    all_gather_flat(out, x.to(sh.dev).reshape(-1), group=sh.group)
     return out.reshape((sh.D,) + tuple(x.shape)).cpu().numpy()
 
 

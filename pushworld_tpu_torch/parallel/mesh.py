@@ -21,7 +21,16 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from pushworld_tpu_torch.device import DeviceLike, resolve_device
 
-__all__ = ["make_mesh", "make_mesh_2d", "make_local_mesh", "mesh_device", "shard_leading"]
+__all__ = ["all_gather_flat", "make_mesh", "make_mesh_2d", "make_local_mesh", "mesh_device", "shard_leading"]
+
+
+def all_gather_flat(out: torch.Tensor, x: torch.Tensor, group=None) -> None:
+    """Every rank's ``x`` (the same size on all) into ``out``, rank after
+    rank: ``all_gather_single`` where torch has it, else
+    ``all_gather_into_tensor``, the name that newer releases mark
+    deprecated."""
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    gather(out, x, group=group)
 
 
 def _backend(dev: torch.device) -> str:

@@ -27,7 +27,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from pushworld_tpu_torch.core.puzzle import Puzzle
-from pushworld_tpu_torch.parallel.mesh import make_mesh, mesh_device
+from pushworld_tpu_torch.parallel.mesh import all_gather_flat, make_mesh, mesh_device
 from pushworld_tpu_torch.search.batched import (
     EMPTY,
     BatchedPlanner,
@@ -99,7 +99,7 @@ def solve_group(
         local = torch.cat([torch.stack([search_status_tensor(s) for s in states] + list(pad)).reshape(-1),
                            torch.tensor([int(over)], dtype=torch.int32, device=dev)])
         every = torch.empty((D * local.numel(),), dtype=torch.int32, device=dev)
-        dist.all_gather_into_tensor(every, local, group=group)
+        all_gather_flat(every, local, group=group)
         every = every.reshape(D, -1).cpu().numpy()
         stat = every[:, :-1].reshape(D * per, 8)[:G]
         solved = stat[:, 0].astype(bool)

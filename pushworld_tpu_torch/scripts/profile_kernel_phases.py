@@ -402,7 +402,7 @@ def main(argv=None) -> int:
             for fn, argtypes in signatures.items():
                 if _has(lib, fn):
                     getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
+                    getattr(lib, fn).restype = _build.RESTYPES.get(fn, ctypes.c_int)
             saved = _build._LOADED.get(library)
             _build._LOADED[library] = lib
             try:

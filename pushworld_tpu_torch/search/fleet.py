@@ -491,7 +491,10 @@ def plan_puzzles_fleet(
     queue holds more than the host workers' reserve — on easy sets the host
     workers drain the queue before the device ever engages (per-instance
     native solves are milliseconds), while on hard sets the device takes
-    whole groups off the back in parallel.
+    whole groups off the back in parallel.  Puzzles of more movables than
+    the native planner takes (``bridge.NATIVE_MAX_MOVABLES``) never reach a
+    host worker: the device worker solves them first, and without one (or
+    where it fails) the host oracle planner does.
 
     When the device worker raises (a kernel that does not build or launch,
     say), its instances go back to the hosts, which finish them; on a card
@@ -541,7 +544,16 @@ def plan_puzzles_fleet(
     # runs (bench_torch.py's watchdog prints them if its deadline expires).
     results: Dict[str, PlanResult] = results_out if results_out is not None else {}
     lock = threading.Lock()
-    dq: deque = deque(named_puzzles)
+    # Puzzles of more movables than the native planner takes stay off the
+    # host workers' queue: the device worker solves them before it claims
+    # anything else (no host steals them), and what it leaves, the final
+    # drain hands to the host oracle planner.
+    wide_names = {
+        name for name, p in named_puzzles
+        if native_ok and p.num_movables > bridge.NATIVE_MAX_MOVABLES
+    }
+    wide: deque = deque(it for it in named_puzzles if it[0] in wide_names)
+    dq: deque = deque(it for it in named_puzzles if it[0] not in wide_names)
     # Host workers keep at least this many instances for themselves; the
     # device claims groups beyond the reserve (claim mode only).
     reserve = 2 * native_workers if native_ok else 0
@@ -694,12 +706,40 @@ def plan_puzzles_fleet(
         print(f"[fleet] {what} ({type(e).__name__}: {e})", flush=True)
         traceback.print_exc()
 
+    def device_wide() -> bool:
+        """The puzzles no host worker takes, ``group_size`` at a time, each
+        result recorded.  False where the device failed: the rest stays in
+        ``wide`` for the final drain."""
+        while True:
+            with lock:
+                if not wide:
+                    return True
+                group = [wide.popleft() for _ in range(min(group_size, len(wide)))]
+            done = set()
+            try:
+                for name, r in _device_multiplex(
+                    group, mode=mode, time_limit=time_limit, device=device,
+                    **group_kwargs
+                ):
+                    record(name, r)
+                    done.add(name)
+            except Exception as e:
+                _device_failure(
+                    "device worker failed on puzzles the native planner "
+                    "refuses; the host oracle planner takes them", e,
+                )
+                with lock:
+                    wide.extend(g for g in group if g[0] not in done)
+                return False
+
     def device_shadow_loop() -> None:
         # SHADOW mode: the device duplicates host-owned instances instead
         # of claiming them — the fleet can never solve fewer than
         # host-only, and every device SUCCESS releases host time (queue
         # skip + cooperative cancel).
         _enter_device_thread()
+        if not device_wide():
+            return
         # Wave targets alternate between the easy tail (quick wins;
         # solving them before hosts reach them shortens the wall) and the
         # hard head (capacity-heavy parallel attempts on the instances
@@ -817,6 +857,8 @@ def plan_puzzles_fleet(
 
     def device_loop() -> None:
         _enter_device_thread()
+        if not device_wide():
+            return
         # CLAIM mode (PW_DEVICE_MODE=claim): multiplexes SINGLE-LANE
         # batched searches over the card.
         start = time.monotonic()
@@ -923,6 +965,20 @@ def plan_puzzles_fleet(
             record(name, PlanResult(None, time.monotonic() - t0, "time limit"))
         except MemoryError:
             record(name, PlanResult(None, time.monotonic() - t0, "memory error"))
+    # Puzzles the native planner refuses and the device did not solve (no
+    # device worker, or it failed): the host oracle planner.
+    for name, puzzle in wide:
+        if name in results:
+            continue
+        from pushworld_tpu_torch.search.host_planner import solve_host
+
+        t0 = time.monotonic()
+        try:
+            r = _classify(puzzle, solve_host(puzzle, mode=mode, time_limit=time_limit), time.monotonic() - t0)
+            r.solver = "host"
+            record(name, r)
+        except TimeoutError:
+            record(name, PlanResult(None, time.monotonic() - t0, "time limit"))
     if device_errors and device.type == "cuda":
         # No instance was lost, but the card's share of the work moved to
         # the hosts: a caller that asked for the card must not take this

@@ -43,6 +43,7 @@ class PlanResult:
     failure_reason: Optional[str]  # None | "time limit" | "no solution" | ...
     expansions: int = 0
     solver: str = ""  # which fleet/portfolio member produced the result
+    iterations: int = 0  # the batched search's iterations (0 for other solvers)
 
 
 CHUNK = 128  # iterations of a chunk on the CPU: one status read each (the card's: chunk_length)
@@ -224,22 +225,23 @@ def solve_puzzle(
             )
             plan = bp.solve(time_limit=time_limit)
     except TimeoutError:
-        return PlanResult(None, time.monotonic() - t0, "time limit", _expansions(bp))
+        return PlanResult(None, time.monotonic() - t0, "time limit", **_counts(bp))
     except MemoryError:
-        return PlanResult(None, time.monotonic() - t0, "memory error", _expansions(bp))
+        return PlanResult(None, time.monotonic() - t0, "memory error", **_counts(bp))
     dt = time.monotonic() - t0
-    expansions = _expansions(bp)
+    counts = _counts(bp)
 
     if plan is None:
-        return PlanResult(None, dt, "no solution", expansions)
+        return PlanResult(None, dt, "no solution", **counts)
     if not puzzle.is_valid_plan(plan) and plan != []:
-        return PlanResult(plan, dt, "invalid plan", expansions)
-    return PlanResult(plan, dt, None, expansions)
+        return PlanResult(plan, dt, "invalid plan", **counts)
+    return PlanResult(plan, dt, None, **counts)
 
 
-def _expansions(bp) -> int:
+def _counts(bp) -> Dict[str, int]:
+    """The expansions and iterations of the batched planner's last search."""
     s = None if bp is None else bp.last_state
-    return 0 if s is None else int(s.expansions)
+    return {} if s is None else {"expansions": int(s.expansions), "iterations": int(s.iterations)}
 
 
 def plan_puzzles(

@@ -120,7 +120,7 @@ def test_fused_fingerprint_dedup_insert_matches_plain_version(dev, n, n_obj):
         k_k, n_k = hs.fingerprint_dedup_insert(kern, states, 54, valid)
         k_r, n_r = hs.fingerprint_dedup_insert_reference(ref, states, 54, valid)
         torch.cuda.synchronize()
-        assert torch.equal(k_k, k_r) and torch.equal(k_k, hs.fingerprint(states, 54))
+        assert torch.equal(k_k, k_r) and torch.equal(k_k, hs.fingerprint_reference(states, 54))
         assert torch.equal(n_k, n_r), rnd
         assert torch.equal(torch.sort(kern.keys).values, torch.sort(ref.keys).values)
         if n > 1:
@@ -132,6 +132,44 @@ def test_fused_fingerprint_dedup_insert_matches_plain_version(dev, n, n_obj):
                                                                                        device=dev))
     torch.cuda.synchronize()
     assert not n_k.any() and torch.equal(kern.keys, table)
+
+
+@pytest.mark.parametrize("n_obj", [4, 19, 100])
+def test_fingerprint_kernel_matches_the_fold(dev, n_obj):
+    """1,024 states (random cells, negative and out-of-grid ones too) and a
+    search's root: the kernel's keys equal the plain int64 fold's, one
+    launch a call, any leading shape."""
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.ops import hashset as hs
+
+    rng = np.random.default_rng(n_obj)
+    states = torch.as_tensor(rng.integers(-3, 60, size=(1024, n_obj, 2)).astype(np.int32), device=dev)
+    before = LAUNCHES["visited_set.fingerprint"]
+    for x, width in ((states, 54), (states[:1], 7), (states.reshape(8, 128, n_obj, 2), 1 << 20)):
+        got = hs.fingerprint(x, width)
+        torch.cuda.synchronize()
+        assert got.shape == x.shape[:-2] and torch.equal(got, hs.fingerprint_reference(x, width))
+    assert LAUNCHES["visited_set.fingerprint"] == before + 3
+
+
+def test_search_start_runs_the_fingerprint_kernel(dev):
+    """init_search_state on the card: the root's key comes from the
+    fingerprint kernel (one launch), equal to the fold's."""
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.ops import hashset as hs
+    from pushworld_tpu_torch.search.batched import BatchedPlanner
+
+    p = Puzzle.from_file(os.path.join(PUZZLES, "heur", "three_tools.pwp"))
+    pl = BatchedPlanner(p, max_depth=1, device=dev, expand=32, frontier_capacity=1 << 10, visited_bits=14,
+                        history_capacity=1 << 14, pair_bits=12)
+    before = dict(LAUNCHES)
+    s = pl.init_state()
+    torch.cuda.synchronize()
+    launched = {k: v - before.get(k, 0) for k, v in LAUNCHES.items() if v != before.get(k, 0)}
+    assert launched == {"visited_set.fingerprint": 1, "visited_set.probe_and_insert": 1, "novelty.score": 1,
+                        "novelty.absorb": 1, "rgd.heuristic": 1}, launched
+    assert int(s.frontier_key[0]) == int(hs.fingerprint_reference(pl.cp_dev.init_state[None], p.width)[0])
 
 
 @pytest.mark.parametrize("load", [0.0, 0.5, 0.75])
@@ -454,12 +492,18 @@ def _expand_inputs(p, dev, count, seed, n_pad=None, cmax_pad=0):
             torch.as_tensor(padded, device=dev), torch.as_tensor(sel_valid, device=dev))
 
 
-def _expand_kernel_equals_plain(cp, contacts, mask, parents, sel_valid):
+def _expand_kernel_equals_plain(cp, contacts, mask, parents, sel_valid, wide=None):
+    """``wide``: the kernel's path, as the wrapper picks it where None."""
     from pushworld_tpu_torch.kernels import LAUNCHES
     from pushworld_tpu_torch.ops import step
 
+    def expand(gate=None):
+        if wide is None:
+            return step.expand_and_test(cp, contacts, mask, parents, sel_valid, gate)
+        return step._expand_cuda(cp, contacts, mask, parents, sel_valid, gate, wide)
+
     before = LAUNCHES["step.expand"]
-    got = step.expand_and_test(cp, contacts, mask, parents, sel_valid)
+    got = expand()
     want = step.expand_and_test_reference(cp, contacts, mask, parents, sel_valid)
     children = step.expand_children(cp, contacts, mask, parents)
     torch.cuda.synchronize()
@@ -467,7 +511,7 @@ def _expand_kernel_equals_plain(cp, contacts, mask, parents, sel_valid):
         assert g.dtype == w.dtype and torch.equal(g, w)
     assert torch.equal(children, want[0])
     closed = torch.zeros((), dtype=torch.bool, device=parents.device)
-    _, _, effective, goal = step.expand_and_test(cp, contacts, mask, parents, sel_valid, closed)
+    _, _, effective, goal = expand(closed)
     torch.cuda.synchronize()
     assert not effective.any() and not goal.any()
     assert LAUNCHES["step.expand"] == before + 3
@@ -486,23 +530,31 @@ def test_expand_kernel_bit_equal_on_fixtures(dev, name):
 
 def test_expand_kernel_on_47x54_at_32_objects_and_above(dev):
     """256 parents on the 47 x 54 puzzle; the chain of ten movables; a
-    puzzle padded to the cap of 32 objects; 33 objects raise ValueError."""
-    import dataclasses
-
+    puzzle padded to 32 objects (the one-word path's widest); 33, 64 and 100
+    movables (the wide path), on walks and on random cells; three_tools
+    padded to 33 objects; and the wide path forced on the narrow puzzles."""
     from pushworld_tpu_torch.core.puzzle import Puzzle
     from pushworld_tpu_torch.ops import step
 
     smoke = _smoke()
     g = Puzzle.from_text(smoke.generated_puzzle_text(0))
     _expand_kernel_equals_plain(*_expand_inputs(g, dev, 256, 0))
-    _expand_kernel_equals_plain(*_expand_inputs(Puzzle.from_text(smoke.MANY_MOVABLES_TEXT), dev, 64, 1))
+    chain = Puzzle.from_text(smoke.MANY_MOVABLES_TEXT)
+    _expand_kernel_equals_plain(*_expand_inputs(chain, dev, 64, 1))
     three = Puzzle.from_file(os.path.join(PUZZLES, "heur", "three_tools.pwp"))
     _expand_kernel_equals_plain(*_expand_inputs(three, dev, 32, 2, n_pad=step.EXPAND_MAX_OBJECTS))
-    cp, contacts, mask, parents, sel_valid = _expand_inputs(three, dev, 4, 3)
-    wide = dataclasses.replace(cp, obj_mask=torch.ones(33, dtype=torch.bool, device=dev))
-    with pytest.raises(ValueError):
-        step.expand_and_test(wide, contacts, mask, torch.zeros((4, 33, 2), dtype=torch.int32, device=dev),
-                             sel_valid)
+    _expand_kernel_equals_plain(*_expand_inputs(three, dev, 32, 3, n_pad=33))
+    rng = np.random.default_rng(4)
+    for n in (33, 64, 100):
+        p = Puzzle.from_text(smoke.many_objects_text(n))
+        assert step.expand_path(n) == "wide"
+        cp, contacts, mask, parents, sel_valid = _expand_inputs(p, dev, 64, n)
+        _expand_kernel_equals_plain(cp, contacts, mask, parents, sel_valid)
+        cells = np.stack([rng.integers(0, p.width, (64, n)), rng.integers(0, p.height, (64, n))], -1)
+        _expand_kernel_equals_plain(cp, contacts, mask, torch.as_tensor(cells.astype(np.int32), device=dev),
+                                    sel_valid)
+    for p in (g, chain, three):
+        _expand_kernel_equals_plain(*_expand_inputs(p, dev, 64, 5), wide=True)
 
 
 def _frontier_state(dev, F, kind, seed, cursor, N=4, bits=16, solved=False, hist_cursor=17):
@@ -994,11 +1046,45 @@ def test_rgd_kernel_valid_mask(dev):
         assert torch.equal(got[0][valid], full[0][valid]) and (got[0][~valid] == rgd.INF).all()
 
 
-def test_rgd_and_novelty_wrappers_raise_above_their_cap(dev):
-    """States of more objects than a kernel takes raise ValueError on the
-    card (the caps are the sources' own)."""
-    import dataclasses
+def _novelty_kernels_equal_plain(n, H, W, dev, rng, wide=None, batches=3, B=512):
+    """The novelty kernels (``wide``: the path, as the wrapper picks it where
+    None) against the plain version over a sequence of batches of random
+    states: scores and both tables bit-equal after every batch."""
+    from pushworld_tpu_torch.ops import novelty
 
+    kern = novelty.init_novelty(n, H, W, pair_bits=12, device=dev)
+    ref = novelty.init_novelty(n, H, W, pair_bits=12, device=dev)
+    for _ in range(batches):
+        states = torch.as_tensor(np.stack([rng.integers(0, W, (B, n)), rng.integers(0, H, (B, n))],
+                                          -1).astype(np.int32), device=dev)
+        moved = torch.as_tensor(rng.random((B, n)) < 0.2, device=dev)
+        valid = torch.as_tensor(rng.random(B) < 0.9, device=dev)
+        if wide is None:
+            got, _ = novelty.novelty_score_and_update(kern, states, moved, valid)
+        else:
+            args = novelty._checked(kern, states, moved, valid)
+            got = torch.empty((B,), dtype=torch.float32, device=dev)
+            record = torch.empty((B, n, 2), dtype=torch.int32, device=dev)
+            for launch in novelty._launches(kern, *args, got, record, wide).values():
+                launch()
+        want, _ = novelty.novelty_score_and_update_reference(ref, states, moved, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(kern.seen_pos, ref.seen_pos)
+        assert torch.equal(kern.pair_table.view(torch.int16), ref.pair_table.view(torch.int16))
+    return want
+
+
+@pytest.mark.parametrize("n", [33, 64, 100])
+def test_rgd_and_novelty_kernels_above_32_objects(dev, n):
+    """The wide paths at 33, 64 and 100 movables, bit-equal to the plain
+    versions: RGD on walks and random cells at depths 0-2 (and 3 at 33),
+    and on the four-tool chain widened by obstacles (its goal needs depth
+    4, so depths 1-3 run the deep tables over every movable: in shared
+    memory at 33, in the device scratch at 64), and at 64 and 100 on 1,024
+    of its walk states at depth 1, more than the scratch path's persistent
+    grid has CTAs, so that each CTA walks several states; novelty over a
+    sequence of batches.  The one-word paths' width stays 32."""
     from pushworld_tpu_torch.core.compiled import compile_puzzle
     from pushworld_tpu_torch.core.puzzle import Puzzle
     from pushworld_tpu_torch.kernels import _build
@@ -1006,15 +1092,88 @@ def test_rgd_and_novelty_wrappers_raise_above_their_cap(dev):
 
     assert _build.load("rgd").pw_rgd_max_objects() == rgd.RGD_MAX_OBJECTS == 32
     assert _build.load("novelty").pw_novelty_max_objects() == novelty.NOVELTY_MAX_OBJECTS == 32
-    p = Puzzle.from_file(os.path.join(PUZZLES, "simple.pwp"))
-    t = dataclasses.replace(rgd.build_rgd_tables(p, compile_puzzle(p), device=dev), n=33)
-    states = torch.zeros((4, 33, 2), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="at most 32 objects"):
-        rgd.rgd_heuristic_with_flags(t, states, 0)
-    nt = novelty.init_novelty(33, 5, 6, pair_bits=8, device=dev)
-    with pytest.raises(ValueError, match="at most 32 objects"):
-        novelty.novelty_score_and_update(nt, states, torch.ones((4, 33), dtype=torch.bool, device=dev),
-                                         torch.ones(4, dtype=torch.bool, device=dev))
+    smoke = _smoke()
+    rng = np.random.default_rng(n)
+    p = Puzzle.from_text(smoke.many_objects_text(n))
+    _, children = _walks(p, 16, seed=n)
+    cells = np.stack([rng.integers(0, p.width, (16, n)), rng.integers(0, p.height, (16, n))], -1)
+    t = rgd.build_rgd_tables(p, compile_puzzle(p), device=dev)
+    states = torch.as_tensor(np.concatenate([children, cells]).astype(np.int32), device=dev)
+    _rgd_kernel_equals_plain(t, states, (0, 1, 2, 3) if n == 33 else (0, 1, 2))
+    tools = Puzzle.from_text(smoke.four_tools_with_obstacles_text(n))
+    t = rgd.build_rgd_tables(tools, compile_puzzle(tools), device=dev)
+    if n <= 64:
+        parents, children = _walks(tools, 8, seed=n)
+        states = torch.as_tensor(np.concatenate([parents, children]), device=dev)
+        want = rgd.rgd_heuristic_with_flags_reference(t, states, 3)
+        assert (want[0] >= 1e8).any() and want[1].any()  # goals that need depth 4
+        assert rgd.rgd_path(t, len(states), 3, dev) == ("wide, shared memory" if n == 33 else "wide, scratch")
+        _rgd_kernel_equals_plain(t, states, (1, 2, 3))
+    if n >= 64:
+        states = torch.as_tensor(smoke.walk_states(tools, 1024, seed=n), device=dev)
+        assert len(states) > 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+        assert rgd.rgd_path(t, len(states), 1, dev) == "wide, scratch"
+        want = rgd.rgd_heuristic_with_flags_reference(t, states, 0)
+        assert (want[0] >= 1e8).sum() > len(states) // 2  # most states run the deep tables
+        _rgd_kernel_equals_plain(t, states, (1,))
+        valid = torch.as_tensor(rng.random(len(states)) < 0.9, device=dev)
+        got = rgd.rgd_heuristic_with_flags(t, states, 1, valid)
+        want = rgd.rgd_heuristic_with_flags_reference(t, states, 1, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _novelty_kernels_equal_plain(n, p.height, p.width, dev, rng)
+
+
+def test_wide_rgd_and_novelty_paths_on_narrow_states(dev):
+    """The wide paths take any n: forced on states of at most 32 objects,
+    they equal the plain versions too, RGD at depths 0-5 (the four-tool
+    chain: the wide walk over T(., 2) tables, which no wide state in reach
+    of the plain version's time needs) and on fixtures, novelty at 3 and 32
+    objects."""
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.ops import rgd
+
+    smoke = _smoke()
+    cases = [(Puzzle.from_text(smoke.FOUR_TOOLS_TEXT), (3, 4, 5)),
+             (Puzzle.from_file(os.path.join(PUZZLES, "heur", "three_tools.pwp")), (0, 1, 2, 3, 4)),
+             (Puzzle.from_text(smoke.generated_puzzle_text(0)), (0, 2)),
+             (Puzzle.from_text(smoke.many_objects_text(32)), (0, 1, 2))]
+    for p, depths in cases:
+        parents, children = _walks(p, 16, seed=p.num_movables)
+        t = rgd.build_rgd_tables(p, compile_puzzle(p), device=dev)
+        states = torch.as_tensor(np.concatenate([parents, children]), device=dev)
+        valid = torch.as_tensor(np.random.default_rng(0).random(len(states)) < 0.8, device=dev)
+        for depth in depths:
+            for v in (None, valid):
+                got = rgd._rgd_cuda(t, states, depth, v, wide=True)
+                want = rgd.rgd_heuristic_with_flags_reference(t, states, depth, v)
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), depth
+    rng = np.random.default_rng(7)
+    for n, H, W in ((3, 5, 6), (32, 14, 14)):
+        _novelty_kernels_equal_plain(n, H, W, dev, rng, wide=True)
+
+
+@pytest.mark.parametrize("n", [64, 100])
+def test_solve_64_movables_on_card_matches_cpu(dev, n):
+    """A 64- and a 100-movable puzzle (the wide paths of expand, novelty and
+    RGD) solved on the card and on the CPU at the production capacities: the
+    plan passes the oracle, and plan, iterations and expansions are the
+    CPU port's; solve_puzzle gives the same plan."""
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.search.batched import BatchedPlanner, required_depth
+    from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES, solve_puzzle
+
+    p = Puzzle.from_text(_smoke().many_objects_text(n))
+    runs = []
+    for d in (dev, "cpu"):
+        pl = BatchedPlanner(p, max_depth=required_depth(p), device=d, **PRODUCTION_CAPACITIES)
+        plan = pl.solve(time_limit=300)
+        runs.append((plan, int(pl.last_state.iterations), int(pl.last_state.expansions)))
+    assert runs[0] == runs[1] and p.is_valid_plan(runs[0][0])
+    r = solve_puzzle(p, mode="N+RGD", time_limit=120, device=dev, **PRODUCTION_CAPACITIES)
+    assert r.failure_reason is None and r.plan == runs[0][0]
 
 
 def test_solve_on_card_matches_cpu(dev):

@@ -153,6 +153,81 @@ def expand_kernel_np(parents, contacts, mask, static_block, obj_mask, goal_pos, 
     return children, moved, effective, goal
 
 
+WIDE_THREADS = 128  # kernels/expand.cu kWideThreads
+
+
+def expand_wide_kernel_np(parents, contacts, mask, static_block, obj_mask, goal_pos, goal_mask, sel_valid):
+    """The wide path of ``kernels/expand.cu`` (n > 32), CTA by CTA: one lane
+    a CTA of 128 threads, thread t holding objects t, t + 128, ...; the
+    closure by rounds over bit sets of ceil(n / 32) words (reached, frontier,
+    next): in a round each thread tests each of its objects j not yet
+    reached against every pusher k of the frontier (the contact words of
+    (a, k, j) against pos_k - pos_j, masked entries skipped) and ORs j into
+    the next frontier; a round that adds nothing ends the walk; then the
+    CTA-wide ORs: blocked, moved, off-goal."""
+    B, n = parents.shape[:2]
+    C = contacts.shape[3]
+    words_n = (n + 31) // 32
+    nb = 4 * B
+    words = (contacts[..., 0].astype(np.int64) & 0xFFFF) | (contacts[..., 1].astype(np.int64) & 0xFFFF) << 16
+    children = np.empty((nb, n, 2), np.int32)
+    moved = np.zeros((nb, n), bool)
+    effective = np.zeros(nb, bool)
+    goal = np.zeros(nb, bool)
+
+    def bit(sets, i):
+        return sets[i >> 5] >> (i & 31) & 1
+
+    for lane in range(nb):  # a CTA
+        a, b = divmod(lane, B)
+        cells = parents[b]
+        reached = [1] + [0] * (words_n - 1)
+        front = list(reached)
+        while True:
+            nxt = [0] * words_n
+            for t in range(WIDE_THREADS):
+                for j in range(t, n, WIDE_THREADS):
+                    if bit(reached, j):
+                        continue
+                    hit = False
+                    for w in range(words_n):
+                        f = front[w]
+                        while f and not hit:
+                            k = 32 * w + (f & -f).bit_length() - 1
+                            f &= f - 1
+                            rel = _offset_word(*(cells[k] - cells[j]))
+                            hit = bool(((words[a, k, j] == rel) & mask[a, k, j]).any())
+                        if hit:
+                            break
+                    if hit:
+                        nxt[j >> 5] |= 1 << (j & 31)
+            front = nxt
+            reached = [r | f for r, f in zip(reached, nxt)]
+            if not any(nxt):  # __syncthreads_or
+                break
+        nothing = any(bit(reached, i) and static_block[a, i, cells[i, 1], cells[i, 0]] for i in range(n))
+        off = False
+        for i in range(n):
+            m = int(not nothing and bit(reached, i) and bool(obj_mask[i]))
+            children[lane, i] = cells[i] + DISP[a] * m
+            moved[lane, i] = bool(m)
+            off |= bool(goal_mask[i]) and not (children[lane, i] == goal_pos[i]).all()
+        effective[lane] = moved[lane].any() and bool(sel_valid[b])
+        goal[lane] = not off
+    return children, moved, effective, goal
+
+
+def _smoke():
+    """chip_smoke.py as a module (its puzzle texts)."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
 def _assert_equal(got, want, what):
     for name, g, w in zip(("children", "moved", "effective", "goal"), got, want):
         g = g.numpy() if isinstance(g, torch.Tensor) else g
@@ -198,12 +273,7 @@ def test_padded_to_32_objects_matches_jax(name):
 def test_many_movables_chain_matches_jax():
     """Transitive pushes through a chain of movables (chip_smoke's
     10-movable puzzle): the closure's worklist against JAX's squaring."""
-    import importlib.util
-
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(root, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _smoke()
     p, jp = Puzzle.from_text(smoke.MANY_MOVABLES_TEXT), JPuzzle.from_text(smoke.MANY_MOVABLES_TEXT)
     cp, jcp = compile_puzzle(p).to("cpu"), j_compile(jp)
     parents = _reachable(p, 16, seed=7)
@@ -251,3 +321,33 @@ def test_lanes_not_a_multiple_of_the_cta_match_jax(name, count, n_pad):
                                    cp.goal_pos.numpy(), cp.goal_mask.numpy(), sel_valid), want, name)
     _assert_equal(tstep.expand_and_test(cp, torch.as_tensor(contacts), torch.as_tensor(mask),
                                         torch.as_tensor(parents), torch.as_tensor(sel_valid)), want, name)
+
+
+@pytest.mark.parametrize("n", [33, 64])
+def test_wide_kernel_algorithm_matches_jax(n):
+    """The wide path's algorithm (states of more than 32 objects: a CTA a
+    lane, the closure by rounds over multi-word bit sets) against JAX's
+    expand_children and is_goal_state, and the plain version, on walks of a
+    puzzle of ``n`` movables and on random cells of its grid (long chains
+    of pushes), the goal object at its goal in some."""
+    text = _smoke().many_objects_text(n)
+    p, jp = Puzzle.from_text(text), JPuzzle.from_text(text)
+    assert p.num_movables == n and tstep.expand_path(n) == "wide"
+    cp, jcp = compile_puzzle(p).to("cpu"), j_compile(jp)
+    rng = np.random.default_rng(n)
+    cells = np.stack([rng.integers(0, p.width, (6, n)), rng.integers(0, p.height, (6, n))], -1).astype(np.int32)
+    column = np.asarray(p.initial_state, np.int32)  # the agent above a column of six objects
+    x = p.width // 2
+    column[0] = (x, 2)
+    column[2:8] = [(x, y) for y in range(3, 9)]
+    parents = np.concatenate([_reachable(p, 6, seed=n), cells, column[None]])
+    parents[-2, 1] = np.asarray(p.goal_state[0], np.int32)  # a parent with the goal object at its goal
+    contacts, mask = tstep.build_contact_lists(cp)
+    sel_valid = rng.random(len(parents)) < 0.8
+    want = _jax_expansion(jcp, contacts, mask, parents, sel_valid)
+    assert (want[1].sum(-1) > 2).any()  # some child pushes more than one object
+    got = expand_wide_kernel_np(parents, contacts, mask, cp.static_block.numpy(), cp.obj_mask.numpy(),
+                                cp.goal_pos.numpy(), cp.goal_mask.numpy(), sel_valid)
+    _assert_equal(got, want, f"wide {n}")
+    _assert_equal(tstep.expand_and_test(cp, torch.as_tensor(contacts), torch.as_tensor(mask),
+                                        torch.as_tensor(parents), torch.as_tensor(sel_valid)), want, f"plain {n}")

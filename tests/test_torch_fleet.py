@@ -202,6 +202,29 @@ def test_device_failure_on_a_card_raises_after_hosts_finish(mode, monkeypatch):
     assert "device" not in {r.solver for r in info.value.results.values()}
 
 
+def _many_objects(n):
+    """The generated puzzle of ``n`` movables that chip_smoke.py solves."""
+    return Puzzle.from_text(_root_module("chip_smoke").many_objects_text(n))
+
+
+@pytest.mark.parametrize("mode", ["claim", "shadow", "off"])
+def test_puzzles_the_native_planner_refuses_never_reach_a_host_worker(mode):
+    """A puzzle of more movables than the native planner takes, beside ones
+    it takes, with native workers on: the device worker solves it ("off":
+    the host oracle planner), and no result is an error."""
+    from pushworld_tpu_torch.native import bridge
+
+    big = ("many_objects_33", _many_objects(33))
+    assert big[1].num_movables > bridge.NATIVE_MAX_MOVABLES
+    named = _named(["chain", "simple", "heur/two_tools"]) + [big]
+    results = _fleet(named, time_limit=60.0, native_workers=2, device_worker="force",
+                     group_size=4, device_claim_delay=0.0, device_mode=mode,
+                     device="cpu", pair_bits=PAIR_BITS, **SMALL)
+    _check_all_solved(named, results)
+    assert results[big[0]].solver == ("host" if mode == "off" else "device")
+    assert fleet._device_stats["device_failed"] is False
+
+
 def _root_module(name):
     import importlib.util
 

@@ -374,3 +374,22 @@ def test_window_probe_loop_form_matches_jax(case):
     else:
         home = first_slot_np(int(ins[0]), bits)
         assert table[home] == ins[0] and table[(home + 1) % size] == ins[0]  # stored twice again
+
+
+@pytest.mark.parametrize("n_obj", [4, 19, 100])
+def test_fingerprint_wrapper_on_cpu_runs_the_fold_and_launches_nothing(n_obj):
+    """On CPU tensors the fingerprint wrapper returns the plain fold's keys,
+    equal to the JAX package's, for any leading shape (a search's root, a
+    batch, a batch of batches), and launches no kernel."""
+    from pushworld_tpu_torch.kernels import LAUNCHES
+
+    rng = np.random.default_rng(n_obj)
+    states = rng.integers(-3, 60, size=(64, n_obj, 2)).astype(np.int32)
+    before = dict(LAUNCHES)
+    for x in (states[:1], states, states.reshape(4, 16, n_obj, 2)):
+        got = th.fingerprint(torch.as_tensor(x), 54)
+        assert got.shape == x.shape[:-2]
+        assert torch.equal(got, th.fingerprint_reference(torch.as_tensor(x), 54))
+        lo, hi = jh.fingerprint(jnp.asarray(x), 54)
+        assert torch.equal(got, _pack_np(lo, hi))
+    assert dict(LAUNCHES) == before

@@ -91,6 +91,67 @@ def _novelty_loop_form(seen_pos, table, states, moved, valid, W, H):
     return np.asarray(out, np.float32)
 
 
+MOVED_BIT = 1 << 31  # kernels/novelty.cu kMovedBit
+
+
+def _novelty_wide_loop_form(seen_pos, table, states, moved, valid, W, H):
+    """The wide path of kernels/novelty.cu (n > 32), one state at a time: a
+    warp of 32 lanes, lane j holding atoms j, j + 32, ... in rounds; the
+    score writes the state's record (cell; bucket and moved bit) for every
+    atom, stops at novelty 1, else each lane reads its atoms' buckets back
+    from the record and, in rounds of 32 atoms i (read from the record a lane
+    an atom and shuffled) and blocks of 8, T[bucket_j, bucket_i] for each
+    moved i of another bucket.  The update, past the barrier, walks the same
+    pairs from the records.  Updates ``seen_pos`` and ``table`` in place;
+    returns the scores."""
+    side = table.shape[0]
+    n = states.shape[1]
+    out, records = [], []
+    for s, mv, ok in zip(states, moved, valid):
+        if not ok:
+            out.append(3.0)
+            records.append(None)
+            continue
+        record = [None] * n
+        unseen = [False] * 32
+        for lane in range(32):
+            for j in range(lane, n, 32):
+                cell = int(np.clip(s[j, 1] * W + s[j, 0], 0, H * W - 1))
+                bucket = int(np.asarray(jn._atom_hash(jnp.asarray(np.int32(j)), jnp.asarray(np.int32(cell)), side)))
+                unseen[lane] |= bool(mv[j]) and not seen_pos[j, cell]
+                record[j] = (cell, bucket | (MOVED_BIT if mv[j] else 0))
+        records.append(record)
+        if any(unseen):
+            out.append(1.0)
+            continue
+        pair_unseen = [False] * 32
+        for j0 in range(0, n, 32):
+            for lane in range(32):
+                j = j0 + lane
+                bj = record[j][1] & ~MOVED_BIT if j < n else 0
+                for i0 in range(0, n, 32):
+                    ri = [record[i0 + u][1] if i0 + u < n else 0 for u in range(32)]  # a lane each, shuffled
+                    for u0 in range(0, min(32, n - i0), 8):
+                        for u in range(u0, u0 + 8):
+                            r = ri[u]
+                            need = i0 + u < n and j < n and bool(r & MOVED_BIT) and bj != r & ~MOVED_BIT
+                            pair_unseen[lane] |= need and table[bj, r & ~MOVED_BIT] == 0
+        out.append(2.0 if any(pair_unseen) else 3.0)
+    for record in records:  # the barrier: every score is taken
+        if record is None:
+            continue
+        for j0 in range(0, n, 32):
+            for j in range(j0, min(j0 + 32, n)):
+                cell, rj = record[j]
+                if rj & MOVED_BIT:
+                    seen_pos[j, cell] = True
+                for i in range(n):
+                    if record[i][1] & MOVED_BIT:
+                        k = record[i][1] & ~MOVED_BIT
+                        table[k, rj & ~MOVED_BIT] = table[rj & ~MOVED_BIT, k] = 1.0
+    return np.asarray(out, np.float32)
+
+
 @pytest.mark.parametrize("pair_bits", [4, 12])
 def test_kernel_loop_form_matches_jax(pair_bits):
     """The kernels' per-state algorithm over sets of buckets equals the JAX
@@ -119,25 +180,33 @@ def test_kernel_loop_form_matches_jax(pair_bits):
     assert {1.0, 2.0, 3.0} <= set(np.concatenate(scores).tolist())
 
 
-@pytest.mark.parametrize("n", [5, 32])
+@pytest.mark.parametrize("n", [5, 32, 33, 64, 100])
 def test_kernel_loop_form_at_many_objects_matches_jax(n):
-    """The kernel's per-state algorithm, lane groups of up to 32 atoms (its
-    cap), equal to the JAX function over a sequence of batches: scores and
-    both tables after every batch."""
+    """The kernel's per-state algorithm, the one-word path's (lane groups of
+    up to 32 atoms) and above 32 atoms the wide path's (a lane several
+    atoms, the record read back), equal to the JAX function over a sequence
+    of batches: scores and both tables after every batch."""
+    loop_form = _novelty_loop_form if n <= 32 else _novelty_wide_loop_form
     rng = np.random.default_rng(n)
-    H, W, B, pair_bits = 4, 5, 16, 8
+    # Above 32 atoms, few cells and many buckets, so that positions are seen
+    # before pairs are and every score occurs.
+    H, W, B, pair_bits, p_moved, rounds = (4, 5, 16, 8, 0.2, 3) if n <= 32 else (2, 2, 16, 16, 0.02, 5)
     jt = jn.init_novelty(n, H, W, pair_bits=pair_bits)
     seen = np.zeros((n, H * W), bool)
     table = np.zeros((1 << (pair_bits // 2),) * 2, np.float32)
-    for r in range(3):
+    scores = []
+    for r in range(rounds):
         states = np.stack([rng.integers(0, W, (B, n)), rng.integers(0, H, (B, n))], -1).astype(np.int32)
-        moved = rng.random((B, n)) < 0.2
+        moved = rng.random((B, n)) < p_moved
         valid = rng.random(B) < 0.85
         js, jt = jn.novelty_score_and_update(jt, jnp.asarray(states), jnp.asarray(moved), jnp.asarray(valid))
-        got = _novelty_loop_form(seen, table, states, moved, valid, W, H)
+        got = loop_form(seen, table, states, moved, valid, W, H)
         assert np.array_equal(got, np.asarray(js)), r
         assert np.array_equal(seen, np.asarray(jt.seen_pos)), r
         assert np.array_equal(table, np.asarray(jt.pair_table).astype(np.float32)), r
+        scores += got.tolist()
+    if n > 32:
+        assert {1.0, 2.0, 3.0} <= set(scores)
 
 
 def test_wrapper_on_cpu_runs_the_plain_version():

@@ -148,10 +148,11 @@ F32_INF, F32_FINITE = np.float32(1e9), np.float32(1e8)
 MOVES = ((-1, 0), (1, 0), (0, -1), (0, 1))
 
 
-def _rgd_loop_form(t, s, max_depth):
+def _rgd_loop_form(t, s, max_depth, wide=False):
     """(total float32, needs_deeper) of one state ``s`` (N, 2) from the
     tables ``t`` (a dict of numpy arrays and ints), as kernels/rgd.cu
-    computes it."""
+    computes it: its one-word path, or with ``wide`` its wide path (any N:
+    the deep tables by :func:`_rgd_wide_deep`)."""
     n, nr, H, W = t["n"], t["n_real"], t["height"], t["width"]
     HW = H * W
     E, vidx, Dflat, doff, dstride = t["E"], t["vidx"], t["Dflat"], t["doff"], t["dstride"]
@@ -213,25 +214,31 @@ def _rgd_loop_form(t, s, max_depth):
             A0[q, a] = agent_cost(q, a)
     M = {}
 
-    def fill_m(rows):  # rows of M not filled yet: a (q, a, r) triple at a time, a running min over its contacts
+    def push_row(q, a, r):  # M[q][a][r]: a running min over the contacts
+        m = [F32_INF] * 4
+        for c in range(t["cmax"]):
+            if not t["contacts_mask"][a, r, q, c]:
+                continue
+            cx, cy = s[q] + t["contacts"][a, r, q, c]
+            if not edge(a, r, cx, cy):
+                continue
+            iv = int(vidx[r, cell(cx, cy)])
+            same = cx == s[r][0] and cy == s[r][1]
+            for a2 in range(4):
+                if IU[r, a2] is not None:
+                    base = np.float32(0) if same and a2 == a else dist(r, IU[r, a2], iv) + np.float32(1)
+                    m[a2] = min(m[a2], base)
+        return m
+
+    if wide:
+        return _rgd_wide_deep(t, pass0, A0, push_row, dmax, goal_cost)
+
+    def fill_m(rows):  # rows of M not filled yet: a (q, a, r) triple at a time
         for q in sorted(set(rows) - {q for q, _, _ in M}):
             for a in range(4):
                 for r in range(1, nr):
-                    if r == q:
-                        continue
-                    M[q, a, r] = [F32_INF] * 4
-                    for c in range(t["cmax"]):
-                        if not t["contacts_mask"][a, r, q, c]:
-                            continue
-                        cx, cy = s[q] + t["contacts"][a, r, q, c]
-                        if not edge(a, r, cx, cy):
-                            continue
-                        iv = int(vidx[r, cell(cx, cy)])
-                        same = cx == s[r][0] and cy == s[r][1]
-                        for a2 in range(4):
-                            if IU[r, a2] is not None:
-                                base = np.float32(0) if same and a2 == a else dist(r, IU[r, a2], iv) + np.float32(1)
-                                M[q, a, r][a2] = min(M[q, a, r][a2], base)
+                    if r != q:
+                        M[q, a, r] = push_row(q, a, r)
 
     def best(q, a, excl, inner):  # min over pushers outside excl of M + inner
         out = F32_INF
@@ -266,6 +273,123 @@ def _rgd_loop_form(t, s, max_depth):
                     fill_m([o] if D == 1 else [o, *range(1, nr)])
                     inner = table({o}, D - 1)
                     last = min(gd[a] + best(o, a, {o}, inner) if eok[a] else F32_INF for a in range(4))
+            cost, flag = goal_cost(last, finite_dg)
+            deeper |= flag
+        total = total + cost
+    return total, deeper
+
+
+def _rgd_wide_deep(t, pass0, A0, push_row, dmax, goal_cost):
+    """The wide path's deep part (rgd_wide_kernel_deep past its depth-0
+    pass): the goals in order with the skip set's uniform part as a flag an
+    object (EX: the goal, and the chain above the current table), a thread's
+    own pushee and pusher beside it (e1, e2); M's rows filled for the goal
+    at depth 1 and all at once from depth 2 (again, if an earlier goal
+    filled some); T(EX, 1), T(EX, 2) through TX, and deeper tables by the
+    walk of table_deep_wide, its next pusher of each level in STK.  Table
+    entries never written are NaN, and every entry read must be written."""
+    n, nr = t["n"], t["n_real"]
+    EX = [0] * n
+    STK = [0] * (dmax + 1)
+    M = np.full((n, 4, nr, 4), np.nan, np.float32)
+    A0a = np.full((n, 4), np.nan, np.float32)
+    for (q, a), v in A0.items():
+        A0a[q, a] = v
+    L = {d: np.full((nr, 4), np.nan, np.float32) for d in range(1, max(dmax, 1) + 1)}
+    TX = np.full((nr, nr, 4), np.nan, np.float32)
+    all_m = False
+
+    def ensure_m(o, all_rows):
+        nonlocal all_m
+        if all_m:
+            return
+        for q in range(n):
+            if q == o or (all_rows and 1 <= q < nr):
+                for a in range(4):
+                    for r in range(1, nr):
+                        if r != q:
+                            M[q, a, r] = push_row(q, a, r)
+        all_m = all_rows
+
+    def best(q, a, e1, e2, inner):  # min over the pushers outside EX, e1 and e2 (min is order-free)
+        keep = ~np.asarray(EX[:nr], bool)
+        keep[[0] + [e for e in (e1, e2) if e >= 0]] = False
+        terms = M[q, a, keep] + inner[keep]  # float32 additions, as the kernel's
+        assert not np.isnan(terms).any(), (q, a)
+        return min(F32_INF, terms.min()) if terms.size else F32_INF
+
+    def table1():
+        for q in range(1, nr):
+            if not EX[q]:
+                for a in range(4):
+                    L[1][q, a] = best(q, a, q, -1, A0a)
+
+    def table2():
+        for q in range(1, nr):
+            for r in range(1, nr):
+                if q != r and not EX[q] and not EX[r]:
+                    for a in range(4):
+                        TX[q, r, a] = best(r, a, q, r, A0a)
+        for q in range(1, nr):
+            if not EX[q]:
+                for a in range(4):
+                    L[2][q, a] = best(q, a, q, -1, TX[q])
+
+    def table_deep(d0):
+        STK[d0] = 1
+        d = d0
+        while True:
+            q = STK[d]
+            while q < nr and EX[q]:
+                q += 1
+            if q >= nr:  # level d is complete: fold it into its parent's entry
+                if d == d0:
+                    return
+                d += 1
+                pq = STK[d]
+                for a in range(4):
+                    L[d][pq, a] = best(pq, a, -1, -1, L[d - 1])
+                EX[pq] = 0
+                STK[d] = pq + 1
+                continue
+            EX[q] = 1
+            if d == 3:
+                table2()
+                for a in range(4):
+                    L[3][q, a] = best(q, a, -1, -1, L[2])
+                EX[q] = 0
+                STK[3] = q + 1
+            else:
+                STK[d] = q
+                STK[d - 1] = 1
+                d -= 1
+
+    total, deeper = np.float32(0), False
+    for k, (row, pd, eok, gd, finite_dg, moves) in enumerate(pass0):
+        o = k + 1
+        cost = np.float32(0)
+        if row:
+            last = pd
+            EX[o] = 1
+            for D in range(1, dmax + 1):
+                if last < F32_FINITE:
+                    break
+                last = F32_INF
+                if moves:
+                    ensure_m(o, D >= 2)
+                    inner = A0a
+                    if D == 2:
+                        table1()
+                        inner = L[1]
+                    elif D == 3:
+                        table2()
+                        inner = L[2]
+                    elif D >= 4:
+                        table_deep(D - 1)
+                        inner = L[D - 1]
+                    last = min(gd[a] + best(o, a, -1, -1, inner) if eok[a] else F32_INF for a in range(4))
+            EX[o] = 0
+            assert not any(EX)
             cost, flag = goal_cost(last, finite_dg)
             deeper |= flag
         total = total + cost
@@ -316,9 +440,10 @@ def test_kernel_loop_form_deep_chain_matches_plain_version_and_host_oracle():
         t = {f: getattr(tt, f).numpy() for f in TABLE_FIELDS} | {f: getattr(tt, f) for f in STATIC_FIELDS}
         for depth in depths:
             want = tr.rgd_heuristic_with_flags_reference(tt, torch.as_tensor(states), depth)
-            got = [_rgd_loop_form(t, s.astype(np.int64), depth) for s in states]
-            assert np.array_equal(np.asarray([g[0] for g in got], np.float32), want[0].numpy()), depth
-            assert np.array_equal(np.asarray([g[1] for g in got]), want[1].numpy()), depth
+            for wide in (False, True):  # the one-word path's algorithm and the wide path's
+                got = [_rgd_loop_form(t, s.astype(np.int64), depth, wide) for s in states]
+                assert np.array_equal(np.asarray([g[0] for g in got], np.float32), want[0].numpy()), (depth, wide)
+                assert np.array_equal(np.asarray([g[1] for g in got]), want[1].numpy()), (depth, wide)
             yield want[0].numpy()
 
     p, jp = Puzzle.from_text(chip_smoke.FOUR_TOOLS_TEXT), JPuzzle.from_text(chip_smoke.FOUR_TOOLS_TEXT)
@@ -334,19 +459,27 @@ def test_kernel_loop_form_deep_chain_matches_plain_version_and_host_oracle():
     list(against_plain(m, states.astype(np.int32), (0, 4)))
 
 
-@pytest.mark.parametrize("n_objects", [8, 32])
+@pytest.mark.parametrize("n_objects", [8, 32, 33, 48, 64, 100])
 def test_kernel_loop_form_at_many_objects_matches_plain_version(n_objects):
-    """The kernel's per-state algorithm on states of up to 32 objects (its
-    cap: one lane an object, 32-bit skip sets), at depths 0 and 1, equal to
-    the plain version, which is held to JAX above."""
-    p = Puzzle.from_text(_chip_smoke().many_objects_text(n_objects))
+    """The kernel's per-state algorithm at depths 0, 1 and 2 equal to the
+    plain version (held to JAX above): the one-word path's up to 32 objects
+    (one lane an object, 32-bit skip sets) on walks of a puzzle of that
+    many movables; above 32 the wide path's on walks of the four-tool chain
+    widened by obstacles to that many movables, whose goal needs depth 4,
+    so that depths 1 and 2 fill M and T(., 1) over every movable."""
+    wide = n_objects > tr.RGD_MAX_OBJECTS
+    smoke = _chip_smoke()
+    text = smoke.four_tools_with_obstacles_text(n_objects) if wide else smoke.many_objects_text(n_objects)
+    p = Puzzle.from_text(text)
     assert p.num_movables == n_objects
     tt = tr.build_rgd_tables(p, compile_puzzle(p), device="cpu")
     t = {f: getattr(tt, f).numpy() for f in TABLE_FIELDS} | {f: getattr(tt, f) for f in STATIC_FIELDS}
-    states = _reachable(p, 6, seed=n_objects)
-    for depth in (0, 1):
+    states = _reachable(p, 3 if wide else 6, seed=n_objects)
+    if wide:
+        assert (tr.rgd_heuristic_with_flags_reference(tt, torch.as_tensor(states), 2)[0] >= 1e8).all()
+    for depth in (0, 1, 2):
         want = tr.rgd_heuristic_with_flags_reference(tt, torch.as_tensor(states), depth)
-        got = [_rgd_loop_form(t, s.astype(np.int64), depth) for s in states]
+        got = [_rgd_loop_form(t, s.astype(np.int64), depth, wide) for s in states]
         assert np.array_equal(np.asarray([g[0] for g in got], np.float32), want[0].numpy()), depth
         assert np.array_equal(np.asarray([g[1] for g in got]), want[1].numpy()), depth
 

@@ -132,6 +132,39 @@ def test_run_chunk_state_matches_jax(name, depth, frontier, chunk, chunks):
         assert int(ts.iterations) % chunk != 0
 
 
+def test_solve_of_40_movables_matches_jax():
+    """A 40-movable puzzle (every kernel's wide path on the card) searched
+    from the same initial state by the port and by the JAX package, chunk by
+    chunk until solved: the same states after every chunk, then the same
+    plan, iterations and expansions; the plan passes the oracle."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    text = smoke.many_objects_text(40)
+    p, jp = Puzzle.from_text(text), JPuzzle.from_text(text)
+    assert p.num_movables == 40 and tb.required_depth(p) == 0
+    caps = dict(expand=64, frontier_capacity=1 << 10, visited_bits=14, history_capacity=1 << 12)
+    jcp, jt, jcfg, js = _jax_init(jp, 0, caps)
+    cp = compile_puzzle(p).to("cpu")
+    tt = tb.build_rgd_tables(p, cp, max_depth=0, device="cpu")
+    cfg = tb.SearchConfig(expand=caps["expand"], history_capacity=caps["history_capacity"], max_depth=0)
+    ts = tb.init_search_state(cp, tt, cfg, caps["frontier_capacity"], caps["visited_bits"], PAIR_BITS, False)
+    _assert_state_equal(ts, js, "init")
+    for k in range(4):
+        js = jb.run_chunk(jcp, jt, jcfg, js, 2)
+        ts = tb.run_chunk(cp, tt, cfg, ts, 2)
+        _assert_state_equal(ts, js, f"chunk {k}")
+        if int(ts.solved):
+            break
+    assert int(ts.solved) and int(js.solved)
+    plan = tb.reconstruct_plan(ts)
+    assert plan == jb.reconstruct_plan(js) and p.is_valid_plan(plan)
+    assert (int(ts.iterations), int(ts.expansions)) == (int(js.iterations), int(js.expansions))
+
+
 def test_jax_selection_order_is_key_order_at_test_sizes():
     """The premise of the state test: at its frontier sizes the JAX
     selection comes back in ascending key order, as the port's does."""
