@@ -64,7 +64,9 @@ Phases, each printing one JSON line:
    the same function (``torch.topk``, a stable ``torch.sort``): its event
    time (``library_ms``, the host's enqueue included) and its kernels'
    device time (``library_device_ms``, beside the hand kernel's
-   ``device_ms``).
+   ``device_ms``).  Then ``chunk_continue``: the kernel that ends a search
+   loop's body, launched alone, against its plain version over a sweep of
+   gates, solves, history cursors, counters and bounds, and timed.
 4. ``solve`` (the main path): the launch counts are set to 0, then
    ``solve_puzzle(mode="N+RGD", time_limit=60)`` runs on the card at the
    production capacities of ``plan_puzzles`` for every fixture under
@@ -73,19 +75,27 @@ Phases, each printing one JSON line:
    "no solution"; every kernel of the main path must have been launched
    (the standalone visited-set delete is not one since the compaction
    deletes its own drops: phase ``visited_set`` drives it; a search's chunks
-   are replays of its captured CUDA graph; each replay adds the kernel
-   launches its capture recorded).  Then ``chunk``: at the production
-   capacities, graphed chunks and the eager ``_iterate`` loop from the same
-   initial state must leave the same search (the visited set compared as a
-   set of keys) on the 47 x 54 puzzle (RGD depth 0) and on the first
-   depth-3 candidate of the tools phase's generator (a "no solution"
-   candidate); a chunk enqueued with no deadline behind 10 ms of queued
-   device work must return while the card is still busy; ms per iteration graphed and eager, the graphed
-   chunks' card-busy share, graph nodes, ``G``, capture and instantiation seconds, the time of
-   a chunk after the search's end (its gate closed: a no-op that costs its
-   kernels; host and device time), and the overshoot of a 2 s budget on the
-   16 x 16 puzzle are printed; the profiler's rows of a graphed iteration
-   must hold no sort and no matrix product.  Two small
+   are launches of its device-side loop, whose bodies, counted on the card,
+   are added with the body's kernel launches when the counts are read).
+   Then ``chunk``: at the production capacities, chunks of 128 through the
+   loop and the eager ``_iterate`` loop for as many iterations as the loop
+   ran bodies, from the same initial state, must leave the same search (the
+   visited set compared as a set of keys) on the 47 x 54 puzzle (RGD depth
+   0) and on the first depth-3 candidate of the tools phase's generator (a
+   "no solution" candidate); a chunk enqueued with no deadline behind 10 ms
+   of queued device work must return while the card is still busy; a chunk
+   on a search that has ended must run at most one body; heur/aw_tool_corridor
+   at depth 0 must solve on the card with the CPU's plan, final depth (0:
+   no escalation at the default chunk), iterations and expansions; ms per
+   iteration through the loop and eager, the loop's card-busy share, its
+   bodies a chunk, the device time of the iteration's kernels and the loop's
+   own cost per iteration, the body's nodes and node types, capture and
+   build seconds, the ended search's chunk (bodies, host and event time),
+   and the overshoot of a 2 s budget on the 16 x 16 puzzle and the
+   iterations it ran are printed (the loop's time by CUDA events:
+   torch.profiler traces only a loop's first body; the iteration kernels'
+   device time from the same iterations traced eagerly, whose rows must hold
+   no sort and no matrix product).  Two small
    fixtures are also solved on the CPU and must give the same plan and
    expansions.  Between ``solve`` and ``chunk``, ``many_objects``: states of
    33, 64 and 100 objects, which take the wide paths of the expansion, RGD
@@ -359,7 +369,7 @@ def four_tools_with_obstacles_text(n_objects: int) -> str:
 KERNEL_NAMES = ("wavefront", "visited_set.probe_and_insert", "visited_set.probe_delete",
                 "visited_set.fingerprint_dedup_insert", "visited_set.fingerprint", "rgd.heuristic",
                 "novelty.score", "novelty.absorb", "step.expand", "frontier.select", "frontier.compact",
-                "frontier.append")
+                "frontier.append", "chunk.continue")
 # The main path launches every kernel but the standalone delete: the
 # compaction tombstones the fingerprints it drops inside its own kernel.
 OFF_MAIN_PATH = {"visited_set.probe_delete": "inside frontier.compact (compact_kernel's delete_key)"}
@@ -367,6 +377,23 @@ MAIN_PATH_KERNELS = tuple(k for k in KERNEL_NAMES if k not in OFF_MAIN_PATH)
 # The kernels of a search iteration (one launch each an iteration).
 ITERATION_KERNELS = ("frontier.select", "step.expand", "visited_set.fingerprint_dedup_insert", "novelty.score",
                      "novelty.absorb", "rgd.heuristic", "frontier.compact", "frontier.append")
+
+
+def reset_launches() -> None:
+    """Sets the launch counts to 0, after every live search loop has added
+    what it ran (so nothing run before counts after)."""
+    from pushworld_tpu_torch.kernels import LAUNCHES, settle_launches
+
+    settle_launches()
+    LAUNCHES.clear()
+
+
+def launch_counts() -> dict:
+    """The launch counts, every live search loop's bodies added first."""
+    from pushworld_tpu_torch.kernels import LAUNCHES, settle_launches
+
+    settle_launches()
+    return dict(LAUNCHES)
 
 
 def check_results(named, results, what: str):
@@ -1519,7 +1546,7 @@ def phase_iteration_kernels(generated, dev, floor):
         launches_ms[1] += us / 1e3 / 20
     from pushworld_tpu_torch.kernels import LAUNCHES
 
-    before = dict(LAUNCHES)
+    before = launch_counts()
     batched._iterate(cp, t, cfg, closed)
     hand = {k: n - before.get(k, 0) for k, n in LAUNCHES.items() if n != before.get(k, 0)}
     check(hand == {k: 1 for k in ITERATION_KERNELS},
@@ -1628,6 +1655,57 @@ def phase_iteration_kernels(generated, dev, floor):
                  replaces=replaces[name], max_abs_err=max(errors[name]), **row) for name, row in kernels.items()]
 
 
+def phase_chunk_continue(dev, floor):
+    """``chunk_loop.cu``'s ``chunk_continue`` kernel (the last node of a
+    search loop's body: does the loop run another body?) launched alone,
+    with no loop handle, against its plain version over a sweep of inputs
+    (the flag, the counter and the body count compared), and timed beside
+    it on a production search's inputs mid-chunk (gate open, the loop going
+    on)."""
+    import itertools
+
+    import torch
+
+    from pushworld_tpu_torch.search.chunk_graph import chunk_continue, chunk_continue_reference
+    from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES as CAP
+
+    limit = CAP["history_capacity"] - 8 * CAP["expand"]
+
+    def scalars(gate, solved, cursor, counter, bound):
+        return [torch.tensor(gate, device=dev), torch.tensor(solved, device=dev),
+                torch.tensor(cursor, dtype=torch.int32, device=dev),
+                torch.tensor(counter, dtype=torch.int32, device=dev), torch.tensor(bound, dtype=torch.int32, device=dev)]
+
+    err, cases = 0, 0
+    for case in itertools.product((False, True), (False, True), (limit - 1, limit, limit + 1),
+                                  (0, 1, 126, 127, 128), (1, 2, 128)):
+        t = scalars(*case)
+        want, want_counter = chunk_continue_reference(*[x.cpu() for x in t], limit)
+        flag = torch.full((), 7, dtype=torch.int32, device=dev)
+        bodies = torch.full((), 41, dtype=torch.int64, device=dev)
+        chunk_continue(*t, limit, flag, bodies)
+        torch.cuda.synchronize()
+        err = max(err, abs(int(flag) - int(want)), abs(int(t[3]) - int(want_counter)), abs(int(bodies) - 42))
+        cases += 1
+    check(err == 0, f"chunk.continue != plain version (max abs err {err})")
+    t = scalars(True, False, 4096, 0, 1 << 30)  # the counter rises a call: the loop goes on
+    flag = torch.zeros((), dtype=torch.int32, device=dev)
+    bodies = torch.zeros((), dtype=torch.int64, device=dev)
+    ms = cuda_time_ms(lambda: chunk_continue(*t, limit, flag, bodies), reps=200)
+    device_ms = kernel_device_ms(profile_device(lambda: chunk_continue(*t, limit, flag, bodies), reps=200),
+                                 "chunk_continue_kernel", calls=200)
+    plain_ms = cuda_time_ms(lambda: chunk_continue_reference(*t, limit), reps=200)
+    # Bytes once: gate, solved (1 each), hist_cursor, counter, bound (4 each)
+    # and the body count (8) read; counter, flag (4 each), body count (8)
+    # written.  No arithmetic to speak of.
+    bound = work_bound(22 + 16, 0, floor)
+    emit({"phase": "chunk_continue", "cases": cases, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+          "plain_ms": plain_ms, **bound})
+    return {"name": "chunk.continue", "route": "cuda", "source": "pushworld_tpu_torch/kernels/chunk_loop.cu",
+            "replaces": "pushworld_tpu/search/batched.py:646", "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, **bound, "library_ms": None, "library_device_ms": None}
+
+
 def phase_solve(puzzles, generated, dev):
     """The main path: solve_puzzle on the card for every puzzle.  Returns the
     launches, each puzzle's classification and each puzzle's plan."""
@@ -1636,7 +1714,7 @@ def phase_solve(puzzles, generated, dev):
     from pushworld_tpu_torch.kernels import LAUNCHES
     from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES, solve_puzzle
 
-    LAUNCHES.clear()
+    reset_launches()
     t0 = time.monotonic()
     rows, plans = [], {}
     for name, p in puzzles + [("generated_47x54", generated)]:
@@ -1654,7 +1732,7 @@ def phase_solve(puzzles, generated, dev):
             check(r.failure_reason == "no solution", f"{name}: {r.failure_reason}")
         else:
             check(r.failure_reason is None and p.is_valid_plan(r.plan), f"{name}: {r}")
-    launches = dict(LAUNCHES)
+    launches = launch_counts()
     total = time.monotonic() - t0
     for k in MAIN_PATH_KERNELS:
         check(launches.get(k, 0) > 0, f"kernel {k} was not launched on the main path")
@@ -1876,7 +1954,6 @@ def phase_many_objects(dev, floor, generated):
     from pushworld_tpu_torch.core.compiled import compile_puzzle
     from pushworld_tpu_torch.core.puzzle import Puzzle
     from pushworld_tpu_torch.envs.policies import successor_values
-    from pushworld_tpu_torch.kernels import LAUNCHES
     from pushworld_tpu_torch.ops.rgd import build_rgd_tables
     from pushworld_tpu_torch.search import fleet
     from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES as CAP
@@ -1892,7 +1969,7 @@ def phase_many_objects(dev, floor, generated):
     kernels_s = time.monotonic() - t0
 
     puzzles = {n: Puzzle.from_text(many_objects_text(n)) for n in WIDE_OBJECTS}
-    LAUNCHES.clear()
+    reset_launches()
     card = {}
     for n, p in puzzles.items():
         t = time.monotonic()
@@ -1900,7 +1977,7 @@ def phase_many_objects(dev, floor, generated):
         torch.cuda.synchronize()
         check(r.failure_reason is None and p.is_valid_plan(r.plan), f"{n} movables on the card: {r}")
         card[n] = (r, time.monotonic() - t)
-    launches = dict(LAUNCHES)
+    launches = launch_counts()
     for k in MAIN_PATH_KERNELS:
         check(launches.get(k, 0) > 0, f"kernel {k} was not launched on the many-objects path")
     solves = {n: {"plan": r.plan, "iterations": r.iterations, "expansions": r.expansions, "wall_s": wall}
@@ -2006,11 +2083,12 @@ def _busy(fn) -> dict:
 
 
 def _chunk_lane(what, puzzle, depth, chunk, chunks, dev, masked: bool):
-    """One lane at production capacities: ``chunks`` graphed chunks of
-    ``chunk`` iterations and, from the same initial state, the eager loop
-    for the same iterations; equal searches, and their times.  ``masked``:
-    then on to the search's end, and the time of chunks whose every
-    iteration has its gate closed (host clock)."""
+    """One lane at production capacities: ``chunks`` chunks of ``chunk``
+    iterations through the device-side loop and, from the same initial
+    state, the eager loop for as many iterations as the loop ran bodies;
+    equal searches, and their times.  ``masked``: then on to the search's
+    end, and a chunk on the ended search: its bodies (at most one), host
+    time and time between CUDA events."""
     import torch
 
     from pushworld_tpu_torch.search import chunk_graph
@@ -2019,32 +2097,39 @@ def _chunk_lane(what, puzzle, depth, chunk, chunks, dev, masked: bool):
 
     pl = BatchedPlanner(puzzle, max_depth=depth, device=dev, **PRODUCTION_CAPACITIES)
     cfg = pl.config
-    s_g, s_e = pl.init_state(), pl.init_state()
+    s_g, s_e, s_t = pl.init_state(), pl.init_state(), pl.init_state()
     torch.cuda.synchronize()
     g = chunk_graph.attach(pl.cp_dev, pl.tables, cfg, s_g)
     torch.cuda.synchronize()
-    iters = chunks * -(-chunk // g.iters) * g.iters
-
-    def graphed():
-        for _ in range(chunks):
-            run_chunk(pl.cp_dev, pl.tables, cfg, s_g, chunk)
-
-    g_row = _busy(graphed)
-    # Every kernel of a graphed iteration is a hand kernel (the profiler's
-    # rows): no sort, argsort or matrix product is left.
-    library = [k for k in g_row["by_kernel"] if any(w in k.lower() for w in ("sort", "gemm", "bmm", "matmul"))]
-    check(not library, f"chunk ({what}): library kernels in a graphed iteration: {library}")
+    bodies0 = int(g.bodies)
+    # The loop's time by CUDA events: torch.profiler traces only a loop's
+    # first body.
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.monotonic()
+    start.record()
+    for _ in range(chunks):
+        run_chunk(pl.cp_dev, pl.tables, cfg, s_g, chunk)
+    host_s = time.monotonic() - t
+    end.record()
+    torch.cuda.synchronize()
+    loop_ms = start.elapsed_time(end)
+    bodies = int(g.bodies) - bodies0
+    check(0 < bodies <= chunks * chunk, f"chunk ({what}): {bodies} bodies in {chunks} chunks of {chunk}")
     torch.cuda.synchronize()
     t = time.monotonic()
-    for _ in range(iters):
+    for _ in range(bodies):
         _iterate(pl.cp_dev, pl.tables, cfg, s_e)
     torch.cuda.synchronize()
     eager_s = time.monotonic() - t
-    _same_search(s_g, s_e, f"chunk ({what}): graphed vs eager")
-    # run_chunk enqueues its replays and returns without waiting for the
-    # card.  An iteration's own device work is now shorter than the host's
-    # enqueue of it, so the card can be idle again by the time the host
-    # looks; with a known 10 ms of device work queued ahead of the chunk, a
+    _same_search(s_g, s_e, f"chunk ({what}): loop vs eager")
+    # The same iterations once more, eagerly under the profiler: the device
+    # time of the iteration's kernels.  Every kernel is a hand kernel: no
+    # sort, argsort or matrix product is left.
+    e_row = _busy(lambda: [_iterate(pl.cp_dev, pl.tables, cfg, s_t) for _ in range(bodies)])
+    library = [k for k in e_row["by_kernel"] if any(w in k.lower() for w in ("sort", "gemm", "bmm", "matmul"))]
+    check(not library, f"chunk ({what}): library kernels in the iteration: {library}")
+    # run_chunk enqueues its launch and returns without waiting for the
+    # card: with a known 10 ms of device work queued ahead of the chunk, a
     # run_chunk that waited for the card would return after it.
     returned_early = []
     for _ in range(chunks):
@@ -2055,36 +2140,37 @@ def _chunk_lane(what, puzzle, depth, chunk, chunks, dev, masked: bool):
         returned_early.append(not done.query())
         torch.cuda.synchronize()
     check(all(returned_early), f"chunk ({what}): a chunk was complete when run_chunk returned: {returned_early}")
-    row = {}
+    iteration_ms = None if e_row["device_ms"] is None else e_row["device_ms"] / bodies
+    row = {"ms_per_iter": loop_ms / bodies, "iteration_kernels_device_ms_per_iter": iteration_ms,
+           "busy_share": None if iteration_ms is None else iteration_ms * bodies / loop_ms,
+           "loop_cost_ms_per_iter": None if iteration_ms is None else loop_ms / bodies - iteration_ms,
+           "bodies_per_chunk": bodies / chunks, "host_ms_per_chunk": host_s / chunks * 1e3,
+           "kernels_per_iter": e_row["kernels"] / bodies,
+           "kernels_by_name": {k: [c / bodies, us / bodies] for k, (c, us) in e_row["by_kernel"].items()}}
     if masked:
         for _ in range(1000):
             stat = search_status(s_g)
             if stat[0] or stat[2] >= EMPTY or stat[3] >= cfg.history_capacity - 8 * cfg.expand:
                 break
             run_chunk(pl.cp_dev, pl.tables, cfg, s_g, chunk)
-        before = search_status(s_g)
+        before, b = search_status(s_g), int(g.bodies)
         torch.cuda.synchronize()
         t = time.monotonic()
-        run_chunk(pl.cp_dev, pl.tables, cfg, s_g, 4 * chunk)
+        start.record()
+        run_chunk(pl.cp_dev, pl.tables, cfg, s_g, chunk)
+        end.record()
         torch.cuda.synchronize()
-        closed_iters = 4 * -(-chunk // g.iters) * g.iters
-        row["masked_ms_per_iter"] = (time.monotonic() - t) / closed_iters * 1e3
-        closed = _busy(lambda: run_chunk(pl.cp_dev, pl.tables, cfg, s_g, 4 * chunk))
-        row["masked_device_ms_per_iter"] = None if closed["device_ms"] is None else closed["device_ms"] / closed_iters
-        row["masked_kernels_per_iter"] = closed["kernels"] / closed_iters
-        row["masked_kernels_by_name"] = {k: [c / closed_iters, us / closed_iters]
-                                         for k, (c, us) in closed["by_kernel"].items()}
-        row["masked_wall_ms_per_iter_profiled"] = closed["wall_s"] / closed_iters * 1e3
+        closed = {"bodies": int(g.bodies) - b, "wall_ms": (time.monotonic() - t) * 1e3,
+                  "ms": start.elapsed_time(end)}
+        check(closed["bodies"] <= 1, f"chunk ({what}): a chunk on the ended search ran {closed['bodies']} bodies")
+        row["ended_search_chunk"] = closed
         row["search_iterations"] = int(s_g.iterations)
-        check((search_status(s_g) == before).all(), f"chunk ({what}): an inactive chunk changed the status")
-    return {**row,"puzzle": what, "depth": depth, "G": g.iters, "nodes": g.nodes, "capture_s": g.capture_s,
-            "instantiate_s": g.instantiate_s, "chunk": chunk, "chunks": chunks, "iterations": iters,
-            "expansions": int(s_g.expansions), "solved": bool(s_g.solved), "launches_per_replay": g.launches,
-            "graphed_kernels_per_iter": g_row["kernels"] / iters,
-            "graphed_ms_per_iter": g_row["wall_s"] / iters * 1e3, "graphed_busy_share": g_row["busy_share"],
-            "graphed_device_ms_per_iter": None if g_row["device_ms"] is None else g_row["device_ms"] / iters,
-            "graphed_kernels_by_name": {k: [c / iters, us / iters] for k, (c, us) in g_row["by_kernel"].items()},
-            "eager_ms_per_iter": eager_s / iters * 1e3, "returned_before_the_card": returned_early}
+        check((search_status(s_g) == before).all(), f"chunk ({what}): a chunk on the ended search changed it")
+    return {**row, "puzzle": what, "depth": depth, "chunk": chunk, "chunks": chunks, "bodies": bodies,
+            "iterations": int(s_e.iterations), "expansions": int(s_g.expansions), "solved": bool(s_g.solved),
+            "nodes": g.nodes, "node_types": g.node_types, "capture_s": g.capture_s,
+            "instantiate_s": g.instantiate_s, "launches_per_body": g.launches,
+            "eager_ms_per_iter": eager_s / bodies * 1e3, "returned_before_the_card": returned_early}
 
 
 def depth3_candidate(seed: int):
@@ -2105,24 +2191,40 @@ def depth3_candidate(seed: int):
 
 
 def phase_chunk(generated, hard, seed, dev):
-    """The search chunk as CUDA graphs at production capacities: graphed =
-    eager on the 47 x 54 puzzle (depth 0) and on a depth-3 lane (a "no
-    solution" candidate of the tools phase's generator), each chunk returned
-    before the card finished it, and a 2 s budget's overshoot.  Launches
-    are counted from 0 for the phase and returned."""
-    from pushworld_tpu_torch.kernels import LAUNCHES
-    from pushworld_tpu_torch.search.batched import BatchedPlanner, required_depth
+    """The search chunk as a device-side loop at production capacities:
+    loop = eager on the 47 x 54 puzzle (depth 0) and on a depth-3 lane (a
+    "no solution" candidate of the tools phase's generator), each chunk
+    returned before the card finished it, a chunk on an ended search; the
+    cadence (heur/aw_tool_corridor at depth 0 on the card = the CPU, no
+    escalation); and a 2 s budget's overshoot.  Launches are counted from 0
+    for the phase and returned."""
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.search.batched import CHUNK, BatchedPlanner, required_depth
 
     t0 = time.monotonic()
     deep, candidate = depth3_candidate(seed)
-    LAUNCHES.clear()
-    lanes = [_chunk_lane("generated_47x54", generated, required_depth(generated), 32, 2, dev, masked=True),
-             _chunk_lane(f"generator seed {seed} candidate {deep}", candidate, 3, 2, 2, dev, masked=False)]
+    reset_launches()
+    lanes = [_chunk_lane("generated_47x54", generated, required_depth(generated), CHUNK, 2, dev, masked=True),
+             _chunk_lane(f"generator seed {seed} candidate {deep}", candidate, 3, CHUNK, 2, dev, masked=True)]
     for row in lanes:
         print(json.dumps({"chunk_lane": row}), file=sys.stderr, flush=True)
 
+    # The cadence: read every 1-3 iterations, aw_tool_corridor's status
+    # escalated its search to depth 1; at the default chunk (JAX's 128) the
+    # card, the CPU and the JAX package stay at depth 0.
+    aw = Puzzle.from_file(os.path.join(ROOT, "tests", "puzzles", "heur", "aw_tool_corridor.pwp"))
+    small = dict(expand=32, frontier_capacity=1 << 10, visited_bits=14, history_capacity=1 << 14, pair_bits=12)
+    cadence = {}
+    for d in (dev, "cpu"):
+        pl = BatchedPlanner(aw, max_depth=0, device=d, **small)
+        plan = pl.solve(time_limit=60)
+        cadence[str(d)] = {"plan": plan, "max_depth": pl.max_depth, "iterations": int(pl.last_state.iterations),
+                           "expansions": int(pl.last_state.expansions)}
+    check(cadence[str(dev)] == cadence["cpu"] and cadence["cpu"]["max_depth"] == 0 and aw.is_valid_plan(plan),
+          f"chunk: aw_tool_corridor on the card != the CPU at the default chunk: {cadence}")
+
     # A 2 s budget on the 16 x 16 puzzle that outlasts it: how late solve()
-    # returns (the capture of its graph counts against the budget).  At
+    # returns (the capture of its loop counts against the budget).  At
     # production capacities the search would fill its history before the
     # budget's end (budget_capacities): the budget must end the search, so
     # that run_chunk's clock check and solve's budget exit run.
@@ -2135,15 +2237,15 @@ def phase_chunk(generated, hard, seed, dev):
         budget = {"result": str(e)}
     wall = time.monotonic() - t
     budget.update(wall_s=wall, overshoot_s=wall - 2.0 if budget["result"] == "time budget exhausted" else None,
-                  iterations=int(planner.last_state.iterations), G=planner.last_state.graph.iters,
+                  iterations=int(planner.last_state.iterations), bodies=int(planner.last_state.graph.bodies),
                   capture_s=planner.last_state.graph.capture_s, history=int(planner.last_state.hist_cursor))
     check(budget["result"] == "time budget exhausted",
           f"chunk: the 2 s budget did not end the 16 x 16 search: {budget}")
-    launches = dict(LAUNCHES)
-    for k in ITERATION_KERNELS:
+    launches = launch_counts()
+    for k in ITERATION_KERNELS + ("chunk.continue",):
         check(launches.get(k, 0) > 0, f"chunk: kernel {k} was not launched")
-    emit({"phase": "chunk", "lanes": lanes, "budget_2s_hard_16x16": budget, "launches": launches,
-          "total_s": time.monotonic() - t0})
+    emit({"phase": "chunk", "lanes": lanes, "cadence_aw_tool_corridor": cadence, "budget_2s_hard_16x16": budget,
+          "launches": launches, "total_s": time.monotonic() - t0})
     return launches
 
 
@@ -2185,7 +2287,7 @@ def phase_graphs(puzzles, generated, dev):
 
     by_name = dict(puzzles)
     named = [(f"heur/{n}", by_name[f"heur/{n}"]) for n in GRAPH_FIXTURES] + [("generated_47x54", generated)]
-    LAUNCHES.clear()
+    reset_launches()
     rows = {}
     for name, p in named:
         cp = compile_puzzle(p)
@@ -2233,7 +2335,7 @@ def phase_graphs(puzzles, generated, dev):
     bfs = graphs.host_distance_to_targets(E_np, init[1] * W + init[0])
     check(np.array_equal(capped.cpu().numpy(), np.where(bfs <= 9, bfs, np.float32(graphs.INF))),
           "capped distance_to_targets != host BFS cut at the cap")
-    launches = dict(LAUNCHES)
+    launches = launch_counts()
     emit({"phase": "graphs", "puzzles": len(named), "reachability": rows,
           "all_pairs": {"grid": [H, W], "fields": H * W, "vertices": len(verts), "seconds": all_pairs_s,
                         "max_abs_err": err},
@@ -2353,7 +2455,7 @@ def phase_envs(puzzles, generated, dev, batch=4096, horizon=128):
     from pushworld_tpu_torch.ops import render
     from pushworld_tpu_torch.ops.rgd import build_rgd_tables
 
-    LAUNCHES.clear()
+    reset_launches()
     by_name = dict(puzzles)
     rng = np.random.default_rng(4)
     B = batch
@@ -2449,7 +2551,7 @@ def phase_envs(puzzles, generated, dev, batch=4096, horizon=128):
 
     # (f) the wrappers: host code.
     out["wrappers"] = _wrappers_against_oracle(os.path.join(ROOT, "tests", "puzzles", "simple.pwp"), simple)
-    launches = dict(LAUNCHES)
+    launches = launch_counts()
     check(launches.get("wavefront", 0) >= 1, "the envs phase launched no wavefront kernel")
     check(launches.get("rgd.heuristic", 0) >= 1, "the greedy policy launched no RGD kernel")
     out["launches"] = launches
@@ -2526,23 +2628,22 @@ def phase_native(puzzles, generated, dev):
 def phase_portfolio(puzzles, generated, hard, dev):
     """plan_puzzles(portfolio=True) on the card; then, with no head start, the
     device member must engage."""
-    from pushworld_tpu_torch.kernels import LAUNCHES
     from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES, plan_puzzles
 
     named = puzzles + [("generated_47x54", generated)]
-    LAUNCHES.clear()
+    reset_launches()
     t0 = time.monotonic()
     res = plan_puzzles(named, portfolio=True, time_limit=60, device=dev, **PRODUCTION_CAPACITIES)
     wall = time.monotonic() - t0
     classes = check_results(named, res, "portfolio")
     check(all(c in ("solved", "no solution") for c in classes.values()), f"portfolio: {classes}")
-    launches = dict(LAUNCHES)
+    launches = launch_counts()
 
     few = [(n, p) for n, p in puzzles if n in ("spill_grid", "heur/shortest_path_tool")]
     few.append(("hard_16x16", hard))
     old = os.environ.get("PW_PORTFOLIO_HEADSTART")
     os.environ["PW_PORTFOLIO_HEADSTART"] = "0"
-    LAUNCHES.clear()
+    reset_launches()
     try:
         t0 = time.monotonic()
         res2 = plan_puzzles(few, portfolio=True, time_limit=8, device=dev, **PRODUCTION_CAPACITIES)
@@ -2553,7 +2654,7 @@ def phase_portfolio(puzzles, generated, hard, dev):
         else:
             os.environ["PW_PORTFOLIO_HEADSTART"] = old
     check_results(few, res2, "portfolio, no head start")
-    launches2 = dict(LAUNCHES)
+    launches2 = launch_counts()
     check(launches2.get("visited_set.fingerprint_dedup_insert", 0) > 0,
           "portfolio, no head start: the device member did not engage")
     both = {k: launches.get(k, 0) + launches2.get(k, 0) for k in KERNEL_NAMES}
@@ -2661,7 +2762,6 @@ def _contention(generated, hard, dev):
 
 def phase_fleet(puzzles, generated, hard, solve_classes, dev):
     """plan_puzzles_fleet on the card in its three modes, and under load."""
-    from pushworld_tpu_torch.kernels import LAUNCHES
     from pushworld_tpu_torch.search import fleet
     from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES as CAP
 
@@ -2671,7 +2771,7 @@ def phase_fleet(puzzles, generated, hard, solve_classes, dev):
                         pair_bits=CAP["pair_bits"])
 
     def run(what, puzzles_, **kwargs):
-        LAUNCHES.clear()
+        reset_launches()
         t0 = time.monotonic()
         results = fleet.plan_puzzles_fleet(puzzles_, device=dev, **kwargs, **fleet_kwargs)
         wall = time.monotonic() - t0
@@ -2683,7 +2783,7 @@ def phase_fleet(puzzles, generated, hard, solve_classes, dev):
             if r.failure_reason is None:
                 by_solver[r.solver] = by_solver.get(r.solver, 0) + 1
         row = {"wall_s": wall, "fleet_by_solver": by_solver, "device_phases": stats,
-               "launches": dict(LAUNCHES),
+               "launches": launch_counts(),
                "classes": {c: sum(v == c for v in classes.values()) for c in set(classes.values())}}
         print(json.dumps({"fleet": what, **row}), file=sys.stderr, flush=True)
         return row, classes, results
@@ -2911,7 +3011,6 @@ def phase_parallel(puzzles, generated, solve_plans, dev):
 
     from pushworld_tpu_torch import entry
     from pushworld_tpu_torch.core.puzzle import Puzzle
-    from pushworld_tpu_torch.kernels import LAUNCHES
     from pushworld_tpu_torch.parallel.frontier_sharded import solve_frontier_sharded
     from pushworld_tpu_torch.parallel.mesh import make_mesh
     from pushworld_tpu_torch.parallel.sharded import solve_group
@@ -2925,13 +3024,13 @@ def phase_parallel(puzzles, generated, solve_plans, dev):
     t0 = time.monotonic()
     iterate_rate = _iterate_rate(generated, dev, caps)
     seconds = {"a_iterate_rate": time.monotonic() - t0}  # host seconds of each part, in order
-    LAUNCHES.clear()
+    reset_launches()
     part_launches = {}  # launches of each part
     counted = {}
 
     def lap(part: str) -> None:
         seconds[part] = time.monotonic() - t0 - sum(seconds.values())
-        now = dict(LAUNCHES)
+        now = launch_counts()
         part_launches[part] = {k: now.get(k, 0) - counted.get(k, 0) for k in KERNEL_NAMES}
         counted.update(now)
 
@@ -2984,7 +3083,8 @@ def phase_parallel(puzzles, generated, solve_plans, dev):
     frontier = {k: sum(part_launches[p][k] for p in ("a_card", "a_rate_and_profile", "a_card_cpu", "b"))
                 for k in KERNEL_NAMES}
     for k in MAIN_PATH_KERNELS:
-        check(frontier[k] > 0, f"kernel {k} was not launched by the frontier-sharded runs")
+        if k != "chunk.continue":  # the frontier-sharded iteration runs eagerly, in no chunk loop
+            check(frontier[k] > 0, f"kernel {k} was not launched by the frontier-sharded runs")
 
     # (c) solve_group on every puzzle at production capacities, one group
     # per RGD depth: each lane's plan is solve_puzzle's.
@@ -3045,7 +3145,7 @@ def phase_parallel(puzzles, generated, solve_plans, dev):
     out["dryrun_s"] = time.monotonic() - t
     lap("f")
 
-    launches = dict(LAUNCHES)
+    launches = launch_counts()
     out.update(launches=launches, launches_by_part=part_launches, total_s=time.monotonic() - t0,
                seconds=seconds)
     emit(out)
@@ -3132,7 +3232,6 @@ def phase_tools(seed, dev):
     from PIL import Image
 
     from pushworld_tpu_torch.core.puzzle import Puzzle
-    from pushworld_tpu_torch.kernels import LAUNCHES
     from pushworld_tpu_torch.native import bridge
     from pushworld_tpu_torch.scripts import tools_cli
     from pushworld_tpu_torch.tools.benchmark import benchmark_planner
@@ -3141,11 +3240,11 @@ def phase_tools(seed, dev):
     work = tempfile.mkdtemp(prefix="pw_tools_")
     t0 = time.monotonic()
     seconds, part_launches, counted = {}, {}, {}
-    LAUNCHES.clear()
+    reset_launches()
 
     def lap(part: str) -> None:
         seconds[part] = time.monotonic() - t0 - sum(seconds.values())
-        now = dict(LAUNCHES)
+        now = launch_counts()
         part_launches[part] = {k: now.get(k, 0) - counted.get(k, 0) for k in KERNEL_NAMES}
         counted.update(now)
 
@@ -3259,7 +3358,7 @@ def phase_tools(seed, dev):
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    launches = dict(LAUNCHES)
+    launches = launch_counts()
     for k in MAIN_PATH_KERNELS:
         check(launches.get(k, 0) > 0, f"kernel {k} was not launched on the toolkit's path")
     out.update(launches=launches, launches_by_part=part_launches, total_s=time.monotonic() - t0, seconds=seconds)
@@ -3320,6 +3419,7 @@ def main() -> int:
     kernels += phase_visited_set(dev, floor, generated)
     kernels += phase_rgd_novelty(generated, args.seed, dev, floor)
     kernels += phase_iteration_kernels(generated, dev, floor)
+    kernels.append(phase_chunk_continue(dev, floor))
 
     files = sorted(glob.glob(os.path.join(ROOT, "tests", "puzzles", "*.pwp"))
                    + glob.glob(os.path.join(ROOT, "tests", "puzzles", "heur", "*.pwp")))

@@ -9,12 +9,16 @@ lock.
 
 A capture into a CUDA graph (``search/chunk_graph.py``) runs the wrappers
 but launches nothing on the card: inside :func:`recording_launches` the
-capturing thread's counts go to the block's own counter, and each replay of
-the graph adds that counter to ``LAUNCHES`` (``count_launch(name, n)``).  So
-``LAUNCHES`` keeps meaning kernels launched on the card.
+capturing thread's counts go to the block's own counter.  A search chunk on
+the card is a device-side loop over such a graph, which counts the bodies it
+runs in device memory; :func:`settle_launches` reads every live loop's count
+and adds the bodies run since its last settle, times the kernels of one
+body, to ``LAUNCHES`` (a loop also settles when it is released).  So
+``LAUNCHES`` keeps meaning kernels launched on the card, once settled.
 """
 
 import threading
+import weakref
 from collections import Counter
 from contextlib import contextmanager
 from typing import Iterator
@@ -24,6 +28,9 @@ import torch
 LAUNCHES: Counter = Counter()
 _LAUNCHES_LOCK = threading.Lock()
 _RECORDING = threading.local()
+# Live objects whose launches run on the card uncounted until they settle:
+# each has a ``settle()`` that reads its device count and adds the launches.
+_UNSETTLED = weakref.WeakSet()
 
 
 def count_launch(name: str, count: int = 1) -> None:
@@ -33,6 +40,19 @@ def count_launch(name: str, count: int = 1) -> None:
         return
     with _LAUNCHES_LOCK:
         LAUNCHES[name] += count
+
+
+def track_unsettled(obj) -> None:
+    """Registers ``obj`` (with a ``settle()`` method) for :func:`settle_launches`."""
+    _UNSETTLED.add(obj)
+
+
+def settle_launches() -> None:
+    """Adds to ``LAUNCHES`` what every live device loop ran since it last
+    settled (each waits for its last launch).  Call before reading
+    ``LAUNCHES`` or clearing it for a new count."""
+    for obj in list(_UNSETTLED):
+        obj.settle()
 
 
 @contextmanager

@@ -27,7 +27,7 @@ BUILD_DIR = KERNEL_DIR.parents[1] / ".torch_ext_build"
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-_vp, _i, _u, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
+_vp, _i, _u, _ll, _ull = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_ulonglong
 # C signatures of every exported function, by source.
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "wavefront": {
@@ -64,6 +64,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "pw_novelty_score_records_wide": [_vp] * 7 + [_i] * 5 + [_vp],
         "pw_novelty_absorb_records_wide": [_vp] * 4 + [_i] * 5 + [_vp],
         "pw_novelty_max_objects": [],
+    },
+    "chunk_loop": {
+        "pw_chunk_continue": [_vp] * 5 + [_i, _vp, _vp, _ull, _vp],
+        "pw_chunk_loop_new": [_vp, _vp],
+        "pw_chunk_loop_build": [_vp] * 4 + [_i],
+        "pw_chunk_loop_launch": [_vp, _i, _vp],
+        "pw_chunk_loop_free": [_vp],
     },
 }
 

@@ -91,7 +91,7 @@ def solve_group(
     ended = [False] * len(states)  # by the last status: its chunks would be no-ops
     while True:
         for pl, s, done in zip(planners, states, ended):
-            if not done:  # on the card a no-op chunk still costs its iterations
+            if not done:  # on the card a chunk on an ended search still costs one closed iteration
                 run_chunk(pl.cp_dev, pl.tables, pl.config, s, chunk)
         # One packed all-gather per chunk: every lane's status, and each
         # rank's vote on the deadline (its own clock), after them.

@@ -5,26 +5,35 @@
 Builds the kernels, then the planner and its RGD tables (timed, with the
 host movement-graph fixpoint timed on its own) at the puzzle's RGD depth or
 ``--depth``, then runs ``--iters`` search
-iterations at the production capacities under ``torch.profiler`` twice:
-eagerly (``_iterate`` in a Python loop) and as the card's ``run_chunk`` does
-(replays of the captured CUDA graph of ``search/chunk_graph.py``, on a second
-state from the same start).  Prints one JSON line: the table-build time; for
-each way the host-clock time per iteration (under the profiler), the
-device-busy share (summed kernel time over the wall time), kernels per
-iteration and how many of the iterations were active (their gate open); the graph's iterations, nodes and capture and instantiate
-seconds; the kernels with the most device time in the eager loop and in
-the replays; and the
-same eager loop with the gate closed (the search marked solved: every
-kernel a no-op), its device ms per iteration in all and by kernel and its
-hand-kernel launches per iteration (the eight of ``ITERATION_KERNELS``,
-and any other); and a compaction that evicts: the puzzle's search with a
+iterations at the production capacities under ``torch.profiler`` eagerly
+(``_iterate`` in a Python loop), and one chunk of ``--chunk`` iterations as
+the card's ``run_chunk`` runs it (the device-side loop of
+``search/chunk_graph.py``, on a second state from the same start), timed by
+CUDA events: torch.profiler traces only the first body of a loop, so the
+device time of the chunk's iterations comes from the same iterations run
+eagerly on a third state under the profiler.  Prints one JSON line: the
+table-build time; for the eager loop the host-clock time per iteration
+(under the profiler), the device-busy share (summed kernel time over the
+wall time), kernels per iteration and how many of the iterations were
+active (their gate open); for the chunk, the bodies it ran, ms per
+iteration (events), the device time of the iteration's kernels per
+iteration, the busy share (that over the events' time) and the loop's own
+cost per iteration (the rest), the host's time for the call, the body's
+nodes and capture and build seconds; the kernels with the most device time
+in the eager loop; a chunk of the default length
+(``batched.chunk_length``) on a search that has ended: its bodies, ms
+(events) and device time; the same eager loop with the gate closed (the
+search marked solved: every kernel a no-op), its device ms per iteration
+in all and by kernel and its hand-kernel launches per iteration (the eight
+of ``ITERATION_KERNELS``, and any other); and a compaction that evicts: the puzzle's search with a
 frontier of 8 x expand slots (``--evict-frontier``), caught before the
 iteration whose compaction drops live entries, ``compact_frontier`` on that
 iteration's state timed by kernel (every kernel it launches, the visited
 set's deletes included), each call on the state as it was.
 Needs a CUDA device.  The script uses only the package's public calls, so
 it also times another tree's package: run it with that tree's root on
-``PYTHONPATH``.
+``PYTHONPATH`` (a tree whose chunks replay graphs of G iterations counts
+G iterations a replay as its bodies).
 """
 
 import argparse
@@ -44,8 +53,8 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--depth", type=int, default=None,
                     help="RGD pushing depth (default: the puzzle's required_depth)")
-    ap.add_argument("--graph-iters", type=int, default=None,
-                    help="iterations in one CUDA graph (default: chunk_graph.GRAPH_ITERS at the depth)")
+    ap.add_argument("--chunk", type=int, default=64,
+                    help="iterations of the timed chunk (the 47x54 puzzle of chip_smoke.py solves in ~70)")
     ap.add_argument("--evict-frontier", type=int, default=None,
                     help="frontier slots of the evicting compaction's search (default: 8 x expand)")
     args = ap.parse_args(argv)
@@ -54,14 +63,17 @@ def main(argv=None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from pushworld_tpu_torch import kernels
     from pushworld_tpu_torch.core.compiled import compile_puzzle
     from pushworld_tpu_torch.core.puzzle import Puzzle
     from pushworld_tpu_torch.kernels import LAUNCHES, _build
     from pushworld_tpu_torch.native import bridge
     from pushworld_tpu_torch.ops.rgd import _movement_graphs_host
     from pushworld_tpu_torch.search import chunk_graph
-    from pushworld_tpu_torch.search.batched import BatchedPlanner, _iterate, required_depth, run_chunk
+    from pushworld_tpu_torch.search.batched import BatchedPlanner, _iterate, chunk_length, required_depth, run_chunk
     from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES
+
+    settle_launches = getattr(kernels, "settle_launches", lambda: None)  # a tree whose chunks count as replayed
 
     dev = torch.device("cuda", 0)
     _build.build()
@@ -77,25 +89,26 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     build_s = time.monotonic() - t0
     cfg = planner.config
-    eager_s, graphed_s = planner.init_state(), planner.init_state()
-    for _ in range(2):  # warm-up
-        _iterate(planner.cp_dev, planner.tables, cfg, eager_s)
-    if args.graph_iters is not None:
-        chunk_graph.GRAPH_ITERS[min(depth, 3)] = args.graph_iters
+    eager_s, graphed_s, twin_s = (planner.init_state() for _ in range(3))
+    for s in (eager_s, twin_s):  # warm-up
+        for _ in range(2):
+            _iterate(planner.cp_dev, planner.tables, cfg, s)
     g = chunk_graph.attach(planner.cp_dev, planner.tables, cfg, graphed_s)
-    run_chunk(planner.cp_dev, planner.tables, cfg, graphed_s, 2 * g.iters)  # warm-up
+    run_chunk(planner.cp_dev, planner.tables, cfg, graphed_s, 2)  # warm-up
     torch.cuda.synchronize()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     def profiled(run, iters):
+        settle_launches()
         LAUNCHES.clear()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
             run()
             torch.cuda.synchronize()
             wall_s = time.monotonic() - t0
+        settle_launches()
         # Kernel rows carry the device time once; operator rows repeat it.
         avgs = prof.key_averages()
         kernels = [e for e in avgs if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
@@ -107,22 +120,62 @@ def main(argv=None) -> int:
                "hand_kernel_launches": dict(LAUNCHES)}
         return row, avgs
 
-    def eager_with(state):
+    def eager_with(state, iters=args.iters):
         def run():
-            for _ in range(args.iters):
+            for _ in range(iters):
                 _iterate(planner.cp_dev, planner.tables, cfg, state)
         return run
+
+    def timed_chunk(s, g, chunk):
+        """One ``run_chunk`` of ``chunk`` iterations: device ms between CUDA
+        events around it (torch.profiler traces only a loop's first body),
+        host ms of the call, and the bodies it ran (on a tree whose chunks
+        replay graphs of G iterations, G a replay)."""
+        b0 = int(g.bodies) if hasattr(g, "bodies") else None
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        start.record()
+        run_chunk(planner.cp_dev, planner.tables, cfg, s, chunk)
+        host_ms = (time.monotonic() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        bodies = int(g.bodies) - b0 if b0 is not None else -(-chunk // g.iters) * g.iters
+        return {"ms": start.elapsed_time(end), "host_ms": host_ms, "bodies": bodies}
 
     eager = eager_with(eager_s)
 
     counted = int(eager_s.iterations)
     eager_row, avgs = profiled(eager, args.iters)
     eager_row["active_iters"] = int(eager_s.iterations) - counted  # the others had their gate closed
-    replays = -(-args.iters // g.iters)
+    # The chunk, and the same iterations run eagerly on a twin state under
+    # the profiler: the device time of the iteration's kernels.  What the
+    # chunk takes beyond it is the loop's own cost (the body's relaunch,
+    # chunk_continue, the gaps between dependent kernels) or, on a tree
+    # that replays graphs, the host's replays.
     counted = int(graphed_s.iterations)
-    graphed_row, graphed_avgs = profiled(
-        lambda: run_chunk(planner.cp_dev, planner.tables, cfg, graphed_s, args.iters), replays * g.iters)
-    graphed_row["active_iters"] = int(graphed_s.iterations) - counted
+    chunk = timed_chunk(graphed_s, g, args.chunk)
+    n = chunk["bodies"]
+    twin_row, _ = profiled(eager_with(twin_s, n), n)
+    graphed_row = {
+        "chunk": args.chunk, "bodies": n, "active_iters": int(graphed_s.iterations) - counted,
+        "ms_per_iter": chunk["ms"] / n, "host_ms": chunk["host_ms"],
+        "iteration_kernels_device_ms_per_iter": twin_row["device_ms_per_iter"],
+        "device_busy_share": twin_row["device_ms_per_iter"] * n / chunk["ms"],
+        "loop_cost_ms_per_iter": chunk["ms"] / n - twin_row["device_ms_per_iter"],
+        "same_search_as_eager": (int(twin_s.iterations), int(twin_s.expansions))
+        == (int(graphed_s.iterations), int(graphed_s.expansions)),
+        "nodes": g.nodes, "node_types": getattr(g, "node_types", None), "capture_s": g.capture_s,
+        "instantiate_s": g.instantiate_s}
+    # A chunk of the default length on a search that has ended.
+    ended_s = planner.init_state()
+    ended_s.solved.fill_(True)
+    default = chunk_length(None, cfg, dev)
+    ended_g = chunk_graph.attach(planner.cp_dev, planner.tables, cfg, ended_s)
+    timed_chunk(ended_s, ended_g, default)  # warm-up
+    ended = dict(timed_chunk(ended_s, ended_g, default), chunk=default)
+    ended_prof, _ = profiled(lambda: run_chunk(planner.cp_dev, planner.tables, cfg, ended_s, default), 1)
+    ended.update(device_ms=ended_prof["device_ms_per_iter"], device_rows=ended_prof["kernels_per_iter"])
     rows = [e for e in avgs if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     top = sorted(rows, key=dev_us, reverse=True)[: args.top]
     # A closed gate: iterations of a solved search (every kernel a no-op).
@@ -140,13 +193,9 @@ def main(argv=None) -> int:
         "puzzle": args.puzzle, "depth": depth, "device": torch.cuda.get_device_name(0),
         "table_build_s": build_s, "of_which_host_movement_graphs_s": graphs_s,
         "eager": eager_row,
-        "graphed": dict(graphed_row, graph_iters=g.iters, nodes=g.nodes, capture_s=g.capture_s,
-                        instantiate_s=g.instantiate_s),
+        "graphed": graphed_row,
+        "ended_search_chunk": ended,
         "top_kernels_device_ms_per_iter": {e.key[:120]: dev_us(e) / 1e3 / args.iters for e in top},
-        "graphed_top_kernels_device_ms_per_iter": {
-            e.key[:120]: dev_us(e) / 1e3 / graphed_row["iters"]
-            for e in sorted((e for e in graphed_avgs if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-                            key=dev_us, reverse=True)[: args.top]},
         "closed_gate": closed_row,
         "evicting_compaction": evicting,
         "expansions": {"eager": int(eager_s.expansions), "graphed": int(graphed_s.expansions)},

@@ -17,11 +17,11 @@ Search *order* differs from the reference (lockstep novelty, batch
 expansion); acceptance is valid plans within budget.  Plans are rebuilt from
 a device-side history of (parent index, action) records.
 
-On the card an iteration is nine launches of hand kernels
+On the card an iteration is eight launches of hand kernels
 (``kernels/frontier.cu``'s select, ``kernels/expand.cu``, the visited set's
 fused fingerprint + dedup + insert, the novelty score and update, the RGD
-heuristic, ``frontier.cu``'s compaction with the visited set's gated
-delete, and ``frontier.cu``'s append); on the CPU each wrapper runs its
+heuristic, ``frontier.cu``'s compaction, which deletes its drops from the
+visited set, and ``frontier.cu``'s append); on the CPU each wrapper runs its
 plain version, the JAX package's code (``*_reference``).
 
 An iteration reads nothing back to the host: as in the JAX package's
@@ -32,12 +32,13 @@ scores nothing and leaves the state exactly as it was; every write is at
 device-computed positions, and the ring's compaction is decided on the
 device.  Every field
 of :class:`SearchState` is allocated once by :func:`init_search_state` and
-updated in place from then on, so a CUDA graph can replay iterations over
-fixed addresses (``search/chunk_graph.py``).  :func:`run_chunk` on the card
-enqueues captured graphs and returns without a host read, like the JAX
-package's asynchronous ``run_chunk``; the callers read the status of chunk
-k while chunk k+1 runs (:class:`PendingStatus`).  Iteration for iteration it
-takes the JAX package's steps and stops after the same iterations.
+updated in place from then on, so a CUDA graph captured once can loop over
+fixed addresses on the card (``search/chunk_graph.py``).  :func:`run_chunk`
+on the card enqueues that loop and returns without a host read, like the
+JAX package's asynchronous ``run_chunk``; the callers read the status of
+chunk k while chunk k+1 runs (:class:`PendingStatus`).  Iteration for
+iteration it takes the JAX package's steps and stops after the same
+iterations.
 """
 
 import functools
@@ -80,6 +81,9 @@ from pushworld_tpu_torch.ops.step import expand_and_test
 # plateau behavior of the reference's bucket priority queue
 # (reference: priority_queue.h:43-222, LIFO within equal priority).
 EMPTY = 0x7F000000  # int32 sentinel for a free frontier slot
+# Iterations of a chunk where the caller leaves it open: the JAX package's
+# (its BatchedPlanner.solve and planner.CHUNK), one status read each.
+CHUNK = 128
 
 
 class _EscalateDepth(Exception):
@@ -128,8 +132,8 @@ class SearchState:
     # Count of scored states whose RGD was INF at the search's depth although
     # the goal was graph-reachable (drives depth escalation).
     needs_deeper: torch.Tensor  # int32 scalar
-    # The captured CUDA graph of this search's chunks (search/chunk_graph.py),
-    # made at the first run_chunk on the card and released with the state.
+    # The device-side loop of this search's chunks (search/chunk_graph.py),
+    # captured at the first run_chunk on the card and released with the state.
     graph: Optional[object] = None
 
 
@@ -547,9 +551,10 @@ def _append_cuda(s: SearchState, cfg: SearchConfig, gate, is_new, parent_hist, a
     return hist_idx
 
 
-def _iterate(cp: CompiledPuzzle, t: RGDTables, cfg: SearchConfig, s: SearchState) -> SearchState:
+def _iterate(cp: CompiledPuzzle, t: RGDTables, cfg: SearchConfig, s: SearchState) -> torch.Tensor:
     """One gated search iteration, in place on ``s``; reads nothing back to
-    the host.  When the gate is closed it is an exact no-op.
+    the host.  When the gate is closed it is an exact no-op.  Returns the
+    gate (a bool scalar on the device).
 
     On the card it is eight hand-kernel launches, each of which reads the
     gate (or a mask it closed) on the device: select, expand, fingerprint +
@@ -578,7 +583,7 @@ def _iterate(cp: CompiledPuzzle, t: RGDTables, cfg: SearchConfig, s: SearchState
     # capacity), then append: history, goal, keys, window and counters.
     compact_frontier(s, children.shape[0], gate)
     append_children(s, cfg, gate, is_new, parent_hist, None, goal, nov, rgd, deeper, sel_valid, children, keys)
-    return s
+    return gate
 
 
 def run_chunk(
@@ -593,14 +598,16 @@ def run_chunk(
     once the search is solved, the frontier is empty or the history is
     nearly full, the rest are no-ops (the JAX package's contract).
 
-    On the card the iterations are replays of a captured CUDA graph of ``G``
-    iterations (``search/chunk_graph.py``; captured at the first call for
-    this state, tables and configuration), ``ceil(chunk / G)`` of them.
-    With ``deadline=None`` the replays are enqueued and the call returns
-    without reading anything back; with a deadline (a ``time.monotonic()``
-    value) the host clock is read before each replay and at most two replays
-    are left unconfirmed, so a budget is held to two replays.  A failed
-    capture or replay raises.
+    On the card the iterations run in a device-side loop
+    (``search/chunk_graph.py``; captured at the first call for this state,
+    tables and configuration) that stops on the card where the rest would
+    be no-ops, after at most one closed iteration: ``ceil(chunk / 128)``
+    graph launches of at most 128 iterations each.  With ``deadline=None``
+    the launches are enqueued and the call returns without reading anything
+    back; with a deadline (a ``time.monotonic()`` value) the host clock is
+    read before each launch and at most two launches are left unconfirmed,
+    so a budget is held to two chunks of 128, as in the JAX package.  A
+    failed capture or launch raises.
 
     On the CPU the loop reads the gate between iterations and stops early
     (a masked iteration costs a full one there), and ``deadline`` is tested
@@ -620,17 +627,11 @@ def run_chunk(
 
 
 def chunk_length(chunk: Optional[int], cfg: SearchConfig, device: torch.device) -> int:
-    """Iterations of a chunk: ``chunk`` where the caller gives one, else 128
-    on the CPU and, on the card, one replay of the search's graph
-    (``chunk_graph.GRAPH_ITERS`` at its RGD depth): an iteration after the
-    search's end costs a whole iteration there, so chunks are short."""
-    if chunk is not None:
-        return chunk
-    if device.type != "cuda":
-        return 128
-    from pushworld_tpu_torch.search.chunk_graph import graph_iters
-
-    return graph_iters(cfg.max_depth)
+    """Iterations of a chunk (one status read each): ``chunk`` where the
+    caller gives one, else :data:`CHUNK`, the JAX package's, at every RGD
+    depth on both devices (on the card a chunk after the search's end costs
+    one closed iteration, so it need not be short)."""
+    return CHUNK if chunk is None else chunk
 
 
 class PendingStatus:

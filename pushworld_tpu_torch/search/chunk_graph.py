@@ -1,69 +1,107 @@
-"""Search chunks on the card as CUDA graphs.
+"""Search chunks on the card as device-side loops.
 
-The JAX package needs no counterpart: ``jit`` makes its ``run_chunk`` one
-program, enqueued at once.  Here a search iteration is nine launches of hand
-kernels (PERF.md §5), and when the host launches them one by one its launch
-time is most of an iteration.  The iteration reads nothing back
-(``search/batched.py``), so ``G`` gated iterations are captured once into
-one ``torch.cuda.CUDAGraph`` and a chunk is ``ceil(chunk / G)`` replays of
-it.
+The JAX package runs a chunk as one jitted program: ``lax.fori_loop(0,
+chunk, body)``, each iteration gated by ``lax.cond`` on ``active``
+(pushworld_tpu/search/batched.py:625-656).  Here a search iteration is eight
+launches of hand kernels that read nothing back (``search/batched.py``
+``_iterate``), and a chunk is a CUDA graph that loops on the card
+(``kernels/chunk_loop.cu``):
 
-An iteration whose gate is closed (after a solve, an exhaustion or a full
-history) is a no-op: each of its kernels reads the gate on the device and
-returns at once.  It still costs its nine launches, since the PyTorch this
-runs on has no conditional graph nodes (JAX's ``lax.cond``).  So a chunk on
-the card is short (:data:`GRAPH_ITERS` iterations, one replay), and a search
-that has ended wastes at most the chunks its caller has in flight.
-
-- ``G`` is chosen per RGD depth (:data:`GRAPH_ITERS`).
-- Before the capture, one iteration runs on a side stream with the gate
-  closed (an exact no-op): the ctypes kernel libraries are loaded, any
-  ``cudaFuncSetAttribute`` has run, and PyTorch's lazy initialisations are
-  done, none of which may happen during a capture.
+- One gated iteration and the ``chunk_continue`` kernel after it are
+  captured once into a ``torch.cuda.CUDAGraph`` (``keep_graph=True``:
+  PyTorch's allocator keeps the iteration's temporaries in the graph's
+  pool).  That graph is the body of a conditional WHILE node of an outer
+  graph, which resets the loop's counter and sets its bound at each launch.
+- ``chunk_continue`` ends the loop when this iteration's gate was closed,
+  the search is solved, the history is full or the bound is reached.  So a
+  launch of bound ``k`` runs the iterations that JAX's ``fori_loop`` of
+  ``k`` runs with the gate open, plus at most one closed body (after a
+  frontier that emptied), and a launch on a search that has ended runs one
+  closed body.  A closed iteration is an exact no-op: each kernel reads the
+  gate on the device and returns.
+- A chunk of ``k`` iterations is ``ceil(k / LOOP_MAX)`` launches, each of at
+  most :data:`LOOP_MAX` (JAX's chunk of 128) iterations.
+- Before the capture, one iteration and one ``chunk_continue`` run on a side
+  stream with the gate closed (an exact no-op): the ctypes kernel libraries
+  are loaded, any ``cudaFuncSetAttribute`` has run, and PyTorch's lazy
+  initialisations are done, none of which may happen during a capture.
 - The capture uses ``capture_error_mode="thread_local"``: the fleet's device
   worker captures while native workers and the portfolio's table prefetch
   run in other threads.
 - Graphs may share a memory pool (``pool``): the fleet's lanes of one wave
-  do.  Their replays run on one stream, one after another, and a graph's
-  temporaries are dead once its replay ends.
-- A graph belongs to its search state (``SearchState.graph``) and is
+  do.  Their loops run on one stream, one after another, and a body's
+  temporaries are dead once it ends.
+- A loop belongs to its search state (``SearchState.graph``) and is
   released with it; a state, tables or configuration it was not captured
   for (an escalation to a deeper RGD depth starts a new state) captures
   anew.
 - Launch counts: a capture launches nothing, so the wrappers' counts are
-  recorded during it (``kernels.recording_launches``) and added to
-  ``kernels.LAUNCHES`` at every replay.
+  recorded during it (``kernels.recording_launches``: the body's launches).
+  The loop counts the bodies it runs on the device, and
+  ``kernels.settle_launches()`` (or the loop's release) adds bodies x the
+  body's launches to ``kernels.LAUNCHES``.
 
-Nothing falls back: a failed capture or replay raises.
+Nothing falls back: a failed capture, build or launch raises.
 """
 
 import ctypes
 import dataclasses
+import sys
+import threading
 import time
-from collections import deque
+from collections import Counter, deque
 from typing import Dict, Optional
 
 import torch
 
 from pushworld_tpu_torch import kernels
 from pushworld_tpu_torch.core.compiled import CompiledPuzzle
+from pushworld_tpu_torch.kernels import _build
 from pushworld_tpu_torch.ops.rgd import RGDTables
-from pushworld_tpu_torch.search.batched import SearchConfig, SearchState, _iterate
+from pushworld_tpu_torch.search.batched import CHUNK, SearchConfig, SearchState, _iterate
 
-# Iterations in one graph, by RGD depth (depths above 3 use 3's), and the
-# length of a chunk on the card where the caller leaves it to the depth.
-# At production capacities an active iteration is 0.037-0.041 ms of device
-# time at depths 0-3 and a closed one 0.0107-0.0115 ms, about 1/3.5 of it
-# (scripts/profile_search.py on an H100, PERF.md §5).  A replay in flight
-# after a search's end wastes up to G - 1 closed iterations, and the chunk
-# length rises only where a closed iteration costs at most 1/8 of an active
-# one (PERF.md §6): nine launches cannot, since 1/8 of an active iteration
-# is under six launch floors.  So a graph holds one or two iterations.
-GRAPH_ITERS: Dict[int, int] = {0: 2, 1: 1, 2: 1, 3: 1}
+# Iterations of one launch of a loop: JAX's chunk.
+LOOP_MAX = CHUNK
+
+# CUgraphNodeType, by value (cuda.h).
+_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event", "event_record",
+               "ext_semaphore_signal", "ext_semaphore_wait", "mem_alloc", "mem_free", "batch_mem_op",
+               "conditional")
 
 
-def graph_iters(depth: int) -> int:
-    return GRAPH_ITERS[min(depth, 3)]
+def chunk_continue_reference(gate, solved, hist_cursor, counter, bound, limit: int):
+    """Plain version of ``chunk_loop.cu``'s ``chunk_continue_kernel``:
+    whether the loop runs another body after this one, and the counter
+    after it.  ``gate`` and ``solved`` are bool tensors, ``hist_cursor``,
+    ``counter`` and ``bound`` int32 tensors (any matching shapes)."""
+    counter = counter + 1
+    return gate & ~solved & (hist_cursor < limit) & (counter < bound), counter
+
+
+def chunk_continue(gate, solved, hist_cursor, counter, bound, limit: int, flag, bodies,
+                   handle: int = 0) -> None:
+    """``chunk_continue_kernel`` on scalars, in place: ``counter`` + 1,
+    ``flag`` = whether the loop goes on, ``bodies`` + 1 and, on the card
+    with a loop's ``handle``, the loop's condition.  On CPU tensors the
+    plain version."""
+    if not gate.is_cuda:
+        c, counter_next = chunk_continue_reference(gate, solved, hist_cursor, counter, bound, limit)
+        counter.copy_(counter_next)
+        flag.copy_(c)
+        bodies.add_(1)
+        return
+    fn = _build.load("chunk_loop").pw_chunk_continue
+    rc = kernels.launch_on(gate.device, fn, gate.data_ptr(), solved.data_ptr(), hist_cursor.data_ptr(),
+                           counter.data_ptr(), bound.data_ptr(), limit, flag.data_ptr(), bodies.data_ptr(),
+                           handle)
+    if rc != 0:
+        raise RuntimeError(f"pw_chunk_continue launch failed: CUDA error {rc}")
+    kernels.count_launch("chunk.continue")
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {rc}")
 
 
 def _buffers(s: SearchState):
@@ -80,85 +118,131 @@ def _buffers(s: SearchState):
     ]
 
 
-def _graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
-    """Node count of a captured graph (``cuGraphGetNodes`` of libcuda)."""
+def _node_types(graph: int) -> Dict[str, int]:
+    """Node counts by type of a CUDA graph (``cuGraphGetNodes`` and
+    ``cuGraphNodeGetType`` of libcuda)."""
     cuda = ctypes.CDLL("libcuda.so.1")
-    fn = cuda.cuGraphGetNodes
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
-    fn.restype = ctypes.c_int
+    get_nodes, get_type = cuda.cuGraphGetNodes, cuda.cuGraphNodeGetType
+    get_nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    get_type.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     n = ctypes.c_size_t(0)
-    rc = fn(ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
-    if rc != 0:
-        raise RuntimeError(f"cuGraphGetNodes failed: CUDA error {rc}")
-    return int(n.value)
+    _check(get_nodes(ctypes.c_void_p(graph), None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _check(get_nodes(ctypes.c_void_p(graph), nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    types = Counter()
+    for node in nodes[: n.value]:
+        t = ctypes.c_int(-1)
+        _check(get_type(ctypes.c_void_p(node), ctypes.byref(t)), "cuGraphNodeGetType")
+        types[_NODE_TYPES[t.value] if 0 <= t.value < len(_NODE_TYPES) else str(t.value)] += 1
+    return dict(types)
 
 
 class ChunkGraph:
-    """``G`` gated iterations of one search state, captured as a CUDA graph.
+    """A device-side loop over one gated iteration of a search state.
 
-    Attributes: ``iters`` (G), ``nodes`` (of the graph), ``capture_s`` and
-    ``instantiate_s`` (host seconds), ``launches`` (hand-kernel launches of
-    one replay)."""
+    Attributes: ``nodes`` and ``node_types`` (of the captured body),
+    ``capture_s`` and ``instantiate_s`` (host seconds; the latter builds the
+    loop around the body), ``launches`` (hand-kernel launches of one body),
+    ``bodies`` (an int64 device scalar: bodies run)."""
 
     def __init__(self, cp: CompiledPuzzle, tables: RGDTables, cfg: SearchConfig,
                  s: SearchState, pool=None):
         self.key = (id(cp), id(tables), cfg)
         self._refs = (cp, tables)  # the graph reads their memory by address
-        self.iters = graph_iters(cfg.max_depth)
+        self._lib = _build.load("chunk_loop")
+        self._loop: Optional[int] = None
+        self._last: Optional[torch.cuda.Event] = None
+        self._settled = 0
+        self._lock = threading.Lock()
         dev = s.frontier_h.device
+        limit = cfg.history_capacity - 8 * cfg.expand
+        self.counter, self.bound, self.flag = (torch.zeros((), dtype=torch.int32, device=dev) for _ in range(3))
+        self.bodies = torch.zeros((), dtype=torch.int64, device=dev)
         with torch.cuda.device(dev):
             main = torch.cuda.current_stream()
             side = torch.cuda.Stream()
             side.wait_stream(main)
             with torch.cuda.stream(side):
                 closed = dataclasses.replace(s, solved=torch.ones((), dtype=torch.bool, device=dev))
-                _iterate(cp, tables, cfg, closed)
+                gate = _iterate(cp, tables, cfg, closed)
+                chunk_continue(gate, closed.solved, s.hist_cursor, self.counter, self.bound, limit, self.flag,
+                               self.bodies)
+                self.bodies.zero_()
             main.wait_stream(side)
 
+            loop, handle = ctypes.c_void_p(), ctypes.c_ulonglong()
+            _check(self._lib.pw_chunk_loop_new(ctypes.byref(loop), ctypes.byref(handle)), "pw_chunk_loop_new")
+            self._loop = loop.value
+            if not handle.value:  # chunk_continue would leave the condition at its default: no end
+                raise RuntimeError("pw_chunk_loop_new gave a null condition handle")
             before = _buffers(s)
             self.graph = torch.cuda.CUDAGraph(keep_graph=True)
             t0 = time.monotonic()
             with torch.cuda.stream(side), kernels.recording_launches() as recorded:
                 self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
                 try:
-                    for _ in range(self.iters):
-                        _iterate(cp, tables, cfg, s)
+                    gate = _iterate(cp, tables, cfg, s)
+                    chunk_continue(gate, s.solved, s.hist_cursor, self.counter, self.bound, limit, self.flag,
+                                   self.bodies, handle.value)
                 finally:
                     self.graph.capture_end()
             self.capture_s = time.monotonic() - t0
             if _buffers(s) != before:
                 raise RuntimeError("the captured iteration rebound a search-state tensor")
             self.launches = dict(recorded)
-            self.nodes = _graph_nodes(self.graph)
+            body = self.graph.raw_cuda_graph()
+            self.node_types = _node_types(body)
+            self.nodes = sum(self.node_types.values())
             t0 = time.monotonic()
-            self.graph.instantiate()
+            rc = self._lib.pw_chunk_loop_build(self._loop, body, self.counter.data_ptr(), self.bound.data_ptr(),
+                                               LOOP_MAX)
+            _check(rc, f"pw_chunk_loop_build (body nodes {self.node_types})")
             self.instantiate_s = time.monotonic() - t0
-        self._last: Optional[torch.cuda.Event] = None
+        kernels.track_unsettled(self)
 
-    def replay(self) -> torch.cuda.Event:
-        """Enqueues one replay on the current stream; returns an event
-        recorded after it."""
-        self.graph.replay()
-        for name, n in self.launches.items():
-            kernels.count_launch(name, n)
+    def replay(self, bound: int) -> torch.cuda.Event:
+        """Enqueues one launch of the loop, at most ``bound`` iterations, on
+        the current stream; returns an event recorded after it."""
+        _check(kernels.launch_on(self.bodies.device, self._lib.pw_chunk_loop_launch, self._loop, bound),
+               "pw_chunk_loop_launch")
         self._last = torch.cuda.Event()
         self._last.record()
         return self._last
 
+    def settle(self) -> None:
+        """Waits for the last launch and adds the kernels of the bodies run
+        since the last settle to ``kernels.LAUNCHES``."""
+        with self._lock:
+            if self._last is not None:
+                self._last.synchronize()
+            n = int(self.bodies)
+            if n > self._settled:
+                for name, k in self.launches.items():
+                    kernels.count_launch(name, k * (n - self._settled))
+                self._settled = n
+
     def __del__(self):
-        # The graph's executable and pool go with this object: let its last
-        # replay finish first.
-        if getattr(self, "_last", None) is not None:
+        # The executable and the graph's pool go with this object: let its
+        # last launch finish and settle its count first.  (Released during a
+        # capture on this thread, which no caller does, it cannot read its
+        # count, and its unsettled bodies go uncounted.)
+        if getattr(self, "_loop", None) is None or sys.is_finalizing():
+            return
+        if hasattr(self, "launches") and not torch.cuda.is_current_stream_capturing():
+            self.settle()
+        elif self._last is not None:
             self._last.synchronize()
+        self._lib.pw_chunk_loop_free(self._loop)
+        self._loop = None
 
 
 def attach(cp: CompiledPuzzle, tables: RGDTables, cfg: SearchConfig, s: SearchState,
            pool=None) -> ChunkGraph:
-    """The state's graph for (cp, tables, cfg), captured now if it has none
+    """The state's loop for (cp, tables, cfg), captured now if it has none
     (or one captured for something else)."""
     g = s.graph
     if g is None or g.key != (id(cp), id(tables), cfg):
-        s.graph = None  # the old graph goes before the new one is captured
+        s.graph = None  # the old loop goes before the new one is captured
         g = s.graph = ChunkGraph(cp, tables, cfg, s, pool)
     return g
 
@@ -167,17 +251,17 @@ def run_graphed(cp: CompiledPuzzle, tables: RGDTables, cfg: SearchConfig, s: Sea
                 chunk: int, deadline: Optional[float]) -> SearchState:
     """:func:`search.batched.run_chunk` on the card (see there)."""
     g = attach(cp, tables, cfg, s)
-    replays = -(-chunk // g.iters)
+    bounds = (min(LOOP_MAX, chunk - start) for start in range(0, chunk, LOOP_MAX))
     with torch.cuda.device(s.frontier_h.device):
         if deadline is None:
-            for _ in range(replays):
-                g.replay()
+            for bound in bounds:
+                g.replay(bound)
             return s
         unconfirmed = deque()
-        for _ in range(replays):
+        for bound in bounds:
             if len(unconfirmed) == 2:
                 unconfirmed.popleft().synchronize()
             if time.monotonic() > deadline:
                 break
-            unconfirmed.append(g.replay())
+            unconfirmed.append(g.replay(bound))
     return s

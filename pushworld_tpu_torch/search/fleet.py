@@ -82,7 +82,8 @@ DEVICE_MODE = os.environ.get("PW_DEVICE_MODE", "shadow")
 # chunk runs to its end before the next lane's starts, so without the cap a
 # lane of slow iterations (a deep RGD recursion) would hold the device for
 # its whole chunk while the others' budgets run out.  (On the card a chunk
-# is enqueued, and its length is bounded per RGD depth instead.)
+# is one device-side loop, enqueued without a wait: 128 iterations of
+# 0.04-0.06 ms of device work each at production capacities.)
 LANE_TURN_S = 0.5
 
 # Per-run device phase breakdown: reset by plan_puzzles_fleet, filled by
@@ -189,14 +190,14 @@ def _device_multiplex(
     lane when its budget ends (host clock), so that a solve which landed is
     not reported as "time limit".
 
-    On the card a turn is one chunk enqueued without a wait: one replay of
-    the lane's captured CUDA graph (``search/chunk_graph.py``; a wave's
-    graphs are captured into one memory pool before its clock starts), whose
-    length is chosen per RGD depth (``batched.chunk_length``): 2-26 ms of
-    device time at production capacities, well under 0.25 s.  A lane has at most ``2 * sync_every``
-    chunks in flight, so a budget ends at most that much device work late
-    for each lane of the wave, and a lane that has ended wastes at most as
-    much (overshoot measured: PERF.md §5).  On the CPU a turn is a chunk cut at
+    On the card a turn is one chunk of ``CHUNK`` (JAX's 128) iterations
+    enqueued without a wait: one launch of the lane's device-side loop
+    (``search/chunk_graph.py``; a wave's loops are captured into one memory
+    pool before its clock starts), which stops on the card after the
+    search's end.  A lane has at most ``2 * sync_every`` chunks in flight,
+    so a budget ends at most that much device work late for each lane of
+    the wave, and a lane that has ended wastes one closed iteration a chunk
+    in flight.  On the CPU a turn is a chunk cut at
     ``LANE_TURN_S`` seconds where other lanes wait, and a status is ready
     when it is taken.
     """
@@ -206,7 +207,6 @@ def _device_multiplex(
         EMPTY,
         BatchedPlanner,
         PendingStatus,
-        chunk_length,
         reconstruct_plan,
         required_depth,
         run_chunk,
@@ -356,11 +356,7 @@ def _device_multiplex(
                 """One turn: one chunk (enqueued without a wait on the card),
                 and every ``sync_every`` chunks a status behind it."""
                 pl = lane["planner"]
-                if on_card:
-                    run_chunk(pl.cp_dev, pl.tables, pl.config, lane["s"],
-                              chunk_length(None, pl.config, device))
-                else:
-                    run_chunk(pl.cp_dev, pl.tables, pl.config, lane["s"], CHUNK, turn_end(lane))
+                run_chunk(pl.cp_dev, pl.tables, pl.config, lane["s"], CHUNK, None if on_card else turn_end(lane))
                 lane["chunks"] += 1
                 if lane["chunks"] % sync_every == 0:
                     lane["pending"].append(PendingStatus(lane["s"]))

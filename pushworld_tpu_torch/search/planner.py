@@ -18,6 +18,7 @@ import torch
 from pushworld_tpu_torch.core.compiled import compile_puzzle, compute_delta
 from pushworld_tpu_torch.core.puzzle import Puzzle
 from pushworld_tpu_torch.device import DeviceLike, resolve_device
+from pushworld_tpu_torch.search.batched import CHUNK
 
 # Shape profiles (n, dim, delta, cmax), as in the JAX package.  The port has
 # no compile step, so puzzles are not padded to them; they only group and
@@ -45,8 +46,6 @@ class PlanResult:
     solver: str = ""  # which fleet/portfolio member produced the result
     iterations: int = 0  # the batched search's iterations (0 for other solvers)
 
-
-CHUNK = 128  # iterations of a chunk on the CPU: one status read each (the card's: chunk_length)
 
 # Upcoming puzzles whose tables ``plan_puzzles`` builds ahead, on one thread.
 PREFETCH = 6
@@ -93,7 +92,6 @@ def _portfolio_solve(
     from pushworld_tpu_torch.search.batched import (
         EMPTY,
         PendingStatus,
-        chunk_length,
         reconstruct_plan,
         run_chunk,
     )
@@ -145,8 +143,7 @@ def _portfolio_solve(
     # Pipelined as in BatchedPlanner.solve: chunk k+1 is enqueued before
     # chunk k's status is read; the plan comes from the newest state.
     s = planner.init_state()
-    chunk = chunk_length(None if planner.device.type == "cuda" else CHUNK, cfg, planner.device)
-    run_chunk(planner.cp_dev, planner.tables, cfg, s, chunk, deadline)
+    run_chunk(planner.cp_dev, planner.tables, cfg, s, CHUNK, deadline)
     pending = PendingStatus(s)
     while True:
         if fut is not None and fut.done():
@@ -163,7 +160,7 @@ def _portfolio_solve(
                     return None  # native search is complete
             fut = None
         if device_dead is None:
-            run_chunk(planner.cp_dev, planner.tables, cfg, s, chunk, deadline)
+            run_chunk(planner.cp_dev, planner.tables, cfg, s, CHUNK, deadline)
             pending, stat = PendingStatus(s), pending.read()
             solved, _, min_key, cursor, _, evictions, iters, _ = stat
             chunks += 1

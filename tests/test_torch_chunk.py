@@ -1,8 +1,9 @@
 """The search iteration that reads nothing back, on the CPU.
 
-On the card ``run_chunk`` replays CUDA graphs of gated iterations
-(``search/chunk_graph.py``); a graph can hold an iteration only if the
-iteration never waits on the host and never rebinds a state tensor.  These
+On the card ``run_chunk`` is a CUDA graph that loops over one captured,
+gated iteration (``search/chunk_graph.py``); a graph can hold an iteration
+only if the iteration never waits on the host and never rebinds a state
+tensor.  These
 tests hold both on the CPU: ``_iterate`` under a dispatch mode that refuses
 every host read and every boolean-mask index, and an iteration whose gate is
 closed (after a solve, after an exhaustion, with the history at its limit)

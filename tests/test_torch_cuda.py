@@ -1200,7 +1200,7 @@ def _fixtures(names):
 def test_fleet_device_worker_on_the_card(dev, mode, monkeypatch):
     """The fleet with its device worker on the card: no loss, no duplicate,
     valid plans, no device failure, and lanes that went through the kernels."""
-    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.kernels import LAUNCHES, settle_launches
     from pushworld_tpu_torch.search import fleet
 
     monkeypatch.setattr(fleet, "DEVICE_STEAL_GRACE_S", 1.0)
@@ -1210,6 +1210,7 @@ def test_fleet_device_worker_on_the_card(dev, mode, monkeypatch):
     results = fleet.plan_puzzles_fleet(
         named, time_limit=60.0, native_workers=0 if mode == "claim" else 1, group_size=4,
         device_claim_delay=0.0, device_mode=mode, device=dev)
+    settle_launches()
     assert sorted(results) == sorted(n for n, _ in named)
     for name, p in named:
         r = results[name]
@@ -1253,7 +1254,7 @@ def test_portfolio_device_member_on_the_card(dev, monkeypatch):
     import threading
 
     from pushworld_tpu_torch.core.compiled import compile_puzzle
-    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.kernels import LAUNCHES, settle_launches
     from pushworld_tpu_torch.native import bridge
     from pushworld_tpu_torch.search import batched, planner
 
@@ -1272,12 +1273,14 @@ def test_portfolio_device_member_on_the_card(dev, monkeypatch):
             depth = batched.required_depth(p)
             plans = []
             for d in (dev, "cpu"):
+                settle_launches()
                 before = LAUNCHES["visited_set.fingerprint_dedup_insert"]
                 solver = []
                 plans.append(planner._portfolio_solve(
                     lambda: batched.BatchedPlanner(p, max_depth=depth, device=d, **small),
                     p, compile_puzzle(p), "N+RGD", 120.0, solver))
                 assert solver == ["device"]
+                settle_launches()
                 rose = LAUNCHES["visited_set.fingerprint_dedup_insert"] > before
                 assert rose == (d is dev)
             assert plans[0] == plans[1] and p.is_valid_plan(plans[0]), name
@@ -1437,31 +1440,37 @@ def _assert_same_search(a, b, where):
     assert keys(a) == keys(b), where
 
 
-@pytest.mark.parametrize("name,depth,lazy", [("spill_grid", 0, False), ("heur/trivial_tool", 1, True)])
-def test_graphed_run_chunk_equals_eager_and_cpu(dev, name, depth, lazy):
-    """spill_grid's 128-slot ring compacts, evicts and solves inside the
-    chunks; the graphed chunks, the eager loop on the card and run_chunk on
-    the CPU leave the same search.  (A 2^16-slot visited set: in a crowded
-    table a same-round slot race can end in probe exhaustion on one side
-    only, ROADMAP queue 3.)"""
-    from pushworld_tpu_torch.search import batched, chunk_graph
+# spill_grid's 128-slot ring compacts from the second iteration on, evicts
+# from the ninth and solves in the 23rd: chunks of 1 and 5 straddle the
+# solve, a chunk of 128 holds it.
+@pytest.mark.parametrize("name,depth,lazy,k", [("spill_grid", 0, False, 1), ("spill_grid", 0, False, 5),
+                                                ("spill_grid", 0, False, 128), ("heur/trivial_tool", 1, True, 5)])
+def test_graphed_run_chunk_equals_eager_and_cpu(dev, name, depth, lazy, k):
+    """A chunk of k runs k iterations: the device-side loop, k eager
+    iterations on the card and run_chunk(k) on the CPU leave the same search
+    after every chunk, and the loop ran at most one closed body a launch.
+    (A 2^16-slot visited set: in a crowded table a same-round slot race can
+    end in probe exhaustion on one side only, ROADMAP queue 3.)"""
+    from pushworld_tpu_torch.search import batched
 
     pl_g, pl_e, pl_c = (_planner_on(name, d, depth, lazy, visited_bits=16) for d in (dev, dev, "cpu"))
     s_g, s_e, s_c = pl_g.init_state(), pl_e.init_state(), pl_c.init_state()
-    G = chunk_graph.graph_iters(depth)
-    per_chunk = -(-5 // G) * G  # a chunk of 5 is ceil(5 / G) replays of G iterations
-    for k in range(6):
-        batched.run_chunk(pl_g.cp_dev, pl_g.tables, pl_g.config, s_g, 5)
-        for _ in range(per_chunk):
+    chunks = -(-30 // k)
+    for c in range(chunks):
+        batched.run_chunk(pl_g.cp_dev, pl_g.tables, pl_g.config, s_g, k)
+        for _ in range(k):
             batched._iterate(pl_e.cp_dev, pl_e.tables, pl_e.config, s_e)
-        batched.run_chunk(pl_c.cp_dev, pl_c.tables, pl_c.config, s_c, per_chunk)
+        batched.run_chunk(pl_c.cp_dev, pl_c.tables, pl_c.config, s_c, k)
         torch.cuda.synchronize()
-        _assert_same_search(s_g, s_e, f"chunk {k}: graphed vs eager")
-        _assert_same_search(s_g, s_c, f"chunk {k}: card vs CPU")
-    assert s_g.graph is not None and s_g.graph.iters == G and s_g.graph.nodes > 0
+        _assert_same_search(s_g, s_e, f"chunk {c}: graphed vs eager")
+        _assert_same_search(s_g, s_c, f"chunk {c}: card vs CPU")
+    g = s_g.graph
+    assert g is not None and g.nodes > 0 and set(g.node_types) <= {"kernel", "memset", "memcpy", "empty", "graph"}
+    assert int(s_g.iterations) <= int(g.bodies) <= int(s_g.iterations) + chunks
     assert bool(s_g.solved) and pl_g.puzzle.is_valid_plan(batched.reconstruct_plan(s_g))
     if name == "spill_grid":
         assert int(s_g.evictions) > 0
+        assert k == 128 or int(s_g.iterations) > k
 
 
 # An iteration's eight hand-kernel launches (the compaction deletes its drops
@@ -1471,53 +1480,169 @@ ITERATION_KERNELS = ("frontier.select", "step.expand", "visited_set.fingerprint_
 
 
 def test_graph_replays_add_the_captured_launches(dev):
-    from pushworld_tpu_torch.kernels import LAUNCHES
+    """A body is the eight iteration kernels and chunk.continue; after a
+    settle, LAUNCHES has risen by the bodies run times one of each."""
+    from pushworld_tpu_torch.kernels import LAUNCHES, settle_launches
     from pushworld_tpu_torch.search import batched, chunk_graph
 
     pl = _planner_on("spill_grid", dev, 0, history_capacity=1 << 14)
     s = pl.init_state()
     g = chunk_graph.attach(pl.cp_dev, pl.tables, pl.config, s)
-    fused = "visited_set.fingerprint_dedup_insert"
-    assert g.launches[fused] == g.iters and "visited_set.probe_delete" not in g.launches
-    assert g.launches == {k: g.iters for k in ITERATION_KERNELS}  # one launch each an iteration, nothing else
-    before = dict(LAUNCHES)
-    batched.run_chunk(pl.cp_dev, pl.tables, pl.config, s, 3 * g.iters)
-    torch.cuda.synchronize()
+    assert g.launches == {k: 1 for k in ITERATION_KERNELS + ("chunk.continue",)}
+    settle_launches()
+    before, bodies = dict(LAUNCHES), int(g.bodies)
+    batched.run_chunk(pl.cp_dev, pl.tables, pl.config, s, 7)
+    batched.run_chunk(pl.cp_dev, pl.tables, pl.config, s, 3)
+    settle_launches()
+    ran = int(g.bodies) - bodies
+    assert ran == 10 == int(s.iterations)  # the search is active for 23 iterations
     for k, n in g.launches.items():
-        assert LAUNCHES[k] - before.get(k, 0) == 3 * n, k
+        assert LAUNCHES[k] - before.get(k, 0) == n * ran, k
+    settle_launches()
+    assert all(LAUNCHES[k] - before.get(k, 0) == n * ran for k, n in g.launches.items())  # nothing twice
     assert s.graph is g  # the same state, tables and configuration: no new capture
+
+
+def test_a_chunk_on_an_ended_search_runs_one_body(dev):
+    from pushworld_tpu_torch.kernels import LAUNCHES, settle_launches
+    from pushworld_tpu_torch.search import batched
+
+    pl = _planner_on("spill_grid", dev, 0, history_capacity=1 << 14)
+    s = pl.init_state()
+    batched.run_chunk(pl.cp_dev, pl.tables, pl.config, s, 128)  # solves inside
+    settle_launches()
+    assert bool(s.solved)
+    iterations, bodies, before = int(s.iterations), int(s.graph.bodies), dict(LAUNCHES)
+    assert bodies == iterations  # a solve stops the loop at once
+    for _ in range(3):
+        batched.run_chunk(pl.cp_dev, pl.tables, pl.config, s, 128)
+    settle_launches()
+    assert int(s.iterations) == iterations and int(s.graph.bodies) == bodies + 3
+    assert all(LAUNCHES[k] - before.get(k, 0) == 3 for k in ITERATION_KERNELS + ("chunk.continue",))
+
+
+def test_a_chunk_of_300_is_three_launches_and_honours_a_deadline(dev, monkeypatch):
+    import types
+
+    from pushworld_tpu_torch.search import batched, chunk_graph
+
+    pl = _planner_on("spill_grid", dev, 0, frontier_capacity=1 << 10, history_capacity=1 << 16)
+    s = pl.init_state()
+    g = chunk_graph.attach(pl.cp_dev, pl.tables, pl.config, s)
+    bounds = []
+    real = chunk_graph.ChunkGraph.replay
+
+    def replay(self, bound):
+        bounds.append(bound)
+        return real(self, bound)
+
+    monkeypatch.setattr(chunk_graph.ChunkGraph, "replay", replay)
+    batched.run_chunk(pl.cp_dev, pl.tables, pl.config, s, 300)
+    assert bounds == [128, 128, 44]
+    # A deadline: the clock is read before each launch.  Past at the first:
+    # no launch; past after the first: one.
+    clock = types.SimpleNamespace(now=10.0)
+    monkeypatch.setattr(chunk_graph, "time", types.SimpleNamespace(monotonic=lambda: clock.now))
+    bounds.clear()
+    batched.run_chunk(pl.cp_dev, pl.tables, pl.config, s, 300, deadline=5.0)
+    assert bounds == []
+    clock.now = 0.0
+
+    def late_replay(self, bound):
+        clock.now = 10.0
+        return replay(self, bound)
+
+    monkeypatch.setattr(chunk_graph.ChunkGraph, "replay", late_replay)
+    batched.run_chunk(pl.cp_dev, pl.tables, pl.config, s, 300, deadline=5.0)
+    assert bounds == [128]
+    torch.cuda.synchronize()
+    assert s.graph is g
+
+
+def test_chunk_continue_kernel_equals_plain_version(dev):
+    """The kernel launched alone (no loop handle) over a sweep of inputs:
+    flag, counter and body count as the plain version gives them."""
+    import itertools
+
+    from pushworld_tpu_torch.search.chunk_graph import chunk_continue, chunk_continue_reference
+
+    limit = 1000
+    for gate, solved, cursor, counter, bound in itertools.product(
+            (False, True), (False, True), (limit - 1, limit, limit + 1), (0, 1, 126, 127, 128), (1, 2, 128)):
+        t = [torch.tensor(gate, device=dev), torch.tensor(solved, device=dev),
+             torch.tensor(cursor, dtype=torch.int32, device=dev), torch.tensor(counter, dtype=torch.int32, device=dev),
+             torch.tensor(bound, dtype=torch.int32, device=dev)]
+        want, want_counter = chunk_continue_reference(*[x.cpu() for x in t], limit)
+        flag = torch.full((), 7, dtype=torch.int32, device=dev)
+        bodies = torch.full((), 41, dtype=torch.int64, device=dev)
+        chunk_continue(*t[:4], t[4], limit, flag, bodies)
+        torch.cuda.synchronize()
+        assert (int(flag), int(t[3]), int(bodies)) == (int(want), int(want_counter), 42), (gate, solved, cursor,
+                                                                                          counter, bound)
+
+
+def test_card_solve_at_the_default_chunk_equals_cpu(dev):
+    """heur/aw_tool_corridor at depth 0: read every 1-3 iterations, its
+    status escalated the search to depth 1; at the default chunk (JAX's 128)
+    it does not escalate, on the card as on the CPU."""
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.search.batched import BatchedPlanner
+
+    p = Puzzle.from_file(os.path.join(PUZZLES, "heur", "aw_tool_corridor.pwp"))
+    small = dict(expand=32, frontier_capacity=1 << 10, visited_bits=14, history_capacity=1 << 14, pair_bits=12)
+    runs = []
+    for d in (dev, "cpu"):
+        pl = BatchedPlanner(p, max_depth=0, device=d, **small)
+        plan = pl.solve(time_limit=60)
+        runs.append((plan, pl.max_depth, int(pl.last_state.iterations), int(pl.last_state.expansions)))
+    assert runs[0] == runs[1] and runs[0][1] == 0 and p.is_valid_plan(runs[0][0])
+
+
+def _in_a_process(code):
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=300)
+
+
+_LOOP_WITH_A_BROKEN_BODY = """if True:
+    import torch
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.search import batched, chunk_graph
+    p = Puzzle.from_file("tests/puzzles/spill_grid.pwp")
+    pl = batched.BatchedPlanner(p, max_depth=0, expand=16, frontier_capacity=1 << 7, visited_bits=12,
+                                history_capacity=1 << 12, pair_bits=12, device="cuda")
+    s = pl.init_state()
+    real = chunk_graph._iterate
+    def broken(cp, t, cfg, s):
+        BROKEN
+        return real(cp, t, cfg, s)
+    chunk_graph._iterate = broken
+    try:
+        batched.run_chunk(pl.cp_dev, pl.tables, pl.config, s, 4)
+    except RuntimeError as e:
+        print("raised:", isinstance(e, RuntimeError), int(s.iterations), str(e)[:300])
+    else:
+        print("did not raise")
+"""
 
 
 def test_a_failed_capture_raises(dev):
     """A host read inside the captured iteration invalidates the capture:
     run_chunk raises and falls back to nothing.  In a process of its own, as
     PyTorch's own tests run capture errors."""
-    import subprocess
-    import sys
-
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    code = """if True:
-        import torch
-        from pushworld_tpu_torch.core.puzzle import Puzzle
-        from pushworld_tpu_torch.search import batched, chunk_graph
-        p = Puzzle.from_file("tests/puzzles/spill_grid.pwp")
-        pl = batched.BatchedPlanner(p, max_depth=0, expand=16, frontier_capacity=1 << 7, visited_bits=12,
-                                    history_capacity=1 << 12, pair_bits=12, device="cuda")
-        s = pl.init_state()
-        real = chunk_graph._iterate
-        def reading(cp, t, cfg, s):
-            int(s.hist_cursor)  # a host read
-            return real(cp, t, cfg, s)
-        chunk_graph._iterate = reading
-        try:
-            batched.run_chunk(pl.cp_dev, pl.tables, pl.config, s, 4)
-        except RuntimeError as e:
-            print("raised:", isinstance(e, RuntimeError), int(s.iterations))
-        else:
-            print("did not raise")
-    """
-    run = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=300)
+    run = _in_a_process(_LOOP_WITH_A_BROKEN_BODY.replace("BROKEN", "int(s.hist_cursor)  # a host read"))
     assert "raised: True 0" in run.stdout, (run.stdout, run.stderr[-3000:])
+
+
+def test_a_loop_whose_body_the_card_refuses_raises(dev):
+    """An event record node in the captured body (a node type a conditional
+    body does not take): building the loop raises, with the body's node
+    types, and nothing runs.  In a process of its own."""
+    run = _in_a_process(_LOOP_WITH_A_BROKEN_BODY.replace(
+        "BROKEN", "torch.cuda.Event(external=True).record()  # an event record node"))
+    assert "raised: True 0" in run.stdout and "event_record" in run.stdout, (run.stdout, run.stderr[-3000:])
 
 
 def test_a_chunk_returns_before_the_card_finishes(dev):
