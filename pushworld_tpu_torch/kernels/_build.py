@@ -56,7 +56,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "pw_frontier_select": [_vp] * 5 + [_i] + [_vp] * 5 + [_i] * 3 + [_vp],
         "pw_frontier_select_scratch_words": [_i, _i],
         "pw_frontier_compact": [_vp] * 7 + [_u] + [_vp] * 5 + [_i] * 4 + [_vp],
-        "pw_frontier_append": [_vp] * 25 + [_i] * 10 + [_vp],
+        "pw_frontier_append": [_vp] * 25 + [_i] * 10 + [_vp, _ull, _i, _vp],
     },
     "novelty": {
         "pw_novelty_score_records": [_vp] * 7 + [_i] * 5 + [_vp],
@@ -66,9 +66,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "pw_novelty_max_objects": [],
     },
     "chunk_loop": {
-        "pw_chunk_continue": [_vp] * 5 + [_i, _vp, _vp, _ull, _vp],
         "pw_chunk_loop_new": [_vp, _vp],
-        "pw_chunk_loop_build": [_vp] * 4 + [_i],
+        "pw_chunk_loop_build": [_vp] * 3 + [_i],
         "pw_chunk_loop_launch": [_vp, _i, _vp],
         "pw_chunk_loop_free": [_vp],
     },

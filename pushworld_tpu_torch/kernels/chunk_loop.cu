@@ -9,14 +9,15 @@
 // PyTorch captures into a CUDA graph (search/chunk_graph.py); this file turns
 // that graph into a loop:
 //
-//   outer graph:  [memset counter = 0] [memset bound = b] -> WHILE(handle)
-//   WHILE body:   child graph (the captured iteration, then chunk_continue)
+//   outer graph:  [memset remaining = b] -> WHILE(handle)
+//   WHILE body:   child graph (the captured iteration)
 //
 // The handle's default is 1, applied at every launch
-// (cudaGraphCondAssignDefault), so a launch runs at least one body.
-// chunk_continue_kernel, one thread, is the body's last node:
+// (cudaGraphCondAssignDefault), so a launch runs at least one body.  The
+// iteration's last kernel, the append (frontier.cu), ends each body with
+// the loop's tail:
 //
-//   c = gate && !solved && hist_cursor < limit && ++counter < bound
+//   c = gate && !solved && hist_cursor < limit && --remaining > 0
 //
 // `gate` is the select kernel's gate of this iteration (JAX's `active`: not
 // solved, a live frontier entry, history below its limit), `solved` and
@@ -24,22 +25,15 @@
 // loop at once; a frontier that empties costs one more body, whose gate is
 // closed (an exact no-op); a launch on a search that has already ended runs
 // that one no-op body.  The state after a launch is the state after JAX's
-// fori_loop of `bound` iterations.  The kernel writes c to `flag`, adds one
-// to `bodies` (the host folds bodies x the body's kernels into its launch
-// counts) and, where handle is not 0, sets the loop's condition to c.
-// Launched alone (handle 0) it only writes flag, counter and bodies, so it
-// can be held against its plain version
-// (chunk_graph.chunk_continue_reference).
+// fori_loop of `bound` iterations.  The tail writes c to the loop's flag,
+// adds one to its body count (the host folds bodies x the body's kernels
+// into its launch counts) and sets the loop's condition to c.
 //
-// Bound: launches.  The kernel reads 22 bytes and writes 16; the loop adds
-// its body's relaunch.  Its design keeps the decision on the device: no
-// status reaches the host inside a chunk, and the host launches one graph
-// per chunk of up to 128 iterations instead of one per iteration.
-//
-// The bound is a device scalar written by the outer graph's second memset
-// node, whose value is updated in the executable graph
-// (cudaGraphExecMemsetNodeSetParams) only when a launch asks for another
-// one: no host read, no new instantiation.
+// The loop's scalars are one 16-byte device block (frontier.cu's
+// LoopScalars: remaining, flag, bodies).  The outer graph's one memset node
+// sets `remaining` to the launch's bound; its value is updated in the
+// executable graph (cudaGraphExecMemsetNodeSetParams) only when a launch
+// asks for another bound: no host read, no new instantiation.
 //
 // Every host function returns CUDA's error code (0 on success).
 
@@ -48,28 +42,12 @@
 
 namespace {
 
-__global__ void chunk_continue_kernel(const uint8_t* __restrict__ gate, const uint8_t* __restrict__ solved,
-                                      const int* __restrict__ hist_cursor, int* __restrict__ counter,
-                                      const int* __restrict__ bound, int limit, int* __restrict__ flag,
-                                      long long* __restrict__ bodies, cudaGraphConditionalHandle handle) {
-  // Every input is loaded before any is tested (no short-circuit): one
-  // round trip to memory, not a chain of them.
-  const bool open = *gate, done = *solved;
-  const int cursor = *hist_cursor, next = *counter + 1, last = *bound;
-  const long long ran = *bodies;
-  const bool c = open & !done & (cursor < limit) & (next < last);
-  *counter = next;
-  *flag = c;
-  *bodies = ran + 1;
-  if (handle) cudaGraphSetConditional(handle, c);
-}
-
 struct ChunkLoop {
   cudaGraph_t graph = nullptr;
   cudaGraphExec_t exec = nullptr;
   cudaGraphNode_t bound_node = nullptr;
   cudaGraphConditionalHandle handle = 0;
-  int* bound = nullptr;
+  int* remaining = nullptr;
   int bound_value = 0;
 };
 
@@ -85,22 +63,9 @@ cudaMemsetParams scalar_memset(void* dst, unsigned int value) {
 
 }  // namespace
 
-// The kernel alone, or as captured into the loop's body (handle != 0).
-// gate, solved: bool scalars; hist_cursor, counter, bound, flag: int32
-// scalars; bodies: an int64 scalar; all on the device.
-extern "C" int pw_chunk_continue(const void* gate, const void* solved, const void* hist_cursor, void* counter,
-                                 const void* bound, int limit, void* flag, void* bodies,
-                                 unsigned long long handle, void* stream) {
-  chunk_continue_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(gate), static_cast<const uint8_t*>(solved),
-      static_cast<const int*>(hist_cursor), static_cast<int*>(counter), static_cast<const int*>(bound), limit,
-      static_cast<int*>(flag), static_cast<long long*>(bodies), handle);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // A new loop: its outer graph and its condition handle (default 1, set at
-// every launch).  The handle goes into the body's chunk_continue launch,
-// which is captured before pw_chunk_loop_build.
+// every launch).  The handle goes into the body's append launch (its loop
+// tail), which is captured before pw_chunk_loop_build.
 extern "C" int pw_chunk_loop_new(void** loop_out, unsigned long long* handle_out) {
   ChunkLoop* loop = new ChunkLoop();
   cudaError_t err = cudaGraphCreate(&loop->graph, 0);
@@ -117,25 +82,21 @@ extern "C" int pw_chunk_loop_new(void** loop_out, unsigned long long* handle_out
 }
 
 // Builds and instantiates the outer graph around `body` (a CUgraph, cloned
-// into the WHILE node's body as a child graph).  counter, bound: int32
-// scalars on the device.
-extern "C" int pw_chunk_loop_build(void* loop_ptr, void* body, void* counter, void* bound, int bound_value) {
+// into the WHILE node's body as a child graph).  remaining: the int32
+// countdown (the first word of the loop's scalars) on the device.
+extern "C" int pw_chunk_loop_build(void* loop_ptr, void* body, void* remaining, int bound_value) {
   ChunkLoop* loop = static_cast<ChunkLoop*>(loop_ptr);
   if (loop->exec || bound_value < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaGraphNode_t reset, set_bound, while_node, child;
-  cudaMemsetParams p = scalar_memset(counter, 0);
-  cudaError_t err = cudaGraphAddMemsetNode(&reset, loop->graph, nullptr, 0, &p);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  p = scalar_memset(bound, static_cast<unsigned int>(bound_value));
-  err = cudaGraphAddMemsetNode(&set_bound, loop->graph, nullptr, 0, &p);
+  cudaGraphNode_t set_bound, while_node, child;
+  cudaMemsetParams p = scalar_memset(remaining, static_cast<unsigned int>(bound_value));
+  cudaError_t err = cudaGraphAddMemsetNode(&set_bound, loop->graph, nullptr, 0, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaGraphNodeParams cond = {};
   cond.type = cudaGraphNodeTypeConditional;
   cond.conditional.handle = loop->handle;
   cond.conditional.type = cudaGraphCondTypeWhile;
   cond.conditional.size = 1;
-  const cudaGraphNode_t deps[2] = {reset, set_bound};
-  err = cudaGraphAddNode(&while_node, loop->graph, deps, 2, &cond);
+  err = cudaGraphAddNode(&while_node, loop->graph, &set_bound, 1, &cond);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaGraphAddChildGraphNode(&child, cond.conditional.phGraph_out[0], nullptr, 0,
                                    static_cast<cudaGraph_t>(body));
@@ -146,7 +107,7 @@ extern "C" int pw_chunk_loop_build(void* loop_ptr, void* body, void* counter, vo
     return static_cast<int>(err);
   }
   loop->bound_node = set_bound;
-  loop->bound = static_cast<int*>(bound);
+  loop->remaining = static_cast<int*>(remaining);
   loop->bound_value = bound_value;
   return 0;
 }
@@ -156,7 +117,7 @@ extern "C" int pw_chunk_loop_launch(void* loop_ptr, int bound, void* stream) {
   ChunkLoop* loop = static_cast<ChunkLoop*>(loop_ptr);
   if (!loop->exec || bound < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (bound != loop->bound_value) {
-    cudaMemsetParams p = scalar_memset(loop->bound, static_cast<unsigned int>(bound));
+    cudaMemsetParams p = scalar_memset(loop->remaining, static_cast<unsigned int>(bound));
     cudaError_t err = cudaGraphExecMemsetNodeSetParams(loop->exec, loop->bound_node, &p);
     if (err != cudaSuccess) return static_cast<int>(err);
     loop->bound_value = bound;

@@ -102,9 +102,10 @@
 // tail of dependent reads in thread 0).  CTA c owns
 // the lanes [c * per, c * per + per), per = ceil(nb / 8), one a thread (in
 // rounds above 512).  The gate is read alone first, so a closed gate costs
-// one load and writes nothing.  Then every load that does not wait on
-// another (the cursors, the counters, the lane's inputs, the first vectors
-// of the state copy), through the read-only path.  The ranks: a ballot of
+// one load and writes nothing but the loop tail's scalars.  Then every
+// load that does not wait on another (the cursors, the counters, the
+// lane's inputs, the first vectors of the state copy), through the
+// read-only path.  The ranks: a ballot of
 // the new lanes a warp (rank = carry + the warp's offset + popc(ballot &
 // lanes below)), of the new goals and of the deeper flags; one CTA
 // barrier; warp 0 scans the words, finds the tile's first new goal and its
@@ -120,6 +121,19 @@
 // CTAs, each counting the new lanes below it, were tried in PR 11 and
 // cannot order those reads before that write.  No device counter and no
 // cooperative launch: it captures into a CUDA graph as any launch.
+//
+// The loop tail: the end of a search chunk loop's body (chunk_loop.cu), the
+// counterpart of JAX's run_chunk fori_loop count and its lax.cond on `active`
+// (pushworld_tpu/search/batched.py:646-655).  Where the caller passes a
+// loop's scalars, the writer thread (CTA 0, thread 0) decides whether the
+// loop runs another body, from the values it has just written and still holds
+// in registers (no reload of what another CTA may be writing):
+//   c = gate && !solved && hist_cursor < loop_limit && --remaining > 0
+// and writes remaining, the flag c and bodies + 1, and sets the loop's
+// condition to c.  On a closed gate it does so too, before it returns (c =
+// 0): the condition's default (1) is applied once a launch, so a closed body
+// that left it would loop for ever.  Folded into the append, the body's last
+// kernel, the decision costs no kernel node of its own.
 //
 // Order of effects: JAX appends the history, then compacts, then writes
 // the window.  History and compaction touch disjoint arrays, so the search
@@ -836,6 +850,14 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1) 
 
 // ---------------------------------------------------------------- append
 
+// A search chunk loop's scalars (search/chunk_graph.py), which the loop's
+// launch and the append's tail update: one 16-byte device block.
+struct LoopScalars {
+  int remaining;     // bodies this launch may still run, this one included (the launch's memset sets the bound)
+  int flag;          // whether the loop runs another body
+  long long bodies;  // bodies run
+};
+
 struct Append {
   const uint8_t* gate;        // scalar or null: open
   const uint8_t* is_new;      // (nb,)
@@ -862,6 +884,9 @@ struct Append {
   int* expansions;
   int* needs_deeper;
   int* hist_idx;              // (nb,) out
+  LoopScalars* loop;          // the search chunk loop's scalars, or null: no loop tail
+  unsigned long long handle;  // the loop's condition (a cudaGraphConditionalHandle), or 0: none
+  int loop_limit;             // the history cursor's limit of an active iteration
   int nb, B, n, F, hcap, margin, use_novelty, phist_len, rgd_len, n_sel;
   int per;                    // lanes a CTA owns: CTA c owns [c * per, min(nb, c * per + per))
   int rounds;                 // ceil(per / blockDim.x)
@@ -904,6 +929,20 @@ struct TileSums {
 __device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory"); }
 __device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory"); }
 
+// The loop's tail (one thread): the loop runs another body when this one's
+// gate was open, the search is not solved, the history is below its limit
+// and the launch has bodies left.  `left` is the countdown after this body,
+// `ran` the bodies run before it; the state the tail reads is the append's
+// own result, held in registers.
+__device__ __forceinline__ void loop_tail(const Append& a, bool open, bool solved, int cursor, int left,
+                                          long long ran) {
+  const bool c = open & !solved & (cursor < a.loop_limit) & (left > 0);
+  a.loop->remaining = left;
+  a.loop->flag = c;
+  a.loop->bodies = ran + 1;
+  if (a.handle) cudaGraphSetConditional(a.handle, c);
+}
+
 // The append: a cluster of kCluster CTAs, CTA c owning the lanes
 // [c * per, c * per + per) in rounds of blockDim.x, lane order within a CTA
 // (round, warp, lane).  kOne: one round, whose inputs stay in registers
@@ -923,21 +962,36 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kAppendThread
   unsigned* word_off = words + 3 * NW;
   const int lo = c * a.per, hi = min(a.nb, lo + a.per);
 
-  // The gate alone first: a closed one returns before any other load.
-  if (a.gate != nullptr && !*a.gate) return;  // every CTA alike, before any barrier
-  // Then every load that does not wait on another: the cursors, the
-  // writer's counters, round 0's lane inputs, the first vectors of the
-  // state copy, sel_valid.
-  const int cursor0 = *a.hist_cursor, ring0 = *a.ring_cursor;
   const bool writer = c == 0 && tid == 0;
-  bool solved0 = true;
-  int it0 = 0, ex0 = 0, nd0 = 0;
+  // The gate alone first: a closed one returns before any other load,
+  // every CTA alike, before any barrier; the loop's tail still runs (the
+  // condition's default is applied once a launch, not once a body).
+  if (a.gate != nullptr && !*a.gate) {
+    if (writer && a.loop != nullptr) {
+      const LoopScalars l = *a.loop;
+      loop_tail(a, false, true, 0, l.remaining - 1, l.bodies);
+    }
+    return;
+  }
+  // Then every load that does not wait on another: the cursors, the
+  // writer's counters and loop scalars, round 0's lane inputs, the first
+  // vectors of the state copy, sel_valid.
+  const int cursor0 = *a.hist_cursor, ring0 = *a.ring_cursor;
+  bool solved_in = true;
+  int it0 = 0, ex0 = 0, nd0 = 0, left = 0;
+  long long ran = 0;
   if (writer) {
-    solved0 = a.goal == nullptr || *a.solved;
+    solved_in = *a.solved;
     it0 = *a.iterations;
     ex0 = *a.expansions;
     nd0 = a.deeper != nullptr ? *a.needs_deeper : 0;
+    if (a.loop != nullptr) {
+      const LoopScalars l = *a.loop;
+      left = l.remaining - 1;
+      ran = l.bodies;
+    }
   }
+  const bool solved0 = a.goal == nullptr || solved_in;  // no goal resolution: as if solved
   const int l0 = lo + tid;
   const LaneIn in0 = l0 < hi ? load_lane(a, l0) : LaneIn{};
   constexpr int kVec = sizeof(V) / 4;  // ints a vector
@@ -1051,7 +1105,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kAppendThread
     const int goal_idx = cursor0 + __shfl_sync(kFull, incl - mine.n_new + mine.goal_rank, first);
     if (writer) {
       const int cap = a.hcap - a.margin;
-      *a.hist_cursor = cursor0 + n_new < cap ? cursor0 + n_new : cap;
+      const int cursor = cursor0 + n_new < cap ? cursor0 + n_new : cap;
+      *a.hist_cursor = cursor;
       *a.ring_cursor = ring0 + a.nb;
       if (!solved0) {
         *a.solved_hist = goals ? goal_idx : 0;
@@ -1060,6 +1115,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kAppendThread
       *a.iterations = it0 + 1;
       *a.expansions = ex0 + n_sel;
       if (a.deeper != nullptr) *a.needs_deeper = nd0 + n_deeper;
+      if (a.loop != nullptr) loop_tail(a, true, solved_in || (!solved0 && goals), cursor, left, ran);
     }
   }
 
@@ -1219,6 +1275,9 @@ extern "C" int pw_frontier_compact(void* h, void* states, void* fhist, void* fke
 
 // Appends nb scored children (see the header); goal and deeper may be null,
 // actions null means lane / B.  children and states are 8-byte aligned.
+// loop (8-byte aligned; null: no tail) is a search chunk loop's LoopScalars,
+// handle its condition (0: none; then only the scalars are written),
+// loop_limit the history cursor's limit of an active iteration.
 extern "C" int pw_frontier_append(const void* gate, const void* is_new, const void* phist, const void* actions,
                                   const void* goal, const void* nov, const void* rgd, const void* deeper,
                                   const void* sel_valid, const void* children, const void* keys, void* h,
@@ -1226,10 +1285,12 @@ extern "C" int pw_frontier_append(const void* gate, const void* is_new, const vo
                                   void* hist_action, void* hist_cursor, void* solved, void* solved_hist,
                                   void* iterations, void* expansions, void* needs_deeper, void* hist_idx, int nb,
                                   int B, int n, int F, int hcap, int margin, int use_novelty, int phist_len,
-                                  int rgd_len, int n_sel, void* stream) {
+                                  int rgd_len, int n_sel, void* loop, unsigned long long handle, int loop_limit,
+                                  void* stream) {
   if (nb < 1 || B < 1 || n < 1 || F < 1 || hcap < 1 || phist_len < 1 || rgd_len < 1 || n_sel < 0 ||
       nb % phist_len != 0 || nb % rgd_len != 0 || nb > (1 << 26) / n ||
-      (reinterpret_cast<uintptr_t>(children) | reinterpret_cast<uintptr_t>(states)) % 8 != 0)
+      (reinterpret_cast<uintptr_t>(children) | reinterpret_cast<uintptr_t>(states)) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(loop) % 8 != 0 || (handle != 0 && loop == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const AppendShape shape = append_shape(nb);
   if (shape.smem > kMaxSmem - kAppendStatic) return static_cast<int>(cudaErrorInvalidValue);
@@ -1245,8 +1306,9 @@ extern "C" int pw_frontier_append(const void* gate, const void* is_new, const vo
            static_cast<int*>(hist_cursor),         static_cast<uint8_t*>(solved),
            static_cast<int*>(solved_hist),         static_cast<int*>(iterations),
            static_cast<int*>(expansions),          static_cast<int*>(needs_deeper),
-           static_cast<int*>(hist_idx),            nb, B, n, F, hcap, margin, use_novelty, phist_len, rgd_len,
-           n_sel, shape.per, shape.rounds};
+           static_cast<int*>(hist_idx),            static_cast<LoopScalars*>(loop),
+           handle,                                 loop_limit,
+           nb, B, n, F, hcap, margin, use_novelty, phist_len, rgd_len, n_sel, shape.per, shape.rounds};
   const bool wide = n % 2 == 0 && (reinterpret_cast<uintptr_t>(children) | reinterpret_cast<uintptr_t>(states)) % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

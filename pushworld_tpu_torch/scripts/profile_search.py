@@ -13,13 +13,15 @@ CUDA events: torch.profiler traces only the first body of a loop, so the
 device time of the chunk's iterations comes from the same iterations run
 eagerly on a third state under the profiler.  Prints one JSON line: the
 table-build time; for the eager loop the host-clock time per iteration
-(under the profiler), the device-busy share (summed kernel time over the
-wall time), kernels per iteration and how many of the iterations were
-active (their gate open); for the chunk, the bodies it ran, ms per
-iteration (events), the device time of the iteration's kernels per
-iteration, the busy share (that over the events' time) and the loop's own
-cost per iteration (the rest), the host's time for the call, the body's
-nodes and capture and build seconds; the kernels with the most device time
+(under the profiler), the device-busy share (the union of the trace's
+device intervals over the wall time: an iteration's branches run side by
+side on the card; the summed kernel time beside it), kernels per iteration
+and how many of the iterations were active (their gate open); for the
+chunk, the bodies it ran, ms per iteration (events), the device time of the
+iteration's kernels per iteration (the union), the busy share (that over
+the events' time) and the loop's own cost per iteration (the rest), the
+host's time for the call, the body's nodes, node types and longest
+dependent chain, and capture and build seconds; the kernels with the most device time
 in the eager loop; a chunk of the default length
 (``batched.chunk_length``) on a search that has ended: its bodies, ms
 (events) and device time; the same eager loop with the gate closed (the
@@ -112,10 +114,12 @@ def main(argv=None) -> int:
         # Kernel rows carry the device time once; operator rows repeat it.
         avgs = prof.key_averages()
         kernels = [e for e in avgs if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-        busy_us = sum(dev_us(e) for e in kernels)
+        busy_us = union_us((e.time_range.start, e.time_range.end) for e in prof.events()
+                            if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
         row = {"iters": iters, "ms_per_iter": wall_s / iters * 1e3,
                "device_busy_share": busy_us / (wall_s * 1e6),
                "device_ms_per_iter": busy_us / 1e3 / iters,
+               "summed_device_ms_per_iter": sum(dev_us(e) for e in kernels) / 1e3 / iters,
                "kernels_per_iter": sum(e.count for e in kernels) / iters,
                "hand_kernel_launches": dict(LAUNCHES)}
         return row, avgs
@@ -150,8 +154,8 @@ def main(argv=None) -> int:
     eager_row["active_iters"] = int(eager_s.iterations) - counted  # the others had their gate closed
     # The chunk, and the same iterations run eagerly on a twin state under
     # the profiler: the device time of the iteration's kernels.  What the
-    # chunk takes beyond it is the loop's own cost (the body's relaunch,
-    # chunk_continue, the gaps between dependent kernels) or, on a tree
+    # chunk takes beyond it is the loop's own cost (the body's relaunch, the
+    # gaps between dependent kernels) or, on a tree
     # that replays graphs, the host's replays.
     counted = int(graphed_s.iterations)
     chunk = timed_chunk(graphed_s, g, args.chunk)
@@ -165,7 +169,8 @@ def main(argv=None) -> int:
         "loop_cost_ms_per_iter": chunk["ms"] / n - twin_row["device_ms_per_iter"],
         "same_search_as_eager": (int(twin_s.iterations), int(twin_s.expansions))
         == (int(graphed_s.iterations), int(graphed_s.expansions)),
-        "nodes": g.nodes, "node_types": getattr(g, "node_types", None), "capture_s": g.capture_s,
+        "nodes": g.nodes, "node_types": getattr(g, "node_types", None),
+        "longest_chain": getattr(g, "longest_chain", None), "capture_s": g.capture_s,
         "instantiate_s": g.instantiate_s}
     # A chunk of the default length on a search that has ended.
     ended_s = planner.init_state()
@@ -201,6 +206,16 @@ def main(argv=None) -> int:
         "expansions": {"eager": int(eager_s.expansions), "graphed": int(graphed_s.expansions)},
     }))
     return 0
+
+
+def union_us(intervals) -> float:
+    """Microseconds covered by the union of (start, end) intervals."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
 
 
 def _evicting_compaction(puzzle, depth, dev, frontier, dev_us, reps=20) -> dict:

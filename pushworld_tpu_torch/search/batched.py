@@ -21,8 +21,11 @@ On the card an iteration is eight launches of hand kernels
 (``kernels/frontier.cu``'s select, ``kernels/expand.cu``, the visited set's
 fused fingerprint + dedup + insert, the novelty score and update, the RGD
 heuristic, ``frontier.cu``'s compaction, which deletes its drops from the
-visited set, and ``frontier.cu``'s append); on the CPU each wrapper runs its
-plain version, the JAX package's code (``*_reference``).
+visited set, and ``frontier.cu``'s append); the novelty kernels, RGD and the
+compaction need only what the dedup has finished, so they run as three
+branches side by side (two on side streams, joined before the append).  On
+the CPU each wrapper runs its plain version, the JAX package's code
+(``*_reference``), one after another.
 
 An iteration reads nothing back to the host: as in the JAX package's
 jitted body, it is gated on the device.  The gate (not solved, a live
@@ -41,7 +44,9 @@ iteration it takes the JAX package's steps and stops after the same
 iterations.
 """
 
+import contextlib
 import functools
+import threading
 import time
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional
@@ -387,9 +392,10 @@ def compact_frontier(s: SearchState, nb: int, gate=None) -> None:
 
 
 def append_children_reference(s: SearchState, cfg: SearchConfig, gate, is_new, parent_hist, actions, goal, nov,
-                              rgd, deeper, sel_valid, children, keys, margin: int = 8) -> torch.Tensor:
+                              rgd, deeper, sel_valid, children, keys, margin: int = 8, loop=None) -> torch.Tensor:
     """Plain version of :func:`append_children`: the JAX package's history
-    append, goal resolution, priority keys, window write and counters."""
+    append, goal resolution, priority keys, window write and counters, then
+    the loop's tail where ``loop`` is given (``chunk_graph.chunk_continue``)."""
     nb, dev = is_new.shape[0], is_new.device
     phist = parent_hist.repeat(nb // parent_hist.shape[0])
     if actions is None:
@@ -411,11 +417,16 @@ def append_children_reference(s: SearchState, cfg: SearchConfig, gate, is_new, p
     s.expansions.add_(sel_valid.sum(dtype=torch.int32))
     if deeper is not None:
         s.needs_deeper.add_((deeper.repeat(nb // deeper.shape[0]) & is_new).sum(dtype=torch.int32))
+    if loop is not None:
+        from pushworld_tpu_torch.search.chunk_graph import chunk_continue
+
+        opened = torch.ones((), dtype=torch.bool, device=dev) if gate is None else gate
+        chunk_continue(opened, s.solved, s.hist_cursor, loop.remaining, loop.limit, loop.flag, loop.bodies)
     return hist_idx
 
 
 def append_children(s: SearchState, cfg: SearchConfig, gate, is_new, parent_hist, actions, goal, nov, rgd,
-                    deeper, sel_valid, children, keys, margin: int = 8) -> torch.Tensor:
+                    deeper, sel_valid, children, keys, margin: int = 8, loop=None) -> torch.Tensor:
     """Appends an iteration's nb scored children, in place: history records
     for the new ones (the cursor stops ``margin`` short of the capacity),
     the first goal among them in lane order, their priority keys (EMPTY for
@@ -430,13 +441,21 @@ def append_children(s: SearchState, cfg: SearchConfig, gate, is_new, parent_hist
     its goals across ranks); ``deeper`` None: needs_deeper is not counted.
     ``gate`` (a bool scalar, or None for open) closes the append.
 
-    On a CUDA tensor one launch of ``frontier.cu``'s append kernel; on a CPU
-    tensor :func:`append_children_reference`.  The two are bit-equal."""
+    ``loop`` (a ``search.chunk_graph.LoopTail``, or None) is a device-side
+    loop's scalars: after the append (or with the gate closed, in its
+    place) its tail decides whether the loop runs another body, from the
+    state the append leaves, and counts the body
+    (``chunk_graph.chunk_continue_reference``); with the loop's handle it
+    also sets the loop's condition.
+
+    On a CUDA tensor one launch of ``frontier.cu``'s append kernel, the tail
+    in it; on a CPU tensor :func:`append_children_reference`.  The two are
+    bit-equal."""
     if not s.frontier_h.is_cuda:
         return append_children_reference(s, cfg, gate, is_new, parent_hist, actions, goal, nov, rgd, deeper,
-                                         sel_valid, children, keys, margin)
+                                         sel_valid, children, keys, margin, loop)
     return _append_cuda(s, cfg, gate, is_new, parent_hist, actions, goal, nov, rgd, deeper, sel_valid, children,
-                        keys, margin)
+                        keys, margin, loop)
 
 
 def _check(name: str, x, dtype, shape, dev) -> None:
@@ -518,7 +537,7 @@ def _compact_cuda(s: SearchState, nb: int, gate) -> None:
 
 
 def _append_cuda(s: SearchState, cfg: SearchConfig, gate, is_new, parent_hist, actions, goal, nov, rgd, deeper,
-                 sel_valid, children, keys, margin: int) -> torch.Tensor:
+                 sel_valid, children, keys, margin: int, loop) -> torch.Tensor:
     _check_state(s)
     F, N = s.frontier_states.shape[:2]
     nb, dev = is_new.shape[0], s.frontier_h.device
@@ -532,6 +551,7 @@ def _append_cuda(s: SearchState, cfg: SearchConfig, gate, is_new, parent_hist, a
         ("sel_valid", sel_valid, torch.bool, sel_valid.shape[:1]), ("children", children, torch.int32, (nb, N, 2)),
         ("keys", keys, torch.int64, (nb,)), ("hist_parent", s.hist_parent, torch.int32, (cfg.history_capacity,)),
         ("hist_action", s.hist_action, torch.int32, (cfg.history_capacity,)), ("solved", s.solved, torch.bool, ()),
+        ("loop.scalars", None if loop is None else loop.scalars, torch.int64, (2,)),
     ):
         _check(name, x, dtype, shape, dev)
     for name in ("ring_cursor", "hist_cursor", "solved_hist", "iterations", "expansions", "needs_deeper"):
@@ -547,20 +567,69 @@ def _append_cuda(s: SearchState, cfg: SearchConfig, gate, is_new, parent_hist, a
             deeper, sel_valid, children, keys, s.frontier_h, s.frontier_states, s.frontier_hist, s.frontier_key,
             s.ring_cursor, s.hist_parent, s.hist_action, s.hist_cursor, s.solved, s.solved_hist, s.iterations,
             s.expansions, s.needs_deeper, hist_idx, nb, cfg.expand, N, F, cfg.history_capacity, margin,
-            int(cfg.use_novelty), parent_hist.shape[0], rgd.shape[0], sel_valid.shape[0])
+            int(cfg.use_novelty), parent_hist.shape[0], rgd.shape[0], sel_valid.shape[0],
+            None if loop is None else loop.scalars, 0 if loop is None else loop.handle,
+            0 if loop is None else loop.limit)
     return hist_idx
 
 
-def _iterate(cp: CompiledPuzzle, t: RGDTables, cfg: SearchConfig, s: SearchState) -> torch.Tensor:
+# Each thread's three side streams a device: the capture stream of a
+# search's loop (search/chunk_graph.py) and the two branches of an
+# iteration.  Made once, together, so that they are three distinct streams
+# of PyTorch's pool; a thread's own, so that a capture on one thread never
+# takes in another thread's launches.
+_THREAD_STREAMS = threading.local()
+
+
+def thread_streams(dev: torch.device):
+    """This thread's (capture, branch, branch) streams on CUDA device ``dev``."""
+    by_device = getattr(_THREAD_STREAMS, "by_device", None)
+    if by_device is None:
+        by_device = _THREAD_STREAMS.by_device = {}
+    streams = by_device.get(dev.index)
+    if streams is None:
+        streams = by_device[dev.index] = tuple(torch.cuda.Stream(dev) for _ in range(3))
+    return streams
+
+
+@contextlib.contextmanager
+def _branches(dev: torch.device):
+    """Two branches beside the current stream's work: yields two contexts,
+    in which launches go to this thread's branch streams, each waiting
+    first for what the current stream has enqueued; at exit the current
+    stream waits for both.  (PyTorch's capture records the waits as edges
+    of the graph.)  On the CPU the contexts do nothing.
+
+    Tensors made on the current stream and read on a branch need no more:
+    the current stream's next work waits for the branches, so their memory
+    is handed out again only after the branches read it.  A tensor made on
+    a branch and read after the join is marked with ``record_stream``."""
+    if dev.type != "cuda":
+        yield contextlib.nullcontext(), contextlib.nullcontext()
+        return
+    main = torch.cuda.current_stream(dev)
+    sides = thread_streams(dev)[1:]
+    for side in sides:
+        side.wait_stream(main)
+    try:
+        yield tuple(torch.cuda.stream(side) for side in sides)
+    finally:
+        for side in sides:
+            main.wait_stream(side)
+
+
+def _iterate(cp: CompiledPuzzle, t: RGDTables, cfg: SearchConfig, s: SearchState, loop=None) -> torch.Tensor:
     """One gated search iteration, in place on ``s``; reads nothing back to
     the host.  When the gate is closed it is an exact no-op.  Returns the
-    gate (a bool scalar on the device).
+    gate (a bool scalar on the device).  ``loop``: a device-side loop's
+    scalars, for the append's tail (see :func:`append_children`).
 
     On the card it is eight hand-kernel launches, each of which reads the
     gate (or a mask it closed) on the device: select, expand, fingerprint +
-    dedup + insert, the novelty score and update (two launches), the RGD
-    heuristic, the ring's compaction (which tombstones the fingerprints it
-    drops in the visited set itself) and the append."""
+    dedup + insert, then three branches side by side (the novelty score and
+    update, two launches; the RGD heuristic; the ring's compaction, which
+    tombstones the fingerprints it drops in the visited set itself, after
+    the dedup's inserts), and, once all three are done, the append."""
     # 1. the gate, and the B best frontier entries (their slots are freed).
     parents, parent_hist, sel_valid, gate = select_and_gate(cfg, s)
 
@@ -572,17 +641,26 @@ def _iterate(cp: CompiledPuzzle, t: RGDTables, cfg: SearchConfig, s: SearchState
     keys, is_new = fingerprint_dedup_insert(s.visited, children, cp.width, effective, gate)
 
     # 4. score new children: novelty exact per child; RGD per child (eager)
-    # or inherited from the selected parent (lazy).
-    nov, _ = novelty_score_and_update(s.novelty, children, moved, is_new)
-    if cfg.lazy:
-        rgd, deeper = rgd_heuristic_with_flags(t, parents, max_depth=cfg.max_depth, valid=sel_valid)
-    else:
-        rgd, deeper = rgd_heuristic_with_flags(t, children, max_depth=cfg.max_depth, valid=is_new)
+    # or inherited from the selected parent (lazy); and compact the ring if
+    # the window would overflow (eviction when over capacity).  The three
+    # touch disjoint tensors.
+    with _branches(s.frontier_h.device) as (rgd_branch, compact_branch):
+        nov, _ = novelty_score_and_update(s.novelty, children, moved, is_new)
+        with rgd_branch:
+            if cfg.lazy:
+                rgd, deeper = rgd_heuristic_with_flags(t, parents, max_depth=cfg.max_depth, valid=sel_valid)
+            else:
+                rgd, deeper = rgd_heuristic_with_flags(t, children, max_depth=cfg.max_depth, valid=is_new)
+        with compact_branch:
+            compact_frontier(s, children.shape[0], gate)
+    if rgd.is_cuda:  # made on a branch, read by the append here
+        for x in (rgd, deeper):
+            x.record_stream(torch.cuda.current_stream(rgd.device))
 
-    # 5. compact the ring if the window would overflow (eviction when over
-    # capacity), then append: history, goal, keys, window and counters.
-    compact_frontier(s, children.shape[0], gate)
-    append_children(s, cfg, gate, is_new, parent_hist, None, goal, nov, rgd, deeper, sel_valid, children, keys)
+    # 5. append: history, goal, keys, window and counters (and the loop's
+    # tail).
+    append_children(s, cfg, gate, is_new, parent_hist, None, goal, nov, rgd, deeper, sel_valid, children, keys,
+                    loop=loop)
     return gate
 
 

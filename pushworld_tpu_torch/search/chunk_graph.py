@@ -7,27 +7,33 @@ launches of hand kernels that read nothing back (``search/batched.py``
 ``_iterate``), and a chunk is a CUDA graph that loops on the card
 (``kernels/chunk_loop.cu``):
 
-- One gated iteration and the ``chunk_continue`` kernel after it are
-  captured once into a ``torch.cuda.CUDAGraph`` (``keep_graph=True``:
-  PyTorch's allocator keeps the iteration's temporaries in the graph's
-  pool).  That graph is the body of a conditional WHILE node of an outer
-  graph, which resets the loop's counter and sets its bound at each launch.
-- ``chunk_continue`` ends the loop when this iteration's gate was closed,
-  the search is solved, the history is full or the bound is reached.  So a
-  launch of bound ``k`` runs the iterations that JAX's ``fori_loop`` of
-  ``k`` runs with the gate open, plus at most one closed body (after a
-  frontier that emptied), and a launch on a search that has ended runs one
-  closed body.  A closed iteration is an exact no-op: each kernel reads the
-  gate on the device and returns.
+- One gated iteration is captured once into a ``torch.cuda.CUDAGraph``
+  (``keep_graph=True``: PyTorch's allocator keeps the iteration's
+  temporaries in the graph's pool).  Its novelty, RGD and compaction
+  kernels are three branches after the dedup (``batched._branches``), so
+  the body's 8 kernel nodes form a longest dependent chain of 6.  That graph
+  is the body of a conditional WHILE node of an outer graph, whose one
+  memset node sets the loop's countdown to its bound at each launch.
+- The loop's tail, in the append kernel (``kernels/frontier.cu``), ends the
+  loop when this iteration's gate was closed, the search is solved, the
+  history is full or the countdown has run out.  So a launch of bound ``k``
+  runs the iterations that JAX's ``fori_loop`` of ``k`` runs with the gate
+  open, plus at most one closed body (after a frontier that emptied), and a
+  launch on a search that has ended runs one closed body.  A closed
+  iteration is an exact no-op: each kernel reads the gate on the device and
+  returns (the append's tail still runs).
 - A chunk of ``k`` iterations is ``ceil(k / LOOP_MAX)`` launches, each of at
   most :data:`LOOP_MAX` (JAX's chunk of 128) iterations.
-- Before the capture, one iteration and one ``chunk_continue`` run on a side
-  stream with the gate closed (an exact no-op): the ctypes kernel libraries
-  are loaded, any ``cudaFuncSetAttribute`` has run, and PyTorch's lazy
-  initialisations are done, none of which may happen during a capture.
+- Before the capture, one iteration runs on the capture stream with the
+  gate closed (an exact no-op), its branches on the same side streams as
+  the capture's: the ctypes kernel libraries are loaded, any
+  ``cudaFuncSetAttribute`` has run, and PyTorch's lazy initialisations (the
+  allocator's pools of each stream among them) are done, none of which may
+  happen during a capture.
 - The capture uses ``capture_error_mode="thread_local"``: the fleet's device
   worker captures while native workers and the portfolio's table prefetch
-  run in other threads.
+  run in other threads.  Its streams are the capturing thread's own
+  (``batched.thread_streams``).
 - Graphs may share a memory pool (``pool``): the fleet's lanes of one wave
   do.  Their loops run on one stream, one after another, and a body's
   temporaries are dead once it ends.
@@ -50,7 +56,7 @@ import sys
 import threading
 import time
 from collections import Counter, deque
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -58,7 +64,7 @@ from pushworld_tpu_torch import kernels
 from pushworld_tpu_torch.core.compiled import CompiledPuzzle
 from pushworld_tpu_torch.kernels import _build
 from pushworld_tpu_torch.ops.rgd import RGDTables
-from pushworld_tpu_torch.search.batched import CHUNK, SearchConfig, SearchState, _iterate
+from pushworld_tpu_torch.search.batched import CHUNK, SearchConfig, SearchState, _iterate, thread_streams
 
 # Iterations of one launch of a loop: JAX's chunk.
 LOOP_MAX = CHUNK
@@ -69,34 +75,57 @@ _NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_eve
                "conditional")
 
 
-def chunk_continue_reference(gate, solved, hist_cursor, counter, bound, limit: int):
-    """Plain version of ``chunk_loop.cu``'s ``chunk_continue_kernel``:
-    whether the loop runs another body after this one, and the counter
-    after it.  ``gate`` and ``solved`` are bool tensors, ``hist_cursor``,
-    ``counter`` and ``bound`` int32 tensors (any matching shapes)."""
-    counter = counter + 1
-    return gate & ~solved & (hist_cursor < limit) & (counter < bound), counter
+def chunk_continue_reference(gate, solved, hist_cursor, remaining, limit: int):
+    """Plain version of the loop's tail (``frontier.cu``'s ``loop_tail``, at
+    the end of the append): whether the loop runs another body after this
+    one, and the countdown after it.  ``gate`` and ``solved`` are bool
+    tensors, ``hist_cursor`` and ``remaining`` int32 tensors (any matching
+    shapes); ``remaining`` counts this body, so a launch of bound ``b``
+    starts it at ``b``."""
+    remaining = remaining - 1
+    return gate & ~solved & (hist_cursor < limit) & (remaining > 0), remaining
 
 
-def chunk_continue(gate, solved, hist_cursor, counter, bound, limit: int, flag, bodies,
-                   handle: int = 0) -> None:
-    """``chunk_continue_kernel`` on scalars, in place: ``counter`` + 1,
-    ``flag`` = whether the loop goes on, ``bodies`` + 1 and, on the card
-    with a loop's ``handle``, the loop's condition.  On CPU tensors the
-    plain version."""
-    if not gate.is_cuda:
-        c, counter_next = chunk_continue_reference(gate, solved, hist_cursor, counter, bound, limit)
-        counter.copy_(counter_next)
-        flag.copy_(c)
-        bodies.add_(1)
-        return
-    fn = _build.load("chunk_loop").pw_chunk_continue
-    rc = kernels.launch_on(gate.device, fn, gate.data_ptr(), solved.data_ptr(), hist_cursor.data_ptr(),
-                           counter.data_ptr(), bound.data_ptr(), limit, flag.data_ptr(), bodies.data_ptr(),
-                           handle)
-    if rc != 0:
-        raise RuntimeError(f"pw_chunk_continue launch failed: CUDA error {rc}")
-    kernels.count_launch("chunk.continue")
+def chunk_continue(gate, solved, hist_cursor, remaining, limit: int, flag, bodies) -> None:
+    """The loop's tail on its scalars, in place, in plain PyTorch on any
+    device (the card runs it inside the append kernel):
+    ``remaining`` - 1, ``flag`` = whether the loop goes on, ``bodies`` + 1."""
+    c, left = chunk_continue_reference(gate, solved, hist_cursor, remaining, limit)
+    remaining.copy_(left)
+    flag.copy_(c)
+    bodies.add_(1)
+
+
+@dataclasses.dataclass(frozen=True)
+class LoopTail:
+    """A device-side loop's scalars, which the append's tail updates
+    (``batched.append_children``'s ``loop``): ``scalars``, one (2,) int64
+    tensor laid out as ``frontier.cu``'s ``LoopScalars`` (the countdown
+    ``remaining``, int32 at bytes 0-3; ``flag``, int32 at bytes 4-7;
+    ``bodies``, int64 at bytes 8-15); ``limit``, the history cursor's limit
+    of an active iteration; ``handle``, the loop's condition (0: none)."""
+
+    scalars: torch.Tensor
+    limit: int
+    handle: int = 0
+
+    @staticmethod
+    def new(device, cfg: SearchConfig, remaining: int = 0, handle: int = 0) -> "LoopTail":
+        scalars = torch.zeros((2,), dtype=torch.int64, device=device)
+        scalars.view(torch.int32)[0] = remaining
+        return LoopTail(scalars, cfg.history_capacity - 8 * cfg.expand, handle)
+
+    @property
+    def remaining(self) -> torch.Tensor:
+        return self.scalars.view(torch.int32)[0]
+
+    @property
+    def flag(self) -> torch.Tensor:
+        return self.scalars.view(torch.int32)[1]
+
+    @property
+    def bodies(self) -> torch.Tensor:
+        return self.scalars[1]
 
 
 def _check(rc: int, what: str) -> None:
@@ -118,32 +147,51 @@ def _buffers(s: SearchState):
     ]
 
 
-def _node_types(graph: int) -> Dict[str, int]:
-    """Node counts by type of a CUDA graph (``cuGraphGetNodes`` and
-    ``cuGraphNodeGetType`` of libcuda)."""
+def _graph_shape(graph: int) -> Tuple[Dict[str, int], int]:
+    """Node counts by type of a CUDA graph, and its longest dependent chain
+    counted in kernel nodes (``cuGraphGetNodes``, ``cuGraphNodeGetType``
+    and ``cuGraphGetEdges`` of libcuda)."""
     cuda = ctypes.CDLL("libcuda.so.1")
-    get_nodes, get_type = cuda.cuGraphGetNodes, cuda.cuGraphNodeGetType
+    get_nodes, get_type, get_edges = cuda.cuGraphGetNodes, cuda.cuGraphNodeGetType, cuda.cuGraphGetEdges
     get_nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
     get_type.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    get_edges.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
     n = ctypes.c_size_t(0)
     _check(get_nodes(ctypes.c_void_p(graph), None, ctypes.byref(n)), "cuGraphGetNodes")
     nodes = (ctypes.c_void_p * n.value)()
     _check(get_nodes(ctypes.c_void_p(graph), nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    types = Counter()
+    kinds = {}
     for node in nodes[: n.value]:
         t = ctypes.c_int(-1)
         _check(get_type(ctypes.c_void_p(node), ctypes.byref(t)), "cuGraphNodeGetType")
-        types[_NODE_TYPES[t.value] if 0 <= t.value < len(_NODE_TYPES) else str(t.value)] += 1
-    return dict(types)
+        kinds[node] = _NODE_TYPES[t.value] if 0 <= t.value < len(_NODE_TYPES) else str(t.value)
+    e = ctypes.c_size_t(0)
+    _check(get_edges(ctypes.c_void_p(graph), None, None, ctypes.byref(e)), "cuGraphGetEdges")
+    src, dst = (ctypes.c_void_p * e.value)(), (ctypes.c_void_p * e.value)()
+    _check(get_edges(ctypes.c_void_p(graph), src, dst, ctypes.byref(e)), "cuGraphGetEdges")
+    preds = {node: [] for node in kinds}
+    for a, b in zip(src[: e.value], dst[: e.value]):
+        preds[b].append(a)
+    chain: Dict[int, int] = {}  # kernel nodes on the longest chain ending at a node
+
+    def longest(node):
+        if node not in chain:
+            chain[node] = (kinds[node] == "kernel") + max((longest(p) for p in preds[node]), default=0)
+        return chain[node]
+
+    return dict(Counter(kinds.values())), max((longest(node) for node in kinds), default=0)
 
 
 class ChunkGraph:
     """A device-side loop over one gated iteration of a search state.
 
-    Attributes: ``nodes`` and ``node_types`` (of the captured body),
-    ``capture_s`` and ``instantiate_s`` (host seconds; the latter builds the
-    loop around the body), ``launches`` (hand-kernel launches of one body),
-    ``bodies`` (an int64 device scalar: bodies run)."""
+    Attributes: ``nodes``, ``node_types`` and ``longest_chain`` (of the
+    captured body: its node count, its node counts by type and its longest
+    dependent chain in kernel nodes), ``capture_s`` and ``instantiate_s``
+    (host seconds; the latter builds the loop around the body),
+    ``launches`` (hand-kernel launches of one body), ``tail`` (the loop's
+    :class:`LoopTail`) and ``bodies`` (its int64 device scalar: bodies
+    run)."""
 
     def __init__(self, cp: CompiledPuzzle, tables: RGDTables, cfg: SearchConfig,
                  s: SearchState, pool=None):
@@ -155,35 +203,30 @@ class ChunkGraph:
         self._settled = 0
         self._lock = threading.Lock()
         dev = s.frontier_h.device
-        limit = cfg.history_capacity - 8 * cfg.expand
-        self.counter, self.bound, self.flag = (torch.zeros((), dtype=torch.int32, device=dev) for _ in range(3))
-        self.bodies = torch.zeros((), dtype=torch.int64, device=dev)
         with torch.cuda.device(dev):
             main = torch.cuda.current_stream()
-            side = torch.cuda.Stream()
+            side = thread_streams(dev)[0]
             side.wait_stream(main)
             with torch.cuda.stream(side):
                 closed = dataclasses.replace(s, solved=torch.ones((), dtype=torch.bool, device=dev))
-                gate = _iterate(cp, tables, cfg, closed)
-                chunk_continue(gate, closed.solved, s.hist_cursor, self.counter, self.bound, limit, self.flag,
-                               self.bodies)
-                self.bodies.zero_()
+                warm = LoopTail.new(dev, cfg, remaining=1)
+                _iterate(cp, tables, cfg, closed, warm)
             main.wait_stream(side)
 
             loop, handle = ctypes.c_void_p(), ctypes.c_ulonglong()
             _check(self._lib.pw_chunk_loop_new(ctypes.byref(loop), ctypes.byref(handle)), "pw_chunk_loop_new")
             self._loop = loop.value
-            if not handle.value:  # chunk_continue would leave the condition at its default: no end
+            if not handle.value:  # the tail would leave the condition at its default: no end
                 raise RuntimeError("pw_chunk_loop_new gave a null condition handle")
+            self.tail = LoopTail.new(dev, cfg, handle=handle.value)
+            self.bodies = self.tail.bodies
             before = _buffers(s)
             self.graph = torch.cuda.CUDAGraph(keep_graph=True)
             t0 = time.monotonic()
             with torch.cuda.stream(side), kernels.recording_launches() as recorded:
                 self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
                 try:
-                    gate = _iterate(cp, tables, cfg, s)
-                    chunk_continue(gate, s.solved, s.hist_cursor, self.counter, self.bound, limit, self.flag,
-                                   self.bodies, handle.value)
+                    _iterate(cp, tables, cfg, s, self.tail)
                 finally:
                     self.graph.capture_end()
             self.capture_s = time.monotonic() - t0
@@ -191,11 +234,10 @@ class ChunkGraph:
                 raise RuntimeError("the captured iteration rebound a search-state tensor")
             self.launches = dict(recorded)
             body = self.graph.raw_cuda_graph()
-            self.node_types = _node_types(body)
+            self.node_types, self.longest_chain = _graph_shape(body)
             self.nodes = sum(self.node_types.values())
             t0 = time.monotonic()
-            rc = self._lib.pw_chunk_loop_build(self._loop, body, self.counter.data_ptr(), self.bound.data_ptr(),
-                                               LOOP_MAX)
+            rc = self._lib.pw_chunk_loop_build(self._loop, body, self.tail.scalars.data_ptr(), LOOP_MAX)
             _check(rc, f"pw_chunk_loop_build (body nodes {self.node_types})")
             self.instantiate_s = time.monotonic() - t0
         kernels.track_unsettled(self)

@@ -6,19 +6,19 @@ iteration gated by ``lax.cond`` (``pushworld_tpu/search/batched.py``
 reads the search's status once a chunk.  Depth escalation is decided at
 those reads, so a search that reads its status at another cadence can
 escalate at another iteration and take another path.  On the card the port
-runs a chunk as a device-side loop (``search/chunk_graph.py``): after each
-gated iteration ``chunk_continue`` decides whether the loop goes on.  These
-tests hold the cadence, the loop's rule and the loop's result against the
-JAX package:
+runs a chunk as a device-side loop (``search/chunk_graph.py``): at the end
+of each gated iteration the append's loop tail (``chunk_continue`` in plain
+PyTorch) decides whether the loop goes on.  These tests hold the cadence,
+the loop's rule and the loop's result against the JAX package:
 
 - ``BatchedPlanner.solve`` at the card's default chunk gives JAX's plan,
   final depth, iterations and expansions (``heur/aw_tool_corridor``
   escalates at a chunk of 1-3 iterations; JAX's 128 does not);
 - the default chunk is JAX's 128 at every depth on both devices;
 - ``chunk_continue_reference`` against JAX's ``active`` expression and the
-  loop's bound;
-- ``run_chunk(k)`` and the loop's own form (iterate, then
-  ``chunk_continue``, on CPU tensors) leave JAX's ``run_chunk(k)`` search.
+  loop's bound (a countdown from it);
+- ``run_chunk(k)`` and the loop's own form (iterations whose append runs
+  the loop's tail, on CPU tensors) leave JAX's ``run_chunk(k)`` search.
 """
 
 import dataclasses
@@ -44,7 +44,7 @@ from pushworld_tpu_torch import interop
 from pushworld_tpu_torch.core.puzzle import Puzzle
 from pushworld_tpu_torch.ops.hashset import pack_key
 from pushworld_tpu_torch.search import batched as tb
-from pushworld_tpu_torch.search.chunk_graph import LOOP_MAX, chunk_continue, chunk_continue_reference
+from pushworld_tpu_torch.search.chunk_graph import LOOP_MAX, LoopTail, chunk_continue_reference
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PUZZLES = os.path.join(ROOT, "tests", "puzzles")
@@ -124,7 +124,8 @@ def _jax_active(s, cfg):
 def test_chunk_continue_reference_against_jax_active(bound):
     """After a body whose gate was ``gate``, the loop goes on exactly when
     the body ran, JAX's next iteration is active as far as the solve and
-    the history say, and the fori_loop has iterations left.  A frontier
+    the history say, and the fori_loop has iterations left: the launch's
+    countdown, ``bound - counter`` before the body, is above 1.  A frontier
     that emptied is the one condition the rule leaves to the next body's
     gate (one closed body)."""
     cfg = jb.SearchConfig(expand=32, history_capacity=1 << 14, max_depth=0)
@@ -135,15 +136,14 @@ def test_chunk_continue_reference_against_jax_active(bound):
     for gate, solved, cursor, frontier, counter in itertools.product(
             (False, True), (False, True), (limit - 1, limit, limit + 1), (live, empty),
             sorted({0, 1, bound - 2, bound - 1, bound} - {-1})):
-        c, nxt = chunk_continue_reference(torch.tensor(gate), torch.tensor(solved),
-                                          torch.tensor(cursor, dtype=torch.int32),
-                                          torch.tensor(counter, dtype=torch.int32),
-                                          torch.tensor(bound, dtype=torch.int32), limit)
+        c, left = chunk_continue_reference(torch.tensor(gate), torch.tensor(solved),
+                                           torch.tensor(cursor, dtype=torch.int32),
+                                           torch.tensor(bound - counter, dtype=torch.int32), limit)
         s = dataclasses.make_dataclass("S", ["solved", "frontier_h", "hist_cursor"])(
             jnp.asarray(solved), jnp.asarray(frontier), jnp.asarray(cursor, jnp.int32))
         active = bool(_jax_active(s, cfg))
         more = counter + 1 < bound
-        assert int(nxt) == counter + 1
+        assert int(left) == bound - (counter + 1)
         assert bool(c) == (gate and not solved and cursor < limit and more)
         assert (bool(c) and frontier is live) == (gate and active and more)
         seen.add(bool(c))
@@ -192,17 +192,14 @@ def _plan_valid(s, path):
 
 
 def _loop_form(cp, t, cfg, s, bound):
-    """``chunk_loop.cu``'s loop on CPU tensors: iterate, then
-    ``chunk_continue``, until it says stop (the counter reset at the launch).
-    Returns the bodies run."""
-    i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
-    counter, flag, bodies = i32(0), i32(0), torch.zeros((), dtype=torch.int64)
-    limit = cfg.history_capacity - 8 * cfg.expand
+    """``chunk_loop.cu``'s loop on CPU tensors: iterations whose append runs
+    the loop's tail, until the tail says stop (the countdown set to the
+    bound at the launch).  Returns the bodies run."""
+    loop = LoopTail.new("cpu", cfg, remaining=bound)
     while True:
-        gate = tb._iterate(cp, t, cfg, s)
-        chunk_continue(gate, s.solved, s.hist_cursor, counter, i32(bound), limit, flag, bodies)
-        if not int(flag):
-            return int(bodies)
+        tb._iterate(cp, t, cfg, s, loop)
+        if not int(loop.flag):
+            return int(loop.bodies)
 
 
 # spill_grid solves in its 18th iteration at these capacities: chunks of 1

@@ -1480,15 +1480,16 @@ ITERATION_KERNELS = ("frontier.select", "step.expand", "visited_set.fingerprint_
 
 
 def test_graph_replays_add_the_captured_launches(dev):
-    """A body is the eight iteration kernels and chunk.continue; after a
-    settle, LAUNCHES has risen by the bodies run times one of each."""
+    """A body is the eight iteration kernels (the loop's tail runs inside
+    the append); after a settle, LAUNCHES has risen by the bodies run times
+    one of each."""
     from pushworld_tpu_torch.kernels import LAUNCHES, settle_launches
     from pushworld_tpu_torch.search import batched, chunk_graph
 
     pl = _planner_on("spill_grid", dev, 0, history_capacity=1 << 14)
     s = pl.init_state()
     g = chunk_graph.attach(pl.cp_dev, pl.tables, pl.config, s)
-    assert g.launches == {k: 1 for k in ITERATION_KERNELS + ("chunk.continue",)}
+    assert g.launches == {k: 1 for k in ITERATION_KERNELS}
     settle_launches()
     before, bodies = dict(LAUNCHES), int(g.bodies)
     batched.run_chunk(pl.cp_dev, pl.tables, pl.config, s, 7)
@@ -1504,6 +1505,8 @@ def test_graph_replays_add_the_captured_launches(dev):
 
 
 def test_a_chunk_on_an_ended_search_runs_one_body(dev):
+    """A chunk on a solved search runs one closed body each and changes
+    nothing of the search."""
     from pushworld_tpu_torch.kernels import LAUNCHES, settle_launches
     from pushworld_tpu_torch.search import batched
 
@@ -1514,11 +1517,14 @@ def test_a_chunk_on_an_ended_search_runs_one_body(dev):
     assert bool(s.solved)
     iterations, bodies, before = int(s.iterations), int(s.graph.bodies), dict(LAUNCHES)
     assert bodies == iterations  # a solve stops the loop at once
+    tensors = _state_tensors(s)
     for _ in range(3):
         batched.run_chunk(pl.cp_dev, pl.tables, pl.config, s, 128)
     settle_launches()
+    for name, x in _state_tensors(s).items():
+        assert torch.equal(x, tensors[name]), name
     assert int(s.iterations) == iterations and int(s.graph.bodies) == bodies + 3
-    assert all(LAUNCHES[k] - before.get(k, 0) == 3 for k in ITERATION_KERNELS + ("chunk.continue",))
+    assert all(LAUNCHES[k] - before.get(k, 0) == 3 for k in ITERATION_KERNELS)
 
 
 def test_a_chunk_of_300_is_three_launches_and_honours_a_deadline(dev, monkeypatch):
@@ -1559,26 +1565,167 @@ def test_a_chunk_of_300_is_three_launches_and_honours_a_deadline(dev, monkeypatc
     assert s.graph is g
 
 
-def test_chunk_continue_kernel_equals_plain_version(dev):
-    """The kernel launched alone (no loop handle) over a sweep of inputs:
-    flag, counter and body count as the plain version gives them."""
+def _chip_smoke():
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _lane_planner(lane, d, **caps):
+    """The 47x54 puzzle of chip_smoke.py at depth 0, or three_tools at RGD
+    depth 3, at small capacities (a 2^16-slot visited set)."""
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.search.batched import BatchedPlanner
+
+    kw = dict(expand=32, frontier_capacity=1 << 10, visited_bits=16, history_capacity=1 << 14, pair_bits=12)
+    kw.update(caps)
+    if lane == "47x54":
+        return BatchedPlanner(Puzzle.from_text(_chip_smoke().generated_puzzle_text(0)), max_depth=0, device=d, **kw)
+    return BatchedPlanner(_fixture("heur/three_tools"), max_depth=3, device=d, **kw)
+
+
+@pytest.mark.parametrize("lane,lazy", [("47x54", False), ("depth3", False), ("47x54", True)])
+def test_the_body_is_eight_kernel_nodes_in_a_chain_of_six(dev, lane, lazy):
+    """The captured body: the eight iteration kernels and no other node (no
+    continue kernel: the tail is in the append), the novelty, RGD and
+    compaction branches side by side, so the longest dependent chain is
+    select, expand, dedup, novelty score, novelty update, append."""
+    from pushworld_tpu_torch.search import chunk_graph
+
+    pl = _lane_planner(lane, dev, lazy=lazy)
+    s = pl.init_state()
+    g = chunk_graph.attach(pl.cp_dev, pl.tables, pl.config, s)
+    assert g.node_types == {"kernel": 8} and g.nodes == 8, g.node_types
+    assert g.longest_chain == 6
+    assert g.launches == {k: 1 for k in ITERATION_KERNELS}
+
+
+@pytest.mark.parametrize("lane", ["47x54", "depth3"])
+@pytest.mark.parametrize("k", [1, 5, 128])
+def test_forked_loop_equals_eager_and_cpu_over_50_launches(dev, lane, k):
+    """50 chunks of k through the loop (its body forked into three
+    branches), k eager iterations a chunk on the card (forked the same way)
+    and run_chunk(k) on the CPU leave the same search after every chunk; 50
+    launches of one graph, so that memory the allocator handed out again
+    while a branch still read it would show."""
+    from pushworld_tpu_torch.search import batched
+
+    pl_g, pl_e, pl_c = (_lane_planner(lane, d) for d in (dev, dev, "cpu"))
+    s_g, s_e, s_c = pl_g.init_state(), pl_e.init_state(), pl_c.init_state()
+    for c in range(50):
+        batched.run_chunk(pl_g.cp_dev, pl_g.tables, pl_g.config, s_g, k)
+        if bool(batched._active(pl_e.config, s_e)):
+            for _ in range(k):
+                batched._iterate(pl_e.cp_dev, pl_e.tables, pl_e.config, s_e)
+        batched.run_chunk(pl_c.cp_dev, pl_c.tables, pl_c.config, s_c, k)
+        torch.cuda.synchronize()
+        _assert_same_search(s_g, s_e, f"chunk {c}: loop vs eager")
+        _assert_same_search(s_g, s_c, f"chunk {c}: card vs CPU")
+    g = s_g.graph
+    assert g.longest_chain == 6 and int(s_g.iterations) <= int(g.bodies) <= int(s_g.iterations) + 50
+    assert int(g.bodies) >= 50  # a launch runs at least one body
+
+
+def test_a_launch_after_a_change_of_bound_runs_that_many_bodies(dev):
+    """One memset sets the countdown at every launch: on an active search a
+    launch of bound b runs exactly b bodies, whatever the bound before."""
+    from pushworld_tpu_torch.search import chunk_graph
+
+    pl = _planner_on("spill_grid", dev, 0, history_capacity=1 << 14)
+    s = pl.init_state()
+    g = chunk_graph.attach(pl.cp_dev, pl.tables, pl.config, s)
+    ran = []
+    for bound in (5, 2, 5, 1, 1, 3, 128):
+        before = int(g.bodies)
+        g.replay(bound)
+        torch.cuda.synchronize()
+        ran.append(int(g.bodies) - before)
+        if bound < 128:
+            assert int(s.iterations) == sum(ran)  # the search is active for 23 iterations
+    assert ran[:-1] == [5, 2, 5, 1, 1, 3] and 1 <= ran[-1] <= 23 - 17 + 1, ran
+
+
+def _state_tensors(s):
+    """Every tensor of a search state, copied to the host, by name."""
+    out = {k: v.cpu() for k, v in vars(s).items() if isinstance(v, torch.Tensor)}
+    out.update({"visited.keys": s.visited.keys.cpu(), "novelty.seen_pos": s.novelty.seen_pos.cpu(),
+                "novelty.pair_table": s.novelty.pair_table.cpu()})
+    return out
+
+
+def _clone_search(s):
+    """A copy of a search state, its visited set and novelty tables too."""
+    import dataclasses
+
+    out = _clone_state(dataclasses.replace(s, graph=None))
+    out.novelty = dataclasses.replace(s.novelty, seen_pos=s.novelty.seen_pos.clone(),
+                                      pair_table=s.novelty.pair_table.clone())
+    return out
+
+
+@pytest.mark.parametrize("open_gate", [True, False])
+def test_append_loop_tail_equals_plain_version(dev, open_gate):
+    """The append kernel with a loop's scalars (no loop handle) against its
+    plain version, the JAX package's append then ``chunk_continue``, over a
+    sweep of solves, goals, history cursors at and around the limit and
+    countdowns: every tensor of the state and the loop's scalars equal."""
     import itertools
 
-    from pushworld_tpu_torch.search.chunk_graph import chunk_continue, chunk_continue_reference
+    from pushworld_tpu_torch.ops.hashset import fingerprint_dedup_insert
+    from pushworld_tpu_torch.ops.novelty import novelty_score_and_update
+    from pushworld_tpu_torch.ops.rgd import rgd_heuristic_with_flags
+    from pushworld_tpu_torch.ops.step import expand_and_test
+    from pushworld_tpu_torch.search import batched
+    from pushworld_tpu_torch.search.chunk_graph import LoopTail
 
-    limit = 1000
-    for gate, solved, cursor, counter, bound in itertools.product(
-            (False, True), (False, True), (limit - 1, limit, limit + 1), (0, 1, 126, 127, 128), (1, 2, 128)):
-        t = [torch.tensor(gate, device=dev), torch.tensor(solved, device=dev),
-             torch.tensor(cursor, dtype=torch.int32, device=dev), torch.tensor(counter, dtype=torch.int32, device=dev),
-             torch.tensor(bound, dtype=torch.int32, device=dev)]
-        want, want_counter = chunk_continue_reference(*[x.cpu() for x in t], limit)
-        flag = torch.full((), 7, dtype=torch.int32, device=dev)
-        bodies = torch.full((), 41, dtype=torch.int64, device=dev)
-        chunk_continue(*t[:4], t[4], limit, flag, bodies)
+    pl = _planner_on("spill_grid", dev, 0, expand=32, frontier_capacity=1 << 10, visited_bits=16,
+                     history_capacity=1 << 14)
+    cfg, t, cp = pl.config, pl.tables, pl.cp_dev
+    s = pl.init_state()
+    for _ in range(3):
+        batched._iterate(cp, t, cfg, s)
+    parents, parent_hist, sel_valid, gate = batched.select_and_gate(cfg, s)
+    children, moved, effective, goal = expand_and_test(cp, t.contacts, t.contacts_mask, parents, sel_valid, gate)
+    keys, is_new = fingerprint_dedup_insert(s.visited, children, cp.width, effective, gate)
+    nov, _ = novelty_score_and_update(s.novelty, children, moved, is_new)
+    rgd, deeper = rgd_heuristic_with_flags(t, children, max_depth=cfg.max_depth, valid=is_new)
+    batched.compact_frontier(s, children.shape[0], gate)
+    assert bool(gate) and int(is_new.sum()) > 0
+    if not open_gate:  # what a closed iteration's kernels leave
+        gate, is_new, sel_valid = torch.zeros_like(gate), torch.zeros_like(is_new), torch.zeros_like(sel_valid)
+    args = dict(gate=gate, is_new=is_new, parent_hist=parent_hist, actions=None, nov=nov, rgd=rgd, deeper=deeper,
+                sel_valid=sel_valid, children=children, keys=keys)
+    limit = cfg.history_capacity - 8 * cfg.expand
+    n_new = int(is_new.sum())
+    first_new = int(is_new.to(torch.int32).argmax())
+    flags = set()
+    for solved, offset, with_goal, remaining in itertools.product(
+            (False, True), (-1, 0, 1), (False, True), (1, 2, 127, 128)):
+        g = torch.zeros_like(goal)
+        g[first_new] = with_goal and open_gate
+        k, r = _clone_search(s), _clone_search(s)
+        for w in (k, r):
+            w.solved.fill_(solved)
+            w.hist_cursor.fill_(limit + offset - n_new)
+        loops = [LoopTail.new(dev, cfg, remaining=remaining) for _ in range(2)]
+        for loop in loops:
+            loop.scalars[1] = 41  # bodies
+        got = batched.append_children(k, cfg, goal=g, loop=loops[0], **args)
+        want = batched.append_children_reference(r, cfg, goal=g, loop=loops[1], **args)
         torch.cuda.synchronize()
-        assert (int(flag), int(t[3]), int(bodies)) == (int(want), int(want_counter), 42), (gate, solved, cursor,
-                                                                                          counter, bound)
+        where = (solved, offset, with_goal, remaining)
+        assert not open_gate or torch.equal(got, want), where
+        a, b = _state_tensors(k), _state_tensors(r)
+        for name in a:
+            assert torch.equal(a[name], b[name]), (where, name)
+        assert torch.equal(loops[0].scalars.cpu(), loops[1].scalars.cpu()), (where, loops[0].scalars.tolist())
+        assert int(loops[0].bodies) == 42 and int(loops[0].remaining) == remaining - 1, where
+        flags.add(int(loops[0].flag))
+    assert flags == ({0, 1} if open_gate else {0})
 
 
 def test_card_solve_at_the_default_chunk_equals_cpu(dev):
@@ -1615,9 +1762,9 @@ _LOOP_WITH_A_BROKEN_BODY = """if True:
                                 history_capacity=1 << 12, pair_bits=12, device="cuda")
     s = pl.init_state()
     real = chunk_graph._iterate
-    def broken(cp, t, cfg, s):
+    def broken(cp, t, cfg, s, *loop):
         BROKEN
-        return real(cp, t, cfg, s)
+        return real(cp, t, cfg, s, *loop)
     chunk_graph._iterate = broken
     try:
         batched.run_chunk(pl.cp_dev, pl.tables, pl.config, s, 4)
