@@ -131,19 +131,34 @@ Phases, each printing one JSON line:
    printed); ``all_pairs_distances`` of the agent's graph there (2,538 fields)
    goes through the wavefront kernel and must equal the plain version and the
    scipy BFS on the graph's vertices; a capped ``distance_to_targets`` too.
-6. ``envs``: the environment half at batch 4096.  The same seed-made actions
-   drive ``VectorEnv`` on the card and on the CPU for 64 steps, on the
-   47 x 54 puzzle and on a stacked batch of three fixtures: every output of
-   every step must be equal, and 256 rollouts must follow the oracle step by
-   step, auto-resets included.  The batched one-hot renderer must equal the
-   per-state renderer on 256 states and the CPU's result on all.  The greedy
+6. ``envs``: the environment half at batch 4096, through its two kernels
+   (``env.step``: ``kernels/env.cu``; ``render.onehot``:
+   ``kernels/render.cu``).  The same seed-made actions drive ``VectorEnv``
+   on the card and on the CPU for 64 steps, on the 47 x 54 puzzle and on a
+   stacked batch of three fixtures: every output of every step must be
+   equal, and 256 rollouts must follow the oracle step by step, auto-resets
+   included.  The env kernel must equal its plain version on the card
+   (every output, error 0) on the 47 x 54 puzzle, the stacked trio and
+   ``many_objects_text`` at 19, 33, 64 and 100 movables (the wide path above
+   32), truncations and resets hit.  The batched one-hot renderer must
+   equal the per-state renderer on 256 states and the CPU's result on all,
+   and the render kernel its plain version on those states and on the same
+   states moved so that cells fall outside the grid.  The greedy
    goal-distance policy, with tables built on the card (the wavefront kernel
    launches, and the tables must equal the CPU's), must reach the goal in
-   every rollout.  ``measure_env_throughput`` runs at batch 4096, horizon
-   128, 3 reps, with and without observations; a profiled window gives
-   kernels per step and the device-busy share, and the step and the renderer
-   are timed alone, the renderer beside its bytes bound.  The Gym and dm_env
-   wrappers are held against the oracle where their packages are installed.
+   every rollout.  Then the main path, with the launch counts from 0:
+   ``measure_env_throughput`` at batch 4096, horizon 128, 3 reps, with and
+   without observations, a rollout one launch of a CUDA graph (4 graph
+   launches a call, 128 env steps each; its peak memory at most 2.2
+   observation buffers).  The graph's reward total must equal the eager
+   rollout's on the same pre-drawn actions, and a replay after
+   ``manual_seed(s)`` the eager rollouts' from seed ``s``, fresh each
+   replay (on ``simple``, whose totals depend on the actions); a profiled
+   replay gives its kernels a step, busy share and ``cudaGraphLaunch``
+   count (1), beside an eager window's.  Each kernel is timed alone at B =
+   4096 on 47 x 54 beside its plain version and bound, the renderer beside
+   a fill of the same bytes.  The Gym and dm_env wrappers are held against
+   the oracle where their packages are installed.
 7. ``native``: the native serial planner, built from
    ``pushworld_tpu_torch/native/planner.cc`` by the host C++ compiler (the
    build starts beside the nvcc builds), must be available; it solves every
@@ -198,8 +213,9 @@ Phases, each printing one JSON line:
    ``Puzzle.render``.
 
 The launch counts are set to 0 before each of the phases 4 (and its
-``many_objects`` solves and ``chunk``), 5, 6, 8, 9, 10 and 11 (and each
-fleet run) and read after it.  Beside ``ms`` (CUDA events around
+``many_objects`` solves and ``chunk``), 5, 6 (and its main path,
+``measure_env_throughput``, whose counts are the environment kernels'
+``launches``), 8, 9, 10 and 11 (and each fleet run) and read after it.  Beside ``ms`` (CUDA events around
 the wrapper: for the small kernels the host's enqueue time) every kernel has
 ``device_ms``, its own time from ``torch.profiler``; an empty kernel, built
 from a source in this script, is launched and timed the same two ways as the
@@ -495,6 +511,9 @@ def profile_device(fn, reps: int = 1, attempts: int = 6) -> dict:
     return {"wall_s": wall_s, "busy_us": sum(dev_us(e) for e in rows),
             "n_kernels": sum(e.count for e in rows),
             "by_kernel": {e.key: [e.count, dev_us(e)] for e in rows},
+            # The host's CUDA runtime calls (cudaGraphLaunch, cudaLaunchKernel, ...) by name.
+            "runtime": {e.key: e.count for e in prof.key_averages()
+                        if e.device_type == DeviceType.CPU and e.key.startswith("cuda")},
             "retrace": lambda: profile_device(fn, reps, attempts)}
 
 
@@ -2509,19 +2528,56 @@ def _wrappers_against_oracle(puzzle_path, puzzle):
     return out
 
 
-def phase_envs(puzzles, generated, dev, batch=4096, horizon=128):
+def _env_kernel_lane(what, cp, idx_np, max_steps, n_steps, rng, dev):
+    """``env.step`` against its plain version on the card: from the same
+    state each step, every output compared; the kernel's state carried.
+    Returns the lane's row (its error, terminations and truncations)."""
+    import torch
+
+    from pushworld_tpu_torch.envs.vector_env import EnvState, VectorEnv
+    from pushworld_tpu_torch.ops.step import ENV_MAX_OBJECTS, env_step, env_step_reference
+
+    B = len(idx_np)
+    env = VectorEnv(cp, max_steps=max_steps, device=dev)
+    st = env.reset(None, B, torch.as_tensor(idx_np))
+    pidx = env._pidx(st.puzzle_idx)
+    err, term, trunc = 0.0, 0, 0
+    for t in range(n_steps):
+        a = torch.as_tensor(rng.integers(0, 4, B), device=dev)  # int64, as torch.randint gives them
+        args = (env.puzzles, st.positions, a, st.steps, st.achieved, pidx, env._init_pos, env._init_achieved,
+                max_steps)
+        got, want = env_step(*args), env_step_reference(*args)
+        check(all(g.dtype == w.dtype for g, w in zip(got, want)), f"env.step {what}: output types differ")
+        err = max(err, _max_abs_err(zip(got, want)))
+        term += int(got[5].sum())
+        trunc += int(got[6].sum())
+        st = EnvState(got[0], got[1], got[2], st.puzzle_idx)
+    check(err == 0, f"env.step {what}: kernel != plain version (max_abs_err {err})")
+    check(trunc > 0, f"env.step {what}: no rollout was truncated")
+    return {"objects": cp.n, "path": "one-word" if cp.n <= ENV_MAX_OBJECTS else "wide", "rollouts": B,
+            "steps": n_steps, "max_steps": max_steps, "terminated": term, "truncated": trunc, "max_abs_err": err}
+
+
+def phase_envs(puzzles, generated, dev, floor, batch=4096, horizon=128):
     """The environment half on the card, at the JAX benchmark's batch and
-    horizon unless a rehearsal asks for less."""
+    horizon unless a rehearsal asks for less.  Returns the rows of the
+    kernels ``env.step`` and ``render.onehot`` (their ``launches`` counted
+    over the main path, ``measure_env_throughput``), and the phase's
+    launches."""
+    from collections import Counter
+
     import numpy as np
     import torch
 
     from pushworld_tpu_torch.core.compiled import compile_batch, compile_puzzle
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.envs import throughput
     from pushworld_tpu_torch.envs.policies import make_greedy_policy
-    from pushworld_tpu_torch.envs.throughput import measure_env_throughput
     from pushworld_tpu_torch.envs.vector_env import VectorEnv
-    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.kernels import GRAPH_LAUNCHES, LAUNCHES
     from pushworld_tpu_torch.ops import render
     from pushworld_tpu_torch.ops.rgd import build_rgd_tables
+    from pushworld_tpu_torch.ops.step import env_step, env_step_reference
 
     reset_launches()
     by_name = dict(puzzles)
@@ -2529,7 +2585,8 @@ def phase_envs(puzzles, generated, dev, batch=4096, horizon=128):
     B = batch
     out = {"phase": "envs", "batch": B}
 
-    # (a) one puzzle, the 47 x 54 one; (b) a stacked batch of three sizes.
+    # (a) one puzzle, the 47 x 54 one; (b) a stacked batch of three sizes:
+    # card = CPU = oracle, through the env kernel.
     cp = compile_puzzle(generated)
     n_oracle = min(B, 256)
     last_pos, out["single_47x54"] = _env_card_cpu_oracle(
@@ -2540,8 +2597,20 @@ def phase_envs(puzzles, generated, dev, batch=4096, horizon=128):
     _, out["stacked_3"] = _env_card_cpu_oracle("stacked", trio, compile_batch(trio), idx, 9, 64, n_oracle, rng, dev)
     check(out["stacked_3"]["terminated"] > 0 and out["stacked_3"]["truncated"] > 0,
           "stacked: the walks neither reached a goal nor were truncated")
+    # The env kernel against its plain version on the card: the 47 x 54
+    # puzzle, the stacked trio, and 19-100 movables (the wide path above 32).
+    lanes = {"47x54": _env_kernel_lane("47x54", cp, np.zeros(B, np.int32), 9, 24, rng, dev),
+             "stacked_3": _env_kernel_lane("stacked_3", compile_batch(trio), idx, 9, 24, rng, dev)}
+    check(lanes["stacked_3"]["terminated"] > 0, "env.step stacked_3: no rollout reached its goal")
+    for n in (19, 33, 64, 100):
+        p = Puzzle.from_text(many_objects_text(n))
+        lanes[f"many_objects_{n}"] = _env_kernel_lane(f"{n} objects", compile_puzzle(p), np.zeros(1024, np.int32),
+                                                      6, 16, rng, dev)
+    env_err = max(lane["max_abs_err"] for lane in lanes.values())
 
-    # (c) the renderers on the states of (a).
+    # (c) the renderers on the states of (a), and the render kernel against
+    # its plain version there and on the same states moved so that many
+    # cells fall outside the grid.
     t_g = render.compile_render_tables(generated, cp, device=dev)
     t_c = render.compile_render_tables(generated, cp, device="cpu")
     obs = render.render_cells_onehot_batched(t_g, last_pos)
@@ -2555,7 +2624,21 @@ def phase_envs(puzzles, generated, dev, batch=4096, horizon=128):
           "batched renderer: card != CPU")
     check(torch.equal(render.render_cells_rgb(t_g, last_pos[:n_oracle]).cpu(),
                       render.render_cells_rgb(t_c, last_pos[:n_oracle].cpu())), "rgb renderer: card != CPU")
-    del obs
+    shift = torch.as_tensor(np.stack([rng.integers(-cp.width, cp.width + 1, B),
+                                      rng.integers(-cp.height, cp.height + 1, B)], -1).astype(np.int32), device=dev)
+    moved = last_pos + shift[:, None, :]  # objects stay disjoint
+    render_err = 0.0
+    for states in (last_pos, moved):
+        got = render.render_cells_onehot_batched(t_g, states)
+        want = render.render_cells_onehot_batched_reference(t_g, states)
+        render_err = max(render_err, abs_err(got, want))
+    cells = moved[:, :, None, :].long() + t_g["obj_cells"][None].long()
+    outside = int(((cells[..., 0] < 0) | (cells[..., 0] >= cp.width) | (cells[..., 1] < 0)
+                   | (cells[..., 1] >= cp.height))[:, t_g["obj_mask"]].sum())
+    check(render_err == 0, f"render.onehot: kernel != plain version (max_abs_err {render_err})")
+    check(outside > 0, "render.onehot: no cell outside the grid")
+    out["render_kernel"] = {"states": 2 * B, "cells_outside": outside, "max_abs_err": render_err}
+    del obs, got, want
 
     # (d) the greedy policy with tables built on the card.
     simple = by_name["simple"]
@@ -2572,19 +2655,81 @@ def phase_envs(puzzles, generated, dev, batch=4096, horizon=128):
     check(bool(terms.any(dim=0).all()) and bool((rewards[terms] == 10.0).all()),
           "greedy policy: a rollout never reached the goal")
     out["greedy"] = {"puzzle": "simple", "batch": min(B, 1024), "goals_reached": int(terms.sum())}
+    before_main = launch_counts()
 
-    # (e) throughput at the benchmark's size, then a profiled window and the
-    # step and the renderer alone.
+    # (e) the main path: throughput at the benchmark's size, with the launch
+    # counts from 0.  A rollout on the card is one launch of a CUDA graph.
+    reset_launches()
+    obs_bytes = B * cp.height * cp.width * 6 * 4
+    reps = 3
     for key, with_obs in (("throughput_obs", True), ("throughput_no_obs", False)):
-        r = measure_env_throughput(generated, batch_size=B, horizon=horizon, reps=3, observations=with_obs,
-                                   host_baseline_steps=200 if with_obs else 0, device=dev)
-        check(r["steps_per_s"] > 0 and r["device"]["name"] == torch.cuda.get_device_name(0),
-              f"{key}: {r}")
+        graphs, steps_before = GRAPH_LAUNCHES["envs.rollout"], LAUNCHES["env.step"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        r = throughput.measure_env_throughput(generated, batch_size=B, horizon=horizon, reps=reps,
+                                              observations=with_obs, host_baseline_steps=200 if with_obs else 0,
+                                              device=dev)
+        r["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - base
+        r["graph_launches"] = GRAPH_LAUNCHES["envs.rollout"] - graphs
+        r["env_step_launches"] = LAUNCHES["env.step"] - steps_before
+        check(r["steps_per_s"] > 0 and r["device"]["name"] == torch.cuda.get_device_name(0), f"{key}: {r}")
+        check(r["graph_launches"] == reps + 1, f"{key}: {r['graph_launches']} graph launches for {reps + 1} rollouts")
+        # horizon steps a replay, and the one eager step before the capture
+        check(r["env_step_launches"] == horizon * (reps + 1) + 1, f"{key}: {r['env_step_launches']} env steps")
+        if with_obs:
+            check(r["peak_memory_bytes"] <= 2.2 * obs_bytes,
+                  f"{key}: the graphed rollout held {r['peak_memory_bytes']} bytes, more than two observations")
         out[key] = r
     pct = out["throughput_obs"]["hbm_roofline_pct"]
     check(pct is not None and 0 < pct < 100, f"hbm_roofline_pct = {pct}")
+    main_launches = launch_counts()
+    for name in ("env.step", "render.onehot"):
+        check(main_launches.get(name, 0) >= 1, f"the main path launched no {name} kernel")
+    out["main_path_launches"] = main_launches
+    reset_launches()
+
+    # (f) the rollout graph, on `simple` (whose rollouts reach the goal, so
+    # that a reward total depends on the actions; on the 47 x 54 puzzle no
+    # random rollout gains a goal): on pre-drawn actions its reward total
+    # equals the eager rollout's; with the generator, each replay draws
+    # fresh actions, the eager rollouts' from the same seed.  Then, on the
+    # 47 x 54 puzzle, one cudaGraphLaunch a replay, kernels a step and the
+    # card's busy share, beside eager steps (a profiled window).
+    env_s = VectorEnv(cp_s, device=dev)
+    t_s = render.compile_render_tables(simple, cp_s, device=dev)
     env = VectorEnv(cp, device=dev)
-    state = [env.reset(None, B, torch.zeros(B, dtype=torch.int32))]
+    pidx = torch.zeros(B, dtype=torch.int32, device=dev)
+    drawn = torch.randint(0, 4, (horizon, B), generator=torch.Generator(device=dev).manual_seed(9), device=dev)
+    gen = torch.Generator(device=dev)
+    graph_rows = {}
+    for key, with_obs in (("obs", True), ("no_obs", False)):
+        g = throughput.RolloutGraph(env_s, t_s, pidx, horizon, with_obs, None, drawn)
+        got = float(g.replay())
+        want = float(throughput.rollout(env_s, t_s, pidx, horizon, with_obs, None, drawn))
+        check(got == want, f"graphed rollout {key}: reward total {got} != eager {want} on the same actions")
+        g = throughput.RolloutGraph(env_s, t_s, pidx, horizon, with_obs, gen)
+        eager = torch.Generator(device=dev).manual_seed(21)
+        gen.manual_seed(21)
+        offsets, totals = [], []
+        for _ in range(2):
+            totals.append((float(g.replay()), float(throughput.rollout(env_s, t_s, pidx, horizon, with_obs, eager))))
+            offsets.append((gen.get_offset(), eager.get_offset()))
+        check(all(a == b for a, b in totals) and all(a == b for a, b in offsets) and offsets[1][0] > offsets[0][0]
+              and totals[0][0] != totals[1][0],
+              f"graphed rollout {key}: replays do not draw the eager rollouts' fresh actions: {totals} {offsets}")
+        g = throughput.RolloutGraph(env, t_g, pidx, horizon, with_obs, gen)
+        prof = profile_device(g.replay, reps=1)
+        graph_rows[key] = {"rollout_ms": prof["wall_s"] * 1e3, "kernels_per_step": prof["n_kernels"] / horizon,
+                           "device_busy_share": prof["busy_us"] / (prof["wall_s"] * 1e6),
+                           "device_ms_per_step": prof["busy_us"] / 1e3 / horizon,
+                           "cuda_graph_launches": prof["runtime"].get("cudaGraphLaunch", 0),
+                           "host_kernel_launches": prof["runtime"].get("cudaLaunchKernel", 0),
+                           "reward_total_same_actions": want, "fresh_draw_totals": totals}
+        check(graph_rows[key]["cuda_graph_launches"] == 1, f"graphed rollout {key}: {prof['runtime']}")
+        del g
+    out["graphed"] = graph_rows
+    state = [env.reset(None, B, pidx)]
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def one_step(with_obs):
@@ -2605,26 +2750,64 @@ def phase_envs(puzzles, generated, dev, batch=4096, horizon=128):
                     "device_busy_share": prof["busy_us"] / (prof["wall_s"] * 1e6),
                     "device_ms_per_step": prof["busy_us"] / 1e3 / window,
                     "top_kernels_device_ms_per_step": {k: us / 1e3 / window for k, us in top}}
-    pos = state[0].positions
-    obs_bytes = B * cp.height * cp.width * 6 * 4
-    out["alone"] = {
-        "step_ms": cuda_time_ms(lambda: one_step(False), reps=50),
-        "render_ms": cuda_time_ms(lambda: render.render_cells_onehot_batched(t_g, pos), reps=50),
-        "render_bytes": obs_bytes,
-        "render_bound_ms": obs_bytes / H100_BYTES_PER_S * 1e3,
-        # What the card takes to write that many bytes at all: one fill.
-        "fill_same_bytes_ms": cuda_time_ms(
-            lambda o=render.render_cells_onehot_batched(t_g, pos): o.zero_(), reps=50),
-    }
 
-    # (f) the wrappers: host code.
+    # (g) the two kernels alone at the main path's shapes (B = 4096 on
+    # 47 x 54), beside their plain versions and bounds; the renderer beside
+    # a fill of the same bytes (no one PyTorch call renders).
+    st = state[0]
+    a = torch.randint(0, 4, (B,), generator=gen, device=dev)
+    step_args = (env.puzzles, st.positions, a, st.steps, st.achieved, None, env._init_pos, env._init_achieved, None)
+    N = cp.n
+    # Each input read once (the cells, action, steps and achieved of every
+    # rollout, the push and static-block tables, the initial state), each
+    # output written once (cells before and after the reset, steps,
+    # achieved, reward, two flags).
+    step_bytes = (B * (8 * N + 8 + 4 + 4) + env.puzzles.push.numel() + env.puzzles.static_block.numel()
+                  + 8 * N + 4 + B * (16 * N + 4 + 4 + 4 + 1 + 1))
+    render_bytes = obs_bytes + B * 8 * N + sum(v.numel() * v.element_size() for v in t_g.values())
+    def traced_ms(fn, name, calls):
+        """Device ms per launch of the kernel ``name`` that the trace holds
+        (a trace that misses launches would read low per call)."""
+        prof = profile_device(fn, reps=calls)
+        kernel_device_ms(prof, name, calls=calls)  # records the traced count
+        hit = [v for k, v in prof["by_kernel"].items() if name in k]
+        return sum(us for _, us in hit) / 1e3 / sum(count for count, _ in hit)
+
+    step_row = {"name": "env.step", "route": "cuda", "source": "pushworld_tpu_torch/kernels/env.cu",
+                "replaces": "pushworld_tpu/ops/step.py:70, pushworld_tpu/envs/vector_env.py:110-153 (XLA code)",
+                "max_abs_err": env_err, "lanes": lanes,
+                "ms": cuda_time_ms(lambda: env_step(*step_args), reps=200),
+                "device_ms": traced_ms(lambda: env_step(*step_args), "env_step_kernel", 50),
+                "plain_ms": cuda_time_ms(lambda: env_step_reference(*step_args), reps=20),
+                **work_bound(step_bytes, 0, floor), "library_ms": None, "library_device_ms": None}
+    pos = st.positions
+    fill = torch.empty((B, cp.height, cp.width, 6), dtype=torch.float32, device=dev)
+    fill_prof = profile_device(fill.zero_, reps=20)
+    render_row = {"name": "render.onehot", "route": "cuda", "source": "pushworld_tpu_torch/kernels/render.cu",
+                  "replaces": "pushworld_tpu/ops/render.py:128 (XLA code)", "max_abs_err": render_err,
+                  "ms": cuda_time_ms(lambda: render.render_cells_onehot_batched(t_g, pos), reps=50),
+                  "device_ms": traced_ms(lambda: render.render_cells_onehot_batched(t_g, pos),
+                                         "render_onehot_kernel", 20),
+                  "plain_ms": cuda_time_ms(lambda: render.render_cells_onehot_batched_reference(t_g, pos), reps=20),
+                  **work_bound(render_bytes, 0, floor), "library_ms": None, "library_device_ms": None,
+                  # What the card takes to write that many bytes at all: one fill
+                  # (its device time per traced fill kernel).
+                  "fill_same_bytes_ms": cuda_time_ms(fill.zero_, reps=50),
+                  "fill_same_bytes_device_ms": fill_prof["busy_us"] / 1e3 / fill_prof["n_kernels"]}
+    del fill
+    for row in (step_row, render_row):
+        row["main_path_launches"] = main_launches.get(row["name"], 0)
+    out["kernels"] = {r["name"]: {k: v for k, v in r.items() if k not in ("name", "lanes")}
+                      for r in (step_row, render_row)}
+
+    # (h) the wrappers: host code.
     out["wrappers"] = _wrappers_against_oracle(os.path.join(ROOT, "tests", "puzzles", "simple.pwp"), simple)
-    launches = launch_counts()
+    launches = dict(Counter(before_main) + Counter(main_launches) + Counter(launch_counts()))
     check(launches.get("wavefront", 0) >= 1, "the envs phase launched no wavefront kernel")
     check(launches.get("rgd.heuristic", 0) >= 1, "the greedy policy launched no RGD kernel")
     out["launches"] = launches
     emit(out)
-    return launches
+    return [step_row, render_row], launches
 
 
 def phase_native(puzzles, generated, dev):
@@ -3501,7 +3684,8 @@ def main() -> int:
     chunk_launches = phase_chunk(generated, hard, args.seed, dev)
     phase_cpu_agreement(puzzles, dev)
     graphs_launches = phase_graphs(puzzles, generated, dev)
-    envs_launches = phase_envs(puzzles, generated, dev)
+    env_kernels, envs_launches = phase_envs(puzzles, generated, dev, floor)
+    kernels += env_kernels
     phase_native(puzzles, generated, dev)
     by_phase = {"solve": launches, "many_objects": wide_launches, "chunk": chunk_launches,
                 "graphs": graphs_launches, "envs": envs_launches,
@@ -3518,7 +3702,8 @@ def main() -> int:
         if k["name"] in wide:  # the lanes at 32 (one-word path), 33, 64 and 100 objects
             k["wide"] = wide[k["name"]]
             k["max_abs_err"] = max([k["max_abs_err"]] + [lane["max_abs_err"] for lane in wide[k["name"]].values()])
-        k["launches"] = launches.get(k["name"], 0)
+        # The environment's kernels: their count over their own main path.
+        k["launches"] = k.pop("main_path_launches") if "main_path_launches" in k else launches.get(k["name"], 0)
         k["launches_by_phase"] = {ph: c.get(k["name"], 0) for ph, c in by_phase.items()}
         k["main_path_form"] = OFF_MAIN_PATH.get(k["name"])
     emit({"phase": "traced_launches", "readings": TRACED_LAUNCHES,
@@ -3526,7 +3711,8 @@ def main() -> int:
     emit({"kernels": [{key: k.get(key) for key in (
         "name", "route", "source", "replaces", "launches", "launches_by_phase", "max_abs_err",
         "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes_bound_ms", "library_ms",
-        "library_device_ms", "closed_gate_device_ms", "main_path_form", "wide", "loop_tail")}
+        "library_device_ms", "closed_gate_device_ms", "main_path_form", "wide", "loop_tail", "lanes",
+        "fill_same_bytes_ms", "fill_same_bytes_device_ms")}
         for k in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

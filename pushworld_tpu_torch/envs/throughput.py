@@ -12,6 +12,15 @@ pipeline runs from device memory with no host round-trips.
 plus a memory-bandwidth estimate (the observation write dominates the bytes
 moved), and optionally the reference-style host loop's steps/s on the same
 puzzle for comparison.
+
+The JAX package runs a rollout as one jitted ``lax.scan`` over the action
+draw, the step, the render and the reward sum
+(pushworld_tpu/envs/throughput.py:82-104).  Here, on the card, the same
+rollout (:func:`rollout`: ``horizon`` steps of the draw, ``VectorEnv.step``
+(one ``kernels/env.cu`` launch), the render (one ``kernels/render.cu``
+launch) and the sum) is captured once into a CUDA graph
+(:class:`RolloutGraph`), and a timed rollout is one graph launch and one
+synchronisation.  On the CPU it runs eagerly.
 """
 
 import time
@@ -20,12 +29,14 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from pushworld_tpu_torch import kernels
 from pushworld_tpu_torch.core.compiled import compile_puzzle
 from pushworld_tpu_torch.core.puzzle import Puzzle
 from pushworld_tpu_torch.device import DeviceLike, card_info, resolve_device
 from pushworld_tpu_torch.envs.vector_env import VectorEnv
 from pushworld_tpu_torch.ops.render import (
     NUM_CHANNELS,
+    RenderTables,
     compile_render_tables,
     render_cells_onehot_batched,
 )
@@ -40,6 +51,84 @@ def _device_hbm_bw(dev: torch.device) -> Optional[float]:
     if dev.type != "cuda":
         return None
     return HBM_BYTES_PER_S.get(torch.cuda.get_device_name(dev))
+
+
+def rollout(env: VectorEnv, tables: RenderTables, puzzle_idx: torch.Tensor, horizon: int, observations: bool,
+            generator: Optional[torch.Generator], actions: Optional[torch.Tensor] = None,
+            obs_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``horizon`` steps of the B rollouts that ``puzzle_idx`` (B,) int32
+    names, each from its puzzle's initial state (``env.start``: unchecked),
+    with a uniform-random policy drawn from ``generator``, or with
+    ``actions`` (horizon, B) where given; with ``observations``, every step
+    also renders the one-hot observations (into ``obs_out`` where given).
+    Returns the reward total, a float32 scalar on the device, unread: the
+    rollout reads nothing back, so a CUDA graph may capture it."""
+    B = puzzle_idx.shape[0]
+    state = env.start(puzzle_idx)
+    total = torch.zeros((), dtype=torch.float32, device=env.device)
+    for t in range(horizon):
+        a = torch.randint(0, 4, (B,), generator=generator, device=env.device) if actions is None else actions[t]
+        state, next_pos, reward, _, _ = env.step(state, a)
+        if observations:
+            render_cells_onehot_batched(tables, next_pos, out=obs_out)
+        total = total + reward.sum()
+    return total
+
+
+class RolloutGraph:
+    """:func:`rollout` on the card as one CUDA graph: the counterpart of the
+    JAX package's jitted ``lax.scan``.  :meth:`replay` runs a whole rollout
+    with one graph launch.
+
+    - ``env.reset`` checks the puzzle indices on the host once, before the
+      capture; the graph starts each rollout with ``env.start``.
+    - The action draw's generator is registered with the graph
+      (``register_generator_state``): a replay draws from its current seed
+      and offset, and advances the offset, so each replay draws fresh
+      actions and ``generator.manual_seed(s)`` before a replay gives seed
+      ``s``'s actions, the eager rollout's.  With ``actions`` given the graph
+      reads them from that tensor instead.
+    - The observations go to one buffer (``obs``), allocated before the
+      capture: the graph's memory is one observation block, not one a step.
+    - One step runs eagerly on the capture stream first (libraries loaded,
+      lazy initialisations done), none of which may happen in a capture.
+    - Launch counts: the capture's are recorded (``kernels.recording_launches``)
+      and added to ``kernels.LAUNCHES`` at each replay; the replay itself
+      counts in ``kernels.GRAPH_LAUNCHES["envs.rollout"]``.
+    """
+
+    def __init__(self, env: VectorEnv, tables: RenderTables, puzzle_idx: torch.Tensor, horizon: int,
+                 observations: bool, generator: Optional[torch.Generator], actions: Optional[torch.Tensor] = None):
+        dev = env.device
+        B = puzzle_idx.shape[0]
+        env.reset(None, B, puzzle_idx)  # the range check, on the host, outside the capture
+        self.obs = (torch.empty((B, env.puzzles.height, env.puzzles.width, NUM_CHANNELS), dtype=torch.float32,
+                                device=dev) if observations else None)
+        self._refs = (env, tables, puzzle_idx, actions, generator)  # the graph reads their memory
+        args = (env, tables, puzzle_idx)
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                rollout(*args, 1, observations, generator, None if actions is None else actions[:1], self.obs)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            if actions is None:
+                self.graph.register_generator_state(generator)
+            with kernels.recording_launches() as recorded:
+                with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
+                    self.total = rollout(*args, horizon, observations, generator, actions, self.obs)
+        self.launches = dict(recorded)
+
+    def replay(self) -> torch.Tensor:
+        """Enqueues one rollout (one graph launch) on the current stream;
+        returns its reward total (a device scalar, overwritten by the next
+        replay)."""
+        self.graph.replay()
+        for name, k in self.launches.items():
+            kernels.count_launch(name, k)
+        kernels.count_graph_launch("envs.rollout")
+        return self.total
 
 
 def measure_env_throughput(
@@ -57,9 +146,10 @@ def measure_env_throughput(
     Runs ``reps`` rollouts (after one warm-up rollout) of ``horizon`` steps ×
     ``batch_size`` lockstep rollouts with a uniform-random policy drawn on
     the device; when ``observations`` is set, every step also renders the
-    one-hot observation tensor there.  (Execution is eager: the tensor is
-    written whether or not anything reads it.)  Each rollout is timed on the
-    host clock around a device synchronisation.  Returns a dict with:
+    one-hot observation tensor there (written whether or not anything reads
+    it).  On the card a rollout is one launch of a :class:`RolloutGraph`;
+    on the CPU it runs eagerly.  Each rollout is timed on the host clock
+    around a device synchronisation.  Returns a dict with:
 
     - ``steps_per_s``: env steps (B × horizon) per wall second, best rep;
     - ``obs_bytes_per_step``: device-memory bytes written per env step for
@@ -80,27 +170,20 @@ def measure_env_throughput(
     env = VectorEnv(cp, max_steps=None, device=dev)
     H, W = cp.height, cp.width
     puzzle_idx = torch.zeros((batch_size,), dtype=torch.int32, device=dev)
+    generator = torch.Generator(device=dev)
+    graph = RolloutGraph(env, tables, puzzle_idx, horizon, observations, generator) if dev.type == "cuda" else None
 
-    def run(generator: torch.Generator) -> float:
-        env_state = env.reset(None, batch_size, puzzle_idx)
-        acc = torch.zeros((), dtype=torch.float32, device=dev)
-        for _ in range(horizon):
-            actions = torch.randint(0, 4, (batch_size,), generator=generator, device=dev)
-            env_state, next_pos, reward, _, _ = env.step(env_state, actions)
-            if observations:
-                render_cells_onehot_batched(tables, next_pos)
-            acc = acc + reward.sum()
-        return float(acc)  # waits for the device
+    def run(s: int) -> float:
+        generator.manual_seed(s)
+        if graph is not None:
+            return float(graph.replay())  # waits for the device
+        return float(rollout(env, tables, puzzle_idx, horizon, observations, generator))
 
-    def generator_for(s: int) -> torch.Generator:
-        return torch.Generator(device=dev).manual_seed(s)
-
-    run(generator_for(seed))  # warm-up
+    run(seed)  # warm-up
     best = float("inf")
     for r in range(reps):
-        generator = generator_for(seed + 1 + r)
         t0 = time.monotonic()
-        run(generator)
+        run(seed + 1 + r)
         best = min(best, time.monotonic() - t0)
 
     steps_per_s = batch_size * horizon / best

@@ -20,6 +20,10 @@ reference requires a manual ``reset``, which the Gym/dm_env wrappers in
 :mod:`pushworld_tpu_torch.envs.gym_env` /
 :mod:`pushworld_tpu_torch.envs.dm_env_impl` preserve).
 
+On the card a step is one launch of ``kernels/env.cu``
+(:func:`pushworld_tpu_torch.ops.step.env_step`); on the CPU its plain
+version runs.
+
 Random numbers come from a ``torch.Generator`` that the caller passes.  A
 CPU generator and a CUDA generator give different streams from one seed, and
 neither gives the JAX package's: pass ``puzzle_idx`` and the actions to get
@@ -33,10 +37,12 @@ import torch
 
 from pushworld_tpu_torch.core.compiled import CompiledPuzzle
 from pushworld_tpu_torch.device import DeviceLike
-from pushworld_tpu_torch.ops.step import count_achieved_goals, is_goal_state, step
-
-TERMINAL_REWARD = 10.0
-STEP_PENALTY = 0.01
+from pushworld_tpu_torch.ops.step import (  # noqa: F401 (the rewards: the JAX module's names)
+    STEP_PENALTY,
+    TERMINAL_REWARD,
+    count_achieved_goals,
+    env_step,
+)
 
 
 @dataclass(frozen=True)
@@ -103,12 +109,18 @@ class VectorEnv:
         # Checked on the host: an index outside a CUDA table is a device fault.
         if batch_size and not bool(((idx >= 0) & (idx < self.num_puzzles)).all()):
             raise ValueError(f"puzzle_idx outside [0, {self.num_puzzles})")
-        sel = idx.long()
+        return self.start(idx)
+
+    def start(self, puzzle_idx: torch.Tensor) -> EnvState:
+        """:meth:`reset`'s state for ``puzzle_idx`` (B,) int32 on the
+        environment's device, UNCHECKED: an index outside [0, P) is a device
+        fault on the card.  It reads nothing back, so a CUDA graph may
+        capture it (``envs/throughput.py`` does, after one :meth:`reset`)."""
         return EnvState(
-            positions=self._init_pos[sel].clone(),
-            steps=torch.zeros((batch_size,), dtype=torch.int32, device=self.device),
-            achieved=self._init_achieved[sel].clone(),
-            puzzle_idx=idx,
+            positions=self._init_pos.index_select(0, puzzle_idx),
+            steps=torch.zeros(puzzle_idx.shape, dtype=torch.int32, device=self.device),
+            achieved=self._init_achieved.index_select(0, puzzle_idx),
+            puzzle_idx=puzzle_idx,
         )
 
     def step(self, state: EnvState, actions: torch.Tensor):
@@ -116,32 +128,13 @@ class VectorEnv:
 
         Returns ``(next_state, obs_positions, reward, terminated, truncated)``
         with auto-reset applied to ``next_state`` (the returned observation /
-        reward reflect the pre-reset transition).
+        reward reflect the pre-reset transition).  One :func:`env_step`: on
+        the card, one kernel launch.
         """
-        cp = self.puzzles
-        pidx = self._pidx(state.puzzle_idx)
-        next_pos = step(cp, state.positions, actions, pidx)
-        terminated = is_goal_state(cp, next_pos, pidx)
-        achieved = count_achieved_goals(cp, next_pos, pidx).to(torch.int32)
-        reward = torch.where(
-            terminated,
-            TERMINAL_REWARD,
-            (achieved - state.achieved).to(torch.float32) - STEP_PENALTY,
-        )
-        steps = state.steps + 1
-        if self.max_steps is None:
-            truncated = torch.zeros_like(terminated)
-        else:
-            truncated = ~terminated & (steps >= self.max_steps)
-        done = terminated | truncated
-
-        sel = state.puzzle_idx.long()
-        new_state = EnvState(
-            positions=torch.where(done[:, None, None], self._init_pos[sel], next_pos),
-            steps=torch.where(done, 0, steps),
-            achieved=torch.where(done, self._init_achieved[sel], achieved),
-            puzzle_idx=state.puzzle_idx,
-        )
+        positions, steps, achieved, next_pos, reward, terminated, truncated = env_step(
+            self.puzzles, state.positions, actions, state.steps, state.achieved, self._pidx(state.puzzle_idx),
+            self._init_pos, self._init_achieved, self.max_steps)
+        new_state = EnvState(positions=positions, steps=steps, achieved=achieved, puzzle_idx=state.puzzle_idx)
         return new_state, next_pos, reward, terminated, truncated
 
     def rollout(
@@ -155,7 +148,9 @@ class VectorEnv:
         actions``.
 
         Returns the final env state and per-step (reward, terminated) stacked
-        over time, (horizon, B) each.  A Python loop of ``step`` calls.
+        over time, (horizon, B) each.  A Python loop of ``step`` calls:
+        ``policy_fn`` is the caller's, and may read the host (JAX's
+        ``lax.scan`` needs it traceable).
         """
         env_state = self.reset(generator, batch_size)
         rewards, terms = [], []

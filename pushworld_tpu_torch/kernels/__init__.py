@@ -15,6 +15,8 @@ runs in device memory; :func:`settle_launches` reads every live loop's count
 and adds the bodies run since its last settle, times the kernels of one
 body, to ``LAUNCHES`` (a loop also settles when it is released).  So
 ``LAUNCHES`` keeps meaning kernels launched on the card, once settled.
+``envs/throughput.py``'s rollout graph adds its captured counts at each
+replay, and counts the replay itself in ``GRAPH_LAUNCHES``.
 """
 
 import threading
@@ -26,6 +28,8 @@ from typing import Iterator
 import torch
 
 LAUNCHES: Counter = Counter()
+# Launches of captured CUDA graphs, by name (a graph's kernels count in LAUNCHES).
+GRAPH_LAUNCHES: Counter = Counter()
 _LAUNCHES_LOCK = threading.Lock()
 _RECORDING = threading.local()
 # Live objects whose launches run on the card uncounted until they settle:
@@ -40,6 +44,11 @@ def count_launch(name: str, count: int = 1) -> None:
         return
     with _LAUNCHES_LOCK:
         LAUNCHES[name] += count
+
+
+def count_graph_launch(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        GRAPH_LAUNCHES[name] += 1
 
 
 def track_unsettled(obj) -> None:

@@ -65,6 +65,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "pw_novelty_absorb_records_wide": [_vp] * 4 + [_i] * 5 + [_vp],
         "pw_novelty_max_objects": [],
     },
+    "env": {
+        "pw_env_step": [_vp] * 21,
+        "pw_env_step_max_objects": [],
+    },
+    "render": {
+        "pw_render_onehot": [_vp] * 6 + [_ll] + [_i] * 4 + [_vp],
+    },
     "chunk_loop": {
         "pw_chunk_loop_new": [_vp, _vp],
         "pw_chunk_loop_build": [_vp] * 3 + [_i],

@@ -18,9 +18,14 @@ Formats:
 
 The render tables are a dict of tensors on one device
 (:func:`compile_render_tables`); states follow that device.
+
+:func:`render_cells_onehot_batched` is one launch of ``kernels/render.cu``
+on a CUDA tensor and its plain version
+(:func:`render_cells_onehot_batched_reference`) on a CPU tensor; the two are
+bit-equal.
 """
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -28,6 +33,7 @@ import torch
 from pushworld_tpu_torch.core.compiled import CompiledPuzzle
 from pushworld_tpu_torch.core.puzzle import Colors
 from pushworld_tpu_torch.device import DeviceLike, resolve_device
+from pushworld_tpu_torch.kernels import _build, count_launch, launch_on
 
 # Channel indices for the one-hot format.
 C_WALL, C_AGENT_WALL, C_AGENT, C_GOAL_OBJ, C_MOVABLE, C_GOAL = range(6)
@@ -141,9 +147,68 @@ def render_cells_onehot(tables: RenderTables, state: torch.Tensor) -> torch.Tens
     return (grid.unsqueeze(-1) == channels).to(torch.float32)
 
 
-def render_cells_onehot_batched(tables: RenderTables, states: torch.Tensor) -> torch.Tensor:
+# The shared memory a CTA of kernels/render.cu may have (an H100's 227 KB):
+# the kernel stages a state's grid there, 4 bytes a cell.
+RENDER_MAX_SHARED_BYTES = 232448
+
+
+def render_cells_onehot_batched(tables: RenderTables, states: torch.Tensor,
+                                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, H, W, NUM_CHANNELS) float32 semantic observations for a state
-    batch (B, N, 2), written channel by channel without a class grid.
+    batch (B, N, 2), written into ``out`` where given (a contiguous tensor of
+    that shape on the states' device) and returned.
+
+    On a CUDA tensor this is one launch of ``kernels/render.cu``, which
+    raises for a grid whose 4 H W bytes exceed
+    :data:`RENDER_MAX_SHARED_BYTES`; on a CPU tensor it runs
+    :func:`render_cells_onehot_batched_reference`.  The two are bit-equal
+    (for valid states: see the reference)."""
+    if states.device.type == "cpu":
+        obs = render_cells_onehot_batched_reference(tables, states)
+        return obs if out is None else out.copy_(obs)
+    return _render_onehot_cuda(tables, states, out)
+
+
+def _render_onehot_cuda(tables: RenderTables, states: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
+    """One launch of ``kernels/render.cu``: no host read, the launch on the
+    current stream, so a CUDA graph may capture it."""
+    base, cells, mask, cls = tables["base"], tables["obj_cells"], tables["obj_mask"], tables["obj_class"]
+    H, W = base.shape
+    N, C = mask.shape
+    dev = states.device
+    if states.dim() != 3 or states.shape[1:] != (N, 2) or states.dtype != torch.int32:
+        raise ValueError(f"states: expected (B, {N}, 2) int32, got {tuple(states.shape)} {states.dtype}")
+    for name, x, dtype, shape in (("base", base, torch.int8, (H, W)), ("obj_cells", cells, torch.int16, (N, C, 2)),
+                                  ("obj_mask", mask, torch.bool, (N, C)), ("obj_class", cls, torch.int8, (N,))):
+        if x.dtype != dtype or tuple(x.shape) != shape or x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous {dtype} {shape} tensor on {dev}")
+    if 4 * H * W > RENDER_MAX_SHARED_BYTES:
+        raise ValueError(f"render.onehot: a {H} x {W} grid needs {4 * H * W} bytes of shared memory a CTA, "
+                         f"more than the {RENDER_MAX_SHARED_BYTES} a CTA can have")
+    B = states.shape[0]
+    if out is None:
+        out = torch.empty((B, H, W, NUM_CHANNELS), dtype=torch.float32, device=dev)
+    elif (out.dtype != torch.float32 or tuple(out.shape) != (B, H, W, NUM_CHANNELS) or out.device != dev
+          or not out.is_contiguous() or out.data_ptr() % 16):
+        raise ValueError(f"out: expected a contiguous, 16-byte aligned float32 {(B, H, W, NUM_CHANNELS)} tensor "
+                         f"on {dev}")
+    if B == 0:
+        return out
+    states = states.contiguous()
+    if states.data_ptr() % 8:
+        states = states.clone()
+    lib = _build.load("render")
+    rc = launch_on(dev, lib.pw_render_onehot, states.data_ptr(), base.data_ptr(), cells.data_ptr(),
+                   mask.data_ptr(), cls.data_ptr(), out.data_ptr(), B, N, C, H, W)
+    if rc != 0:
+        raise RuntimeError(f"pw_render_onehot launch failed: CUDA error {rc}")
+    count_launch("render.onehot")
+    return out
+
+
+def render_cells_onehot_batched_reference(tables: RenderTables, states: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`render_cells_onehot_batched`, written
+    channel by channel without a class grid.
 
     The static channels of the base grid are copied into the output once
     (the one pass over its B * H * W * 6 floats), then every movable cell

@@ -28,8 +28,16 @@ launch of ``kernels/expand.cu`` on a CUDA tensor and its plain version
 CPU tensor; the two are bit-equal.  The kernel has two paths: the one-word
 path for states of at most :data:`EXPAND_MAX_OBJECTS` objects and the wide
 path for more (:func:`expand_path`).
+
+The environment's step (:func:`env_step`: the transition, the goal test,
+the reward, truncation and auto-reset of a batch of rollouts) and
+:func:`step` are one launch of ``kernels/env.cu`` on a CUDA tensor and their
+plain versions (:func:`env_step_reference`, :func:`step_reference`) on a CPU
+tensor; the two are bit-equal.
 """
 
+import ctypes
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
@@ -39,6 +47,9 @@ from pushworld_tpu_torch.core.compiled import CompiledPuzzle
 from pushworld_tpu_torch.kernels import _build, count_launch, launch_on
 
 DISPLACEMENTS = np.array([(-1, 0), (1, 0), (0, -1), (0, 1)], np.int32)
+# The environment's rewards (reference: python3/src/pushworld/gym_env.py:210-226).
+TERMINAL_REWARD = 10.0
+STEP_PENALTY = 0.01
 
 
 def displacements(device) -> torch.Tensor:
@@ -73,8 +84,19 @@ def step(cp: CompiledPuzzle, state: torch.Tensor, action, puzzle_idx=None) -> to
     ``state.shape[:-2]``.  It is a leading index into the stacked tables: no
     table is copied per state.
 
-    Returns the next states, (..., N, 2) int32.
+    Returns the next states, (..., N, 2) int32.  On a CUDA tensor this is one
+    launch of ``kernels/env.cu`` (the transition alone), which reads the
+    states, actions and puzzle indices through their strides (a broadcast
+    copies nothing); on a CPU tensor it runs :func:`step_reference`.
     """
+    if state.device.type == "cpu":
+        return step_reference(cp, state, action, puzzle_idx)
+    return _env_kernel(cp, state, action, puzzle_idx)[0]
+
+
+def step_reference(cp: CompiledPuzzle, state: torch.Tensor, action, puzzle_idx=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`step`: the push relation gathered from
+    the dense table, its closure by squaring, the static-block gather."""
     N, delta = cp.n, cp.delta
     K = 2 * delta + 1
     dev = state.device
@@ -308,6 +330,201 @@ def is_goal_state(cp: CompiledPuzzle, state: torch.Tensor, puzzle_idx=None) -> t
 def moved_mask(prev_state: torch.Tensor, next_state: torch.Tensor) -> torch.Tensor:
     """(..., N) bool: which movables changed position."""
     return (prev_state != next_state).any(-1)
+
+
+EnvStepOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                   torch.Tensor]
+
+
+def env_step_reference(
+    cp: CompiledPuzzle, positions: torch.Tensor, actions, steps: torch.Tensor, achieved: torch.Tensor,
+    puzzle_idx: Optional[torch.Tensor], init_pos: torch.Tensor, init_achieved: torch.Tensor,
+    max_steps: Optional[int],
+) -> EnvStepOut:
+    """Plain PyTorch version of :func:`env_step`: the transition, the goal
+    test, the reward, truncation and auto-reset, one op after another."""
+    next_pos = step_reference(cp, positions, actions, puzzle_idx)
+    terminated = is_goal_state(cp, next_pos, puzzle_idx)
+    got = count_achieved_goals(cp, next_pos, puzzle_idx).to(torch.int32)
+    reward = torch.where(terminated, TERMINAL_REWARD, (got - achieved).to(torch.float32) - STEP_PENALTY)
+    steps = steps + 1
+    if max_steps is None:
+        truncated = torch.zeros_like(terminated)
+    else:
+        truncated = ~terminated & (steps >= max_steps)
+    done = terminated | truncated
+    sel = 0 if puzzle_idx is None else puzzle_idx.long()
+    return (
+        torch.where(done[:, None, None], init_pos[sel], next_pos),
+        torch.where(done, 0, steps),
+        torch.where(done, init_achieved[sel], got),
+        next_pos, reward, terminated, truncated,
+    )
+
+
+def env_step(
+    cp: CompiledPuzzle, positions: torch.Tensor, actions, steps: torch.Tensor, achieved: torch.Tensor,
+    puzzle_idx: Optional[torch.Tensor], init_pos: torch.Tensor, init_achieved: torch.Tensor,
+    max_steps: Optional[int],
+) -> EnvStepOut:
+    """One step of B rollouts of the batched environment (``VectorEnv.step``).
+
+    ``positions`` (B, N, 2) int32, ``steps`` and ``achieved`` (B,) int32: the
+    rollouts' state; ``actions`` (B,) ints in [0, 4) (int64 as
+    ``torch.randint`` gives them, or int32); ``puzzle_idx`` (B,) each
+    rollout's puzzle of a stacked ``cp``, None for a single puzzle;
+    ``init_pos`` (P, N, 2) int32 and ``init_achieved`` (P,) int32 each
+    puzzle's initial state and the goals it achieves (P = 1 for a single
+    puzzle); ``max_steps`` the truncation horizon or None.
+
+    Returns ``(positions, steps, achieved, next_pos, reward, terminated,
+    truncated)``: the next state with auto-reset applied (a rollout that
+    terminated or was truncated starts again from its puzzle's initial
+    state), then the pre-reset positions, the float32 reward (10 where
+    terminated, else the change in achieved goals less 0.01) and the two
+    bool flags.  On a CUDA tensor this is one launch of ``kernels/env.cu``;
+    on a CPU tensor it runs :func:`env_step_reference`.  The two are
+    bit-equal."""
+    if positions.device.type == "cpu":
+        return env_step_reference(cp, positions, actions, steps, achieved, puzzle_idx, init_pos, init_achieved,
+                                  max_steps)
+    if positions.dim() != 3:
+        raise ValueError(f"env_step: positions (B, N, 2), got {tuple(positions.shape)}")
+    return _env_kernel(cp, positions, actions, puzzle_idx,
+                       env=(steps, achieved, init_pos, init_achieved, max_steps))
+
+
+# The most batch dimensions kernels/env.cu reads through strides (kMaxDims);
+# a state batch of more is flattened first.
+_ENV_MAX_DIMS = 4
+# The largest N of the env kernel's one-word path (kernels/env.cu kMaxObjects).
+ENV_MAX_OBJECTS = 32
+
+
+def _index_operand(x, batch, dev, what: str):
+    """(tensor, element bytes, strides) of an int tensor broadcast to
+    ``batch`` on ``dev``: int32 and int64 are read as they are, other types
+    cast to int64."""
+    if x.device != dev:
+        x = x.to(dev)
+    if x.dtype not in (torch.int32, torch.int64):
+        x = x.long()
+    try:
+        x = x.expand(batch)
+    except RuntimeError as err:
+        raise ValueError(f"{what} of shape {tuple(x.shape)} does not broadcast to {tuple(batch)}") from err
+    return x, x.element_size(), x.stride()
+
+
+# Per puzzle (by id, with a weak reference that confirms it): what the env
+# kernel reads of its tables, checked once; a step's host time is its enqueue.
+_ENV_TABLES: dict = {}
+
+
+def _env_tables(cp: CompiledPuzzle, dev: torch.device):
+    """(P, table pointers) of ``cp`` for ``kernels/env.cu``, its tables
+    checked (types, shapes, device, layout) at the first call."""
+    hit = _ENV_TABLES.get(id(cp))
+    if hit is not None and hit[0]() is cp and hit[1] == dev:
+        return hit[2]
+    N, H, W, K = cp.n, cp.height, cp.width, 2 * cp.delta + 1
+    P = cp.init_state.shape[0] if cp.init_state.dim() == 3 else 1
+    lead = (P,) if cp.init_state.dim() == 3 else ()
+    for name, x, dtype, shape in (
+        ("static_block", cp.static_block, torch.bool, (*lead, 4, N, H, W)),
+        ("push", cp.push, torch.bool, (*lead, 4, N, N, K, K)), ("obj_mask", cp.obj_mask, torch.bool, (*lead, N)),
+        ("goal_pos", cp.goal_pos, torch.int32, (*lead, N, 2)), ("goal_mask", cp.goal_mask, torch.bool, (*lead, N)),
+    ):
+        if x.dtype != dtype or tuple(x.shape) != shape or x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous {dtype} {shape} tensor on {dev}")
+    goal_pos = cp.goal_pos if cp.goal_pos.data_ptr() % 8 == 0 else cp.goal_pos.clone()  # read as 8-byte cells
+    out = (P, goal_pos, [cp.static_block.data_ptr(), cp.push.data_ptr(), cp.obj_mask.data_ptr(), goal_pos.data_ptr(),
+                         cp.goal_mask.data_ptr()])
+    _ENV_TABLES[id(cp)] = (weakref.ref(cp), dev, out)
+    return out
+
+
+def _env_kernel(cp: CompiledPuzzle, state: torch.Tensor, action, puzzle_idx, env=None,
+                wide: Optional[bool] = None):
+    """One launch of ``kernels/env.cu``: the transition of every state of
+    ``state`` (..., N, 2), and with ``env`` = (steps, achieved, init_pos,
+    init_achieved, max_steps) the environment's step.  Outputs from
+    ``torch.empty`` (two buffers: the int32 and float32 outputs, the flags),
+    no host read, the launch on the current stream, so a CUDA graph may
+    capture it.  Returns :func:`env_step`'s tuple (the transition alone:
+    ``(next_pos,)``).  ``wide``: the kernel's path, by N where None (the wide
+    path takes any N, so the tests run it on narrow states too)."""
+    dev, N = state.device, cp.n
+    if state.dim() < 2 or state.shape[-2:] != (N, 2) or state.dtype != torch.int32:
+        raise ValueError(f"states: expected (..., {N}, 2) int32, got {tuple(state.shape)} {state.dtype}")
+    if (cp.init_state.dim() == 3) != (puzzle_idx is not None):
+        raise ValueError("puzzle_idx names each state's puzzle of a stacked puzzle, and only of one")
+    P, goal_pos, table_ptrs = _env_tables(cp, dev)
+    batch = state.shape[:-2]
+    out_shape = state.shape
+    if len(batch) > _ENV_MAX_DIMS:
+        state, batch = state.reshape(-1, N, 2), (state[..., 0, 0].numel(),)
+        action = action.expand(out_shape[:-2]).reshape(batch) if isinstance(action, torch.Tensor) else action
+        puzzle_idx = None if puzzle_idx is None else puzzle_idx.expand(out_shape[:-2]).reshape(batch)
+    # A state's (N, 2) cells contiguous and 8-byte aligned, batch strides even.
+    strides = state.stride()
+    if strides[-1] != 1 or (N > 1 and strides[-2] != 2) or any(s % 2 for s in strides[:-2]) or state.data_ptr() % 8:
+        state = state.contiguous()
+        if state.data_ptr() % 8:
+            state = state.clone()
+    if isinstance(action, torch.Tensor):
+        act, act_bytes, act_strides = _index_operand(action, batch, dev, "action")
+        value = 0
+    else:
+        value = int(action)
+        if not 0 <= value < 4:
+            raise ValueError(f"action {value} outside [0, 4)")
+        act, act_bytes, act_strides = None, 0, ()
+    pidx, pidx_bytes, pidx_strides = None, 0, ()
+    if puzzle_idx is not None:
+        pidx, pidx_bytes, pidx_strides = _index_operand(puzzle_idx, batch, dev, "puzzle_idx")
+    B = state[..., 0, 0].numel()
+    ptr = [state.data_ptr(), None if act is None else act.data_ptr(), None if pidx is None else pidx.data_ptr()]
+    max_steps = None
+    if env is None:
+        next_pos = torch.empty(out_shape, dtype=torch.int32, device=dev)
+        outs = (next_pos,)
+        ptr += [None, None, *table_ptrs, None, None, next_pos.data_ptr()] + [None] * 6
+    else:
+        steps, achieved, init_pos, init_achieved, max_steps = env
+        for name, x, dtype, shape in (
+            ("steps", steps, torch.int32, (B,)), ("achieved", achieved, torch.int32, (B,)),
+            ("init_pos", init_pos, torch.int32, (P, N, 2)), ("init_achieved", init_achieved, torch.int32, (P,)),
+        ):
+            if x.dtype != dtype or tuple(x.shape) != shape or x.device != dev or not x.is_contiguous():
+                raise ValueError(f"{name}: expected a contiguous {dtype} {shape} tensor on {dev}")
+        if init_pos.data_ptr() % 8:
+            init_pos = init_pos.clone()
+        # One int32 buffer: next_pos, the positions after the reset (8-byte
+        # aligned: 8BN bytes in), steps, achieved, the reward's bits; one bool
+        # buffer: terminated, truncated.
+        words = torch.empty((4 * B * N + 3 * B,), dtype=torch.int32, device=dev)
+        flags = torch.empty((2 * B,), dtype=torch.bool, device=dev)
+        cells = words[: 4 * B * N].view(2, B, N, 2)
+        scalars = words[4 * B * N:].view(3, B)
+        outs = (cells[1], scalars[0], scalars[1], cells[0], scalars[2].view(torch.float32), flags[:B], flags[B:])
+        ptr += [steps.data_ptr(), achieved.data_ptr(), *table_ptrs, init_pos.data_ptr(), init_achieved.data_ptr()]
+        ptr += [x.data_ptr() for x in (outs[3], outs[0], outs[1], outs[2], outs[4], outs[5], outs[6])]
+    if B == 0:
+        return outs
+    dims = len(batch) or 1
+    pad = (0,) * (_ENV_MAX_DIMS - dims)
+    geom = (ctypes.c_longlong * (12 + 4 * _ENV_MAX_DIMS))(
+        B, N, cp.height, cp.width, cp.delta, P, value, act_bytes, pidx_bytes,
+        (1 << 63) - 1 if max_steps is None else min(int(max_steps), (1 << 63) - 1),
+        0 if wide is None else (2 if wide else 1), dims,
+        *(tuple(batch) or (1,)), *pad, *(state.stride()[:-2] or (0,)), *pad, *(tuple(act_strides) or (0,)), *pad,
+        *(tuple(pidx_strides) or (0,)), *pad)
+    rc = launch_on(dev, _build.load("env").pw_env_step, *ptr, ctypes.addressof(geom))
+    if rc != 0:
+        raise RuntimeError(f"pw_env_step launch failed: CUDA error {rc}")
+    count_launch("env.step")
+    return outs
 
 
 def run_plan(cp: CompiledPuzzle, actions, return_states: bool = False):

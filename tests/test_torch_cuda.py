@@ -1376,6 +1376,221 @@ def test_build_reachability_card_equals_cpu(dev, name):
     assert torch.equal(D_g.cpu(), graphs.all_pairs_distances(E_c[:, 0]))
 
 
+def _env_lane(n, stacked):
+    """(puzzles, compiled, puzzle of each of 256 rollouts): ``n`` = 4 is the
+    47 x 54 puzzle of chip_smoke.py, other ``n`` ``many_objects_text(n)``;
+    stacked, beside two fixtures of fewer movables (padded to n)."""
+    from pushworld_tpu_torch.core.compiled import compile_batch, compile_puzzle
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+
+    smoke = _smoke()
+    main = Puzzle.from_text(smoke.generated_puzzle_text(0) if n == 4 else smoke.many_objects_text(n))
+    puzzles = [main] + ([_fixture("simple"), _fixture("heur/two_tools")] if stacked else [])
+    cp = compile_batch(puzzles) if stacked else compile_puzzle(main)
+    idx = np.random.default_rng(n).integers(0, len(puzzles), 256).astype(np.int32)
+    return puzzles, cp, idx
+
+
+def _env_kernel_equals_plain(cp, idx, max_steps, n_steps, dev, rng, wide=None):
+    """The env kernel and its plain version on the card from the same state
+    each step, every output equal; the kernel's state carried.  Returns
+    the terminations and truncations seen."""
+    from pushworld_tpu_torch.envs.vector_env import VectorEnv
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.ops import step as ops
+
+    env = VectorEnv(cp, max_steps=max_steps, device=dev)
+    st = env.reset(None, len(idx), torch.as_tensor(idx))
+    pidx = env._pidx(st.puzzle_idx)
+    seen = [0, 0]
+    for t in range(n_steps):
+        a = torch.as_tensor(rng.integers(0, 4, len(idx)), device=dev)  # int64, as torch.randint gives
+        before = LAUNCHES["env.step"]
+        got = ops._env_kernel(env.puzzles, st.positions, a, pidx, wide=wide,
+                              env=(st.steps, st.achieved, env._init_pos, env._init_achieved, max_steps))
+        want = ops.env_step_reference(env.puzzles, st.positions, a, st.steps, st.achieved, pidx, env._init_pos,
+                                      env._init_achieved, max_steps)
+        torch.cuda.synchronize()
+        assert LAUNCHES["env.step"] == before + 1
+        for k, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == w.dtype and torch.equal(g, w), (t, k)
+        seen[0] += int(got[5].sum())
+        seen[1] += int(got[6].sum())
+        st = type(st)(got[0], got[1], got[2], st.puzzle_idx)
+    return seen
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("n", [4, 19, 33, 64, 100])
+def test_env_step_kernel_equals_plain_version(dev, n, stacked):
+    """``env.step`` against its plain version at 4 (47 x 54) to 100 movables,
+    single and stacked (padded objects), truncations and auto-resets hit;
+    at 33 and above on the wide path, below also forced onto it."""
+    from pushworld_tpu_torch.kernels import _build
+    from pushworld_tpu_torch.ops import step as ops
+
+    assert _build.load("env").pw_env_step_max_objects() == ops.ENV_MAX_OBJECTS == 32
+    puzzles, cp, idx = _env_lane(n, stacked)
+    rng = np.random.default_rng(n + stacked)
+    terminated, truncated = _env_kernel_equals_plain(cp, idx, 7, 24, dev, rng)
+    assert truncated > 0
+    if stacked:
+        assert terminated > 0  # the fixtures reach their goals
+    if n <= 32:
+        _env_kernel_equals_plain(cp, idx, 7, 8, dev, rng, wide=True)
+
+
+def test_env_step_kernel_without_truncation_and_with_int32_actions(dev):
+    """``max_steps`` None (truncated all False) and int32 actions (the
+    greedy policy's) through ``VectorEnv.step``, card = CPU."""
+    from pushworld_tpu_torch.core.compiled import compile_batch
+    from pushworld_tpu_torch.envs.vector_env import VectorEnv
+
+    puzzles = [_fixture(n) for n in ("simple", "chain", "push_left")]
+    cp = compile_batch(puzzles)
+    rng = np.random.default_rng(3)
+    idx = torch.as_tensor(rng.integers(0, 3, 300).astype(np.int32))
+    env_g, env_c = VectorEnv(cp, device=dev), VectorEnv(cp, device="cpu")
+    st_g, st_c = env_g.reset(None, 300, idx), env_c.reset(None, 300, idx)
+    terminated = 0
+    for a in rng.integers(0, 4, (30, 300)).astype(np.int32):
+        out_g = env_g.step(st_g, torch.as_tensor(a, device=dev))
+        out_c = env_c.step(st_c, torch.as_tensor(a))
+        torch.cuda.synchronize()
+        _assert_env_outputs_equal(out_g, out_c)
+        assert not out_g[4].any()
+        terminated += int(out_c[3].sum())
+        st_g, st_c = out_g[0], out_c[0]
+    assert terminated > 0
+
+
+def test_step_on_the_card_equals_the_cpu(dev):
+    """``ops.step.step`` on the card (the env kernel's transition, one
+    launch) = the CPU's: the greedy policy's broadcast (four actions over a
+    stride-0 batch), a single state with an int action, ``run_plan``,
+    ``entry``'s stacked (P, B) batch with int32 actions and an expanded
+    puzzle index, a transposed batch, five batch dimensions."""
+    from pushworld_tpu_torch import entry
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.ops.step import run_plan, step
+
+    p = _fixture("heur/two_tools")
+    cp_c = compile_puzzle(p).to("cpu")
+    cp_g = cp_c.to(dev)
+    _, children = _walks(p, 32, seed=5)
+    pos_c = torch.as_tensor(children)
+    pos_g = pos_c.to(dev)
+
+    def same(got, want):
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape and torch.equal(got.cpu(), want)
+
+    acts = torch.arange(4)[:, None]
+    before = LAUNCHES["env.step"]
+    same(step(cp_g, pos_g[None].expand(4, *pos_g.shape), acts.to(dev)),
+         step(cp_c, pos_c[None].expand(4, *pos_c.shape), acts))
+    assert LAUNCHES["env.step"] == before + 1
+    same(step(cp_g, pos_g[3], 2), step(cp_c, pos_c[3], 2))
+    same(run_plan(cp_g, [1, 3, 3, 0, 2, 1]), run_plan(cp_c, [1, 3, 3, 0, 2, 1]))
+    wide = pos_g.reshape(8, 16, *pos_g.shape[1:]).transpose(0, 1)  # strided batch dims
+    a = torch.as_tensor(np.random.default_rng(1).integers(0, 4, (16, 8)))
+    same(step(cp_g, wide, a.to(dev)), step(cp_c, wide.cpu(), a))
+    five = pos_g.reshape(2, 2, 2, 4, 4, *pos_g.shape[1:])
+    a5 = torch.as_tensor(np.random.default_rng(2).integers(0, 4, (2, 2, 2, 4, 4)).astype(np.int32))
+    same(step(cp_g, five, a5.to(dev)), step(cp_c, five.cpu(), a5))
+    fn, args = entry.entry(device=dev)
+    fn_c, args_c = entry.entry(device="cpu")
+    same(fn(*args), fn_c(*args_c))
+
+
+def _translated(states, width, height, rng):
+    """Each state moved by one random offset (objects stay disjoint), so that
+    many cells fall outside the grid."""
+    shift = np.stack([rng.integers(-width, width + 1, len(states)), rng.integers(-height, height + 1, len(states))],
+                     -1)
+    return (states + shift[:, None, :]).astype(np.int32)
+
+
+@pytest.mark.parametrize("name", ["generated", "lshape", "multi_goal", "agent_wall", "heur/multiple_goals"])
+def test_render_onehot_kernel_equals_plain_version(dev, name):
+    """``render.onehot`` = its plain version on walk states and on translated
+    states with cells outside the grid, into a fresh tensor and into
+    ``out``; one launch each."""
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.ops import render
+
+    p = Puzzle.from_text(_smoke().generated_puzzle_text(0)) if name == "generated" else _fixture(name)
+    t = render.compile_render_tables(p, compile_puzzle(p), device=dev)
+    rng = np.random.default_rng(len(name))
+    walks, _ = _walks(p, 96, seed=len(name))
+    for states in (walks, _translated(walks, p.width, p.height, rng)):
+        s = torch.as_tensor(states, device=dev)
+        before = LAUNCHES["render.onehot"]
+        got = render.render_cells_onehot_batched(t, s)
+        out = torch.full_like(got, 7.0)
+        assert render.render_cells_onehot_batched(t, s, out=out) is out
+        want = render.render_cells_onehot_batched_reference(t, s)
+        torch.cuda.synchronize()
+        assert LAUNCHES["render.onehot"] == before + 2
+        assert got.shape == (len(states), p.height, p.width, 6) and got.is_contiguous()
+        assert torch.equal(got, want) and torch.equal(out, want)
+
+
+def test_render_onehot_kernel_raises_on_a_grid_too_large(dev):
+    from pushworld_tpu_torch.ops import render
+
+    t = {"base": torch.zeros((241, 242), dtype=torch.int8, device=dev),
+         "obj_cells": torch.zeros((1, 1, 2), dtype=torch.int16, device=dev),
+         "obj_mask": torch.ones((1, 1), dtype=torch.bool, device=dev),
+         "obj_class": torch.full((1,), 3, dtype=torch.int8, device=dev)}
+    with pytest.raises(ValueError, match="241 x 242 grid needs 233288 bytes"):
+        render.render_cells_onehot_batched(t, torch.zeros((2, 1, 2), dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("observations", [True, False])
+def test_graphed_rollout_equals_the_eager_one(dev, observations):
+    """The throughput rollout as one CUDA graph: on the same pre-drawn
+    actions its reward total equals the eager rollout's; with the
+    generator, a replay after ``manual_seed(s)`` draws seed ``s``'s actions
+    and the next replay draws the next ones, as eager rollouts do (totals
+    and generator offsets equal); a replay is one graph launch and adds the
+    captured kernels to the launch counts."""
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.envs import throughput as tt
+    from pushworld_tpu_torch.envs.vector_env import VectorEnv
+    from pushworld_tpu_torch.kernels import GRAPH_LAUNCHES, LAUNCHES
+    from pushworld_tpu_torch.ops import render
+
+    p = Puzzle.from_text(_smoke().generated_puzzle_text(0))
+    cp = compile_puzzle(p)
+    tables = render.compile_render_tables(p, cp, device=dev)
+    env = VectorEnv(cp, max_steps=None, device=dev)
+    B, horizon = 512, 16
+    idx = torch.zeros(B, dtype=torch.int32, device=dev)
+    actions = torch.as_tensor(np.random.default_rng(0).integers(0, 4, (horizon, B)), device=dev)
+    g = tt.RolloutGraph(env, tables, idx, horizon, observations, None, actions)
+    want = tt.rollout(env, tables, idx, horizon, observations, None, actions)
+    assert g.launches == {"env.step": horizon, **({"render.onehot": horizon} if observations else {})}
+    before, graphs = LAUNCHES["env.step"], GRAPH_LAUNCHES["envs.rollout"]
+    got = g.replay()
+    torch.cuda.synchronize()
+    assert float(got) == float(want)
+    assert GRAPH_LAUNCHES["envs.rollout"] == graphs + 1 and LAUNCHES["env.step"] == before + horizon
+
+    gen = torch.Generator(device=dev)
+    g = tt.RolloutGraph(env, tables, idx, horizon, observations, gen)
+    eager = torch.Generator(device=dev).manual_seed(11)
+    gen.manual_seed(11)
+    for _ in range(2):
+        got = float(g.replay())
+        assert got == float(tt.rollout(env, tables, idx, horizon, observations, eager))
+        assert gen.get_offset() == eager.get_offset()
+
+
 # ------------------------------------------------------ the parallel layer on the card
 
 
