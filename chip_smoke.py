@@ -138,9 +138,11 @@ Phases, each printing one JSON line:
    stacked batch of three fixtures: every output of every step must be
    equal, and 256 rollouts must follow the oracle step by step, auto-resets
    included.  The env kernel must equal its plain version on the card
-   (every output, error 0) on the 47 x 54 puzzle, the stacked trio and
+   (every output and each rollout's running reward total ``reward_acc``,
+   error 0) on the 47 x 54 puzzle, the stacked trio and
    ``many_objects_text`` at 19, 33, 64 and 100 movables (the wide path above
-   32), truncations and resets hit.  The batched one-hot renderer must
+   32), truncations and resets hit; each lane prints the kernel's device
+   time on its last state.  The batched one-hot renderer must
    equal the per-state renderer on 256 states and the CPU's result on all,
    and the render kernel its plain version on those states and on the same
    states moved so that cells fall outside the grid.  The greedy
@@ -155,10 +157,15 @@ Phases, each printing one JSON line:
    ``manual_seed(s)`` the eager rollouts' from seed ``s``, fresh each
    replay (on ``simple``, whose totals depend on the actions); a profiled
    replay gives its kernels a step, busy share and ``cudaGraphLaunch``
-   count (1), beside an eager window's.  Each kernel is timed alone at B =
-   4096 on 47 x 54 beside its plain version and bound, the renderer beside
-   a fill of the same bytes.  The Gym and dm_env wrappers are held against
-   the oracle where their packages are installed.
+   count (1), beside an eager window's (with the env kernel's device time
+   there, beside the renderer).  Each kernel is timed alone at B = 4096 on
+   47 x 54 beside its plain version and bound (the step as the rollout
+   calls it, with its running totals), the renderer beside a fill of the
+   same bytes; the step also on the greedy policy's stride-0 (4, B)
+   broadcast (the transition alone), and the host's enqueue time of an
+   eager step over 1,000 calls without a synchronisation.  The Gym and
+   dm_env wrappers are held against the oracle where their packages are
+   installed.
 7. ``native``: the native serial planner, built from
    ``pushworld_tpu_torch/native/planner.cc`` by the host C++ compiler (the
    build starts beside the nvcc builds), must be available; it solves every
@@ -2528,10 +2535,22 @@ def _wrappers_against_oracle(puzzle_path, puzzle):
     return out
 
 
+def traced_ms(fn, name, calls):
+    """Device ms per launch of the kernel ``name`` that the trace holds
+    (a trace that misses launches would read low per call)."""
+    prof = profile_device(fn, reps=calls)
+    kernel_device_ms(prof, name, calls=calls)  # records the traced count
+    hit = [v for k, v in prof["by_kernel"].items() if name in k]
+    return sum(us for _, us in hit) / 1e3 / sum(count for count, _ in hit)
+
+
 def _env_kernel_lane(what, cp, idx_np, max_steps, n_steps, rng, dev):
     """``env.step`` against its plain version on the card: from the same
-    state each step, every output compared; the kernel's state carried.
-    Returns the lane's row (its error, terminations and truncations)."""
+    state each step, every output compared, and each rollout's running
+    reward total (``reward_acc``, kept by each from one start); the
+    kernel's state carried.  Returns the lane's row (its error,
+    terminations and truncations, and the kernel's device ms on the lane's
+    last state, with the total)."""
     import torch
 
     from pushworld_tpu_torch.envs.vector_env import EnvState, VectorEnv
@@ -2541,21 +2560,26 @@ def _env_kernel_lane(what, cp, idx_np, max_steps, n_steps, rng, dev):
     env = VectorEnv(cp, max_steps=max_steps, device=dev)
     st = env.reset(None, B, torch.as_tensor(idx_np))
     pidx = env._pidx(st.puzzle_idx)
+    acc_kernel = torch.as_tensor(rng.random(B).astype("float32"), device=dev)
+    acc_plain = acc_kernel.clone()
     err, term, trunc = 0.0, 0, 0
     for t in range(n_steps):
         a = torch.as_tensor(rng.integers(0, 4, B), device=dev)  # int64, as torch.randint gives them
         args = (env.puzzles, st.positions, a, st.steps, st.achieved, pidx, env._init_pos, env._init_achieved,
                 max_steps)
-        got, want = env_step(*args), env_step_reference(*args)
+        got, want = env_step(*args, reward_acc=acc_kernel), env_step_reference(*args, reward_acc=acc_plain)
         check(all(g.dtype == w.dtype for g, w in zip(got, want)), f"env.step {what}: output types differ")
-        err = max(err, _max_abs_err(zip(got, want)))
+        err = max(err, _max_abs_err(zip(got + (acc_kernel,), want + (acc_plain,))))
         term += int(got[5].sum())
         trunc += int(got[6].sum())
         st = EnvState(got[0], got[1], got[2], st.puzzle_idx)
-    check(err == 0, f"env.step {what}: kernel != plain version (max_abs_err {err})")
+    check(err == 0, f"env.step {what}: kernel != plain version (max_abs_err {err}, reward_acc included)")
     check(trunc > 0, f"env.step {what}: no rollout was truncated")
-    return {"objects": cp.n, "path": "one-word" if cp.n <= ENV_MAX_OBJECTS else "wide", "rollouts": B,
-            "steps": n_steps, "max_steps": max_steps, "terminated": term, "truncated": trunc, "max_abs_err": err}
+    path = "one-word" if cp.n <= ENV_MAX_OBJECTS else "wide"
+    device_ms = traced_ms(lambda: env_step(*args, reward_acc=acc_kernel),
+                          "env_step_kernel" if path == "one-word" else "env_step_wide_kernel", 20)
+    return {"objects": cp.n, "path": path, "rollouts": B, "steps": n_steps, "max_steps": max_steps,
+            "terminated": term, "truncated": trunc, "max_abs_err": err, "device_ms": device_ms}
 
 
 def phase_envs(puzzles, generated, dev, floor, batch=4096, horizon=128):
@@ -2577,7 +2601,7 @@ def phase_envs(puzzles, generated, dev, floor, batch=4096, horizon=128):
     from pushworld_tpu_torch.kernels import GRAPH_LAUNCHES, LAUNCHES
     from pushworld_tpu_torch.ops import render
     from pushworld_tpu_torch.ops.rgd import build_rgd_tables
-    from pushworld_tpu_torch.ops.step import env_step, env_step_reference
+    from pushworld_tpu_torch.ops.step import env_step, env_step_reference, step
 
     reset_launches()
     by_name = dict(puzzles)
@@ -2731,13 +2755,13 @@ def phase_envs(puzzles, generated, dev, floor, batch=4096, horizon=128):
     out["graphed"] = graph_rows
     state = [env.reset(None, B, pidx)]
     gen = torch.Generator(device=dev).manual_seed(0)
+    acc = torch.zeros(B, dtype=torch.float32, device=dev)
 
-    def one_step(with_obs):
+    def one_step(with_obs):  # a step of the rollout, eagerly
         actions = torch.randint(0, 4, (B,), generator=gen, device=dev)
-        state[0], pos, reward, _, _ = env.step(state[0], actions)
+        state[0], pos, _, _, _ = env.step(state[0], actions, reward_acc=acc)
         if with_obs:
             render.render_cells_onehot_batched(t_g, pos)
-        return reward.sum()
 
     window = 32
     for key, with_obs in (("profile_obs", True), ("profile_no_obs", False)):
@@ -2745,41 +2769,53 @@ def phase_envs(puzzles, generated, dev, floor, batch=4096, horizon=128):
             one_step(with_obs)
         prof = profile_device(lambda: one_step(with_obs), reps=window)
         top = _top_kernels(prof, 8)
+        steps = [v for k, v in prof["by_kernel"].items() if "env_step_kernel" in k]
         out[key] = {"steps": window, "ms_per_step": prof["wall_s"] / window * 1e3,
                     "kernels_per_step": prof["n_kernels"] / window,
                     "device_busy_share": prof["busy_us"] / (prof["wall_s"] * 1e6),
                     "device_ms_per_step": prof["busy_us"] / 1e3 / window,
+                    # the env kernel's device ms per traced launch in the window
+                    "env_step_device_ms": sum(us for _, us in steps) / 1e3 / max(1, sum(c for c, _ in steps)),
                     "top_kernels_device_ms_per_step": {k: us / 1e3 / window for k, us in top}}
 
     # (g) the two kernels alone at the main path's shapes (B = 4096 on
-    # 47 x 54), beside their plain versions and bounds; the renderer beside
-    # a fill of the same bytes (no one PyTorch call renders).
+    # 47 x 54, the step with its running totals), beside their plain
+    # versions and bounds; the renderer beside a fill of the same bytes (no
+    # one PyTorch call renders).
     st = state[0]
     a = torch.randint(0, 4, (B,), generator=gen, device=dev)
     step_args = (env.puzzles, st.positions, a, st.steps, st.achieved, None, env._init_pos, env._init_achieved, None)
     N = cp.n
-    # Each input read once (the cells, action, steps and achieved of every
-    # rollout, the push and static-block tables, the initial state), each
-    # output written once (cells before and after the reset, steps,
-    # achieved, reward, two flags).
-    step_bytes = (B * (8 * N + 8 + 4 + 4) + env.puzzles.push.numel() + env.puzzles.static_block.numel()
-                  + 8 * N + 4 + B * (16 * N + 4 + 4 + 4 + 1 + 1))
+    # Each input read once (the cells, action, steps, achieved and running
+    # total of every rollout, the push and static-block tables, the initial
+    # state), each output written once (cells before and after the reset,
+    # steps, achieved, reward, two flags, the running total).
+    step_bytes = (B * (8 * N + 8 + 4 + 4 + 4) + env.puzzles.push.numel() + env.puzzles.static_block.numel()
+                  + 8 * N + 4 + B * (16 * N + 4 + 4 + 4 + 1 + 1 + 4))
     render_bytes = obs_bytes + B * 8 * N + sum(v.numel() * v.element_size() for v in t_g.values())
-    def traced_ms(fn, name, calls):
-        """Device ms per launch of the kernel ``name`` that the trace holds
-        (a trace that misses launches would read low per call)."""
-        prof = profile_device(fn, reps=calls)
-        kernel_device_ms(prof, name, calls=calls)  # records the traced count
-        hit = [v for k, v in prof["by_kernel"].items() if name in k]
-        return sum(us for _, us in hit) / 1e3 / sum(count for count, _ in hit)
-
+    # The host's side of an eager step: 1,000 calls of the wrapper enqueued
+    # without a synchronisation (host clock), after a warm-up.
+    for _ in range(20):
+        env_step(*step_args, reward_acc=acc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        env_step(*step_args, reward_acc=acc)
+    enqueue_ms = (time.perf_counter() - t0) / 1000 * 1e3
+    torch.cuda.synchronize()
+    # The transition alone on the greedy policy's batch: its four actions
+    # over a stride-0 (4, B) broadcast of the states, one launch, no copy.
+    greedy_args = (env.puzzles, st.positions[None].expand(4, *st.positions.shape),
+                   torch.arange(4, device=dev)[:, None])
     step_row = {"name": "env.step", "route": "cuda", "source": "pushworld_tpu_torch/kernels/env.cu",
                 "replaces": "pushworld_tpu/ops/step.py:70, pushworld_tpu/envs/vector_env.py:110-153 (XLA code)",
                 "max_abs_err": env_err, "lanes": lanes,
-                "ms": cuda_time_ms(lambda: env_step(*step_args), reps=200),
-                "device_ms": traced_ms(lambda: env_step(*step_args), "env_step_kernel", 50),
-                "plain_ms": cuda_time_ms(lambda: env_step_reference(*step_args), reps=20),
-                **work_bound(step_bytes, 0, floor), "library_ms": None, "library_device_ms": None}
+                "ms": cuda_time_ms(lambda: env_step(*step_args, reward_acc=acc), reps=200),
+                "device_ms": traced_ms(lambda: env_step(*step_args, reward_acc=acc), "env_step_kernel", 50),
+                "plain_ms": cuda_time_ms(lambda: env_step_reference(*step_args, reward_acc=acc), reps=20),
+                **work_bound(step_bytes, 0, floor), "library_ms": None, "library_device_ms": None,
+                "host_enqueue_ms": enqueue_ms,
+                "greedy_broadcast_device_ms": traced_ms(lambda: step(*greedy_args), "env_step_kernel", 50)}
     pos = st.positions
     fill = torch.empty((B, cp.height, cp.width, 6), dtype=torch.float32, device=dev)
     fill_prof = profile_device(fill.zero_, reps=20)

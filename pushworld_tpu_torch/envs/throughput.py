@@ -17,10 +17,17 @@ The JAX package runs a rollout as one jitted ``lax.scan`` over the action
 draw, the step, the render and the reward sum
 (pushworld_tpu/envs/throughput.py:82-104).  Here, on the card, the same
 rollout (:func:`rollout`: ``horizon`` steps of the draw, ``VectorEnv.step``
-(one ``kernels/env.cu`` launch), the render (one ``kernels/render.cu``
-launch) and the sum) is captured once into a CUDA graph
+(one ``kernels/env.cu`` launch, which also adds each rollout's reward to
+its running total) and the render (one ``kernels/render.cu`` launch), then
+the sum of the totals) is captured once into a CUDA graph
 (:class:`RolloutGraph`), and a timed rollout is one graph launch and one
-synchronisation.  On the CPU it runs eagerly.
+synchronisation: two kernels a step, three with observations.  On the CPU
+it runs eagerly.
+
+The reward total is the sum of JAX's ``acc + reward.sum()`` a step, taken
+in another association: each rollout's rewards first, in step order (one
+float32 add a step, inside the step kernel), then the B rollouts' totals,
+once.  The two agree to float32 rounding, not bit for bit.
 """
 
 import time
@@ -62,17 +69,18 @@ def rollout(env: VectorEnv, tables: RenderTables, puzzle_idx: torch.Tensor, hori
     ``actions`` (horizon, B) where given; with ``observations``, every step
     also renders the one-hot observations (into ``obs_out`` where given).
     Returns the reward total, a float32 scalar on the device, unread: the
-    rollout reads nothing back, so a CUDA graph may capture it."""
+    rollout reads nothing back, so a CUDA graph may capture it.  Each step
+    adds its rewards to a (B,) accumulator (``VectorEnv.step``'s
+    ``reward_acc``); the total is that accumulator's sum, taken once."""
     B = puzzle_idx.shape[0]
     state = env.start(puzzle_idx)
-    total = torch.zeros((), dtype=torch.float32, device=env.device)
+    reward_acc = torch.zeros((B,), dtype=torch.float32, device=env.device)
     for t in range(horizon):
         a = torch.randint(0, 4, (B,), generator=generator, device=env.device) if actions is None else actions[t]
-        state, next_pos, reward, _, _ = env.step(state, a)
+        state, next_pos, _, _, _ = env.step(state, a, reward_acc=reward_acc)
         if observations:
             render_cells_onehot_batched(tables, next_pos, out=obs_out)
-        total = total + reward.sum()
-    return total
+    return reward_acc.sum()
 
 
 class RolloutGraph:

@@ -123,17 +123,19 @@ class VectorEnv:
             puzzle_idx=puzzle_idx,
         )
 
-    def step(self, state: EnvState, actions: torch.Tensor):
+    def step(self, state: EnvState, actions: torch.Tensor, reward_acc: Optional[torch.Tensor] = None):
         """Advances every rollout by one action ((B,) ints in [0, 4)).
 
         Returns ``(next_state, obs_positions, reward, terminated, truncated)``
         with auto-reset applied to ``next_state`` (the returned observation /
         reward reflect the pre-reset transition).  One :func:`env_step`: on
-        the card, one kernel launch.
+        the card, one kernel launch.  ``reward_acc`` ((B,) float32 or None):
+        each rollout's running reward total, to which the step adds its
+        reward in place (:func:`env_step`); the results are the same.
         """
         positions, steps, achieved, next_pos, reward, terminated, truncated = env_step(
             self.puzzles, state.positions, actions, state.steps, state.achieved, self._pidx(state.puzzle_idx),
-            self._init_pos, self._init_achieved, self.max_steps)
+            self._init_pos, self._init_achieved, self.max_steps, reward_acc=reward_acc)
         new_state = EnvState(positions=positions, steps=steps, achieved=achieved, puzzle_idx=state.puzzle_idx)
         return new_state, next_pos, reward, terminated, truncated
 

@@ -66,7 +66,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "pw_novelty_max_objects": [],
     },
     "env": {
-        "pw_env_step": [_vp] * 21,
+        "pw_env_step": [_vp] * 22,
         "pw_env_step_max_objects": [],
     },
     "render": {

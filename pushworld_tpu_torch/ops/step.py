@@ -37,6 +37,7 @@ tensor; the two are bit-equal.
 """
 
 import ctypes
+import math
 import weakref
 from typing import Optional, Tuple
 
@@ -339,7 +340,7 @@ EnvStepOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch
 def env_step_reference(
     cp: CompiledPuzzle, positions: torch.Tensor, actions, steps: torch.Tensor, achieved: torch.Tensor,
     puzzle_idx: Optional[torch.Tensor], init_pos: torch.Tensor, init_achieved: torch.Tensor,
-    max_steps: Optional[int],
+    max_steps: Optional[int], reward_acc: Optional[torch.Tensor] = None,
 ) -> EnvStepOut:
     """Plain PyTorch version of :func:`env_step`: the transition, the goal
     test, the reward, truncation and auto-reset, one op after another."""
@@ -347,6 +348,8 @@ def env_step_reference(
     terminated = is_goal_state(cp, next_pos, puzzle_idx)
     got = count_achieved_goals(cp, next_pos, puzzle_idx).to(torch.int32)
     reward = torch.where(terminated, TERMINAL_REWARD, (got - achieved).to(torch.float32) - STEP_PENALTY)
+    if reward_acc is not None:
+        reward_acc += reward
     steps = steps + 1
     if max_steps is None:
         truncated = torch.zeros_like(terminated)
@@ -365,7 +368,7 @@ def env_step_reference(
 def env_step(
     cp: CompiledPuzzle, positions: torch.Tensor, actions, steps: torch.Tensor, achieved: torch.Tensor,
     puzzle_idx: Optional[torch.Tensor], init_pos: torch.Tensor, init_achieved: torch.Tensor,
-    max_steps: Optional[int],
+    max_steps: Optional[int], reward_acc: Optional[torch.Tensor] = None,
 ) -> EnvStepOut:
     """One step of B rollouts of the batched environment (``VectorEnv.step``).
 
@@ -377,6 +380,11 @@ def env_step(
     puzzle's initial state and the goals it achieves (P = 1 for a single
     puzzle); ``max_steps`` the truncation horizon or None.
 
+    ``reward_acc`` (keyword; (B,) float32, contiguous, or None): each
+    rollout's running reward total, to which this step's reward is added in
+    place (one float32 add a rollout, so the kernel and the plain version
+    agree bit for bit).
+
     Returns ``(positions, steps, achieved, next_pos, reward, terminated,
     truncated)``: the next state with auto-reset applied (a rollout that
     terminated or was truncated starts again from its puzzle's initial
@@ -387,11 +395,11 @@ def env_step(
     bit-equal."""
     if positions.device.type == "cpu":
         return env_step_reference(cp, positions, actions, steps, achieved, puzzle_idx, init_pos, init_achieved,
-                                  max_steps)
+                                  max_steps, reward_acc)
     if positions.dim() != 3:
         raise ValueError(f"env_step: positions (B, N, 2), got {tuple(positions.shape)}")
     return _env_kernel(cp, positions, actions, puzzle_idx,
-                       env=(steps, achieved, init_pos, init_achieved, max_steps))
+                       env=(steps, achieved, init_pos, init_achieved, max_steps), reward_acc=reward_acc)
 
 
 # The most batch dimensions kernels/env.cu reads through strides (kMaxDims);
@@ -409,10 +417,11 @@ def _index_operand(x, batch, dev, what: str):
         x = x.to(dev)
     if x.dtype not in (torch.int32, torch.int64):
         x = x.long()
-    try:
-        x = x.expand(batch)
-    except RuntimeError as err:
-        raise ValueError(f"{what} of shape {tuple(x.shape)} does not broadcast to {tuple(batch)}") from err
+    if x.shape != batch:
+        try:
+            x = x.expand(batch)
+        except RuntimeError as err:
+            raise ValueError(f"{what} of shape {tuple(x.shape)} does not broadcast to {tuple(batch)}") from err
     return x, x.element_size(), x.stride()
 
 
@@ -444,34 +453,74 @@ def _env_tables(cp: CompiledPuzzle, dev: torch.device):
     return out
 
 
+# What a launch's geometry alone decides, by geometry (B, N, the puzzle's
+# sizes, the index operands' types and strides, max_steps, the path): the
+# ctypes ``geom`` array, and for the environment's step the layout of the
+# two output buffers (element counts, then each output's buffer, size,
+# stride and offset).  A step's host time is its enqueue.
+_ENV_GEOMS: dict = {}
+
+
+def _env_geometry(key):
+    hit = _ENV_GEOMS.get(key)
+    if hit is not None:
+        return hit
+    B, N, H, W, delta, P, value, act_bytes, pidx_bytes, max_steps, path, batch, strides, act_strides, \
+        pidx_strides, env = key
+    dims = len(batch) or 1
+    pad = (0,) * (_ENV_MAX_DIMS - dims)
+    geom = (ctypes.c_longlong * (12 + 4 * _ENV_MAX_DIMS))(
+        B, N, H, W, delta, P, value, act_bytes, pidx_bytes,
+        (1 << 63) - 1 if max_steps is None else min(int(max_steps), (1 << 63) - 1), path, dims,
+        *(batch or (1,)), *pad, *(strides or (0,)), *pad, *(act_strides or (0,)), *pad,
+        *(pidx_strides or (0,)), *pad)
+    layout = None
+    if env:
+        # One int32 buffer: next_pos, the positions after the reset (8-byte
+        # aligned: 8BN bytes in), steps, achieved, the reward's bits; one bool
+        # buffer: terminated, truncated.  (buffer, size, stride, offset) of
+        # env_step's outputs, in its order.
+        cells, stride, scalars = (B, N, 2), (2 * N, 2, 1), 4 * B * N
+        layout = (4 * B * N + 3 * B, 2 * B, (
+            (0, cells, stride, 2 * B * N), (0, (B,), (1,), scalars), (0, (B,), (1,), scalars + B),
+            (0, cells, stride, 0), (0, (B,), (1,), scalars + 2 * B), (1, (B,), (1,), 0), (1, (B,), (1,), B)))
+    if len(_ENV_GEOMS) >= 256:  # a caller that varies its batch without end
+        _ENV_GEOMS.clear()
+    _ENV_GEOMS[key] = hit = (geom, layout)
+    return hit
+
+
 def _env_kernel(cp: CompiledPuzzle, state: torch.Tensor, action, puzzle_idx, env=None,
-                wide: Optional[bool] = None):
+                wide: Optional[bool] = None, reward_acc: Optional[torch.Tensor] = None):
     """One launch of ``kernels/env.cu``: the transition of every state of
     ``state`` (..., N, 2), and with ``env`` = (steps, achieved, init_pos,
-    init_achieved, max_steps) the environment's step.  Outputs from
+    init_achieved, max_steps) the environment's step, adding each reward to
+    ``reward_acc`` where given (see :func:`env_step`).  Outputs from
     ``torch.empty`` (two buffers: the int32 and float32 outputs, the flags),
     no host read, the launch on the current stream, so a CUDA graph may
     capture it.  Returns :func:`env_step`'s tuple (the transition alone:
     ``(next_pos,)``).  ``wide``: the kernel's path, by N where None (the wide
     path takes any N, so the tests run it on narrow states too)."""
     dev, N = state.device, cp.n
-    if state.dim() < 2 or state.shape[-2:] != (N, 2) or state.dtype != torch.int32:
-        raise ValueError(f"states: expected (..., {N}, 2) int32, got {tuple(state.shape)} {state.dtype}")
+    shape = state.shape
+    if len(shape) < 2 or shape[-2:] != (N, 2) or state.dtype != torch.int32:
+        raise ValueError(f"states: expected (..., {N}, 2) int32, got {tuple(shape)} {state.dtype}")
     if (cp.init_state.dim() == 3) != (puzzle_idx is not None):
         raise ValueError("puzzle_idx names each state's puzzle of a stacked puzzle, and only of one")
     P, goal_pos, table_ptrs = _env_tables(cp, dev)
-    batch = state.shape[:-2]
-    out_shape = state.shape
+    batch = shape[:-2]
     if len(batch) > _ENV_MAX_DIMS:
-        state, batch = state.reshape(-1, N, 2), (state[..., 0, 0].numel(),)
-        action = action.expand(out_shape[:-2]).reshape(batch) if isinstance(action, torch.Tensor) else action
-        puzzle_idx = None if puzzle_idx is None else puzzle_idx.expand(out_shape[:-2]).reshape(batch)
+        batch = (math.prod(batch),)
+        state = state.reshape(*batch, N, 2)
+        action = action.expand(shape[:-2]).reshape(batch) if isinstance(action, torch.Tensor) else action
+        puzzle_idx = None if puzzle_idx is None else puzzle_idx.expand(shape[:-2]).reshape(batch)
     # A state's (N, 2) cells contiguous and 8-byte aligned, batch strides even.
     strides = state.stride()
     if strides[-1] != 1 or (N > 1 and strides[-2] != 2) or any(s % 2 for s in strides[:-2]) or state.data_ptr() % 8:
         state = state.contiguous()
         if state.data_ptr() % 8:
             state = state.clone()
+        strides = state.stride()
     if isinstance(action, torch.Tensor):
         act, act_bytes, act_strides = _index_operand(action, batch, dev, "action")
         value = 0
@@ -483,43 +532,40 @@ def _env_kernel(cp: CompiledPuzzle, state: torch.Tensor, action, puzzle_idx, env
     pidx, pidx_bytes, pidx_strides = None, 0, ()
     if puzzle_idx is not None:
         pidx, pidx_bytes, pidx_strides = _index_operand(puzzle_idx, batch, dev, "puzzle_idx")
-    B = state[..., 0, 0].numel()
+    B = math.prod(batch)
+    max_steps = None if env is None else env[4]
+    geom, layout = _env_geometry((
+        B, N, cp.height, cp.width, cp.delta, P, value, act_bytes, pidx_bytes, max_steps,
+        0 if wide is None else (2 if wide else 1), tuple(batch), strides[:-2], tuple(act_strides),
+        tuple(pidx_strides), env is not None))
     ptr = [state.data_ptr(), None if act is None else act.data_ptr(), None if pidx is None else pidx.data_ptr()]
-    max_steps = None
     if env is None:
-        next_pos = torch.empty(out_shape, dtype=torch.int32, device=dev)
+        if reward_acc is not None:
+            raise ValueError("reward_acc needs the environment's step")
+        next_pos = torch.empty(shape, dtype=torch.int32, device=dev)
         outs = (next_pos,)
-        ptr += [None, None, *table_ptrs, None, None, next_pos.data_ptr()] + [None] * 6
+        ptr += [None, None, *table_ptrs, None, None, next_pos.data_ptr()] + [None] * 7
     else:
-        steps, achieved, init_pos, init_achieved, max_steps = env
-        for name, x, dtype, shape in (
+        steps, achieved, init_pos, init_achieved, _ = env
+        for name, x, dtype, want in (
             ("steps", steps, torch.int32, (B,)), ("achieved", achieved, torch.int32, (B,)),
             ("init_pos", init_pos, torch.int32, (P, N, 2)), ("init_achieved", init_achieved, torch.int32, (P,)),
+            ("reward_acc", reward_acc, torch.float32, (B,)),
         ):
-            if x.dtype != dtype or tuple(x.shape) != shape or x.device != dev or not x.is_contiguous():
-                raise ValueError(f"{name}: expected a contiguous {dtype} {shape} tensor on {dev}")
+            if x is not None and (x.dtype != dtype or x.shape != want or x.device != dev or not x.is_contiguous()):
+                raise ValueError(f"{name}: expected a contiguous {dtype} {want} tensor on {dev}")
         if init_pos.data_ptr() % 8:
             init_pos = init_pos.clone()
-        # One int32 buffer: next_pos, the positions after the reset (8-byte
-        # aligned: 8BN bytes in), steps, achieved, the reward's bits; one bool
-        # buffer: terminated, truncated.
-        words = torch.empty((4 * B * N + 3 * B,), dtype=torch.int32, device=dev)
-        flags = torch.empty((2 * B,), dtype=torch.bool, device=dev)
-        cells = words[: 4 * B * N].view(2, B, N, 2)
-        scalars = words[4 * B * N:].view(3, B)
-        outs = (cells[1], scalars[0], scalars[1], cells[0], scalars[2].view(torch.float32), flags[:B], flags[B:])
+        n_words, n_flags, views = layout
+        bufs = (torch.empty((n_words,), dtype=torch.int32, device=dev),
+                torch.empty((n_flags,), dtype=torch.bool, device=dev))
+        outs = tuple(bufs[k].as_strided(size, stride, offset) for k, size, stride, offset in views)
+        outs = outs[:4] + (outs[4].view(torch.float32),) + outs[5:]
         ptr += [steps.data_ptr(), achieved.data_ptr(), *table_ptrs, init_pos.data_ptr(), init_achieved.data_ptr()]
         ptr += [x.data_ptr() for x in (outs[3], outs[0], outs[1], outs[2], outs[4], outs[5], outs[6])]
+        ptr.append(None if reward_acc is None else reward_acc.data_ptr())
     if B == 0:
         return outs
-    dims = len(batch) or 1
-    pad = (0,) * (_ENV_MAX_DIMS - dims)
-    geom = (ctypes.c_longlong * (12 + 4 * _ENV_MAX_DIMS))(
-        B, N, cp.height, cp.width, cp.delta, P, value, act_bytes, pidx_bytes,
-        (1 << 63) - 1 if max_steps is None else min(int(max_steps), (1 << 63) - 1),
-        0 if wide is None else (2 if wide else 1), dims,
-        *(tuple(batch) or (1,)), *pad, *(state.stride()[:-2] or (0,)), *pad, *(tuple(act_strides) or (0,)), *pad,
-        *(tuple(pidx_strides) or (0,)), *pad)
     rc = launch_on(dev, _build.load("env").pw_env_step, *ptr, ctypes.addressof(geom))
     if rc != 0:
         raise RuntimeError(f"pw_env_step launch failed: CUDA error {rc}")

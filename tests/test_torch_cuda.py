@@ -1393,8 +1393,10 @@ def _env_lane(n, stacked):
 
 def _env_kernel_equals_plain(cp, idx, max_steps, n_steps, dev, rng, wide=None):
     """The env kernel and its plain version on the card from the same state
-    each step, every output equal; the kernel's state carried.  Returns
-    the terminations and truncations seen."""
+    each step, every output equal, and each rollout's running reward total
+    (``reward_acc``, kept by each from a common start) bit-equal after every
+    step; the kernel's state carried.  Returns the terminations and
+    truncations seen."""
     from pushworld_tpu_torch.envs.vector_env import VectorEnv
     from pushworld_tpu_torch.kernels import LAUNCHES
     from pushworld_tpu_torch.ops import step as ops
@@ -1402,18 +1404,21 @@ def _env_kernel_equals_plain(cp, idx, max_steps, n_steps, dev, rng, wide=None):
     env = VectorEnv(cp, max_steps=max_steps, device=dev)
     st = env.reset(None, len(idx), torch.as_tensor(idx))
     pidx = env._pidx(st.puzzle_idx)
+    acc_kernel = torch.as_tensor(rng.random(len(idx)).astype(np.float32), device=dev)
+    acc_plain = acc_kernel.clone()
     seen = [0, 0]
     for t in range(n_steps):
         a = torch.as_tensor(rng.integers(0, 4, len(idx)), device=dev)  # int64, as torch.randint gives
         before = LAUNCHES["env.step"]
-        got = ops._env_kernel(env.puzzles, st.positions, a, pidx, wide=wide,
+        got = ops._env_kernel(env.puzzles, st.positions, a, pidx, wide=wide, reward_acc=acc_kernel,
                               env=(st.steps, st.achieved, env._init_pos, env._init_achieved, max_steps))
         want = ops.env_step_reference(env.puzzles, st.positions, a, st.steps, st.achieved, pidx, env._init_pos,
-                                      env._init_achieved, max_steps)
+                                      env._init_achieved, max_steps, reward_acc=acc_plain)
         torch.cuda.synchronize()
         assert LAUNCHES["env.step"] == before + 1
         for k, (g, w) in enumerate(zip(got, want)):
             assert g.dtype == w.dtype and torch.equal(g, w), (t, k)
+        assert torch.equal(acc_kernel, acc_plain), t
         seen[0] += int(got[5].sum())
         seen[1] += int(got[6].sum())
         st = type(st)(got[0], got[1], got[2], st.puzzle_idx)
@@ -1589,6 +1594,34 @@ def test_graphed_rollout_equals_the_eager_one(dev, observations):
         got = float(g.replay())
         assert got == float(tt.rollout(env, tables, idx, horizon, observations, eager))
         assert gen.get_offset() == eager.get_offset()
+
+
+def test_rollout_totals_repeat_from_a_seed(dev):
+    """Two rollouts from one seed give bit-equal reward totals, eager and
+    graphed (no atomics: each rollout's total is one float32 add a step in
+    the step kernel, then one sum); another seed gives another total."""
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.envs import throughput as tt
+    from pushworld_tpu_torch.envs.vector_env import VectorEnv
+    from pushworld_tpu_torch.ops import render
+
+    p = _fixture("simple")
+    cp = compile_puzzle(p)
+    tables = render.compile_render_tables(p, cp, device=dev)
+    env = VectorEnv(cp, max_steps=None, device=dev)
+    B, horizon = 2048, 64
+    idx = torch.zeros(B, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev)
+    g = tt.RolloutGraph(env, tables, idx, horizon, False, gen)
+    totals = {}
+    for key in ("eager", "graphed"):
+        for seed in (7, 7, 8):
+            gen.manual_seed(seed)
+            total = g.replay() if key == "graphed" else tt.rollout(env, tables, idx, horizon, False, gen)
+            totals.setdefault(key, []).append(float(total))
+    for key, (a, b, c) in totals.items():
+        assert a == b and a != c, (key, totals)
+    assert totals["eager"] == totals["graphed"]
 
 
 # ------------------------------------------------------ the parallel layer on the card

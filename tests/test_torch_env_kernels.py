@@ -135,11 +135,15 @@ class FakeEnvLib:
     @staticmethod
     def pw_env_step(positions, actions, pidx, steps, achieved, static_block, push, obj_mask, goal_pos, goal_mask,
                     init_pos, init_achieved, next_pos, new_pos, new_steps, new_achieved, reward, terminated,
-                    truncated, geom, stream):
+                    truncated, reward_acc, geom, stream):
         g = [int(v) for v in _view(geom, np.int64, 28)]
         B, n, H, W, delta, P, action, abytes, pbytes, max_steps, path, ndim = g[:12]
         size, ps, as_, qs = g[12:16], g[16:20], g[20:24], g[24:28]
         K = 2 * delta + 1
+        # The kernel's checks: rollouts and batch sizes index in 32 bits, and
+        # a running total needs the environment's step.
+        if not (0 <= B < 2 ** 31 and all(0 <= v < 2 ** 31 for v in size)) or (steps is None and reward_acc):
+            return 1  # cudaErrorInvalidValue
 
         def span(strides):
             return sum((size[d] - 1) * strides[d] for d in range(ndim)) + 1
@@ -161,13 +165,17 @@ class FakeEnvLib:
             o_pos, o_steps = _view(new_pos, np.int32, B * n * 2).reshape(B, n, 2), _view(new_steps, np.int32, B)
             o_ach, o_rew = _view(new_achieved, np.int32, B), _view(reward, np.float32, B)
             o_term, o_trunc = _view(terminated, np.uint8, B), _view(truncated, np.uint8, B)
+            acc = None if reward_acc is None else _view(reward_acc, np.float32, B)
         wide = path == 2 or (path == 0 and n > ts.ENV_MAX_OBJECTS)
         for b in range(B):
-            rem, po, ao, qo = b, 0, 0, 0
-            for d in reversed(range(ndim)):
-                c = rem % size[d]
-                rem //= size[d]
-                po, ao, qo = po + c * ps[d], ao + c * as_[d], qo + c * qs[d]
+            # locate: 32-bit unsigned divisions over the dimensions after the
+            # first, whose coordinate is what is left (a 1-D batch divides
+            # nothing).
+            rem, po, ao, qo = np.uint32(b), 0, 0, 0
+            for d in reversed(range(1, ndim)):
+                rem, c = divmod(rem, np.uint32(size[d]))
+                po, ao, qo = po + int(c) * ps[d], ao + int(c) * as_[d], qo + int(c) * qs[d]
+            po, ao, qo = po + int(rem) * ps[0], ao + int(rem) * as_[0], qo + int(rem) * qs[0]
             a = action if acts is None else min(max(int(acts[ao]), 0), 3)
             p = 0 if pids is None else min(max(int(pids[qo]), 0), P - 1)
             cells = pos[po: po + 2 * n].reshape(n, 2)
@@ -178,6 +186,8 @@ class FakeEnvLib:
                                                                     (int(st[b]), int(ach[b]), max_steps))
             out_next[b], o_pos[b] = nxt, (init[p] if done else nxt)
             o_steps[b], o_ach[b], o_rew[b], o_term[b], o_trunc[b] = s, got, rew, term, trunc
+            if acc is not None:
+                acc[b] = np.float32(acc[b] + rew)  # one float32 add a rollout (__fadd_rn)
         return 0
 
 
@@ -204,15 +214,16 @@ def _jax_env_and_port(names, max_steps):
             tc.compile_batch([b for _, b in pairs]), pairs)
 
 
-def _port_env_step(cp, env, state, a, path):
+def _port_env_step(cp, env, state, a, path, reward_acc=None):
     """``env_step`` (path "plain") or the kernel's algorithm through its
-    wrapper (paths "auto", "one-word", "wide"), from the port's EnvState."""
+    wrapper (paths "auto", "one-word", "wide"), from the port's EnvState;
+    each reward added to ``reward_acc`` where given."""
     pidx = env._pidx(state.puzzle_idx)
     args = (state.steps, state.achieved, env._init_pos, env._init_achieved, env.max_steps)
     if path == "plain":
-        return ts.env_step(env.puzzles, state.positions, a, args[0], args[1], pidx, *args[2:])
+        return ts.env_step(env.puzzles, state.positions, a, args[0], args[1], pidx, *args[2:], reward_acc=reward_acc)
     wide = {"auto": None, "one-word": False, "wide": True}[path]
-    return ts._env_kernel(env.puzzles, state.positions, a, pidx, env=args, wide=wide)
+    return ts._env_kernel(env.puzzles, state.positions, a, pidx, env=args, wide=wide, reward_acc=reward_acc)
 
 
 # Single and stacked puzzles, with and without truncation, that terminate,
@@ -222,16 +233,24 @@ ENV_CASES = [
     (("simple", "chain", "push_left", "lshape"), 11), (("chain", "agent_wall", "multi_goal"), None),
     (("many_objects_33",), 6),
 ]
+PATHS = ("plain", "auto", "one-word", "wide")
 
 
 @pytest.mark.parametrize("names,max_steps,path", [
-    (*case, path) for case in ENV_CASES for path in ("plain", "auto", "one-word", "wide")
+    (*case, path) for case in ENV_CASES for path in PATHS
     if not (path == "one-word" and case[0] == ("many_objects_33",))  # at most 32 objects
+] + [  # each path again, keeping each rollout's running reward total
+    (*case, path + "-acc") for case in ENV_CASES[3::2] for path in PATHS
+    if not (path == "one-word" and case[0] == ("many_objects_33",))
 ])
 def test_env_step_matches_jax_vector_env(fake_kernels, names, max_steps, path):
     """JAX's ``VectorEnv.step`` against ``ops.step.env_step`` on the CPU
     (path "plain") and the env kernel's algorithm on either path: every
-    output of every step equal; terminations, truncations and resets hit."""
+    output of every step equal; terminations, truncations and resets hit.
+    On a path "...-acc", each rollout's running total (``reward_acc``) after
+    each step equals a float32 running sum, in step order, of JAX's
+    rewards."""
+    path, acc = path.removesuffix("-acc"), path.endswith("-acc")
     j_env, cp, pairs = _jax_env_and_port(names, max_steps)
     t_env = tenv.VectorEnv(cp, max_steps=max_steps, device="cpu")
     B = 12 if names == ("many_objects_33",) else 24
@@ -239,15 +258,20 @@ def test_env_step_matches_jax_vector_env(fake_kernels, names, max_steps, path):
     st = t_env.reset(None, B, torch.as_tensor(np.array(js.puzzle_idx)))
     rng = np.random.default_rng(len(names) + (max_steps or 0))
     n_term = n_trunc = 0
+    reward_acc = torch.full((B,), 0.5) if acc else None  # a total already begun
+    want_acc = np.full(B, 0.5, np.float32)
     for t, a in enumerate(rng.integers(0, 4, (16 if B == 12 else 30, B))):
         js, *j_out = j_env.step(js, jnp.asarray(a.astype(np.int32)))
-        positions, steps, achieved, *t_out = _port_env_step(cp, t_env, st, torch.as_tensor(a), path)
+        positions, steps, achieved, *t_out = _port_env_step(cp, t_env, st, torch.as_tensor(a), path, reward_acc)
         st = tenv.EnvState(positions, steps, achieved, st.puzzle_idx)
         for f in ("positions", "steps", "achieved"):
             assert np.array_equal(getattr(st, f).numpy(), np.asarray(getattr(js, f))), (t, f)
         for k, (g, w) in enumerate(zip(t_out, j_out)):
             assert str(g.dtype).split(".")[-1] == str(np.asarray(w).dtype) and np.array_equal(g.numpy(),
                                                                                              np.asarray(w)), (t, k)
+        want_acc = want_acc + np.asarray(j_out[1])  # float32 + float32: one rounding each
+        if acc:
+            assert reward_acc.dtype == torch.float32 and np.array_equal(reward_acc.numpy(), want_acc), t
         n_term += int(t_out[2].sum())
         n_trunc += int(t_out[3].sum())
     assert n_trunc > 0 if max_steps is not None else n_trunc == 0
@@ -286,6 +310,8 @@ def test_step_kernel_algorithm_reads_broadcast_batches(fake_kernels):
     pidx = torch.arange(3)[:, None].expand(3, 6)
     a = torch.as_tensor(rng.integers(0, 4, (3, 6)))
     assert torch.equal(ts._env_kernel(cps, states, a, pidx)[0], ts.step_reference(cps, states, a, pidx))
+    with pytest.raises(ValueError, match="reward_acc needs the environment's step"):
+        ts._env_kernel(cps, states, a, pidx, reward_acc=torch.zeros(18))
 
 
 # --------------------------------------------- kernels/render.cu, as a numpy loop

@@ -58,3 +58,44 @@ def test_the_default_device_is_the_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tt.measure_env_throughput(Puzzle.from_text("A M0 G0\n"), batch_size=2, horizon=1, reps=1)
+
+
+@pytest.mark.parametrize("observations", [False, True])
+def test_rollout_reward_total_matches_jax_rewards(observations):
+    """The CPU rollout on given actions returns the sum of its per-rollout
+    accumulator: JAX's ``VectorEnv.step`` rewards over the same actions,
+    summed in float64, within float32 reassociation: each rollout's total is
+    a running float32 sum of ``horizon`` rewards, then the B totals are
+    summed in float32, so the error is at most (horizon + log2 B) float32
+    roundings of the rewards' absolute sum."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from pushworld_tpu.core.compiled import compile_puzzle as j_compile
+    from pushworld_tpu.core.puzzle import Puzzle as JPuzzle
+    from pushworld_tpu.envs.vector_env import VectorEnv as JVectorEnv
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.envs.vector_env import VectorEnv
+    from pushworld_tpu_torch.ops.render import compile_render_tables
+
+    path = os.path.join(PUZZLES, "simple.pwp")
+    B, horizon = 64, 24
+    actions = np.random.default_rng(5).integers(0, 4, (horizon, B))
+    j_env = JVectorEnv(j_compile(JPuzzle.from_file(path)), max_steps=None)
+    js = j_env.reset(jax.random.PRNGKey(0), B)
+    rewards = []
+    for a in actions:
+        js, _, r, _, _ = j_env.step(js, jnp.asarray(a.astype(np.int32)))
+        rewards.append(np.asarray(r, np.float64))
+    rewards = np.asarray(rewards)
+    assert (rewards == 10.0).any()  # the rollouts reach the goal, so the total depends on the actions
+
+    puzzle = Puzzle.from_file(path)
+    cp = compile_puzzle(puzzle)
+    env = VectorEnv(cp, max_steps=None, device="cpu")
+    total = tt.rollout(env, compile_render_tables(puzzle, cp, device="cpu"), torch.zeros(B, dtype=torch.int32),
+                       horizon, observations, None, torch.as_tensor(actions))
+    assert total.dtype == torch.float32 and total.shape == ()
+    tol = (horizon + B.bit_length()) * 2.0 ** -24 * np.abs(rewards).sum()
+    assert abs(float(total) - rewards.sum()) <= tol, (float(total), rewards.sum(), tol)
