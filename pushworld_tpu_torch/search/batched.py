@@ -79,6 +79,7 @@ from pushworld_tpu_torch.ops.rgd import (
     rgd_heuristic_with_flags,
 )
 from pushworld_tpu_torch.ops.step import expand_and_test
+from pushworld_tpu_torch.utils import tracing
 
 # Frontier priorities are int32 keys: novelty tier (2 bits) | clamped RGD
 # value (13 bits) | inverted recency (15 bits).  The recency bits make
@@ -196,16 +197,21 @@ def init_search_state(
 
 def reconstruct_plan(s: SearchState) -> List[int]:
     """Backtracks the (parent index, action) history of a solved search into
-    the action list (host-side; reads back the history arrays)."""
-    parent = s.hist_parent.cpu().numpy()
-    action = s.hist_action.cpu().numpy()
-    idx = int(s.solved_hist)
-    plan: List[int] = []
-    while idx > 0:
-        plan.append(int(action[idx]))
-        idx = int(parent[idx])
-    plan.reverse()
-    return plan
+    the action list (host-side; reads back the history arrays).  Under
+    ``torch.profiler``: the span ``pw.solve.readback``, and the two arrays'
+    bytes in ``tracing.COUNTERS["d2h_bytes"]`` where they come from a card."""
+    with tracing.span("pw.solve.readback"):
+        if s.hist_parent.is_cuda:
+            tracing.count("d2h_bytes", s.hist_parent.nbytes + s.hist_action.nbytes)
+        parent = s.hist_parent.cpu().numpy()
+        action = s.hist_action.cpu().numpy()
+        idx = int(s.solved_hist)
+        plan: List[int] = []
+        while idx > 0:
+            plan.append(int(action[idx]))
+            idx = int(parent[idx])
+        plan.reverse()
+        return plan
 
 
 def search_status_tensor(s: SearchState) -> torch.Tensor:
@@ -735,9 +741,14 @@ class PendingStatus:
         return self._event is None or self._event.query()
 
     def read(self) -> List[int]:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.tolist()
+        """The status; under ``torch.profiler`` the span
+        ``pw.solve.status_wait``, and its bytes in
+        ``tracing.COUNTERS["d2h_bytes"]`` where it came from a card."""
+        with tracing.span("pw.solve.status_wait"):
+            if self._event is not None:
+                self._event.synchronize()
+                tracing.count("d2h_bytes", self._host.nbytes)
+            return self._host.tolist()
 
 
 class BatchedPlanner:
@@ -783,13 +794,13 @@ class BatchedPlanner:
             )
         self.device = resolve_device(device)
         self.puzzle = puzzle
-        self.cp = (cp if cp is not None else compile_puzzle(puzzle)).numpy()
-        self.cp_dev = self.cp.to(self.device)
-        self.tables = (
-            tables
-            if tables is not None
-            else build_rgd_tables(puzzle, self.cp, max_depth=max_depth, device=self.device)
-        )
+        with tracing.span("pw.solve.compile"):
+            self.cp = (cp if cp is not None else compile_puzzle(puzzle)).numpy()
+            self.cp_dev = self.cp.to(self.device)
+        if tables is None:
+            with tracing.span("pw.solve.tables"):
+                tables = build_rgd_tables(puzzle, self.cp, max_depth=max_depth, device=self.device)
+        self.tables = tables
         self.expand = expand
         self.frontier_capacity = frontier_capacity
         self.visited_bits = visited_bits
@@ -811,15 +822,16 @@ class BatchedPlanner:
         )
 
     def init_state(self) -> SearchState:
-        return init_search_state(
-            self.cp_dev,
-            self.tables,
-            self.config,
-            self.frontier_capacity,
-            self.visited_bits,
-            self.pair_bits,
-            bool(self.puzzle.is_goal_state(self.puzzle.initial_state)),
-        )
+        with tracing.span("pw.solve.init_state"):
+            return init_search_state(
+                self.cp_dev,
+                self.tables,
+                self.config,
+                self.frontier_capacity,
+                self.visited_bits,
+                self.pair_bits,
+                bool(self.puzzle.is_goal_state(self.puzzle.initial_state)),
+            )
 
     def solve(
         self,
@@ -850,9 +862,10 @@ class BatchedPlanner:
         distance block, so they are rebuilt)."""
         new_depth = self.max_depth + 1
         if self.max_depth == 0:
-            self.tables = build_rgd_tables(
-                self.puzzle, self.cp, max_depth=new_depth, device=self.device
-            )
+            with tracing.span("pw.solve.tables"):
+                self.tables = build_rgd_tables(
+                    self.puzzle, self.cp, max_depth=new_depth, device=self.device
+                )
         self.max_depth = new_depth
 
     def _solve_at_depth(

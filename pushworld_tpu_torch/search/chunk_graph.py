@@ -65,6 +65,7 @@ from pushworld_tpu_torch.core.compiled import CompiledPuzzle
 from pushworld_tpu_torch.kernels import _build
 from pushworld_tpu_torch.ops.rgd import RGDTables
 from pushworld_tpu_torch.search.batched import CHUNK, SearchConfig, SearchState, _iterate, thread_streams
+from pushworld_tpu_torch.utils import tracing
 
 # Iterations of one launch of a loop: JAX's chunk.
 LOOP_MAX = CHUNK
@@ -188,7 +189,9 @@ class ChunkGraph:
     Attributes: ``nodes``, ``node_types`` and ``longest_chain`` (of the
     captured body: its node count, its node counts by type and its longest
     dependent chain in kernel nodes), ``capture_s`` and ``instantiate_s``
-    (host seconds; the latter builds the loop around the body),
+    (host seconds; the latter builds the loop around the body; under
+    ``torch.profiler`` the span ``pw.solve.capture`` holds both and the
+    warm iteration),
     ``launches`` (hand-kernel launches of one body), ``tail`` (the loop's
     :class:`LoopTail`) and ``bodies`` (its int64 device scalar: bodies
     run)."""
@@ -203,7 +206,9 @@ class ChunkGraph:
         self._settled = 0
         self._lock = threading.Lock()
         dev = s.frontier_h.device
-        with torch.cuda.device(dev):
+        # The span holds the warm iteration, the capture and the loop's build;
+        # it is a host range around the capture, none inside it.
+        with tracing.span("pw.solve.capture"), torch.cuda.device(dev):
             main = torch.cuda.current_stream()
             side = thread_streams(dev)[0]
             side.wait_stream(main)

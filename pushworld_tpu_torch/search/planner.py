@@ -19,6 +19,7 @@ from pushworld_tpu_torch.core.compiled import compile_puzzle, compute_delta
 from pushworld_tpu_torch.core.puzzle import Puzzle
 from pushworld_tpu_torch.device import DeviceLike, resolve_device
 from pushworld_tpu_torch.search.batched import CHUNK
+from pushworld_tpu_torch.utils import tracing
 
 # Shape profiles (n, dim, delta, cmax), as in the JAX package.  The port has
 # no compile step, so puzzles are not padded to them; they only group and
@@ -198,9 +199,29 @@ def solve_puzzle(
     ``device``), or "host" (the serial oracle planner, which uses no device).
     ``kwargs`` go to the batched planner (``expand``, ``frontier_capacity``,
     ``visited_bits``, ...).
+
+    Under ``torch.profiler`` the call is the span ``pw.solve`` (with the
+    phases of ``utils/tracing.py`` inside it), counts in
+    ``tracing.COUNTERS["solves"]`` and, on a card, adds the growth of the
+    allocator's reserved bytes to ``COUNTERS["reserved_growth_bytes"]``.
     """
     if planner not in ("auto", "batched", "host"):
         raise ValueError(f"unknown planner {planner!r}")
+    if not tracing.recording():
+        return _solve_puzzle(puzzle, mode, time_limit, planner, device, kwargs)
+    with tracing.span("pw.solve"):
+        tracing.count("solves")
+        card = planner != "host" and resolve_device(device).type == "cuda"
+        reserved = tracing.reserved_bytes(device) if card else 0
+        try:
+            return _solve_puzzle(puzzle, mode, time_limit, planner, device, kwargs)
+        finally:
+            if card:
+                tracing.count("reserved_growth_bytes", max(0, tracing.reserved_bytes(device) - reserved))
+
+
+def _solve_puzzle(puzzle: Puzzle, mode: str, time_limit: Optional[float], planner: str, device: DeviceLike,
+                  kwargs: dict) -> PlanResult:
     t0 = time.monotonic()
     bp = None
     try:
@@ -213,9 +234,12 @@ def solve_puzzle(
 
             device = resolve_device(device)
             max_depth = kwargs.pop("max_depth", None)
+            if max_depth is None:
+                with tracing.span("pw.solve.required_depth"):
+                    max_depth = required_depth(puzzle)
             bp = BatchedPlanner(
                 puzzle,
-                max_depth=required_depth(puzzle) if max_depth is None else max_depth,
+                max_depth=max_depth,
                 use_novelty=(mode == "N+RGD"),
                 device=device,
                 **kwargs,
@@ -230,7 +254,9 @@ def solve_puzzle(
 
     if plan is None:
         return PlanResult(None, dt, "no solution", **counts)
-    if not puzzle.is_valid_plan(plan) and plan != []:
+    with tracing.span("pw.solve.validate"):
+        valid = plan == [] or puzzle.is_valid_plan(plan)
+    if not valid:
         return PlanResult(plan, dt, "invalid plan", **counts)
     return PlanResult(plan, dt, None, **counts)
 

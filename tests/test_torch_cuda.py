@@ -2064,3 +2064,49 @@ def test_a_chunk_returns_before_the_card_finishes(dev):
     assert not done.query()
     done.synchronize()
     assert int(s.iterations) > 1
+
+
+# ------------------------------------------------------ spans and counters on the card
+
+
+def test_profiled_solve_counts_its_device_bytes(dev):
+    """Under torch.profiler a solve at production capacities adds both
+    history arrays (2 x history_capacity int32) and 32 B a status read to
+    ``tracing.COUNTERS["d2h_bytes"]`` and captures its loop inside
+    ``pw.solve.capture``.  The device's side of a ``pw.*`` span is a user
+    annotation (the benchmark's trace leaves those out of the device's
+    work)."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pushworld_tpu_torch.search.planner import PRODUCTION_CAPACITIES, solve_puzzle
+    from pushworld_tpu_torch.utils import tracing
+
+    def host_spans(prof):
+        return Counter(e.name for e in prof.events() if e.name.startswith("pw.") and e.device_type == DeviceType.CPU)
+
+    def device_spans_are_annotations(prof):
+        return all(e.is_user_annotation for e in prof.events()
+                   if e.name.startswith("pw.") and e.device_type == DeviceType.CUDA)
+
+    p = _fixture("heur/two_tools")
+    solve_puzzle(p, time_limit=60, device=dev, **PRODUCTION_CAPACITIES)  # kernels loaded
+    saved = Counter(tracing.COUNTERS)
+    tracing.COUNTERS.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            r = solve_puzzle(p, time_limit=60, device=dev, **PRODUCTION_CAPACITIES)
+            torch.cuda.synchronize()
+        got = Counter(tracing.COUNTERS)
+    finally:
+        tracing.COUNTERS.clear()
+        tracing.COUNTERS.update(saved)
+    assert r.failure_reason is None and p.is_valid_plan(r.plan)
+    names = host_spans(prof)
+    k = names["pw.solve.status_wait"]
+    assert k >= 1 and names["pw.solve"] == 1 and names["pw.solve.readback"] == 1 and names["pw.solve.capture"] >= 1
+    assert got["solves"] == 1 and got["reserved_growth_bytes"] >= 0
+    assert got["d2h_bytes"] == 2 * PRODUCTION_CAPACITIES["history_capacity"] * 4 + 32 * k
+    assert device_spans_are_annotations(prof)
