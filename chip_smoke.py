@@ -142,7 +142,14 @@ Phases, each printing one JSON line:
    error 0) on the 47 x 54 puzzle, the stacked trio and
    ``many_objects_text`` at 19, 33, 64 and 100 movables (the wide path above
    32), truncations and resets hit; each lane prints the kernel's device
-   time on its last state.  The batched one-hot renderer must
+   time on its last state.  Its multi-step launch (``env.steps``:
+   ``VectorEnv.step`` on a (128, 4096) block of actions, int64 and int32)
+   must equal 128 calls of the plain version on the same inputs, error 0,
+   every output of the block's last step, the state after it and
+   ``reward_acc``, over two blocks a lane (the second from the first's
+   state), on the 47 x 54 puzzle and the stacked trio, each with a
+   ``max_steps`` that truncates inside the block and with none; each lane
+   prints the launch's device time.  The batched one-hot renderer must
    equal the per-state renderer on 256 states and the CPU's result on all,
    and the render kernel its plain version on those states and on the same
    states moved so that cells fall outside the grid.  The greedy
@@ -151,8 +158,9 @@ Phases, each printing one JSON line:
    every rollout.  Then the main path, with the launch counts from 0:
    ``measure_env_throughput`` at batch 4096, horizon 128, 3 reps, with and
    without observations, a rollout one launch of a CUDA graph (4 graph
-   launches a call, 128 env steps each; its peak memory at most 2.2
-   observation buffers).  The graph's reward total must equal the eager
+   launches a call, 128 env steps each, without observations one
+   multi-step launch of ``kernels/env.cu``, ``env.steps``; its peak memory
+   at most 2.2 observation buffers).  The graph's reward total must equal the eager
    rollout's on the same pre-drawn actions, and a replay after
    ``manual_seed(s)`` the eager rollouts' from seed ``s``, fresh each
    replay (on ``simple``, whose totals depend on the actions); a profiled
@@ -163,7 +171,10 @@ Phases, each printing one JSON line:
    calls it, with its running totals), the renderer beside a fill of the
    same bytes; the step also on the greedy policy's stride-0 (4, B)
    broadcast (the transition alone), and the host's enqueue time of an
-   eager step over 1,000 calls without a synchronisation.  The Gym and
+   eager step over 1,000 calls without a synchronisation; the multi-step
+   launch on a (128, 4096) int64 block there, beside 128 calls of the
+   plain version and its bound (the state read and written once, the
+   block, the bit-packed tables).  The Gym and
    dm_env wrappers are held against the oracle where their packages are
    installed.
 7. ``native``: the native serial planner, built from
@@ -2582,10 +2593,55 @@ def _env_kernel_lane(what, cp, idx_np, max_steps, n_steps, rng, dev):
             "terminated": term, "truncated": trunc, "max_abs_err": err, "device_ms": device_ms}
 
 
+def _env_block_lane(what, cp, idx_np, max_steps, horizon, dtype, rng, dev):
+    """The multi-step launch (``VectorEnv.step`` on a (horizon, B) block of
+    ``dtype`` actions) against ``horizon`` calls of the plain version on the
+    card, from the same state and running totals: every output of the
+    block's last step, the state after it and each rollout's total, error
+    0.  Two blocks, the kernel's state carried, so the second starts inside
+    the episodes.  Returns the lane's row (its error, the terminations and
+    truncations of the plain chain, and the launch's device ms)."""
+    import torch
+
+    from pushworld_tpu_torch.envs.vector_env import VectorEnv
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.ops.step import env_step_reference
+
+    B = len(idx_np)
+    env = VectorEnv(cp, max_steps=max_steps, device=dev)
+    st = env.reset(None, B, torch.as_tensor(idx_np))
+    pidx = env._pidx(st.puzzle_idx)
+    acc_kernel = torch.as_tensor(rng.random(B).astype("float32"), device=dev)
+    acc_plain = acc_kernel.clone()
+    err, term, trunc, before = 0.0, 0, 0, LAUNCHES["env.steps"]
+    for _ in range(2):
+        block = torch.as_tensor(rng.integers(0, 4, (horizon, B)), device=dev).to(dtype)
+        want = (st.positions, st.steps, st.achieved)
+        for a in block:
+            want = env_step_reference(env.puzzles, want[0], a, want[1], want[2], pidx, env._init_pos,
+                                      env._init_achieved, max_steps, reward_acc=acc_plain)
+            term += int(want[5].sum())
+            trunc += int(want[6].sum())
+        new, *last = env.step(st, block, reward_acc=acc_kernel)
+        got = (new.positions, new.steps, new.achieved, *last)
+        check(all(g.dtype == w.dtype for g, w in zip(got, want)), f"env.steps {what}: output types differ")
+        err = max(err, _max_abs_err(zip(got + (acc_kernel,), want + (acc_plain,))))
+        st = new
+    check(LAUNCHES["env.steps"] == before + 2, f"env.steps {what}: not one multi-step launch a block")
+    check(err == 0, f"env.steps {what}: kernel != {horizon} steps of the plain version (max_abs_err {err}, "
+                    "reward_acc included)")
+    check(trunc > 0 if max_steps is not None else trunc == 0, f"env.steps {what}: {trunc} truncations")
+    device_ms = traced_ms(lambda: env.step(st, block, reward_acc=acc_kernel), "env_step_kernel", 20)
+    return {"objects": cp.n, "rollouts": B, "steps": 2 * horizon, "max_steps": max_steps,
+            "actions": str(dtype).replace("torch.", ""), "terminated": term, "truncated": trunc,
+            "max_abs_err": err, "device_ms": device_ms}
+
+
 def phase_envs(puzzles, generated, dev, floor, batch=4096, horizon=128):
     """The environment half on the card, at the JAX benchmark's batch and
     horizon unless a rehearsal asks for less.  Returns the rows of the
-    kernels ``env.step`` and ``render.onehot`` (their ``launches`` counted
+    kernels ``env.step``, ``env.steps`` and ``render.onehot`` (their
+    ``launches`` counted
     over the main path, ``measure_env_throughput``), and the phase's
     launches."""
     from collections import Counter
@@ -2631,6 +2687,15 @@ def phase_envs(puzzles, generated, dev, floor, batch=4096, horizon=128):
         lanes[f"many_objects_{n}"] = _env_kernel_lane(f"{n} objects", compile_puzzle(p), np.zeros(1024, np.int32),
                                                       6, 16, rng, dev)
     env_err = max(lane["max_abs_err"] for lane in lanes.values())
+    # Its multi-step launch against the plain version's steps, at the main
+    # path's batch and horizon.
+    block_lanes = {}
+    for name, cp_l, idx_l, ms in (("47x54", cp, np.zeros(B, np.int32), 40), ("stacked_3", compile_batch(trio), idx, 9)):
+        for max_steps, dtype in ((ms, torch.int64), (None, torch.int32)):
+            key = f"{name}_max_steps_{max_steps}"
+            block_lanes[key] = _env_block_lane(key, cp_l, idx_l, max_steps, horizon, dtype, rng, dev)
+    check(block_lanes["stacked_3_max_steps_None"]["terminated"] > 0, "env.steps stacked_3: no rollout reached its goal")
+    block_err = max(lane["max_abs_err"] for lane in block_lanes.values())
 
     # (c) the renderers on the states of (a), and the render kernel against
     # its plain version there and on the same states moved so that many
@@ -2687,7 +2752,7 @@ def phase_envs(puzzles, generated, dev, floor, batch=4096, horizon=128):
     obs_bytes = B * cp.height * cp.width * 6 * 4
     reps = 3
     for key, with_obs in (("throughput_obs", True), ("throughput_no_obs", False)):
-        graphs, steps_before = GRAPH_LAUNCHES["envs.rollout"], LAUNCHES["env.step"]
+        graphs, before = GRAPH_LAUNCHES["envs.rollout"], (LAUNCHES["env.step"], LAUNCHES["env.steps"])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -2696,11 +2761,16 @@ def phase_envs(puzzles, generated, dev, floor, batch=4096, horizon=128):
                                               device=dev)
         r["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - base
         r["graph_launches"] = GRAPH_LAUNCHES["envs.rollout"] - graphs
-        r["env_step_launches"] = LAUNCHES["env.step"] - steps_before
+        r["env_step_launches"] = LAUNCHES["env.step"] - before[0]
+        r["env_steps_launches"] = LAUNCHES["env.steps"] - before[1]
         check(r["steps_per_s"] > 0 and r["device"]["name"] == torch.cuda.get_device_name(0), f"{key}: {r}")
         check(r["graph_launches"] == reps + 1, f"{key}: {r['graph_launches']} graph launches for {reps + 1} rollouts")
-        # horizon steps a replay, and the one eager step before the capture
-        check(r["env_step_launches"] == horizon * (reps + 1) + 1, f"{key}: {r['env_step_launches']} env steps")
+        # With observations, horizon one-step launches a replay; without,
+        # one multi-step launch a replay; and the one eager rollout step
+        # before the capture.
+        want = (horizon * (reps + 1) + 1, 0) if with_obs else (0, reps + 2)
+        check((r["env_step_launches"], r["env_steps_launches"]) == want,
+              f"{key}: {r['env_step_launches']} one-step and {r['env_steps_launches']} multi-step launches")
         if with_obs:
             check(r["peak_memory_bytes"] <= 2.2 * obs_bytes,
                   f"{key}: the graphed rollout held {r['peak_memory_bytes']} bytes, more than two observations")
@@ -2708,7 +2778,7 @@ def phase_envs(puzzles, generated, dev, floor, batch=4096, horizon=128):
     pct = out["throughput_obs"]["hbm_roofline_pct"]
     check(pct is not None and 0 < pct < 100, f"hbm_roofline_pct = {pct}")
     main_launches = launch_counts()
-    for name in ("env.step", "render.onehot"):
+    for name in ("env.step", "env.steps", "render.onehot"):
         check(main_launches.get(name, 0) >= 1, f"the main path launched no {name} kernel")
     out["main_path_launches"] = main_launches
     reset_launches()
@@ -2816,6 +2886,32 @@ def phase_envs(puzzles, generated, dev, floor, batch=4096, horizon=128):
                 **work_bound(step_bytes, 0, floor), "library_ms": None, "library_device_ms": None,
                 "host_enqueue_ms": enqueue_ms,
                 "greedy_broadcast_device_ms": traced_ms(lambda: step(*greedy_args), "env_step_kernel", 50)}
+    # The multi-step launch as the rollout without observations makes it:
+    # a (horizon, B) int64 block (torch.randint's), with the running totals.
+    # Each input read once (the cells, steps, achieved and running total of
+    # every rollout, the block, the bit-packed push and static-block tables,
+    # the puzzle's masks, goals, initial cells and count), each output
+    # written once (as the step's).
+    block = torch.randint(0, 4, (horizon, B), generator=gen, device=dev)
+    K = 2 * cp.delta + 1
+    bit_words = -(-4 * N * cp.height * cp.width // 32) + -(-4 * N * N * K * K // 32)
+    block_bytes = (B * (8 * N + 4 + 4 + 4) + block.numel() * block.element_size() + 4 * bit_words
+                   + N * (1 + 1 + 8 + 8) + 4 + B * (16 * N + 4 + 4 + 4 + 1 + 1 + 4))
+
+    def plain_block():
+        s, acc_p = (st.positions, st.steps, st.achieved), acc.clone()
+        for a_t in block:
+            s = env_step_reference(env.puzzles, s[0], a_t, s[1], s[2], None, env._init_pos, env._init_achieved,
+                                   None, reward_acc=acc_p)
+
+    env.step(st, block, reward_acc=acc)
+    block_row = {"name": "env.steps", "route": "cuda", "source": "pushworld_tpu_torch/kernels/env.cu",
+                 "replaces": "pushworld_tpu/envs/throughput.py:82-104 (lax.scan over VectorEnv.step, XLA code)",
+                 "max_abs_err": block_err, "lanes": block_lanes, "horizon": horizon,
+                 "ms": cuda_time_ms(lambda: env.step(st, block, reward_acc=acc), reps=50),
+                 "device_ms": traced_ms(lambda: env.step(st, block, reward_acc=acc), "env_step_kernel", 50),
+                 "plain_ms": cuda_time_ms(plain_block, reps=2),
+                 **work_bound(block_bytes, 0, floor), "library_ms": None, "library_device_ms": None}
     pos = st.positions
     fill = torch.empty((B, cp.height, cp.width, 6), dtype=torch.float32, device=dev)
     fill_prof = profile_device(fill.zero_, reps=20)
@@ -2831,10 +2927,10 @@ def phase_envs(puzzles, generated, dev, floor, batch=4096, horizon=128):
                   "fill_same_bytes_ms": cuda_time_ms(fill.zero_, reps=50),
                   "fill_same_bytes_device_ms": fill_prof["busy_us"] / 1e3 / fill_prof["n_kernels"]}
     del fill
-    for row in (step_row, render_row):
+    for row in (step_row, block_row, render_row):
         row["main_path_launches"] = main_launches.get(row["name"], 0)
     out["kernels"] = {r["name"]: {k: v for k, v in r.items() if k not in ("name", "lanes")}
-                      for r in (step_row, render_row)}
+                      for r in (step_row, block_row, render_row)}
 
     # (h) the wrappers: host code.
     out["wrappers"] = _wrappers_against_oracle(os.path.join(ROOT, "tests", "puzzles", "simple.pwp"), simple)
@@ -2843,7 +2939,7 @@ def phase_envs(puzzles, generated, dev, floor, batch=4096, horizon=128):
     check(launches.get("rgd.heuristic", 0) >= 1, "the greedy policy launched no RGD kernel")
     out["launches"] = launches
     emit(out)
-    return [step_row, render_row], launches
+    return [step_row, block_row, render_row], launches
 
 
 def phase_native(puzzles, generated, dev):

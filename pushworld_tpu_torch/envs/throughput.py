@@ -16,13 +16,16 @@ puzzle for comparison.
 The JAX package runs a rollout as one jitted ``lax.scan`` over the action
 draw, the step, the render and the reward sum
 (pushworld_tpu/envs/throughput.py:82-104).  Here, on the card, the same
-rollout (:func:`rollout`: ``horizon`` steps of the draw, ``VectorEnv.step``
-(one ``kernels/env.cu`` launch, which also adds each rollout's reward to
-its running total) and the render (one ``kernels/render.cu`` launch), then
-the sum of the totals) is captured once into a CUDA graph
+rollout (:func:`rollout`) is captured once into a CUDA graph
 (:class:`RolloutGraph`), and a timed rollout is one graph launch and one
-synchronisation: two kernels a step, three with observations.  On the CPU
-it runs eagerly.
+synchronisation.  With observations it is ``horizon`` steps of the draw,
+``VectorEnv.step`` (one ``kernels/env.cu`` launch, which also adds each
+rollout's reward to its running total) and the render (one
+``kernels/render.cu`` launch): three kernels a step.  Without them the
+actions of every step are drawn at once, a (horizon, B) block, and one
+``VectorEnv.step`` on the block runs the whole rollout in one launch of
+``kernels/env.cu`` (its multi-step path, the counterpart of the
+``lax.scan``).  Then the sum of the totals.  On the CPU it runs eagerly.
 
 The reward total is the sum of JAX's ``acc + reward.sum()`` a step, taken
 in another association: each rollout's rewards first, in step order (one
@@ -66,20 +69,32 @@ def rollout(env: VectorEnv, tables: RenderTables, puzzle_idx: torch.Tensor, hori
     """``horizon`` steps of the B rollouts that ``puzzle_idx`` (B,) int32
     names, each from its puzzle's initial state (``env.start``: unchecked),
     with a uniform-random policy drawn from ``generator``, or with
-    ``actions`` (horizon, B) where given; with ``observations``, every step
+    ``actions`` where given (row t of B the actions of step t; fewer than
+    ``horizon`` rows raise ValueError); with ``observations``, every step
     also renders the one-hot observations (into ``obs_out`` where given).
     Returns the reward total, a float32 scalar on the device, unread: the
     rollout reads nothing back, so a CUDA graph may capture it.  Each step
     adds its rewards to a (B,) accumulator (``VectorEnv.step``'s
-    ``reward_acc``); the total is that accumulator's sum, taken once."""
+    ``reward_acc``); the total is that accumulator's sum, taken once.
+
+    Without observations nothing needs a step's positions, so the rollout
+    is one ``env.step`` on the (horizon, B) block of actions (drawn in one
+    ``torch.randint`` where not given)."""
+    if actions is not None and actions.shape[0] < horizon:
+        raise ValueError(f"rollout: {horizon} steps need as many rows of actions, got {actions.shape[0]}")
     B = puzzle_idx.shape[0]
     state = env.start(puzzle_idx)
     reward_acc = torch.zeros((B,), dtype=torch.float32, device=env.device)
+    if not observations:
+        if horizon:
+            block = (torch.randint(0, 4, (horizon, B), generator=generator, device=env.device) if actions is None
+                     else actions[:horizon])
+            env.step(state, block, reward_acc=reward_acc)
+        return reward_acc.sum()
     for t in range(horizon):
         a = torch.randint(0, 4, (B,), generator=generator, device=env.device) if actions is None else actions[t]
         state, next_pos, _, _, _ = env.step(state, a, reward_acc=reward_acc)
-        if observations:
-            render_cells_onehot_batched(tables, next_pos, out=obs_out)
+        render_cells_onehot_batched(tables, next_pos, out=obs_out)
     return reward_acc.sum()
 
 
@@ -102,7 +117,9 @@ class RolloutGraph:
       lazy initialisations done), none of which may happen in a capture.
     - Launch counts: the capture's are recorded (``kernels.recording_launches``)
       and added to ``kernels.LAUNCHES`` at each replay; the replay itself
-      counts in ``kernels.GRAPH_LAUNCHES["envs.rollout"]``.
+      counts in ``kernels.GRAPH_LAUNCHES["envs.rollout"]``.  A replay
+      without observations adds ``{"env.steps": 1}`` (the multi-step
+      launch), with them ``{"env.step": horizon, "render.onehot": horizon}``.
     """
 
     def __init__(self, env: VectorEnv, tables: RenderTables, puzzle_idx: torch.Tensor, horizon: int,

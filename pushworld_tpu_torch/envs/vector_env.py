@@ -21,8 +21,10 @@ reference requires a manual ``reset``, which the Gym/dm_env wrappers in
 :mod:`pushworld_tpu_torch.envs.dm_env_impl` preserve).
 
 On the card a step is one launch of ``kernels/env.cu``
-(:func:`pushworld_tpu_torch.ops.step.env_step`); on the CPU its plain
-version runs.
+(:func:`pushworld_tpu_torch.ops.step.env_step`), and so is a block of T
+steps whose actions are given ahead (:meth:`VectorEnv.step` with (T, B)
+actions: :func:`pushworld_tpu_torch.ops.step.env_steps`); on the CPU the
+plain version runs, one step a call.
 
 Random numbers come from a ``torch.Generator`` that the caller passes.  A
 CPU generator and a CUDA generator give different streams from one seed, and
@@ -42,6 +44,8 @@ from pushworld_tpu_torch.ops.step import (  # noqa: F401 (the rewards: the JAX m
     TERMINAL_REWARD,
     count_achieved_goals,
     env_step,
+    env_steps,
+    fused_block,
 )
 
 
@@ -124,18 +128,34 @@ class VectorEnv:
         )
 
     def step(self, state: EnvState, actions: torch.Tensor, reward_acc: Optional[torch.Tensor] = None):
-        """Advances every rollout by one action ((B,) ints in [0, 4)).
+        """Advances every rollout by one action ((B,) ints in [0, 4)), or by
+        a block of T actions ((T, B), row t the actions of step t).
 
         Returns ``(next_state, obs_positions, reward, terminated, truncated)``
         with auto-reset applied to ``next_state`` (the returned observation /
-        reward reflect the pre-reset transition).  One :func:`env_step`: on
-        the card, one kernel launch.  ``reward_acc`` ((B,) float32 or None):
-        each rollout's running reward total, to which the step adds its
-        reward in place (:func:`env_step`); the results are the same.
+        reward reflect the pre-reset transition); after a block, those of
+        its last step.  One :func:`env_step`: on the card, one kernel
+        launch.  A block on the card of at most 32 objects is one launch too
+        (:func:`env_steps`, where :func:`fused_block` holds), else T calls
+        of :func:`env_step`, one a row; the results are the same.
+        ``reward_acc`` ((B,) float32 or None): each rollout's running reward
+        total, to which each step adds its reward in place (:func:`env_step`).
         """
-        positions, steps, achieved, next_pos, reward, terminated, truncated = env_step(
-            self.puzzles, state.positions, actions, state.steps, state.achieved, self._pidx(state.puzzle_idx),
-            self._init_pos, self._init_achieved, self.max_steps, reward_acc=reward_acc)
+        tail = (self._pidx(state.puzzle_idx), self._init_pos, self._init_achieved, self.max_steps)
+        if isinstance(actions, torch.Tensor) and actions.dim() == 2:
+            if actions.shape[0] == 0:
+                raise ValueError("a block of actions needs at least one step")
+            if fused_block(self.device, self.puzzles.n):
+                out = env_steps(self.puzzles, state.positions, actions, state.steps, state.achieved, *tail,
+                                reward_acc=reward_acc)
+            else:
+                out = (state.positions, state.steps, state.achieved)
+                for a in actions:
+                    out = env_step(self.puzzles, out[0], a, out[1], out[2], *tail, reward_acc=reward_acc)
+        else:
+            out = env_step(self.puzzles, state.positions, actions, state.steps, state.achieved, *tail,
+                           reward_acc=reward_acc)
+        positions, steps, achieved, next_pos, reward, terminated, truncated = out
         new_state = EnvState(positions=positions, steps=steps, achieved=achieved, puzzle_idx=state.puzzle_idx)
         return new_state, next_pos, reward, terminated, truncated
 

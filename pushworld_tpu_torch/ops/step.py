@@ -33,7 +33,9 @@ The environment's step (:func:`env_step`: the transition, the goal test,
 the reward, truncation and auto-reset of a batch of rollouts) and
 :func:`step` are one launch of ``kernels/env.cu`` on a CUDA tensor and their
 plain versions (:func:`env_step_reference`, :func:`step_reference`) on a CPU
-tensor; the two are bit-equal.
+tensor; the two are bit-equal.  :func:`env_steps` runs T steps of the
+environment, their actions given ahead, in one launch of the same kernel
+(its multi-step path), bit-equal to T calls of :func:`env_step`.
 """
 
 import ctypes
@@ -402,11 +404,39 @@ def env_step(
                        env=(steps, achieved, init_pos, init_achieved, max_steps), reward_acc=reward_acc)
 
 
+def env_steps(
+    cp: CompiledPuzzle, positions: torch.Tensor, actions: torch.Tensor, steps: torch.Tensor, achieved: torch.Tensor,
+    puzzle_idx: Optional[torch.Tensor], init_pos: torch.Tensor, init_achieved: torch.Tensor,
+    max_steps: Optional[int], reward_acc: Optional[torch.Tensor] = None,
+) -> EnvStepOut:
+    """T steps of :func:`env_step` in one launch of ``kernels/env.cu`` (its
+    multi-step path): ``actions`` (T, B), T >= 1, row t the actions of step
+    t (int32 or int64); the other arguments as :func:`env_step`'s.
+
+    Returns the last step's tuple: the state after its reset, then its
+    pre-reset positions, reward, terminated and truncated.  ``reward_acc``
+    gains every step's reward, one float32 add a step in step order, so
+    every output equals T calls of :func:`env_step` bit for bit (whose
+    chain is this path's plain version).  Only where :func:`fused_block`
+    holds: CUDA tensors of at most :data:`ENV_MAX_OBJECTS` objects;
+    ``VectorEnv.step`` runs any other block step by step."""
+    return _env_kernel(cp, positions, actions, puzzle_idx, env=(steps, achieved, init_pos, init_achieved, max_steps),
+                       reward_acc=reward_acc, block=True)
+
+
 # The most batch dimensions kernels/env.cu reads through strides (kMaxDims);
 # a state batch of more is flattened first.
 _ENV_MAX_DIMS = 4
 # The largest N of the env kernel's one-word path (kernels/env.cu kMaxObjects).
 ENV_MAX_OBJECTS = 32
+
+
+def fused_block(device: torch.device, n: int) -> bool:
+    """Whether a (T, B) block of actions of states of ``n`` objects on
+    ``device`` runs as one launch of the env kernel's multi-step path
+    (:func:`env_steps`): on a card, up to :data:`ENV_MAX_OBJECTS` objects;
+    else as T calls of :func:`env_step`."""
+    return device.type == "cuda" and n <= ENV_MAX_OBJECTS
 
 
 def _index_operand(x, batch, dev, what: str):
@@ -427,30 +457,55 @@ def _index_operand(x, batch, dev, what: str):
 
 # Per puzzle (by id, with a weak reference that confirms it): what the env
 # kernel reads of its tables, checked once; a step's host time is its enqueue.
+# An entry is [weakref, device, (P, goal_pos, table pointers), bit tables or
+# None]; the entries of dead puzzles go when a new one comes in.
 _ENV_TABLES: dict = {}
 
 
-def _env_tables(cp: CompiledPuzzle, dev: torch.device):
-    """(P, table pointers) of ``cp`` for ``kernels/env.cu``, its tables
-    checked (types, shapes, device, layout) at the first call."""
+def _env_tables(cp: CompiledPuzzle, dev: torch.device, bits: bool = False):
+    """(P, goal_pos, table pointers) of ``cp`` for ``kernels/env.cu``, its
+    tables checked (types, shapes, device, layout) at the first call.  With
+    ``bits``, the static-block and push pointers are those of the tables
+    bit-packed for the multi-step path (:func:`_pack_bits`), made at the
+    puzzle's first block of actions."""
     hit = _ENV_TABLES.get(id(cp))
-    if hit is not None and hit[0]() is cp and hit[1] == dev:
+    if hit is None or hit[0]() is not cp or hit[1] != dev:
+        N, H, W, K = cp.n, cp.height, cp.width, 2 * cp.delta + 1
+        P = cp.init_state.shape[0] if cp.init_state.dim() == 3 else 1
+        lead = (P,) if cp.init_state.dim() == 3 else ()
+        for name, x, dtype, shape in (
+            ("static_block", cp.static_block, torch.bool, (*lead, 4, N, H, W)),
+            ("push", cp.push, torch.bool, (*lead, 4, N, N, K, K)), ("obj_mask", cp.obj_mask, torch.bool, (*lead, N)),
+            ("goal_pos", cp.goal_pos, torch.int32, (*lead, N, 2)), ("goal_mask", cp.goal_mask, torch.bool, (*lead, N)),
+        ):
+            if x.dtype != dtype or tuple(x.shape) != shape or x.device != dev or not x.is_contiguous():
+                raise ValueError(f"{name}: expected a contiguous {dtype} {shape} tensor on {dev}")
+        goal_pos = cp.goal_pos if cp.goal_pos.data_ptr() % 8 == 0 else cp.goal_pos.clone()  # read as 8-byte cells
+        hit = [weakref.ref(cp), dev, (P, goal_pos, [cp.static_block.data_ptr(), cp.push.data_ptr(),
+                                                    cp.obj_mask.data_ptr(), goal_pos.data_ptr(),
+                                                    cp.goal_mask.data_ptr()]), None]
+        for key in [k for k, v in _ENV_TABLES.items() if v[0]() is None]:
+            del _ENV_TABLES[key]
+        _ENV_TABLES[id(cp)] = hit
+    if not bits:
         return hit[2]
-    N, H, W, K = cp.n, cp.height, cp.width, 2 * cp.delta + 1
-    P = cp.init_state.shape[0] if cp.init_state.dim() == 3 else 1
-    lead = (P,) if cp.init_state.dim() == 3 else ()
-    for name, x, dtype, shape in (
-        ("static_block", cp.static_block, torch.bool, (*lead, 4, N, H, W)),
-        ("push", cp.push, torch.bool, (*lead, 4, N, N, K, K)), ("obj_mask", cp.obj_mask, torch.bool, (*lead, N)),
-        ("goal_pos", cp.goal_pos, torch.int32, (*lead, N, 2)), ("goal_mask", cp.goal_mask, torch.bool, (*lead, N)),
-    ):
-        if x.dtype != dtype or tuple(x.shape) != shape or x.device != dev or not x.is_contiguous():
-            raise ValueError(f"{name}: expected a contiguous {dtype} {shape} tensor on {dev}")
-    goal_pos = cp.goal_pos if cp.goal_pos.data_ptr() % 8 == 0 else cp.goal_pos.clone()  # read as 8-byte cells
-    out = (P, goal_pos, [cp.static_block.data_ptr(), cp.push.data_ptr(), cp.obj_mask.data_ptr(), goal_pos.data_ptr(),
-                         cp.goal_mask.data_ptr()])
-    _ENV_TABLES[id(cp)] = (weakref.ref(cp), dev, out)
-    return out
+    if hit[3] is None:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("env_steps: run a block of this puzzle once before capturing one into a CUDA graph "
+                               "(its bit-packed tables are made at the first)")
+        lead = cp.init_state.dim() == 3
+        hit[3] = tuple(_pack_bits(x if lead else x[None]) for x in (cp.static_block, cp.push))
+    P, goal_pos, ptrs = hit[2]
+    return P, goal_pos, [x.data_ptr() for x in hit[3]] + ptrs[2:]
+
+
+def _pack_bits(x: torch.Tensor) -> torch.Tensor:
+    """(P, ...) bool -> (P, ceil(L / 32)) int32: each of the P rows' L values
+    as bits, value k at bit k % 32 of word k // 32."""
+    flat = x.reshape(x.shape[0], -1).to(torch.int64)
+    flat = torch.nn.functional.pad(flat, (0, -flat.shape[1] % 32))
+    words = (flat.reshape(x.shape[0], -1, 32) << torch.arange(32, device=x.device)).sum(-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
 
 
 # What a launch's geometry alone decides, by geometry (B, N, the puzzle's
@@ -466,14 +521,14 @@ def _env_geometry(key):
     if hit is not None:
         return hit
     B, N, H, W, delta, P, value, act_bytes, pidx_bytes, max_steps, path, batch, strides, act_strides, \
-        pidx_strides, env = key
+        pidx_strides, env, T, tstride = key
     dims = len(batch) or 1
     pad = (0,) * (_ENV_MAX_DIMS - dims)
-    geom = (ctypes.c_longlong * (12 + 4 * _ENV_MAX_DIMS))(
+    geom = (ctypes.c_longlong * (14 + 4 * _ENV_MAX_DIMS))(
         B, N, H, W, delta, P, value, act_bytes, pidx_bytes,
         (1 << 63) - 1 if max_steps is None else min(int(max_steps), (1 << 63) - 1), path, dims,
         *(batch or (1,)), *pad, *(strides or (0,)), *pad, *(act_strides or (0,)), *pad,
-        *(pidx_strides or (0,)), *pad)
+        *(pidx_strides or (0,)), *pad, T, tstride)
     layout = None
     if env:
         # One int32 buffer: next_pos, the positions after the reset (8-byte
@@ -491,23 +546,29 @@ def _env_geometry(key):
 
 
 def _env_kernel(cp: CompiledPuzzle, state: torch.Tensor, action, puzzle_idx, env=None,
-                wide: Optional[bool] = None, reward_acc: Optional[torch.Tensor] = None):
+                wide: Optional[bool] = None, reward_acc: Optional[torch.Tensor] = None, block: bool = False):
     """One launch of ``kernels/env.cu``: the transition of every state of
     ``state`` (..., N, 2), and with ``env`` = (steps, achieved, init_pos,
     init_achieved, max_steps) the environment's step, adding each reward to
-    ``reward_acc`` where given (see :func:`env_step`).  Outputs from
-    ``torch.empty`` (two buffers: the int32 and float32 outputs, the flags),
-    no host read, the launch on the current stream, so a CUDA graph may
-    capture it.  Returns :func:`env_step`'s tuple (the transition alone:
-    ``(next_pos,)``).  ``wide``: the kernel's path, by N where None (the wide
-    path takes any N, so the tests run it on narrow states too)."""
+    ``reward_acc`` where given (see :func:`env_step`).  With ``block``,
+    ``action`` is a (T, B) block and the launch runs T steps of the
+    environment (:func:`env_steps`; a (B, N, 2) batch, the one-word path).
+    Outputs from ``torch.empty`` (two buffers: the int32 and float32
+    outputs, the flags), no host read, the launch on the current stream, so
+    a CUDA graph may capture it.  Returns :func:`env_step`'s tuple (the
+    transition alone: ``(next_pos,)``).  ``wide``: the kernel's path, by N
+    where None (the wide path takes any N, so the tests run it on narrow
+    states too)."""
     dev, N = state.device, cp.n
     shape = state.shape
     if len(shape) < 2 or shape[-2:] != (N, 2) or state.dtype != torch.int32:
         raise ValueError(f"states: expected (..., {N}, 2) int32, got {tuple(shape)} {state.dtype}")
     if (cp.init_state.dim() == 3) != (puzzle_idx is not None):
         raise ValueError("puzzle_idx names each state's puzzle of a stacked puzzle, and only of one")
-    P, goal_pos, table_ptrs = _env_tables(cp, dev)
+    if block and (env is None or wide or len(shape) != 3 or N > ENV_MAX_OBJECTS):
+        raise ValueError("a block of actions needs the environment's step on a (B, N, 2) batch of at most "
+                         f"{ENV_MAX_OBJECTS} objects")
+    P, goal_pos, table_ptrs = _env_tables(cp, dev, bits=block)
     batch = shape[:-2]
     if len(batch) > _ENV_MAX_DIMS:
         batch = (math.prod(batch),)
@@ -521,7 +582,16 @@ def _env_kernel(cp: CompiledPuzzle, state: torch.Tensor, action, puzzle_idx, env
         if state.data_ptr() % 8:
             state = state.clone()
         strides = state.stride()
-    if isinstance(action, torch.Tensor):
+    T = tstride = 0
+    if block:
+        if not isinstance(action, torch.Tensor) or action.dim() != 2 or action.shape[1] != batch[0] \
+                or action.shape[0] < 1:
+            got = tuple(action.shape) if isinstance(action, torch.Tensor) else type(action).__name__
+            raise ValueError(f"a block of actions: expected (T, {batch[0]}) with T >= 1, got {got}")
+        act, act_bytes, act_strides = _index_operand(action, action.shape, dev, "actions")
+        T, tstride, act_strides = act.shape[0], act_strides[0], act_strides[1:]
+        value = 0
+    elif isinstance(action, torch.Tensor):
         act, act_bytes, act_strides = _index_operand(action, batch, dev, "action")
         value = 0
     else:
@@ -537,7 +607,7 @@ def _env_kernel(cp: CompiledPuzzle, state: torch.Tensor, action, puzzle_idx, env
     geom, layout = _env_geometry((
         B, N, cp.height, cp.width, cp.delta, P, value, act_bytes, pidx_bytes, max_steps,
         0 if wide is None else (2 if wide else 1), tuple(batch), strides[:-2], tuple(act_strides),
-        tuple(pidx_strides), env is not None))
+        tuple(pidx_strides), env is not None, T, tstride))
     ptr = [state.data_ptr(), None if act is None else act.data_ptr(), None if pidx is None else pidx.data_ptr()]
     if env is None:
         if reward_acc is not None:
@@ -569,7 +639,7 @@ def _env_kernel(cp: CompiledPuzzle, state: torch.Tensor, action, puzzle_idx, env
     rc = launch_on(dev, _build.load("env").pw_env_step, *ptr, ctypes.addressof(geom))
     if rc != 0:
         raise RuntimeError(f"pw_env_step launch failed: CUDA error {rc}")
-    count_launch("env.step")
+    count_launch("env.steps" if block else "env.step")
     return outs
 
 

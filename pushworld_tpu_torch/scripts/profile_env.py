@@ -21,6 +21,12 @@ On ``PUZZLE`` (``chip_smoke.py``'s 47 x 54 puzzle, say), at batch
   of the states: one launch, its device ms;
 - ``enqueue``: the host's time for ``--enqueue`` eager calls of
   ``env_step`` without a synchronisation, ms a call;
+- ``block``: on ``PUZZLE`` and each ``--block`` puzzle (a level-0 ``.pwp``,
+  say), ``--batch`` rollouts of ``--horizon`` steps as one multi-step
+  launch (``VectorEnv.step`` on a (horizon, batch) int32 block, with a
+  running reward total): device ms per traced launch and µs per step,
+  beside one launch of the one-step kernel on the same state (a package
+  without ``ops.step.env_steps`` prints ``"block": null``);
 - each ``MORE`` puzzle (``chip_smoke.many_objects_text(n)``, say: above
   32 movables the kernel's wide path): the env kernel on ``--more-batch``
   rollouts after a few random steps, device ms per traced launch.
@@ -76,6 +82,33 @@ def _per_launch_ms(rows, name):
     return sum(us for _, us in hit) / 1e3 / count, count
 
 
+def _block(path, B, horizon, calls, dev):
+    """The multi-step launch on ``path``'s puzzle: device ms per traced
+    launch and µs per step, and the one-step kernel's device ms on the same
+    state."""
+    import torch
+
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.envs.vector_env import VectorEnv
+
+    cp = compile_puzzle(Puzzle.from_file(path))
+    env = VectorEnv(cp, max_steps=None, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    st = env.reset(None, B, torch.zeros(B, dtype=torch.int32))
+    acc = torch.zeros(B, dtype=torch.float32, device=dev)
+    block = torch.randint(0, 4, (horizon, B), generator=gen, device=dev).to(torch.int32)
+    st = env.step(st, block, reward_acc=acc)[0]  # mid-episode states, and the build
+    fn = lambda: env.step(st, block, reward_acc=acc)  # noqa: E731
+    _, rows = _profile(fn, calls)
+    ms, traced = _per_launch_ms(rows, "env_step")
+    one = lambda: env.step(st, block[0], reward_acc=acc)  # noqa: E731
+    one()
+    one_ms, _ = _per_launch_ms(_profile(one, calls)[1], "env_step")
+    return {"objects": cp.n, "device_ms": ms, "us_per_step": ms * 1e3 / horizon, "traced": traced,
+            "kernels": sorted(rows), "one_step_device_ms": one_ms}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("puzzle", help="the .pwp puzzle of the throughput rollout")
@@ -86,6 +119,7 @@ def main(argv=None) -> int:
     ap.add_argument("--window", type=int, default=32)
     ap.add_argument("--enqueue", type=int, default=1000)
     ap.add_argument("--more-batch", type=int, default=1024)
+    ap.add_argument("--block", nargs="*", default=[], help="more .pwp puzzles for the multi-step launch")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -186,6 +220,12 @@ def main(argv=None) -> int:
     enqueue_ms = (time.perf_counter() - t0) / args.enqueue * 1e3
     torch.cuda.synchronize()
     out["enqueue"] = {"calls": args.enqueue, "ms_per_call": enqueue_ms}
+
+    # block
+    from pushworld_tpu_torch.ops import step as step_ops
+
+    out["block"] = None if not hasattr(step_ops, "env_steps") else {
+        path: _block(path, B, horizon, args.calls, dev) for path in [args.puzzle, *args.block]}
 
     # more puzzles
     more = {}

@@ -1469,6 +1469,92 @@ def test_env_step_kernel_without_truncation_and_with_int32_actions(dev):
     assert terminated > 0
 
 
+def _block_pool(n):
+    """A stacked pool of ``n`` objects for the multi-step path: fixtures of
+    at most ``n`` (padded), with ``many_objects_text(n)`` from 3 up."""
+    from pushworld_tpu_torch.core.compiled import compile_batch
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+
+    names = {1: ["agent_only", "agent_wall_blocked"], 2: ["simple", "push_left", "overlap", "agent_only"]}
+    puzzles = [_fixture(x) for x in names.get(n, ["simple", "chain", "multi_goal"])]
+    if n >= 3:
+        puzzles.insert(0, Puzzle.from_text(_smoke().many_objects_text(n)))
+    cp = compile_batch(puzzles)
+    assert cp.n == n
+    return cp, len(puzzles)
+
+
+@pytest.mark.parametrize("max_steps", [None, 7])
+@pytest.mark.parametrize("layout", ["int32", "int64", "int64-transposed"])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8, 16, 32])
+def test_env_block_kernel_equals_one_step_launches(dev, n, layout, max_steps):
+    """The multi-step launch (``VectorEnv.step`` on a (T, B) block) against
+    T one-step launches on its rows, at every group size: the state after
+    the block, the last step's positions, reward and flags, and each
+    rollout's running total, bit for bit; one ``env.steps`` launch against
+    T ``env.step`` ones.  T = 37 ends inside a tile of actions at every
+    group size, B = 300 inside a CTA; the block is int32, int64, or int64
+    stored transposed."""
+    from pushworld_tpu_torch.envs.vector_env import VectorEnv
+    from pushworld_tpu_torch.kernels import LAUNCHES
+
+    cp, P = _block_pool(n)
+    env = VectorEnv(cp, max_steps=max_steps, device=dev)
+    rng = np.random.default_rng(n * 10 + (max_steps or 0))
+    B, T = 300, 37
+    st = env.reset(None, B, torch.as_tensor(rng.integers(0, P, B).astype(np.int32)))
+    for a in rng.integers(0, 4, (3, B)):  # the block starts inside the episodes
+        st = env.step(st, torch.as_tensor(a, device=dev))[0]
+    actions = torch.as_tensor(rng.integers(0, 4, (T, B)).astype(np.int32 if layout == "int32" else np.int64),
+                              device=dev)
+    if layout.endswith("transposed"):
+        actions = actions.t().contiguous().t()
+    acc_block = torch.as_tensor(rng.random(B).astype(np.float32), device=dev)
+    acc_steps = acc_block.clone()
+    before = (LAUNCHES["env.steps"], LAUNCHES["env.step"])
+    got = env.step(st, actions, reward_acc=acc_block)
+    assert (LAUNCHES["env.steps"], LAUNCHES["env.step"]) == (before[0] + 1, before[1])
+    want, n_term, n_trunc = (st,), 0, 0
+    for a in actions:
+        want = env.step(want[0], a, reward_acc=acc_steps)
+        n_term += int(want[3].sum())
+        n_trunc += int(want[4].sum())
+    torch.cuda.synchronize()
+    assert LAUNCHES["env.step"] == before[1] + T
+    for f in ("positions", "steps", "achieved", "puzzle_idx"):
+        assert torch.equal(getattr(got[0], f), getattr(want[0], f)), f
+    for k, (g, w) in enumerate(zip(got[1:], want[1:])):
+        assert g.dtype == w.dtype and torch.equal(g, w), k
+    assert torch.equal(acc_block, acc_steps)
+    assert n_term > 0  # resets inside the block
+    # The one-object puzzles have no goal: every step terminates, none truncates.
+    assert n_trunc > 0 if max_steps is not None and n > 1 else n_trunc == 0
+
+
+def test_env_block_above_32_objects_takes_one_step_launches(dev):
+    """At 33 objects a block runs as T launches of the one-step kernel (its
+    wide path), equal to T calls on its rows."""
+    from pushworld_tpu_torch.core.compiled import compile_puzzle
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.envs.vector_env import VectorEnv
+    from pushworld_tpu_torch.kernels import LAUNCHES
+
+    env = VectorEnv(compile_puzzle(Puzzle.from_text(_smoke().many_objects_text(33))), max_steps=4, device=dev)
+    B, T = 64, 9
+    st = env.reset(None, B, torch.zeros(B, dtype=torch.int32))
+    actions = torch.as_tensor(np.random.default_rng(33).integers(0, 4, (T, B)), device=dev)
+    acc_block, acc_steps = torch.zeros(B, device=dev), torch.zeros(B, device=dev)
+    before = (LAUNCHES["env.steps"], LAUNCHES["env.step"])
+    got = env.step(st, actions, reward_acc=acc_block)
+    assert (LAUNCHES["env.steps"], LAUNCHES["env.step"]) == (before[0], before[1] + T)
+    want = (st,)
+    for a in actions:
+        want = env.step(want[0], a, reward_acc=acc_steps)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].positions, want[0].positions) and torch.equal(got[0].steps, want[0].steps)
+    assert all(torch.equal(g, w) for g, w in zip(got[1:], want[1:])) and torch.equal(acc_block, acc_steps)
+
+
 def test_step_on_the_card_equals_the_cpu(dev):
     """``ops.step.step`` on the card (the env kernel's transition, one
     launch) = the CPU's: the greedy policy's broadcast (four actions over a
@@ -1579,12 +1665,15 @@ def test_graphed_rollout_equals_the_eager_one(dev, observations):
     actions = torch.as_tensor(np.random.default_rng(0).integers(0, 4, (horizon, B)), device=dev)
     g = tt.RolloutGraph(env, tables, idx, horizon, observations, None, actions)
     want = tt.rollout(env, tables, idx, horizon, observations, None, actions)
-    assert g.launches == {"env.step": horizon, **({"render.onehot": horizon} if observations else {})}
-    before, graphs = LAUNCHES["env.step"], GRAPH_LAUNCHES["envs.rollout"]
+    # With observations every step is a launch of the step and of the
+    # renderer; without them the rollout is one multi-step launch.
+    assert g.launches == ({"env.step": horizon, "render.onehot": horizon} if observations else {"env.steps": 1})
+    before, graphs = dict(LAUNCHES), GRAPH_LAUNCHES["envs.rollout"]
     got = g.replay()
     torch.cuda.synchronize()
     assert float(got) == float(want)
-    assert GRAPH_LAUNCHES["envs.rollout"] == graphs + 1 and LAUNCHES["env.step"] == before + horizon
+    assert GRAPH_LAUNCHES["envs.rollout"] == graphs + 1
+    assert all(LAUNCHES[k] == before.get(k, 0) + v for k, v in g.launches.items())
 
     gen = torch.Generator(device=dev)
     g = tt.RolloutGraph(env, tables, idx, horizon, observations, gen)

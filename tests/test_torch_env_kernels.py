@@ -6,8 +6,10 @@ algorithms of ``kernels/env.cu`` and ``kernels/render.cu``.
 A CUDA kernel cannot run here.  Its algorithm is written below as a numpy
 loop over rollouts (the env kernel: the push masks, the closure as a
 worklist on the one-word path and by rounds on the wide path, then the
-goals, reward, truncation and reset; the renderer: the staged cell grid,
-then the channel bits), behind the kernel's own C signature: the wrappers
+goals, reward, truncation and reset, and on the multi-step path T such
+steps with each rollout's state carried between them and written once; the
+renderer: the staged cell grid, then the channel bits), behind the
+kernel's own C signature: the wrappers
 ``ops.step._env_kernel`` and ``ops.render._render_onehot_cuda`` run on CPU
 tensors with this stand-in for the library, so their pointers, geometry
 and strides are exercised too.  Inputs are made from seeds with numpy;
@@ -136,24 +138,38 @@ class FakeEnvLib:
     def pw_env_step(positions, actions, pidx, steps, achieved, static_block, push, obj_mask, goal_pos, goal_mask,
                     init_pos, init_achieved, next_pos, new_pos, new_steps, new_achieved, reward, terminated,
                     truncated, reward_acc, geom, stream):
-        g = [int(v) for v in _view(geom, np.int64, 28)]
+        g = [int(v) for v in _view(geom, np.int64, 30)]
         B, n, H, W, delta, P, action, abytes, pbytes, max_steps, path, ndim = g[:12]
         size, ps, as_, qs = g[12:16], g[16:20], g[20:24], g[24:28]
+        T, tstride = g[28:30]
         K = 2 * delta + 1
-        # The kernel's checks: rollouts and batch sizes index in 32 bits, and
-        # a running total needs the environment's step.
-        if not (0 <= B < 2 ** 31 and all(0 <= v < 2 ** 31 for v in size)) or (steps is None and reward_acc):
+        # The kernel's checks: rollouts and batch sizes index in 32 bits, a
+        # running total needs the environment's step, and so does the
+        # multi-step path, on a 1-D batch of at most 32 objects.
+        if not (0 <= B < 2 ** 31 and all(0 <= v < 2 ** 31 for v in size)) or (steps is None and reward_acc) or (
+                T and (actions is None or steps is None or ndim != 1 or path == 2 or n > ts.ENV_MAX_OBJECTS)):
             return 1  # cudaErrorInvalidValue
 
         def span(strides):
             return sum((size[d] - 1) * strides[d] for d in range(ndim)) + 1
 
         pos = _view(positions, np.int32, span(ps) + 2 * n)
-        acts = None if actions is None else _view(actions, np.int64 if abytes == 8 else np.int32, span(as_))
+        acts = None if actions is None else _view(actions, np.int64 if abytes == 8 else np.int32,
+                                                   span(as_) + max(T - 1, 0) * tstride)
         pids = None if pidx is None else _view(pidx, np.int64 if pbytes == 8 else np.int32, span(qs))
+        def table(ptr, shape):
+            """A table's bytes, or on the multi-step path its bits: each
+            puzzle's in 32-bit words of its own, bit k at bit k % 32 of word
+            k // 32."""
+            size = int(np.prod(shape[1:]))
+            if not T:
+                return _view(ptr, np.uint8, P * size).reshape(shape)
+            words = _view(ptr, np.uint32, P * (-(-size // 32))).reshape(P, -1)
+            return ((words[..., None] >> np.arange(32, dtype=np.uint32)) & 1).reshape(P, -1)[:, :size].reshape(shape)
+
         t = {"delta": delta, "H": H, "W": W,
-             "static_block": _view(static_block, np.uint8, P * 4 * n * H * W).reshape(P, 4, n, H, W),
-             "push": _view(push, np.uint8, P * 4 * n * n * K * K).reshape(P, 4, n, n, K, K),
+             "static_block": table(static_block, (P, 4, n, H, W)),
+             "push": table(push, (P, 4, n, n, K, K)),
              "obj_mask": _view(obj_mask, np.uint8, P * n).reshape(P, n),
              "goal_pos": _view(goal_pos, np.int32, P * n * 2).reshape(P, n, 2),
              "goal_mask": _view(goal_mask, np.uint8, P * n).reshape(P, n)}
@@ -167,6 +183,24 @@ class FakeEnvLib:
             o_term, o_trunc = _view(terminated, np.uint8, B), _view(truncated, np.uint8, B)
             acc = None if reward_acc is None else _view(reward_acc, np.float32, B)
         wide = path == 2 or (path == 0 and n > ts.ENV_MAX_OBJECTS)
+        if T:
+            # The multi-step path: a rollout's cells, steps, achieved count
+            # and running total carried through T steps, written once.
+            for b in range(B):
+                p = 0 if pids is None else min(max(int(pids[b * qs[0]]), 0), P - 1)
+                cells, s, got = pos[b * ps[0]: b * ps[0] + 2 * n].reshape(n, 2), int(st[b]), int(ach[b])
+                total = None if acc is None else acc[b]
+                for k in range(T):
+                    a = min(max(int(acts[k * tstride + b * as_[0]]), 0), 3)
+                    nxt, term, _, rew, trunc, done, s, got = env_rollout_np(cells, a, p, t, False, (s, got, max_steps))
+                    if acc is not None:
+                        total = np.float32(total + rew)
+                    cells = init[p] if done else nxt
+                out_next[b], o_pos[b], o_steps[b], o_ach[b] = nxt, cells, s, got
+                o_rew[b], o_term[b], o_trunc[b] = rew, term, trunc
+                if acc is not None:
+                    acc[b] = total
+            return 0
         for b in range(B):
             # locate: 32-bit unsigned divisions over the dimensions after the
             # first, whose coordinate is what is left (a 1-D batch divides
@@ -312,6 +346,103 @@ def test_step_kernel_algorithm_reads_broadcast_batches(fake_kernels):
     assert torch.equal(ts._env_kernel(cps, states, a, pidx)[0], ts.step_reference(cps, states, a, pidx))
     with pytest.raises(ValueError, match="reward_acc needs the environment's step"):
         ts._env_kernel(cps, states, a, pidx, reward_acc=torch.zeros(18))
+
+
+@pytest.fixture
+def fused_on_the_cpu(fake_kernels, monkeypatch):
+    """``VectorEnv.step`` takes a block's fused path on CPU tensors too
+    (``fused_block`` up to 32 objects), through the numpy stand-in of the
+    kernel."""
+    def fused(device, n):
+        return n <= ts.ENV_MAX_OBJECTS
+
+    monkeypatch.setattr(tenv, "fused_block", fused)
+
+
+def _port_puzzles(names):
+    pz = [_load_both(n)[1] for n in names]
+    return tc.compile_puzzle(pz[0]) if len(pz) == 1 else tc.compile_batch(pz)
+
+
+# Stacked and single puzzles that terminate and reset inside the block, with
+# a truncation horizon shorter than the block and without one.
+BLOCK_CASES = [
+    (("simple", "chain", "push_left", "lshape"), 11), (("simple", "chain", "push_left", "lshape"), None),
+    (("chain", "agent_wall", "multi_goal"), 5), (("multi_goal",), None),
+]
+
+
+@pytest.mark.parametrize("names,max_steps", BLOCK_CASES)
+@pytest.mark.parametrize("layout", ["int32", "int64", "int64-transposed"])
+def test_env_block_kernel_algorithm_equals_one_step_calls(fused_on_the_cpu, names, max_steps, layout):
+    """``VectorEnv.step`` on a (T, B) block through the multi-step path
+    (``env_steps``, the wrapper, the kernel's algorithm) against T calls of
+    ``VectorEnv.step`` on its rows (the plain ``env_step``): the state after
+    the block, the last step's positions, reward and flags, and each
+    rollout's running total, bit for bit; one ``env.steps`` launch.  The
+    block is int32, int64, or int64 stored transposed (strides (1, T))."""
+    from pushworld_tpu_torch.kernels import LAUNCHES
+
+    env = tenv.VectorEnv(_port_puzzles(names), max_steps=max_steps, device="cpu")
+    rng = np.random.default_rng(len(names) + (max_steps or 0))
+    B, T = 24, 30
+    st = env.reset(None, B, torch.as_tensor(rng.integers(0, env.num_puzzles, B).astype(np.int32)))
+    for a in rng.integers(0, 4, (3, B)):  # the block starts inside the episodes
+        st = env.step(st, torch.as_tensor(a))[0]
+    actions = torch.as_tensor(rng.integers(0, 4, (T, B)).astype(np.int32 if layout == "int32" else np.int64))
+    if layout.endswith("transposed"):
+        actions = actions.t().contiguous().t()
+    acc_block = torch.as_tensor(rng.random(B).astype(np.float32))
+    acc_steps = acc_block.clone()
+    before = (LAUNCHES["env.steps"], LAUNCHES["env.step"])
+    got = env.step(st, actions, reward_acc=acc_block)
+    assert (LAUNCHES["env.steps"], LAUNCHES["env.step"]) == (before[0] + 1, before[1])
+    want, n_term, n_trunc = (st,), 0, 0
+    for a in actions:
+        want = env.step(want[0], a, reward_acc=acc_steps)
+        n_term += int(want[3].sum())
+        n_trunc += int(want[4].sum())
+    for f in ("positions", "steps", "achieved", "puzzle_idx"):
+        assert torch.equal(getattr(got[0], f), getattr(want[0], f)), f
+    for k, (g, w) in enumerate(zip(got[1:], want[1:])):
+        assert g.dtype == w.dtype and torch.equal(g, w), k
+    assert torch.equal(acc_block, acc_steps)
+    assert n_term > 0 and (n_trunc > 0 if max_steps is not None else n_trunc == 0)
+
+
+def test_env_block_above_32_objects_runs_step_by_step(fused_on_the_cpu):
+    """A block of 33 objects takes the per-step path: no multi-step launch,
+    the results of its rows' steps."""
+    from pushworld_tpu_torch.kernels import LAUNCHES
+
+    env = tenv.VectorEnv(_port_puzzles(["many_objects_33"]), max_steps=3, device="cpu")
+    st = env.reset(None, 6, torch.zeros(6, dtype=torch.int32))
+    actions = torch.as_tensor(np.random.default_rng(2).integers(0, 4, (5, 6)))
+    before = LAUNCHES["env.steps"]
+    got = env.step(st, actions)
+    want = (st,)
+    for a in actions:
+        want = env.step(want[0], a)
+    assert LAUNCHES["env.steps"] == before
+    assert torch.equal(got[0].positions, want[0].positions) and torch.equal(got[1], want[1])
+    assert all(torch.equal(g, w) for g, w in zip(got[2:], want[2:]))
+
+
+def test_env_block_wrapper_raises_on_what_the_kernel_does_not_take(fake_kernels):
+    env = tenv.VectorEnv(_port_puzzles(["simple"]), device="cpu")
+    st = env.reset(None, 6, torch.zeros(6, dtype=torch.int32))
+    args = (st.steps, st.achieved, env._init_pos, env._init_achieved, None)
+    for actions in (torch.zeros((0, 6), dtype=torch.int64), torch.zeros((3, 5), dtype=torch.int64),
+                    torch.zeros(6, dtype=torch.int64)):
+        with pytest.raises(ValueError, match="a block of actions: expected"):
+            ts._env_kernel(env.puzzles, st.positions, actions, None, env=args, block=True)
+    with pytest.raises(ValueError, match="a block of actions needs the environment's step"):
+        ts._env_kernel(env.puzzles, st.positions, torch.zeros((2, 6), dtype=torch.int64), None, block=True)
+    wide = tenv.VectorEnv(_port_puzzles(["many_objects_33"]), device="cpu")
+    st = wide.reset(None, 6, torch.zeros(6, dtype=torch.int32))
+    with pytest.raises(ValueError, match="a block of actions needs the environment's step .* at most 32 objects"):
+        ts.env_steps(wide.puzzles, st.positions, torch.zeros((2, 6), dtype=torch.int64), st.steps, st.achieved, None,
+                     wide._init_pos, wide._init_achieved, None)
 
 
 # --------------------------------------------- kernels/render.cu, as a numpy loop

@@ -94,8 +94,24 @@ def test_rollout_reward_total_matches_jax_rewards(observations):
     puzzle = Puzzle.from_file(path)
     cp = compile_puzzle(puzzle)
     env = VectorEnv(cp, max_steps=None, device="cpu")
+    calls = []
+    step = env.step
+
+    def recording(state, a, reward_acc=None):  # the accumulator and the actions' shape of each call
+        calls.append((tuple(a.shape), reward_acc))
+        return step(state, a, reward_acc=reward_acc)
+
+    env.step = recording
     total = tt.rollout(env, compile_render_tables(puzzle, cp, device="cpu"), torch.zeros(B, dtype=torch.int32),
                        horizon, observations, None, torch.as_tensor(actions))
     assert total.dtype == torch.float32 and total.shape == ()
     tol = (horizon + B.bit_length()) * 2.0 ** -24 * np.abs(rewards).sum()
     assert abs(float(total) - rewards.sum()) <= tol, (float(total), rewards.sum(), tol)
+    # Without observations the rollout is one step on the (horizon, B)
+    # block, with them one a row; either way each rollout's total is the
+    # float32 running sum of JAX's rewards, in step order, exactly.
+    assert [shape for shape, _ in calls] == ([(B,)] * horizon if observations else [(horizon, B)])
+    totals = np.zeros(B, np.float32)
+    for r in rewards.astype(np.float32):
+        totals = totals + r
+    assert np.array_equal(calls[-1][1].numpy(), totals)
