@@ -174,7 +174,14 @@ Phases, each printing one JSON line:
    eager step over 1,000 calls without a synchronisation; the multi-step
    launch on a (128, 4096) int64 block there, beside 128 calls of the
    plain version and its bound (the state read and written once, the
-   block, the bit-packed tables).  The Gym and
+   block, the bit-packed tables).  The framed renderer over stacked
+   puzzles (``render.framed``, PushWorld's standard padding) must equal its
+   plain version and the CPU's result at B = 4096 on the stacked level-0
+   pool (``pwbench/configs/level0``) in a 47 x 54 frame, on walk states
+   and on translated ones, written over NaN; a graphed trajectory rollout
+   (16 steps, ``max_steps`` 5) must equal the CPU's eager one in every
+   observation, reward and flag; the kernel is timed beside its plain
+   version, its bytes bound and a fill of the same bytes.  The Gym and
    dm_env wrappers are held against the oracle where their packages are
    installed.
 7. ``native``: the native serial planner, built from
@@ -2927,10 +2934,11 @@ def phase_envs(puzzles, generated, dev, floor, batch=4096, horizon=128):
                   "fill_same_bytes_ms": cuda_time_ms(fill.zero_, reps=50),
                   "fill_same_bytes_device_ms": fill_prof["busy_us"] / 1e3 / fill_prof["n_kernels"]}
     del fill
-    for row in (step_row, block_row, render_row):
+    framed_row, out["render_framed"] = _render_framed_lane(dev, floor, rng, B)
+    rows = (step_row, block_row, render_row, framed_row)
+    for row in rows:
         row["main_path_launches"] = main_launches.get(row["name"], 0)
-    out["kernels"] = {r["name"]: {k: v for k, v in r.items() if k not in ("name", "lanes")}
-                      for r in (step_row, block_row, render_row)}
+    out["kernels"] = {r["name"]: {k: v for k, v in r.items() if k not in ("name", "lanes")} for r in rows}
 
     # (h) the wrappers: host code.
     out["wrappers"] = _wrappers_against_oracle(os.path.join(ROOT, "tests", "puzzles", "simple.pwp"), simple)
@@ -2939,7 +2947,84 @@ def phase_envs(puzzles, generated, dev, floor, batch=4096, horizon=128):
     check(launches.get("rgd.heuristic", 0) >= 1, "the greedy policy launched no RGD kernel")
     out["launches"] = launches
     emit(out)
-    return [step_row, block_row, render_row], launches
+    return list(rows), launches
+
+
+def _render_framed_lane(dev, floor, rng, B, frame=(47, 54), horizon=16):
+    """The framed renderer over the stacked level-0 pool at B = ``B``: the
+    kernel against its plain version on the card and on the CPU, on walk
+    states (after 24 steps of ``VectorEnv``, resets included) and on the
+    same states moved so that cells fall outside their puzzles, written over
+    NaN; then a graphed trajectory rollout against the CPU's eager one,
+    every observation, reward and flag.  Returns the kernel's row and the
+    lane's readings."""
+    import numpy as np
+    import torch
+
+    from pushworld_tpu_torch.core.compiled import compile_batch
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.envs import throughput
+    from pushworld_tpu_torch.envs.vector_env import VectorEnv
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.ops import render
+
+    pool = [Puzzle.from_file(f) for f in sorted(glob.glob(os.path.join(ROOT, "pwbench", "configs", "level0",
+                                                                         "*.pwp")))]
+    check(len(pool) == 256, f"expected the 256 level-0 puzzles, found {len(pool)}")
+    cp = compile_batch(pool)
+    t_g = render.compile_framed_render_tables(pool, frame, n=cp.n, device=dev)
+    t_c = {k: v.cpu() for k, v in t_g.items()}
+    idx = torch.as_tensor(rng.integers(0, len(pool), B).astype(np.int32), device=dev)
+    env = VectorEnv(cp, max_steps=10, device=dev)
+    st = env.reset(None, B, idx)
+    for _ in range(24):
+        st, pos, _, _, _ = env.step(st, torch.as_tensor(rng.integers(0, 4, B), device=dev))
+    shift = torch.as_tensor(rng.integers(-3, 4, (B, 2)).astype(np.int32), device=dev)
+    err, before = 0.0, LAUNCHES["render.framed"]
+    for states in (pos, pos + shift[:, None, :]):
+        got = torch.full((B, *frame, 6), float("nan"), device=dev)
+        render.render_framed_onehot_batched(t_g, states, idx, out=got)
+        want = render.render_framed_onehot_batched_reference(t_g, states, idx)
+        cpu = render.render_framed_onehot_batched(t_c, states.cpu(), idx.cpu())
+        err = max(err, abs_err(got, want), abs_err(got.cpu(), cpu))
+    check(LAUNCHES["render.framed"] == before + 2, "render.framed: not one launch a call")
+    check(err == 0, f"render.framed: kernel != plain version (max_abs_err {err})")
+    del got, want, cpu
+
+    actions = torch.as_tensor(rng.integers(0, 4, (horizon, B)), device=dev)
+    env5 = VectorEnv(cp, max_steps=5, device=dev)
+    g = throughput.RolloutGraph(env5, t_g, idx, horizon, True, None, actions, trajectory=True)
+    g.obs.fill_(float("nan"))
+    total = float(g.replay())
+    traj = throughput.Trajectory.empty(horizon, B, frame, "cpu")
+    want_total = float(throughput.rollout(VectorEnv(cp, max_steps=5, device="cpu"), t_c, idx.cpu(), horizon, True,
+                                          None, actions.cpu(), trajectory=traj))
+    traj_err = max(abs_err(getattr(g, k).cpu().float(), getattr(traj, k).float())
+                   for k in ("obs", "reward", "terminated", "truncated"))
+    check(traj_err == 0, f"trajectory rollout: card != CPU (max_abs_err {traj_err})")
+    check(abs(total - want_total) < 1e-2, f"trajectory rollout: reward total {total} != {want_total}")
+    lane = {"rollouts": B, "frame": list(frame), "max_abs_err": err, "trajectory_steps": horizon,
+            "trajectory_max_abs_err": traj_err, "terminated": int(traj.terminated.sum()),
+            "truncated": int(traj.truncated.sum()), "graph_launches": g.launches}
+    check(lane["truncated"] > 0, "trajectory rollout: no rollout was truncated")
+    del g, traj
+
+    obs_bytes = B * frame[0] * frame[1] * 6 * 4
+    framed_bytes = obs_bytes + B * (8 * cp.n + 4) + sum(v.numel() * v.element_size() for v in t_g.values())
+    out = torch.empty((B, *frame, 6), dtype=torch.float32, device=dev)
+    fill_prof = profile_device(out.zero_, reps=20)
+    row = {"name": "render.framed", "route": "cuda", "source": "pushworld_tpu_torch/kernels/render.cu",
+           "replaces": "pushworld_tpu/ops/render.py:128 (XLA code) and env_utils.py's centre padding",
+           "max_abs_err": max(err, traj_err),
+           "ms": cuda_time_ms(lambda: render.render_framed_onehot_batched(t_g, pos, idx, out=out), reps=50),
+           "device_ms": traced_ms(lambda: render.render_framed_onehot_batched(t_g, pos, idx, out=out),
+                                  "render_onehot_framed_kernel", 20),
+           "plain_ms": cuda_time_ms(lambda: render.render_framed_onehot_batched_reference(t_g, pos, idx), reps=10),
+           **work_bound(framed_bytes, 0, floor), "library_ms": None, "library_device_ms": None,
+           "fill_same_bytes_ms": cuda_time_ms(out.zero_, reps=50),
+           "fill_same_bytes_device_ms": fill_prof["busy_us"] / 1e3 / fill_prof["n_kernels"]}
+    lane["device_ms"] = row["device_ms"]
+    return row, lane
 
 
 def phase_native(puzzles, generated, dev):

@@ -27,6 +27,15 @@ actions of every step are drawn at once, a (horizon, B) block, and one
 ``kernels/env.cu`` (its multi-step path, the counterpart of the
 ``lax.scan``).  Then the sum of the totals.  On the CPU it runs eagerly.
 
+PushWorld's Gym deployment with standard padding (reference
+gym_env.py ``PushWorldEnv(standard_padding=True)``) is the trajectory
+rollout: with a :class:`Trajectory`, each step t is one ``env.cu`` launch
+(the one-step kernel, truncation and auto-reset included) that writes the
+step's reward and flags into row t of (horizon, B) buffers, then one launch
+of the framed renderer (``ops.render.render_framed_onehot_batched``) that
+writes the step's observation, before the reset, into row t of a (horizon,
+B, H_f, W_f, 6) buffer: what a policy learner's unroll holds.
+
 The reward total is the sum of JAX's ``acc + reward.sum()`` a step, taken
 in another association: each rollout's rewards first, in step order (one
 float32 add a step, inside the step kernel), then the B rollouts' totals,
@@ -34,7 +43,8 @@ once.  The two agree to float32 rounding, not bit for bit.
 """
 
 import time
-from typing import Dict, Optional
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,8 +58,11 @@ from pushworld_tpu_torch.ops.render import (
     NUM_CHANNELS,
     RenderTables,
     compile_render_tables,
+    is_framed,
     render_cells_onehot_batched,
+    render_framed_onehot_batched,
 )
+from pushworld_tpu_torch.utils import tracing
 
 # Published device-memory bandwidth, bytes/s, by ``torch.cuda.get_device_name``
 # (H100 SXM data sheet: HBM3 at 3.35 TB/s).  A card that is not listed has no
@@ -63,15 +76,39 @@ def _device_hbm_bw(dev: torch.device) -> Optional[float]:
     return HBM_BYTES_PER_S.get(torch.cuda.get_device_name(dev))
 
 
+@dataclass(frozen=True)
+class Trajectory:
+    """A rollout's per-step outputs, row t those of step t: ``obs`` (T, B,
+    H_f, W_f, 6) float32 the framed observations before the reset,
+    ``reward`` (T, B) float32, ``terminated`` and ``truncated`` (T, B)
+    bool."""
+
+    obs: torch.Tensor
+    reward: torch.Tensor
+    terminated: torch.Tensor
+    truncated: torch.Tensor
+
+    @classmethod
+    def empty(cls, horizon: int, batch: int, frame: Tuple[int, int], device) -> "Trajectory":
+        H, W = frame
+        return cls(torch.empty((horizon, batch, H, W, NUM_CHANNELS), dtype=torch.float32, device=device),
+                   torch.empty((horizon, batch), dtype=torch.float32, device=device),
+                   torch.empty((horizon, batch), dtype=torch.bool, device=device),
+                   torch.empty((horizon, batch), dtype=torch.bool, device=device))
+
+
 def rollout(env: VectorEnv, tables: RenderTables, puzzle_idx: torch.Tensor, horizon: int, observations: bool,
             generator: Optional[torch.Generator], actions: Optional[torch.Tensor] = None,
-            obs_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+            obs_out: Optional[torch.Tensor] = None, trajectory: Optional[Trajectory] = None) -> torch.Tensor:
     """``horizon`` steps of the B rollouts that ``puzzle_idx`` (B,) int32
     names, each from its puzzle's initial state (``env.start``: unchecked),
     with a uniform-random policy drawn from ``generator``, or with
     ``actions`` where given (row t of B the actions of step t; fewer than
     ``horizon`` rows raise ValueError); with ``observations``, every step
     also renders the one-hot observations (into ``obs_out`` where given).
+    With ``trajectory`` (observations on, ``tables`` from
+    ``compile_framed_render_tables``), step t writes its framed observation,
+    reward and flags into row t of it instead.
     Returns the reward total, a float32 scalar on the device, unread: the
     rollout reads nothing back, so a CUDA graph may capture it.  Each step
     adds its rewards to a (B,) accumulator (``VectorEnv.step``'s
@@ -82,6 +119,9 @@ def rollout(env: VectorEnv, tables: RenderTables, puzzle_idx: torch.Tensor, hori
     ``torch.randint`` where not given)."""
     if actions is not None and actions.shape[0] < horizon:
         raise ValueError(f"rollout: {horizon} steps need as many rows of actions, got {actions.shape[0]}")
+    if trajectory is not None and (not observations or not is_framed(tables)
+                                   or trajectory.obs.shape[0] < horizon):
+        raise ValueError("rollout: a trajectory needs observations, framed render tables and a row a step")
     B = puzzle_idx.shape[0]
     state = env.start(puzzle_idx)
     reward_acc = torch.zeros((B,), dtype=torch.float32, device=env.device)
@@ -93,8 +133,13 @@ def rollout(env: VectorEnv, tables: RenderTables, puzzle_idx: torch.Tensor, hori
         return reward_acc.sum()
     for t in range(horizon):
         a = torch.randint(0, 4, (B,), generator=generator, device=env.device) if actions is None else actions[t]
-        state, next_pos, _, _, _ = env.step(state, a, reward_acc=reward_acc)
-        render_cells_onehot_batched(tables, next_pos, out=obs_out)
+        if trajectory is None:
+            state, next_pos, _, _, _ = env.step(state, a, reward_acc=reward_acc)
+            render_cells_onehot_batched(tables, next_pos, out=obs_out)
+        else:
+            row = (trajectory.reward[t], trajectory.terminated[t], trajectory.truncated[t])
+            state, next_pos, _, _, _ = env.step(state, a, reward_acc=reward_acc, out=row)
+            render_framed_onehot_batched(tables, next_pos, puzzle_idx, out=trajectory.obs[t])
     return reward_acc.sum()
 
 
@@ -113,36 +158,56 @@ class RolloutGraph:
       reads them from that tensor instead.
     - The observations go to one buffer (``obs``), allocated before the
       capture: the graph's memory is one observation block, not one a step.
+      With ``trajectory`` (framed tables, observations on) they go instead
+      to a :class:`Trajectory` of ``horizon`` rows (``trajectory``, its
+      buffers also ``obs``, ``reward``, ``terminated``, ``truncated``),
+      allocated before the capture, which every replay writes whole.
     - One step runs eagerly on the capture stream first (libraries loaded,
       lazy initialisations done), none of which may happen in a capture.
     - Launch counts: the capture's are recorded (``kernels.recording_launches``)
       and added to ``kernels.LAUNCHES`` at each replay; the replay itself
       counts in ``kernels.GRAPH_LAUNCHES["envs.rollout"]``.  A replay
       without observations adds ``{"env.steps": 1}`` (the multi-step
-      launch), with them ``{"env.step": horizon, "render.onehot": horizon}``.
+      launch), with them ``{"env.step": horizon, "render.onehot": horizon}``
+      (``"render.framed"`` with a trajectory).
+    - Under torch.profiler (``utils.tracing``) a replay with a trajectory
+      counts ``replays`` 1 and ``obs_bytes``, the observation bytes it
+      writes.
     """
 
     def __init__(self, env: VectorEnv, tables: RenderTables, puzzle_idx: torch.Tensor, horizon: int,
-                 observations: bool, generator: Optional[torch.Generator], actions: Optional[torch.Tensor] = None):
+                 observations: bool, generator: Optional[torch.Generator], actions: Optional[torch.Tensor] = None,
+                 trajectory: bool = False):
         dev = env.device
         B = puzzle_idx.shape[0]
         env.reset(None, B, puzzle_idx)  # the range check, on the host, outside the capture
-        self.obs = (torch.empty((B, env.puzzles.height, env.puzzles.width, NUM_CHANNELS), dtype=torch.float32,
-                                device=dev) if observations else None)
+        self.trajectory = None
+        if trajectory:
+            if not observations or not is_framed(tables):
+                raise ValueError("RolloutGraph: a trajectory needs observations and framed render tables")
+            self.trajectory = Trajectory.empty(horizon, B, tuple(tables["base"].shape[1:]), dev)
+            self.obs, self.reward, self.terminated, self.truncated = (
+                getattr(self.trajectory, k) for k in ("obs", "reward", "terminated", "truncated"))
+            self._obs_bytes = self.obs.numel() * self.obs.element_size()
+        else:
+            self.obs = (torch.empty((B, env.puzzles.height, env.puzzles.width, NUM_CHANNELS), dtype=torch.float32,
+                                    device=dev) if observations else None)
         self._refs = (env, tables, puzzle_idx, actions, generator)  # the graph reads their memory
         args = (env, tables, puzzle_idx)
+        obs_out = None if trajectory else self.obs
         with torch.cuda.device(dev):
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                rollout(*args, 1, observations, generator, None if actions is None else actions[:1], self.obs)
+                rollout(*args, 1, observations, generator, None if actions is None else actions[:1], obs_out,
+                        self.trajectory)
             torch.cuda.current_stream(dev).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
             if actions is None:
                 self.graph.register_generator_state(generator)
             with kernels.recording_launches() as recorded:
                 with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
-                    self.total = rollout(*args, horizon, observations, generator, actions, self.obs)
+                    self.total = rollout(*args, horizon, observations, generator, actions, obs_out, self.trajectory)
         self.launches = dict(recorded)
 
     def replay(self) -> torch.Tensor:
@@ -153,6 +218,9 @@ class RolloutGraph:
         for name, k in self.launches.items():
             kernels.count_launch(name, k)
         kernels.count_graph_launch("envs.rollout")
+        if self.trajectory is not None:
+            tracing.count("replays")
+            tracing.count("obs_bytes", self._obs_bytes)
         return self.total
 
 

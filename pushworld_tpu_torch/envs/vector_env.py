@@ -127,7 +127,8 @@ class VectorEnv:
             puzzle_idx=puzzle_idx,
         )
 
-    def step(self, state: EnvState, actions: torch.Tensor, reward_acc: Optional[torch.Tensor] = None):
+    def step(self, state: EnvState, actions: torch.Tensor, reward_acc: Optional[torch.Tensor] = None,
+             out: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None):
         """Advances every rollout by one action ((B,) ints in [0, 4)), or by
         a block of T actions ((T, B), row t the actions of step t).
 
@@ -140,11 +141,15 @@ class VectorEnv:
         of :func:`env_step`, one a row; the results are the same.
         ``reward_acc`` ((B,) float32 or None): each rollout's running reward
         total, to which each step adds its reward in place (:func:`env_step`).
+        ``out`` (one step only): (B,) reward, terminated and truncated
+        tensors that the step writes and returns (:func:`env_step`).
         """
         tail = (self._pidx(state.puzzle_idx), self._init_pos, self._init_achieved, self.max_steps)
         if isinstance(actions, torch.Tensor) and actions.dim() == 2:
             if actions.shape[0] == 0:
                 raise ValueError("a block of actions needs at least one step")
+            if out is not None:
+                raise ValueError("out takes one step's outputs, not a block's")
             if fused_block(self.device, self.puzzles.n):
                 out = env_steps(self.puzzles, state.positions, actions, state.steps, state.achieved, *tail,
                                 reward_acc=reward_acc)
@@ -154,7 +159,7 @@ class VectorEnv:
                     out = env_step(self.puzzles, out[0], a, out[1], out[2], *tail, reward_acc=reward_acc)
         else:
             out = env_step(self.puzzles, state.positions, actions, state.steps, state.achieved, *tail,
-                           reward_acc=reward_acc)
+                           reward_acc=reward_acc, out=out)
         positions, steps, achieved, next_pos, reward, terminated, truncated = out
         new_state = EnvState(positions=positions, steps=steps, achieved=achieved, puzzle_idx=state.puzzle_idx)
         return new_state, next_pos, reward, terminated, truncated

@@ -71,6 +71,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "render": {
         "pw_render_onehot": [_vp] * 6 + [_ll] + [_i] * 4 + [_vp],
+        "pw_render_onehot_framed": [_vp] * 8 + [_ll] + [_i] * 4 + [_vp],
     },
     "chunk_loop": {
         "pw_chunk_loop_new": [_vp, _vp],

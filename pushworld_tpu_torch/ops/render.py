@@ -23,6 +23,15 @@ The render tables are a dict of tensors on one device
 on a CUDA tensor and its plain version
 (:func:`render_cells_onehot_batched_reference`) on a CPU tensor; the two are
 bit-equal.
+
+Framed observations over a stacked pool (PushWorld's ``standard_padding``:
+reference gym_env.py with utils/env_utils.py:72-91): each rollout's state is
+rendered with its own puzzle (``puzzle_idx``) into one frame of H_f x W_f
+cells, centred at ``top = (H_f - h) // 2``, ``left = (W_f - w) // 2``, every
+other cell all-zero.  :func:`compile_framed_render_tables` builds the
+stacked tables; :func:`render_framed_onehot_batched` is one launch of the
+kernel's framed variant on a CUDA tensor and
+:func:`render_framed_onehot_batched_reference` on a CPU tensor, bit-equal.
 """
 
 from typing import Dict, Optional
@@ -34,6 +43,7 @@ from pushworld_tpu_torch.core.compiled import CompiledPuzzle
 from pushworld_tpu_torch.core.puzzle import Colors
 from pushworld_tpu_torch.device import DeviceLike, resolve_device
 from pushworld_tpu_torch.kernels import _build, count_launch, launch_on
+from pushworld_tpu_torch.utils import tracing
 
 # Channel indices for the one-hot format.
 C_WALL, C_AGENT_WALL, C_AGENT, C_GOAL_OBJ, C_MOVABLE, C_GOAL = range(6)
@@ -55,6 +65,21 @@ _PALETTE = np.array(
 RenderTables = Dict[str, torch.Tensor]
 
 
+def _base_classes(puzzle) -> np.ndarray:
+    """(H, W) int8 static cell classes of ``puzzle``: goals, then agent-only
+    walls over them, then walls over both."""
+    base = np.zeros((puzzle.height, puzzle.width), np.int8)
+    for k in range(puzzle.num_goals):
+        gx, gy = puzzle.goal_state[k]
+        for cx, cy in puzzle.goal_cells[k]:
+            base[gy + cy, gx + cx] = 6
+    for x, y in puzzle.agent_wall_cells:
+        base[y, x] = 2
+    for x, y in puzzle.wall_cells:
+        base[y, x] = 1
+    return base
+
+
 def compile_render_tables(puzzle, cp: CompiledPuzzle, device: DeviceLike = "cuda") -> RenderTables:
     """Static render tensors for one puzzle, on ``device``.
 
@@ -68,14 +93,7 @@ def compile_render_tables(puzzle, cp: CompiledPuzzle, device: DeviceLike = "cuda
     dev = resolve_device(device)
     H, W, N = cp.height, cp.width, cp.n
     base = np.zeros((H, W), np.int8)
-    for k in range(puzzle.num_goals):
-        gx, gy = puzzle.goal_state[k]
-        for cx, cy in puzzle.goal_cells[k]:
-            base[gy + cy, gx + cx] = 6
-    for x, y in puzzle.agent_wall_cells:
-        base[y, x] = 2
-    for x, y in puzzle.wall_cells:
-        base[y, x] = 1
+    base[: puzzle.height, : puzzle.width] = _base_classes(puzzle)
 
     cmax = max(len(c) for c in puzzle.movable_cells)
     obj_cells = np.zeros((N, cmax, 2), np.int16)
@@ -239,3 +257,147 @@ def render_cells_onehot_batched_reference(tables: RenderTables, states: torch.Te
     vals = vals.expand(B, -1, -1).reshape(-1, NUM_CHANNELS - 1)
     out[:, 1:].index_put_((row[:, None], torch.arange(NUM_CHANNELS - 1, device=dev)[None, :]), vals)
     return out[: B * H * W].view(B, H, W, NUM_CHANNELS)
+
+
+def compile_framed_render_tables(puzzles, frame, n: Optional[int] = None,
+                                 device: DeviceLike = "cuda") -> RenderTables:
+    """Stacked render tensors of ``puzzles`` (P of them) for observations in
+    one frame of ``frame`` = (H_f, W_f) cells, on ``device``.
+
+    Each puzzle's static classes are placed at its centre offset in the
+    frame (``top = (H_f - h) // 2``, ``left = (W_f - w) // 2``, h x w its
+    size with the border); pad cells are class 0.  ``n``: the movables of a
+    state (a stacked :class:`CompiledPuzzle`'s ``n``; the most of any
+    puzzle where None).  Returns a dict of tensors:
+        base: (P, H_f, W_f) int8 cell classes, placed in the frame.
+        obj_cells: (P, n, C, 2) int16 per-movable cell offsets; obj_mask
+              (P, n, C) (False for a puzzle's padding movables).
+        obj_class: (P, n) int8 cell class per movable.
+        geom: (P, 4) int32 each puzzle's top, left, height and width in the
+              frame.
+    Raises ValueError for a puzzle larger than the frame."""
+    with tracing.span("pw.rollout.render_tables"):
+        dev = resolve_device(device)
+        Hf, Wf = (int(v) for v in frame)
+        P = len(puzzles)
+        most = max(p.num_movables for p in puzzles)
+        n = most if n is None else int(n)
+        if n < most:
+            raise ValueError(f"n = {n}: a puzzle has {most} movables")
+        C = max(len(c) for p in puzzles for c in p.movable_cells)
+        base = np.zeros((P, Hf, Wf), np.int8)
+        obj_cells = np.zeros((P, n, C, 2), np.int16)
+        obj_mask = np.zeros((P, n, C), bool)
+        obj_class = np.zeros((P, n), np.int8)
+        geom = np.zeros((P, 4), np.int32)
+        for i, p in enumerate(puzzles):
+            if p.height > Hf or p.width > Wf:
+                raise ValueError(f"puzzle {i}: {p.height} x {p.width} cells do not fit a {Hf} x {Wf} frame")
+            top, left = (Hf - p.height) // 2, (Wf - p.width) // 2
+            base[i, top: top + p.height, left: left + p.width] = _base_classes(p)
+            geom[i] = (top, left, p.height, p.width)
+            for k, cells in enumerate(p.movable_cells):
+                for j, (cx, cy) in enumerate(sorted(cells)):
+                    obj_cells[i, k, j] = (cx, cy)
+                    obj_mask[i, k, j] = True
+                obj_class[i, k] = 3 if k == 0 else (4 if k <= p.num_goals else 5)
+        tables = {"base": base, "obj_cells": obj_cells, "obj_mask": obj_mask, "obj_class": obj_class, "geom": geom}
+        return {k: torch.as_tensor(v, device=dev) for k, v in tables.items()}
+
+
+def is_framed(tables: RenderTables) -> bool:
+    """Whether ``tables`` are :func:`compile_framed_render_tables`'s."""
+    return "geom" in tables
+
+
+def render_framed_onehot_batched(tables: RenderTables, states: torch.Tensor, puzzle_idx: torch.Tensor,
+                                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, H_f, W_f, NUM_CHANNELS) float32 framed observations of states
+    (B, n, 2) int32, state b of puzzle ``puzzle_idx[b]`` ((B,) int32, in
+    [0, P): unchecked, as ``VectorEnv.start``), written into ``out`` where
+    given (a contiguous tensor of that shape on the states' device) and
+    returned.  Every float of the output is written, the pad's too.
+
+    On a CUDA tensor this is one launch of ``kernels/render.cu``'s framed
+    variant (no host read, so a CUDA graph may capture it), which raises
+    for a frame whose 4 H_f W_f bytes exceed :data:`RENDER_MAX_SHARED_BYTES`;
+    on a CPU tensor it runs :func:`render_framed_onehot_batched_reference`.
+    The two are bit-equal."""
+    if states.device.type == "cpu":
+        obs = render_framed_onehot_batched_reference(tables, states, puzzle_idx)
+        return obs if out is None else out.copy_(obs)
+    return _render_framed_cuda(tables, states, puzzle_idx, out)
+
+
+def _render_framed_cuda(tables: RenderTables, states: torch.Tensor, puzzle_idx: torch.Tensor,
+                        out: Optional[torch.Tensor]) -> torch.Tensor:
+    base, cells, mask, cls, geom = (tables[k] for k in ("base", "obj_cells", "obj_mask", "obj_class", "geom"))
+    P, H, W = base.shape
+    N, C = mask.shape[1:]
+    dev = states.device
+    if states.dim() != 3 or states.shape[1:] != (N, 2) or states.dtype != torch.int32:
+        raise ValueError(f"states: expected (B, {N}, 2) int32, got {tuple(states.shape)} {states.dtype}")
+    B = states.shape[0]
+    for name, x, dtype, shape in (("base", base, torch.int8, (P, H, W)),
+                                  ("obj_cells", cells, torch.int16, (P, N, C, 2)),
+                                  ("obj_mask", mask, torch.bool, (P, N, C)), ("obj_class", cls, torch.int8, (P, N)),
+                                  ("geom", geom, torch.int32, (P, 4)), ("puzzle_idx", puzzle_idx, torch.int32, (B,))):
+        if x.dtype != dtype or tuple(x.shape) != shape or x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous {dtype} {shape} tensor on {dev}")
+    if geom.data_ptr() % 16:
+        raise ValueError("geom: expected a 16-byte aligned tensor")
+    if 4 * H * W > RENDER_MAX_SHARED_BYTES:
+        raise ValueError(f"render.framed: a {H} x {W} frame needs {4 * H * W} bytes of shared memory a CTA, "
+                         f"more than the {RENDER_MAX_SHARED_BYTES} a CTA can have")
+    if out is None:
+        out = torch.empty((B, H, W, NUM_CHANNELS), dtype=torch.float32, device=dev)
+    elif (out.dtype != torch.float32 or tuple(out.shape) != (B, H, W, NUM_CHANNELS) or out.device != dev
+          or not out.is_contiguous() or out.data_ptr() % 16):
+        raise ValueError(f"out: expected a contiguous, 16-byte aligned float32 {(B, H, W, NUM_CHANNELS)} tensor "
+                         f"on {dev}")
+    if B == 0:
+        return out
+    states = states.contiguous()
+    if states.data_ptr() % 8:
+        states = states.clone()
+    lib = _build.load("render")
+    rc = launch_on(dev, lib.pw_render_onehot_framed, states.data_ptr(), puzzle_idx.data_ptr(), base.data_ptr(),
+                   cells.data_ptr(), mask.data_ptr(), cls.data_ptr(), geom.data_ptr(), out.data_ptr(),
+                   B, N, C, H, W)
+    if rc != 0:
+        raise RuntimeError(f"pw_render_onehot_framed launch failed: CUDA error {rc}")
+    count_launch("render.framed")
+    return out
+
+
+def render_framed_onehot_batched_reference(tables: RenderTables, states: torch.Tensor,
+                                           puzzle_idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`render_framed_onehot_batched`, as the
+    kernel computes it: each frame cell's class is that of the
+    highest-indexed movable with a cell on it (cells outside the puzzle's
+    own grid draw nothing), else its base class; channel 0 is the base's
+    wall, channels 1-5 the class's.  For valid states (movables in the grid,
+    not overlapping) this is the puzzle's one-hot centred in the frame.  A
+    fresh contiguous tensor."""
+    base = tables["base"]
+    P, H, W = base.shape
+    N, C = tables["obj_mask"].shape[1:]
+    B, HW, dev = states.shape[0], H * W, states.device
+    p = puzzle_idx.long()
+    geom = tables["geom"][p].long()  # (B, 4)
+    top, left, h, w = (geom[:, i, None, None] for i in range(4))
+    cells = tables["obj_cells"][p].long()  # (B, N, C, 2)
+    xs = states[:, :, None, 0].long() + cells[..., 0]  # (B, N, C)
+    ys = states[:, :, None, 1].long() + cells[..., 1]
+    ok = tables["obj_mask"][p] & (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    at = torch.where(ok, (ys + top) * W + xs + left, HW).reshape(B, -1)
+    k = torch.arange(1, N + 1, device=dev)[None, :, None].expand(B, N, C).reshape(B, -1)
+    topk = torch.zeros((B, HW + 1), dtype=torch.long, device=dev)
+    topk.scatter_reduce_(1, at, k, reduce="amax")  # the highest movable on each cell, 0 for none
+    topk = topk[:, :HW]
+    b_cls = base[p].reshape(B, HW).long()
+    o_cls = tables["obj_class"][p].long()  # (B, N)
+    cls = torch.where(topk > 0, o_cls.gather(1, (topk - 1).clamp(min=0)), b_cls)
+    channels = torch.arange(2, NUM_CHANNELS + 1, device=dev)
+    out = torch.cat([(b_cls == 1)[..., None], cls[..., None] == channels], -1).to(torch.float32)
+    return out.reshape(B, H, W, NUM_CHANNELS)

@@ -371,6 +371,7 @@ def env_step(
     cp: CompiledPuzzle, positions: torch.Tensor, actions, steps: torch.Tensor, achieved: torch.Tensor,
     puzzle_idx: Optional[torch.Tensor], init_pos: torch.Tensor, init_achieved: torch.Tensor,
     max_steps: Optional[int], reward_acc: Optional[torch.Tensor] = None,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> EnvStepOut:
     """One step of B rollouts of the batched environment (``VectorEnv.step``).
 
@@ -385,7 +386,9 @@ def env_step(
     ``reward_acc`` (keyword; (B,) float32, contiguous, or None): each
     rollout's running reward total, to which this step's reward is added in
     place (one float32 add a rollout, so the kernel and the plain version
-    agree bit for bit).
+    agree bit for bit).  ``out`` (keyword; contiguous (B,) float32, bool
+    and bool tensors, or None): where the step writes its reward,
+    terminated and truncated (a row of a trajectory), and returns them.
 
     Returns ``(positions, steps, achieved, next_pos, reward, terminated,
     truncated)``: the next state with auto-reset applied (a rollout that
@@ -396,12 +399,17 @@ def env_step(
     on a CPU tensor it runs :func:`env_step_reference`.  The two are
     bit-equal."""
     if positions.device.type == "cpu":
-        return env_step_reference(cp, positions, actions, steps, achieved, puzzle_idx, init_pos, init_achieved,
-                                  max_steps, reward_acc)
+        res = env_step_reference(cp, positions, actions, steps, achieved, puzzle_idx, init_pos, init_achieved,
+                                 max_steps, reward_acc)
+        if out is None:
+            return res
+        for o, x in zip(out, res[4:]):
+            o.copy_(x)
+        return res[:4] + tuple(out)
     if positions.dim() != 3:
         raise ValueError(f"env_step: positions (B, N, 2), got {tuple(positions.shape)}")
     return _env_kernel(cp, positions, actions, puzzle_idx,
-                       env=(steps, achieved, init_pos, init_achieved, max_steps), reward_acc=reward_acc)
+                       env=(steps, achieved, init_pos, init_achieved, max_steps), reward_acc=reward_acc, out=out)
 
 
 def env_steps(
@@ -546,11 +554,13 @@ def _env_geometry(key):
 
 
 def _env_kernel(cp: CompiledPuzzle, state: torch.Tensor, action, puzzle_idx, env=None,
-                wide: Optional[bool] = None, reward_acc: Optional[torch.Tensor] = None, block: bool = False):
+                wide: Optional[bool] = None, reward_acc: Optional[torch.Tensor] = None, block: bool = False,
+                out=None):
     """One launch of ``kernels/env.cu``: the transition of every state of
     ``state`` (..., N, 2), and with ``env`` = (steps, achieved, init_pos,
     init_achieved, max_steps) the environment's step, adding each reward to
-    ``reward_acc`` where given (see :func:`env_step`).  With ``block``,
+    ``reward_acc`` where given and writing reward and flags into ``out``
+    where given (see :func:`env_step`).  With ``block``,
     ``action`` is a (T, B) block and the launch runs T steps of the
     environment (:func:`env_steps`; a (B, N, 2) batch, the one-word path).
     Outputs from ``torch.empty`` (two buffers: the int32 and float32
@@ -631,6 +641,11 @@ def _env_kernel(cp: CompiledPuzzle, state: torch.Tensor, action, puzzle_idx, env
                 torch.empty((n_flags,), dtype=torch.bool, device=dev))
         outs = tuple(bufs[k].as_strided(size, stride, offset) for k, size, stride, offset in views)
         outs = outs[:4] + (outs[4].view(torch.float32),) + outs[5:]
+        if out is not None:
+            for name, x, like in zip(("reward", "terminated", "truncated"), out, outs[4:]):
+                if x.dtype != like.dtype or x.shape != (B,) or x.device != dev or not x.is_contiguous():
+                    raise ValueError(f"out {name}: expected a contiguous {like.dtype} {(B,)} tensor on {dev}")
+            outs = outs[:4] + tuple(out)
         ptr += [steps.data_ptr(), achieved.data_ptr(), *table_ptrs, init_pos.data_ptr(), init_achieved.data_ptr()]
         ptr += [x.data_ptr() for x in (outs[3], outs[0], outs[1], outs[2], outs[4], outs[5], outs[6])]
         ptr.append(None if reward_acc is None else reward_acc.data_ptr())

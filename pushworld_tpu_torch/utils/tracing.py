@@ -1,5 +1,5 @@
-"""Spans and counters inside the planner, recorded only while
-``torch.profiler`` records.
+"""Spans and counters inside the planner and the rollouts, recorded only
+while ``torch.profiler`` records.
 
 An operator who runs a solve under ``torch.profiler`` gets the program's
 phases in the same timeline as the device's kernels and copies: each
@@ -20,7 +20,9 @@ The spans (each wraps the work where it happens):
 - ``pw.solve.capture``: the chunk loop's warm iteration, capture and build;
 - ``pw.solve.status_wait``: the host waiting for a chunk's status;
 - ``pw.solve.readback``: the history's copy to the host and the backtrack;
-- ``pw.solve.validate``: the host's check of the plan.
+- ``pw.solve.validate``: the host's check of the plan;
+- ``pw.rollout.render_tables``: ``ops.render.compile_framed_render_tables``,
+  the stacked pool's framed render tables.
 
 :data:`COUNTERS` (read it after the profiled block; clear it to start a new
 count):
@@ -30,7 +32,11 @@ count):
   reads and the plan's read-back;
 - ``reserved_growth_bytes``: per solve on a card, the growth, where
   positive, of the caching allocator's reserved bytes from its start to its
-  end.
+  end;
+- ``replays``: replays of a ``envs.throughput.RolloutGraph`` with a
+  trajectory;
+- ``obs_bytes``: the observation bytes those replays write (T x B x H_f x
+  W_f x 6 x 4 a replay).
 """
 
 import contextlib

@@ -1713,6 +1713,93 @@ def test_rollout_totals_repeat_from_a_seed(dev):
     assert totals["eager"] == totals["graphed"]
 
 
+@pytest.mark.parametrize("frame_k", range(4))
+def test_framed_render_kernel_equals_plain_version_and_reference(dev, frame_k):
+    """``render.framed`` over mixed-size stacked puzzles (frames that fit
+    exactly, with odd and even pads, and 47 x 54): the kernel = its plain
+    version = the reference's framing, every float written over a NaN-filled
+    ``out``; one launch a call."""
+    from test_torch_gym_trajectory import _frames, _mixed, _walk_states
+
+    from pushworld_tpu_torch.kernels import LAUNCHES
+    from pushworld_tpu_torch.ops import render
+    from pushworld_tpu_torch.reference import gym_trajectory as ref
+
+    puzzles = _mixed()
+    frame = _frames(puzzles)[frame_k]
+    n = max(p.num_movables for p in puzzles)
+    t = render.compile_framed_render_tables(puzzles, frame, n=n, device=dev)
+    rng = np.random.default_rng(10 + frame_k)
+    pidx = rng.integers(0, len(puzzles), 96)
+    states, raw = _walk_states(puzzles, pidx, n, rng)
+    states, idx = states.to(dev), torch.as_tensor(pidx, dtype=torch.int32, device=dev)
+    out = torch.full((len(pidx), *frame, 6), float("nan"), device=dev)
+    before = LAUNCHES["render.framed"]
+    got = render.render_framed_onehot_batched(t, states, idx, out=out)
+    torch.cuda.synchronize()
+    assert got is out and LAUNCHES["render.framed"] == before + 1
+    assert torch.equal(got, render.render_framed_onehot_batched_reference(t, states, idx))
+    want = torch.stack([ref.render_padded(puzzles[i], s, frame) for i, s in zip(pidx, raw)])
+    assert torch.equal(got.cpu(), want)
+
+
+def test_framed_render_kernel_raises_on_a_frame_too_large(dev):
+    from pushworld_tpu_torch.ops import render
+
+    t = render.compile_framed_render_tables([_fixture("simple")], (241, 242), device=dev)
+    with pytest.raises(ValueError, match="241 x 242 frame needs 233288 bytes"):
+        render.render_framed_onehot_batched(t, torch.zeros((2, t["obj_mask"].shape[1], 2), dtype=torch.int32,
+                                                           device=dev),
+                                            torch.zeros(2, dtype=torch.int32, device=dev))
+
+
+def test_trajectory_rollout_on_the_card_equals_the_reference(dev):
+    """The trajectory rollout at B = 64, T = 40, ``max_steps`` 7, eager and
+    as one CUDA graph: every observation, reward and flag = the reference's,
+    with terminations and truncations; the graph's buffers are its
+    attributes, a replay is T one-step env launches and T framed renders,
+    and under torch.profiler it counts its replay and the bytes it writes."""
+    from test_torch_gym_trajectory import _problem, _program
+    from torch.profiler import ProfilerActivity, profile
+
+    from pushworld_tpu_torch.core.compiled import compile_batch
+    from pushworld_tpu_torch.envs import throughput as tt
+    from pushworld_tpu_torch.envs.vector_env import VectorEnv
+    from pushworld_tpu_torch.ops import render
+    from pushworld_tpu_torch.reference import gym_trajectory as ref
+    from pushworld_tpu_torch.utils import tracing
+
+    puzzles, pidx, actions, frame = _problem(64, 40, 0)
+    T, B = actions.shape
+    want = ref.trajectory(puzzles, pidx, actions, 7, frame)
+    assert int(want["terminated"].sum()) >= 4 and int(want["truncated"].sum()) >= 1
+    total, traj = _program(puzzles, pidx, actions, 7, frame, dev)
+    for k in ("obs", "reward", "terminated", "truncated"):
+        assert torch.equal(getattr(traj, k).cpu(), want[k]), k
+
+    cp = compile_batch(puzzles)
+    env = VectorEnv(cp, max_steps=7, device=dev)
+    tables = render.compile_framed_render_tables(puzzles, frame, n=cp.n, device=dev)
+    idx = torch.as_tensor(pidx, device=dev)
+    a = torch.as_tensor(actions, device=dev)
+    g = tt.RolloutGraph(env, tables, idx, T, True, None, a, trajectory=True)
+    assert g.launches == {"env.step": T, "render.framed": T}
+    assert g.obs is g.trajectory.obs and g.obs.shape == (T, B, *frame, 6)
+    g.obs.fill_(float("nan"))
+    g.reward.fill_(float("nan"))
+    tracing.COUNTERS.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = g.replay()
+    torch.cuda.synchronize()
+    assert tracing.COUNTERS["replays"] == 1 and tracing.COUNTERS["obs_bytes"] == T * B * frame[0] * frame[1] * 24
+    tracing.COUNTERS.clear()
+    assert float(got) == float(total)
+    for k in ("obs", "reward", "terminated", "truncated"):
+        assert torch.equal(getattr(g, k).cpu(), want[k]), k
+    g.replay()  # without a profiler: no count
+    assert tracing.COUNTERS["replays"] == 0
+
+
 # ------------------------------------------------------ the parallel layer on the card
 
 

@@ -482,6 +482,42 @@ class FakeRenderLib:
         return 0
 
 
+    @staticmethod
+    def pw_render_onehot_framed(states, puzzle_idx, base, cells, cell_mask, obj_class, geom, out, B, n, C, H, W,
+                                stream):
+        st = _view(states, np.int32, B * n * 2).reshape(B, n, 2)
+        pidx = _view(puzzle_idx, np.int32, B)
+        P = int(pidx.max()) + 1
+        base_ = _view(base, np.int8, P * H * W).reshape(P, H, W).astype(np.int64)
+        cells_ = _view(cells, np.int16, P * n * C * 2).reshape(P, n, C, 2)
+        mask_ = _view(cell_mask, np.uint8, P * n * C).reshape(P, n, C)
+        cls_ = _view(obj_class, np.int8, P * n).reshape(P, n).astype(np.int64)
+        geom_ = _view(geom, np.int32, P * 4).reshape(P, 4)
+        o = _view(out, np.float32, B * H * W * 6).reshape(B, H, W, 6)
+        for b in range(B):
+            p = pidx[b]
+            o[b] = render_framed_state_np(st[b], base_[p], cells_[p], mask_[p], cls_[p], geom_[p])
+        return 0
+
+
+def render_framed_state_np(cells_b, base, cells, mask, cls, geom):
+    """One state of ``kernels/render.cu``'s framed kernel: a movable cell
+    draws where it lies inside its puzzle's own grid (``geom``: top, left,
+    height, width), at the puzzle's offset in the frame."""
+    top_row, left, h, w = (int(v) for v in geom)
+    top = np.zeros(base.shape, np.int64)
+    for k in range(len(cls)):
+        for c in range(mask.shape[1]):
+            if not mask[k, c]:
+                continue
+            x, y = int(cells_b[k, 0]) + int(cells[k, c, 0]), int(cells_b[k, 1]) + int(cells[k, c, 1])
+            if 0 <= x < w and 0 <= y < h:
+                top[y + top_row, x + left] = max(top[y + top_row, x + left], k + 1)
+    cls_grid = np.where(top > 0, cls[np.maximum(top - 1, 0)], base)
+    chans = [base == 1] + [cls_grid == c + 1 for c in range(1, 6)]
+    return np.stack(chans, -1).astype(np.float32)
+
+
 RENDER_FIXTURES = ["lshape", "multi_goal", "chain", "agent_wall", "heur/two_tools", "heur/multiple_goals"]
 
 
@@ -523,3 +559,39 @@ def test_render_onehot_wrapper_raises_on_a_grid_too_large(fake_kernels):
          "obj_mask": torch.ones((1, 1), dtype=torch.bool), "obj_class": torch.full((1,), 3, dtype=torch.int8)}
     with pytest.raises(ValueError, match="241 x 242 grid needs 233288 bytes"):
         tr._render_onehot_cuda(t, torch.zeros((2, 1, 2), dtype=torch.int32), None)
+
+
+@pytest.mark.parametrize("frame", [(12, 13), (15, 18)])
+def test_render_framed_kernel_algorithm_matches_jax_padded(fake_kernels, frame):
+    """The framed kernel's algorithm through its wrapper, on states of six
+    stacked fixtures of mixed sizes: = its plain version on walk and
+    translated states (cells outside a puzzle draw nothing), and on walk
+    states = JAX's ``render_cells_onehot_batched`` of each puzzle,
+    centre zero-padded into the frame as PushWorld's standard padding
+    pads."""
+    pairs = [_load_both(n) for n in RENDER_FIXTURES]
+    tps = [t for _, t in pairs]
+    n = max(p.num_movables for p in tps)
+    t_tables = tr.compile_framed_render_tables(tps, frame, n=n, device="cpu")
+    rng = np.random.default_rng(frame[1])
+    walks, moved, idx, want = [], [], [], []
+    for i, (jpz, tpz) in enumerate(pairs):
+        walk, shifted = _render_states(tpz, rng)
+        j = np.asarray(jr.render_cells_onehot_batched(jr.compile_render_tables(jpz, jc.compile_puzzle(jpz)),
+                                                      jnp.asarray(walk)))
+        top, left = (frame[0] - tpz.height) // 2, (frame[1] - tpz.width) // 2
+        want.append(np.pad(j, ((0, 0), (top, frame[0] - tpz.height - top), (left, frame[1] - tpz.width - left),
+                               (0, 0))))
+        pad = ((0, 0), (0, n - tpz.num_movables), (0, 0))
+        walks.append(np.pad(walk, pad))
+        moved.append(np.pad(shifted, pad))
+        idx.append(np.full(len(walk), i, np.int32))
+    idx = torch.as_tensor(np.concatenate(idx))
+    for states, expect in ((np.concatenate(walks), np.concatenate(want)), (np.concatenate(moved), None)):
+        s = torch.as_tensor(states)
+        ref = tr.render_framed_onehot_batched_reference(t_tables, s, idx)
+        out = torch.full_like(ref, float("nan"))
+        assert tr._render_framed_cuda(t_tables, s, idx, out) is out
+        assert out.equal(ref)
+        if expect is not None:
+            assert np.array_equal(ref.numpy(), expect)
