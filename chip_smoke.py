@@ -181,7 +181,9 @@ Phases, each printing one JSON line:
    and on translated ones, written over NaN; a graphed trajectory rollout
    (16 steps, ``max_steps`` 5) must equal the CPU's eager one in every
    observation, reward and flag; the kernel is timed beside its plain
-   version, its bytes bound and a fill of the same bytes.  The Gym and
+   version, its bytes bound and a fill of the same bytes, with its CTAs
+   (``ops.render.framed_ctas``) and the share of its output it writes by
+   bulk copy.  The Gym and
    dm_env wrappers are held against the oracle where their packages are
    installed.
 7. ``native``: the native serial planner, built from
@@ -3023,6 +3025,8 @@ def _render_framed_lane(dev, floor, rng, B, frame=(47, 54), horizon=16):
            **work_bound(framed_bytes, 0, floor), "library_ms": None, "library_device_ms": None,
            "fill_same_bytes_ms": cuda_time_ms(out.zero_, reps=50),
            "fill_same_bytes_device_ms": fill_prof["busy_us"] / 1e3 / fill_prof["n_kernels"]}
+    ctas = render.framed_ctas(B, *frame, torch.cuda.get_device_properties(dev).multi_processor_count)
+    row.update(ctas=ctas, bulk_share=render.framed_bulk_bytes(B, *frame) / obs_bytes)
     lane["device_ms"] = row["device_ms"]
     return row, lane
 

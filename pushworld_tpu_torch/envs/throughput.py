@@ -58,6 +58,7 @@ from pushworld_tpu_torch.ops.render import (
     NUM_CHANNELS,
     RenderTables,
     compile_render_tables,
+    framed_bulk_bytes,
     is_framed,
     render_cells_onehot_batched,
     render_framed_onehot_batched,
@@ -171,8 +172,9 @@ class RolloutGraph:
       launch), with them ``{"env.step": horizon, "render.onehot": horizon}``
       (``"render.framed"`` with a trajectory).
     - Under torch.profiler (``utils.tracing``) a replay with a trajectory
-      counts ``replays`` 1 and ``obs_bytes``, the observation bytes it
-      writes.
+      counts ``replays`` 1, ``obs_bytes``, the observation bytes it writes,
+      and ``obs_bulk_bytes``, those its framed renders write by bulk copy
+      (``ops.render.framed_bulk_bytes``).
     """
 
     def __init__(self, env: VectorEnv, tables: RenderTables, puzzle_idx: torch.Tensor, horizon: int,
@@ -189,6 +191,7 @@ class RolloutGraph:
             self.obs, self.reward, self.terminated, self.truncated = (
                 getattr(self.trajectory, k) for k in ("obs", "reward", "terminated", "truncated"))
             self._obs_bytes = self.obs.numel() * self.obs.element_size()
+            self._obs_bulk_bytes = horizon * framed_bulk_bytes(B, *self.obs.shape[2:4])
         else:
             self.obs = (torch.empty((B, env.puzzles.height, env.puzzles.width, NUM_CHANNELS), dtype=torch.float32,
                                     device=dev) if observations else None)
@@ -221,6 +224,7 @@ class RolloutGraph:
         if self.trajectory is not None:
             tracing.count("replays")
             tracing.count("obs_bytes", self._obs_bytes)
+            tracing.count("obs_bulk_bytes", self._obs_bulk_bytes)
         return self.total
 
 

@@ -72,6 +72,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "render": {
         "pw_render_onehot": [_vp] * 6 + [_ll] + [_i] * 4 + [_vp],
         "pw_render_onehot_framed": [_vp] * 8 + [_ll] + [_i] * 4 + [_vp],
+        "pw_render_framed_ctas": [_ll, _i, _i],
     },
     "chunk_loop": {
         "pw_chunk_loop_new": [_vp, _vp],
@@ -82,7 +83,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 }
 
 # Return types other than int.
-RESTYPES = {"pw_rgd_wide_scratch_floats": _ll}
+RESTYPES = {"pw_rgd_wide_scratch_floats": _ll, "pw_render_framed_ctas": _ll}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # Several threads launch kernels; a library is built and loaded once.

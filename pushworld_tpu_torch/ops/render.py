@@ -34,7 +34,7 @@ kernel's framed variant on a CUDA tensor and
 :func:`render_framed_onehot_batched_reference` on a CPU tensor, bit-equal.
 """
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -305,6 +305,55 @@ def compile_framed_render_tables(puzzles, frame, n: Optional[int] = None,
         return {k: torch.as_tensor(v, device=dev) for k, v in tables.items()}
 
 
+# The framed kernel's split and buffers (``kernels/render.cu``, the same
+# formulas): CTAs an SM, its warps, a warp's slab and ring of slabs, the zeros
+# pad rows are copied from, and the 128-byte line (in floats) that every
+# share and copy starts and ends on.
+FRAMED_CTAS_PER_SM = 2
+FRAMED_WARPS = 8
+FRAMED_SLAB_BYTES = 4096
+FRAMED_RING = 2
+FRAMED_ZERO_BYTES = 32768
+FRAMED_LINE = 32
+
+
+def framed_ctas(B: int, H: int, W: int, sms: int) -> int:
+    """The CTAs of one framed launch of B states on H x W frames, on a card
+    of ``sms`` multiprocessors: :data:`FRAMED_CTAS_PER_SM` an SM, at most one
+    a round of slabs (one a warp) of output."""
+    lines = -(-B * H * W * NUM_CHANNELS // FRAMED_LINE)
+    per_round = FRAMED_WARPS * FRAMED_SLAB_BYTES // (4 * FRAMED_LINE)
+    return max(1, min(FRAMED_CTAS_PER_SM * sms, -(-lines // per_round)))
+
+
+def framed_shares(B: int, H: int, W: int, ctas: int) -> List[Tuple[int, int]]:
+    """Each CTA's share ``[f0, f1)`` of a framed launch's output, in floats of
+    its (B, H, W, 6) run: the run's L 128-byte lines split evenly, CTA c
+    taking lines ``[L c / ctas, L (c + 1) / ctas)``, the last share clipped
+    to the run's end."""
+    F = B * H * W * NUM_CHANNELS
+    L = -(-F // FRAMED_LINE)
+    return [(min(F, FRAMED_LINE * (L * c // ctas)), min(F, FRAMED_LINE * (L * (c + 1) // ctas))) for c in range(ctas)]
+
+
+def framed_bulk(H: int, W: int) -> bool:
+    """Whether the framed kernel writes by bulk copies on H x W frames: the
+    frame's grid (4 bytes a cell), the warps' rings, the zeros and two carry
+    lines fit a CTA's shared memory."""
+    buffers = FRAMED_WARPS * FRAMED_RING * FRAMED_SLAB_BYTES + FRAMED_ZERO_BYTES + 2 * 4 * FRAMED_LINE
+    return 4 * H * W + buffers <= RENDER_MAX_SHARED_BYTES
+
+
+def framed_bulk_bytes(B: int, H: int, W: int) -> int:
+    """The output bytes one framed launch writes by bulk copy: every whole
+    128-byte line of its run (a line that frame boundaries cut is assembled
+    before its copy), all but the run's last line where that is not whole;
+    0 where the buffers do not fit (:func:`framed_bulk`)."""
+    if not framed_bulk(H, W):
+        return 0
+    return 4 * FRAMED_LINE * (B * H * W * NUM_CHANNELS // FRAMED_LINE)
+
+
 def is_framed(tables: RenderTables) -> bool:
     """Whether ``tables`` are :func:`compile_framed_render_tables`'s."""
     return "geom" in tables
@@ -316,13 +365,16 @@ def render_framed_onehot_batched(tables: RenderTables, states: torch.Tensor, puz
     (B, n, 2) int32, state b of puzzle ``puzzle_idx[b]`` ((B,) int32, in
     [0, P): unchecked, as ``VectorEnv.start``), written into ``out`` where
     given (a contiguous tensor of that shape on the states' device) and
-    returned.  Every float of the output is written, the pad's too.
+    returned.  Every float of the output is written, the pad's too: a cell
+    outside its puzzle's rectangle (``geom``) is all-zero.
 
     On a CUDA tensor this is one launch of ``kernels/render.cu``'s framed
-    variant (no host read, so a CUDA graph may capture it), which raises
-    for a frame whose 4 H_f W_f bytes exceed :data:`RENDER_MAX_SHARED_BYTES`;
-    on a CPU tensor it runs :func:`render_framed_onehot_batched_reference`.
-    The two are bit-equal."""
+    variant (no host read, so a CUDA graph may capture it; persistent CTAs,
+    :func:`framed_ctas`, each writing its :func:`framed_shares` share by
+    bulk copies), which raises for a frame whose 4 H_f W_f bytes exceed
+    :data:`RENDER_MAX_SHARED_BYTES`; on a CPU tensor it runs
+    :func:`render_framed_onehot_batched_reference`.  The two are
+    bit-equal."""
     if states.device.type == "cpu":
         obs = render_framed_onehot_batched_reference(tables, states, puzzle_idx)
         return obs if out is None else out.copy_(obs)
@@ -376,9 +428,11 @@ def render_framed_onehot_batched_reference(tables: RenderTables, states: torch.T
     kernel computes it: each frame cell's class is that of the
     highest-indexed movable with a cell on it (cells outside the puzzle's
     own grid draw nothing), else its base class; channel 0 is the base's
-    wall, channels 1-5 the class's.  For valid states (movables in the grid,
-    not overlapping) this is the puzzle's one-hot centred in the frame.  A
-    fresh contiguous tensor."""
+    wall, channels 1-5 the class's.  A cell outside the puzzle's rectangle
+    in the frame (``geom``) is pad, every channel 0, whatever ``base`` holds
+    there (:func:`compile_framed_render_tables` leaves it 0).  For valid
+    states (movables in the grid, not overlapping) this is the puzzle's
+    one-hot centred in the frame.  A fresh contiguous tensor."""
     base = tables["base"]
     P, H, W = base.shape
     N, C = tables["obj_mask"].shape[1:]
@@ -395,7 +449,9 @@ def render_framed_onehot_batched_reference(tables: RenderTables, states: torch.T
     topk = torch.zeros((B, HW + 1), dtype=torch.long, device=dev)
     topk.scatter_reduce_(1, at, k, reduce="amax")  # the highest movable on each cell, 0 for none
     topk = topk[:, :HW]
-    b_cls = base[p].reshape(B, HW).long()
+    row, col = torch.arange(H, device=dev)[None, :, None], torch.arange(W, device=dev)[None, None, :]
+    inside = (row >= top) & (row < top + h) & (col >= left) & (col < left + w)  # (B, H, W)
+    b_cls = torch.where(inside, base[p], 0).reshape(B, HW).long()
     o_cls = tables["obj_class"][p].long()  # (B, N)
     cls = torch.where(topk > 0, o_cls.gather(1, (topk - 1).clamp(min=0)), b_cls)
     channels = torch.arange(2, NUM_CHANNELS + 1, device=dev)

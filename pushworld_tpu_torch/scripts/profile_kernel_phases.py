@@ -1,16 +1,22 @@
 """Where the search iteration's hand kernels spend their time on the card.
 
 ``python -m pushworld_tpu_torch.scripts.profile_kernel_phases PUZZLE.pwp
-[--kernels expand,append,rgd,novelty,insert,delete] [--depth D] [--kernels-dir DIR] [--tag NAME]``
+[--kernels expand,append,rgd,novelty,insert,delete,render] [--depth D] [--kernels-dir DIR] [--tag NAME]``
+(``--kernels render`` alone takes no puzzle)
 
 The card's machine has no ``ncu``, so a kernel is split into phases by
 timing copies of its source that return at successive points.  A source
 marks its points with ``PW_STOP(k, value)  // phase: label`` (a no-op in the
 normal build); a build with ``-DPW_STOP_AT=k`` returns at point k, after a
 store that keeps ``value`` (and the work behind it) from being optimised
-away.  Sources without marks (each of the four as it stood before its
-Hopper redesign) get the marks of ``LEGACY_STOPS`` inserted at the lines
-named there; a source with neither is timed whole.  ``--kernels-dir``
+away.  A mark ``PW_NEXT(k, value)`` inside a loop (the persistent framed
+render's loop over states and slabs) skips the rest of that pass instead
+and goes on with the next.  A source that names ``PW_NO_BULK`` is built
+once more with it, which takes its bulk copies out (stop -1).  Sources
+without marks (each of the four as it stood before its Hopper redesign,
+and the framed render as one CTA a state) get the marks of
+``LEGACY_STOPS`` inserted at the lines named there; a source with neither
+is timed whole.  ``--kernels-dir``
 takes the sources from another tree (a checkout of the parent; its headers
 are found there); the expansion's, the append's, RGD's and the visited
 set's C interfaces must be this tree's, and the novelty source may export either
@@ -37,9 +43,12 @@ batches of 1,024 keys that the plain version inserted first.  Every copy
 is built in parallel (one ``nvcc`` each), loaded in place of the package's
 library and timed under ``torch.profiler`` (the device time of the kernels
 whose names hold the kernel's profiler name, ``--reps`` calls, by kernel).
-A closed gate is timed on the whole kernels: the gate closed for the
-expansion, the append and the delete, an all-false ``valid`` for RGD,
-novelty and the insert.  ``--no-stops`` builds and times the whole kernels
+The framed render (``render``) is timed on the 47 x 54 stacked level-0
+pool (``pwbench/configs/level0``) at B = 4,096 states (``RENDER_BATCH``)
+after 24 steps of ``VectorEnv``, beside a fill of the same output (``zero_``); it
+has no gate.  A closed gate is timed on the whole kernels: the gate closed
+for the expansion, the append and the delete, an all-false ``valid`` for
+RGD, novelty and the insert.  ``--no-stops`` builds and times the whole kernels
 only.  Prints one JSON line: per kernel (and load), the device ms at each
 stop, of the whole kernel and of a closed gate, and ptxas's register,
 spill and shared-memory lines.
@@ -63,7 +72,10 @@ KERNELS = {
     "novelty": ("novelty.cu", "novelty", "novelty_"),
     "insert": ("visited_set.cu", "visited_set", "probe_and_insert_kernel"),
     "delete": ("visited_set.cu", "visited_set", "probe_delete_kernel"),
+    "render": ("render.cu", "render", "render_onehot_framed_kernel"),
 }
+SEARCH_KERNELS = ("expand", "append", "rgd", "novelty", "insert", "delete")
+RENDER_BATCH = 4096  # the framed render's states: the gym cell's rollouts
 PROBE_KERNELS = ("insert", "delete")
 PROBE_LOADS = (0.0, 0.5, 0.75)
 # A stop of a source without marks: (label, the exact text after which the
@@ -107,15 +119,25 @@ LEGACY_STOPS = {
         ("absorb: seen_pos scatter",
          "  if (lane < n && at.moved[lane]) seen_pos[static_cast<size_t>(lane) * H * W + at.cell[lane]] = 1;\n", "0"),
     ],
+    # The framed kernel as a CTA a state: its stages before its stores.
+    "render": [
+        ("base staged", "  const int4 g = r.geom[p];\n  __syncthreads();\n", "grid[t % HW]"),
+        ("movables' atomicMax",
+         "    atomicMax(grid + at, ((k + 1) << 8) | (grid[at] & 0xFF));\n  }\n  __syncthreads();\n", "grid[t % HW]"),
+        ("channel bits", "  to_channel_bits(grid, HW, r.obj_class + p * r.n, t, T);\n  __syncthreads();\n",
+         "grid[t % HW]"),
+    ],
 }
 STOP_PRELUDE = """#ifdef PW_STOP_AT
 __device__ int pw_stop_sink;
 #define PW_STOP(k, v) do { if (PW_STOP_AT == (k)) { if ((v) == 0x5EED5EED) pw_stop_sink = 1; return; } } while (0)
+#define PW_NEXT(k, v) if (PW_STOP_AT != (k)) {} else { if ((v) == 0x5EED5EED) pw_stop_sink = 1; continue; }
 #else
 #define PW_STOP(k, v)
+#define PW_NEXT(k, v)
 #endif
 """
-MARK = re.compile(r"PW_STOP\((\d+),.*//\s*phase:\s*(.+)$", re.M)
+MARK = re.compile(r"PW_(?:STOP|NEXT)\((\d+),.*//\s*phase:\s*(.+)$", re.M)
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 # The novelty sources' entry points, either interface: the score leaving
 # records for the update, or (the earlier pair) both reading the states.
@@ -160,9 +182,12 @@ def _build_variants(kernels, kernels_dir: Path, tag: str, stops=True):
         src = out_dir / f"{kernel}-{tag}.cu"
         src.write_text(STOP_PRELUDE + text)
         procs[kernel] = []
-        for k, label in [(0, "whole kernel"), *(marks if stops else [])]:
+        # A source that writes by bulk copies builds once more without them
+        # (-DPW_NO_BULK): stop -1, the threads' work alone.
+        bulk = [(-1, "whole kernel, no bulk copies")] if stops and "PW_NO_BULK" in text else []
+        for k, label in [(0, "whole kernel"), *(marks if stops else []), *bulk]:
             lib = out_dir / f"lib{kernel}-{tag}-{k}.so"
-            flags = [f"-DPW_STOP_AT={k}"] if k else []
+            flags = ["-DPW_NO_BULK"] if k < 0 else ([f"-DPW_STOP_AT={k}"] if k else [])
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, f"-I{kernels_dir}", "-o", str(lib), str(src)]
             procs[kernel].append((k, label, lib, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -322,33 +347,41 @@ def _has(lib, symbol: str) -> bool:
     return True
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("puzzle", help="path of a .pwp puzzle file")
-    ap.add_argument("--kernels", default=",".join(KERNELS), help="the kernels to split, comma-separated")
-    ap.add_argument("--kernels-dir", default=None, help="the .cu sources to split (default: the package's)")
-    ap.add_argument("--tag", default="tree", help="name of this tree's builds and row")
-    ap.add_argument("--depth", type=int, default=0)
-    ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--no-stops", action="store_true", help="time the whole kernels only")
-    args = ap.parse_args(argv)
-    kernels = [k for k in args.kernels.split(",") if k]
-    unknown = set(kernels) - set(KERNELS)
-    if unknown:
-        ap.error(f"unknown kernels {sorted(unknown)}; known: {sorted(KERNELS)}")
+def _render_call(dev, B: int, frame=(47, 54)):
+    """(a call of the framed render on the stacked level-0 pool, B states
+    after 24 steps of ``VectorEnv``, into one output; a fill of that
+    output)."""
+    import numpy as np
+    import torch
 
+    from pushworld_tpu_torch.core.compiled import compile_batch
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.envs.vector_env import VectorEnv
+    from pushworld_tpu_torch.ops import render
+
+    root = Path(__file__).resolve().parents[2] / "pwbench" / "configs" / "level0"
+    pool = [Puzzle.from_file(str(f)) for f in sorted(root.glob("*.pwp"))]
+    cp = compile_batch(pool)
+    tables = render.compile_framed_render_tables(pool, frame, n=cp.n, device=dev)
+    rng = np.random.default_rng(0)
+    idx = torch.as_tensor(rng.integers(0, len(pool), B).astype(np.int32), device=dev)
+    env = VectorEnv(cp, max_steps=10, device=dev)
+    st = env.reset(None, B, idx)
+    for _ in range(24):
+        st, pos, _, _, _ = env.step(st, torch.as_tensor(rng.integers(0, 4, B), device=dev))
+    out = torch.empty((B, *frame, 6), dtype=torch.float32, device=dev)
+    return (lambda open_: render.render_framed_onehot_batched(tables, pos, idx, out=out)), out.zero_
+
+
+def _search_calls(args, dev, out: dict) -> dict:
+    """{kernel: call(open_)} of the search kernels on the puzzle's iteration
+    inputs (``_inputs``); adds the iteration's counts to ``out``."""
     import torch
 
     from pushworld_tpu_torch.core.puzzle import Puzzle
-    from pushworld_tpu_torch.kernels import _build
     from pushworld_tpu_torch.ops import rgd, step
     from pushworld_tpu_torch.search import batched
 
-    dev = torch.device("cuda", 0)
-    kernels_dir = Path(args.kernels_dir) if args.kernels_dir else _build.KERNEL_DIR
-    t0 = time.monotonic()
-    procs = _build_variants(kernels, kernels_dir, args.tag, not args.no_stops)
-    _build.build()
     pl, w, app, parents, tables, moved = _inputs(Puzzle.from_file(args.puzzle), args.depth, dev)
     cfg, t, cp = pl.config, pl.tables, pl.cp_dev
     closed = torch.zeros((), dtype=torch.bool, device=dev)
@@ -382,10 +415,47 @@ def main(argv=None) -> int:
         _novelty_call(w.novelty, changed, app["children"], moved.contiguous(),
                       app["is_new"] if open_ else none_valid, nov_out, record)
 
-    calls = {"expand": expand, "append": append, "rgd": rgd_call, "novelty": novelty_call}
+    out.update(new_children=int(app["is_new"].sum()), live_parents=int(app["sel_valid"].sum()),
+               lanes=int(app["is_new"].shape[0]))
+    return {"expand": expand, "append": append, "rgd": rgd_call, "novelty": novelty_call}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("puzzle", nargs="?", help="path of a .pwp puzzle file (the search kernels)")
+    ap.add_argument("--kernels", default=",".join(KERNELS), help="the kernels to split, comma-separated")
+    ap.add_argument("--kernels-dir", default=None, help="the .cu sources to split (default: the package's)")
+    ap.add_argument("--tag", default="tree", help="name of this tree's builds and row")
+    ap.add_argument("--depth", type=int, default=0)
+    ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--no-stops", action="store_true", help="time the whole kernels only")
+    args = ap.parse_args(argv)
+    kernels = [k for k in args.kernels.split(",") if k]
+    unknown = set(kernels) - set(KERNELS)
+    if unknown:
+        ap.error(f"unknown kernels {sorted(unknown)}; known: {sorted(KERNELS)}")
+    search = set(kernels) & set(SEARCH_KERNELS)
+    if search and args.puzzle is None:
+        ap.error(f"the kernels {sorted(search)} need a puzzle")
+
+    import torch
+
+    from pushworld_tpu_torch.kernels import _build
+
+    dev = torch.device("cuda", 0)
+    kernels_dir = Path(args.kernels_dir) if args.kernels_dir else _build.KERNEL_DIR
+    t0 = time.monotonic()
+    procs = _build_variants(kernels, kernels_dir, args.tag, not args.no_stops)
+    _build.build()
     out = {"puzzle": args.puzzle, "tag": args.tag, "kernels_dir": str(kernels_dir), "depth": args.depth,
-           "device": torch.cuda.get_device_name(0), "new_children": int(app["is_new"].sum()),
-           "live_parents": int(app["sel_valid"].sum()), "lanes": int(app["is_new"].shape[0])}
+           "device": torch.cuda.get_device_name(0)}
+    calls = {}
+    if "render" in kernels:
+        calls["render"], fill = _render_call(dev, RENDER_BATCH)
+        out["render_batch"] = RENDER_BATCH
+        out["render_fill_device_ms"] = sum(_device_ms(fill, "elementwise", args.reps).values())
+    if search:
+        calls.update(_search_calls(args, dev, out))
     probe = _probe_tables(dev, PROBE_LOADS, args.reps) if set(kernels) & set(PROBE_KERNELS) else {}
     for kernel, variants in procs.items():
         _, library, prof_name = KERNELS[kernel]
@@ -411,7 +481,7 @@ def main(argv=None) -> int:
                     call = _probe_call(kernel, probe[load]) if load is not None else calls[kernel]
                     by_kernel = _device_ms(lambda: call(True), prof_name, args.reps)
                     row = {"stop": k, "label": label, "device_ms": sum(by_kernel.values()), "by_kernel": by_kernel}
-                    if k == 0:
+                    if k == 0 and kernel != "render":
                         row["closed_gate_device_ms"] = sum(
                             _device_ms(lambda: call(False), prof_name, args.reps).values())
                     by_load.setdefault(load, []).append(row)

@@ -36,7 +36,11 @@ count):
 - ``replays``: replays of a ``envs.throughput.RolloutGraph`` with a
   trajectory;
 - ``obs_bytes``: the observation bytes those replays write (T x B x H_f x
-  W_f x 6 x 4 a replay).
+  W_f x 6 x 4 a replay);
+- ``obs_bulk_bytes``: of those, the bytes the framed render kernel writes by
+  bulk copy from shared memory, reckoned from the shapes and its split
+  (``ops.render.framed_bulk_bytes``): every whole 128-byte line of a launch's
+  output, all of it at 47 x 54.
 """
 
 import contextlib

@@ -1743,6 +1743,105 @@ def test_framed_render_kernel_equals_plain_version_and_reference(dev, frame_k):
     assert torch.equal(got.cpu(), want)
 
 
+def _framed_problem(dev, frame, B, seed):
+    """Stacked puzzles, tables on the card, B states (valid walks, every
+    other one then moved by up to 3 cells, so that cells fall outside their
+    puzzles) and their puzzle indices: the 256 level-0 puzzles in a 47 x 54
+    frame, two one-row puzzles in a 5 x 5 frame (150 floats: under five
+    128-byte lines), else the mixed fixtures."""
+    from test_torch_gym_trajectory import LEVEL0, _mixed, _walk_states
+
+    from pushworld_tpu_torch.core.puzzle import Puzzle
+    from pushworld_tpu_torch.ops import render
+
+    if frame == (47, 54):
+        puzzles = [Puzzle.from_file(f) for f in sorted(glob.glob(str(LEVEL0 / "*.pwp")))]
+        assert len(puzzles) == 256
+    elif frame == (5, 5):
+        puzzles = [Puzzle.from_text("A M1 G1"), Puzzle.from_text("A\nM1\nG1")]
+    else:
+        puzzles = _mixed()
+    n = max(p.num_movables for p in puzzles)
+    rng = np.random.default_rng(seed)
+    pidx = rng.integers(0, len(puzzles), B)
+    states, _ = _walk_states(puzzles, pidx, n, rng, steps=3)
+    shift = torch.as_tensor(rng.integers(-3, 4, (B, 1, 2)).astype(np.int32))
+    states = torch.where(torch.arange(B)[:, None, None] % 2 == 1, states + shift, states)
+    t = render.compile_framed_render_tables(puzzles, frame, n=n, device=dev)
+    return t, states.to(dev), torch.as_tensor(pidx, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("frame", [(13, 15), (47, 54), (5, 5)])
+@pytest.mark.parametrize("B", [1, 7, 131, 133, 4096])
+def test_framed_render_kernel_over_its_split_equals_plain_version(dev, frame, B):
+    """The persistent framed kernel at fewer states than CTAs (1, 7), at
+    shares that cut frames (131, 133, 4,096), on frames whose floats are
+    not a multiple of 16 bytes (13 x 15: H W odd), on frames shorter than
+    five lines (5 x 5) and on the 47 x 54 stacked level-0 pool, with states
+    moved partly outside their puzzles: bit-equal to the plain version,
+    every float written over a NaN-filled ``out``, one launch; the launch
+    takes ``ops.render.framed_ctas`` CTAs."""
+    from pushworld_tpu_torch.kernels import LAUNCHES, _build
+    from pushworld_tpu_torch.ops import render
+
+    t, states, idx = _framed_problem(dev, frame, B, B + frame[0])
+    out = torch.full((B, *frame, 6), float("nan"), device=dev)
+    before = LAUNCHES["render.framed"]
+    assert render.render_framed_onehot_batched(t, states, idx, out=out) is out
+    torch.cuda.synchronize()
+    assert LAUNCHES["render.framed"] == before + 1
+    assert torch.equal(out, render.render_framed_onehot_batched_reference(t, states, idx))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert _build.load("render").pw_render_framed_ctas(B, *frame) == render.framed_ctas(B, *frame, sms)
+
+
+@pytest.mark.parametrize("frame", [(13, 15), (47, 54)])
+def test_framed_render_kernel_into_a_trajectory_row_keeps_the_rows_around_it(dev, frame):
+    """One launch into row t of a (T, B) trajectory: the row = the plain
+    version, every other row keeps its NaN (no share writes past its end,
+    on frames of an odd cell count too)."""
+    from pushworld_tpu_torch.ops import render
+
+    T, B, row = 4, 133, 2
+    t, states, idx = _framed_problem(dev, frame, B, 7)
+    traj = torch.full((T, B, *frame, 6), float("nan"), device=dev)
+    render.render_framed_onehot_batched(t, states, idx, out=traj[row])
+    torch.cuda.synchronize()
+    assert torch.equal(traj[row], render.render_framed_onehot_batched_reference(t, states, idx))
+    assert bool(traj[:row].isnan().all()) and bool(traj[row + 1:].isnan().all())
+
+
+def test_framed_render_kernel_draws_nothing_from_a_class_in_the_pad(dev):
+    """Tables whose pad holds a class (every other puzzle: a wall in the
+    frame's first cell, a goal in a pad column of its puzzle's first row):
+    the pad stays all-zero in the kernel, as in the plain version."""
+    from pushworld_tpu_torch.ops import render
+
+    t, states, idx = _framed_problem(dev, (47, 54), 1000, 5)
+    top, left = (int(v) for v in t["geom"][0, :2])
+    t["base"][::2, 0, 0] = 1
+    t["base"][0, top, left - 1] = 6
+    out = torch.full((1000, 47, 54, 6), float("nan"), device=dev)
+    render.render_framed_onehot_batched(t, states, idx, out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, render.render_framed_onehot_batched_reference(t, states, idx))
+    assert not bool(out[:, 0, 0].any()) and not bool(out[idx == 0][:, top, left - 1].any())
+
+
+@pytest.mark.parametrize("B", [1, 9])
+def test_framed_render_kernel_on_a_frame_too_large_for_its_slabs(dev, B):
+    """A 200 x 230 frame: its grid leaves no room for the slabs, so the
+    kernel writes from registers on the same split; = the plain version."""
+    from pushworld_tpu_torch.ops import render
+
+    assert not render.framed_bulk(200, 230)
+    t, states, idx = _framed_problem(dev, (200, 230), B, 11)
+    out = torch.full((B, 200, 230, 6), float("nan"), device=dev)
+    render.render_framed_onehot_batched(t, states, idx, out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, render.render_framed_onehot_batched_reference(t, states, idx))
+
+
 def test_framed_render_kernel_raises_on_a_frame_too_large(dev):
     from pushworld_tpu_torch.ops import render
 
@@ -1792,6 +1891,7 @@ def test_trajectory_rollout_on_the_card_equals_the_reference(dev):
         got = g.replay()
     torch.cuda.synchronize()
     assert tracing.COUNTERS["replays"] == 1 and tracing.COUNTERS["obs_bytes"] == T * B * frame[0] * frame[1] * 24
+    assert tracing.COUNTERS["obs_bulk_bytes"] == T * render.framed_bulk_bytes(B, *frame) > 0
     tracing.COUNTERS.clear()
     assert float(got) == float(total)
     for k in ("obs", "reward", "terminated", "truncated"):

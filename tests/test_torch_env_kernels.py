@@ -8,7 +8,8 @@ loop over rollouts (the env kernel: the push masks, the closure as a
 worklist on the one-word path and by rounds on the wide path, then the
 goals, reward, truncation and reset, and on the multi-step path T such
 steps with each rollout's state carried between them and written once; the
-renderer: the staged cell grid, then the channel bits), behind the
+renderer: the staged cell grid, then the channel bits, the framed one a
+share of its persistent CTAs' split at a time), behind the
 kernel's own C signature: the wrappers
 ``ops.step._env_kernel`` and ``ops.render._render_onehot_cuda`` run on CPU
 tensors with this stand-in for the library, so their pointers, geometry
@@ -466,6 +467,11 @@ def render_state_np(cells_b, base, cells, mask, cls):
     return np.stack(chans, -1).astype(np.float32)
 
 
+# The multiprocessors of the card the render stand-in splits its output for
+# (an H100's).
+FAKE_SMS = 132
+
+
 class FakeRenderLib:
     """``pw_render_onehot`` with the kernel's C signature, on host memory."""
 
@@ -493,18 +499,28 @@ class FakeRenderLib:
         mask_ = _view(cell_mask, np.uint8, P * n * C).reshape(P, n, C)
         cls_ = _view(obj_class, np.int8, P * n).reshape(P, n).astype(np.int64)
         geom_ = _view(geom, np.int32, P * 4).reshape(P, 4)
-        o = _view(out, np.float32, B * H * W * 6).reshape(B, H, W, 6)
-        for b in range(B):
-            p = pidx[b]
-            o[b] = render_framed_state_np(st[b], base_[p], cells_[p], mask_[p], cls_[p], geom_[p])
+        o = _view(out, np.float32, B * H * W * 6)
+        S = H * W * 6
+        # A CTA a share (the kernel's split on a card of FAKE_SMS
+        # multiprocessors), each rendering every state its share touches.
+        for f0, f1 in tr.framed_shares(B, H, W, tr.framed_ctas(B, H, W, FAKE_SMS)):
+            for b in range(f0 // S, -(-f1 // S)):
+                p = pidx[b]
+                frame = render_framed_state_np(st[b], base_[p], cells_[p], mask_[p], cls_[p], geom_[p]).reshape(-1)
+                lo, hi = max(f0, b * S), min(f1, (b + 1) * S)
+                o[lo:hi] = frame[lo - b * S: hi - b * S]
         return 0
 
 
 def render_framed_state_np(cells_b, base, cells, mask, cls, geom):
     """One state of ``kernels/render.cu``'s framed kernel: a movable cell
     draws where it lies inside its puzzle's own grid (``geom``: top, left,
-    height, width), at the puzzle's offset in the frame."""
+    height, width), at the puzzle's offset in the frame; the base is read
+    inside the puzzle's rectangle alone, every other cell is pad."""
     top_row, left, h, w = (int(v) for v in geom)
+    inside = np.zeros(base.shape, bool)
+    inside[top_row: top_row + h, left: left + w] = True
+    base = np.where(inside, base, 0)
     top = np.zeros(base.shape, np.int64)
     for k in range(len(cls)):
         for c in range(mask.shape[1]):
@@ -559,6 +575,51 @@ def test_render_onehot_wrapper_raises_on_a_grid_too_large(fake_kernels):
          "obj_mask": torch.ones((1, 1), dtype=torch.bool), "obj_class": torch.full((1,), 3, dtype=torch.int8)}
     with pytest.raises(ValueError, match="241 x 242 grid needs 233288 bytes"):
         tr._render_onehot_cuda(t, torch.zeros((2, 1, 2), dtype=torch.int32), None)
+
+
+# (B, H, W, CTAs): the card tests' shapes (B = 1, 7, 131, 133 and 4,096 on
+# 13 x 15, where H W is odd, and on 47 x 54) at the CTAs a card of 132
+# multiprocessors gives, and more CTAs than quads, fewer than states, one.
+SPLIT_SHAPES = ([(B, H, W, None) for B in (1, 7, 131, 133, 4096) for H, W in ((13, 15), (47, 54))]
+                + [(1, 1, 1, 7), (3, 1, 1, 1), (5, 3, 3, 4), (9, 13, 15, 2), (4096, 47, 54, 264),
+                   (4096, 47, 54, 132), (4096, 47, 54, 133), (77, 241, 241, 264), (2, 182, 182, 5),
+                   (1000, 13, 11, 1000)])
+
+
+@pytest.mark.parametrize("B,H,W,ctas", SPLIT_SHAPES)
+def test_framed_render_split_covers_the_run_once(B, H, W, ctas):
+    """``ops.render.framed_shares`` (the framed kernel's split): the shares
+    cover every output float once, in order; every boundary but the run's
+    two ends lies on a 128-byte line (so on a 16-byte boundary); shares
+    differ by at most one slab; the bulk-copied bytes are the run's whole
+    lines."""
+    ctas = tr.framed_ctas(B, H, W, FAKE_SMS) if ctas is None else ctas
+    F, S = B * H * W * 6, H * W * 6
+    shares = tr.framed_shares(B, H, W, ctas)
+    assert len(shares) == ctas and shares[0][0] == 0 and shares[-1][1] == F
+    assert all(a[1] == b[0] for a, b in zip(shares, shares[1:])) and all(f0 <= f1 for f0, f1 in shares)
+    assert all(f0 % 32 == 0 for f0, _ in shares) and all(f1 % 32 == 0 for _, f1 in shares[:-1])
+    sizes = [f1 - f0 for f0, f1 in shares]
+    assert max(sizes) - min(sizes) <= tr.FRAMED_SLAB_BYTES // 4
+    covered = np.zeros(F, np.int64)
+    for f0, f1 in shares:
+        covered[f0:f1] += 1
+    assert (covered == 1).all()
+    # Bulk bytes: every whole 128-byte line of the run, where the buffers fit.
+    assert tr.framed_bulk_bytes(B, H, W) == (128 * (F // 32) if tr.framed_bulk(H, W) else 0)
+
+
+def test_framed_render_ctas_and_bulk_bytes_at_the_cells_shape():
+    """At the cell's shape (B = 4,096 on 47 x 54, an H100's 132
+    multiprocessors) the kernel takes 2 CTAs an SM and writes every byte by
+    bulk copy (the run is whole lines); fewer CTAs where the output holds
+    fewer rounds of slabs; no bulk copy where the buffers do not fit a
+    CTA."""
+    assert tr.framed_ctas(4096, 47, 54, 132) == 264
+    assert tr.framed_bulk_bytes(4096, 47, 54) == 4096 * 47 * 54 * 24
+    assert tr.framed_ctas(1, 47, 54, 132) == 2 and tr.framed_ctas(1, 1, 1, 132) == 1
+    assert tr.framed_bulk(182, 182) and not tr.framed_bulk(183, 183) and tr.framed_bulk_bytes(8, 183, 183) == 0
+    assert tr.framed_bulk_bytes(1, 13, 15) == 13 * 15 * 24 - 72  # a frame of 1,170 floats: a last line of 18
 
 
 @pytest.mark.parametrize("frame", [(12, 13), (15, 18)])
